@@ -35,3 +35,8 @@ def pytest_configure(config):
         "markers",
         "slow: long-running tests excluded from the tier-1 run (-m 'not slow')",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device; skips without one (run on the card with "
+        "python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py)",
+    )
