@@ -14,14 +14,18 @@ Phases (any failure exits non-zero and prints no result line):
    metrics, unschedulable nodes, custom thresholds, amplified CPU with
    cpuset-bound pods, prod pods and gangs: nomination indices and finite
    costs bitwise equal, commit accepts and post-commit tables bitwise equal
-   to ``commit_plain`` on CPU copies, segment sums bitwise equal; then
-   time each kernel, its plain version and, where one exists, the one
-   PyTorch call that computes the same function;
+   to ``commit_plain`` on CPU copies, gang rollback (with real rollbacks,
+   one node refunded twice or more) bitwise equal to
+   ``enforce_gangs_plain``; then time each kernel, its plain version and,
+   where one exists, the one PyTorch call that computes the same function;
 4. the headline stream: ``solve_stream`` over 98,304 pods and 10,000 nodes
    in 192 batches of 512 (``bench.py``'s fixture and parameters), one
    warm-up pass and 3 timed passes through the kernels (launch counts are
-   zeroed just before the first timed pass and read just after it), then
-   one pass through the plain versions on the card: assignments and final
+   zeroed just before the first timed pass and read just after it; one
+   ``enforce_gangs`` launch a batch; a count is of wrapper calls, and
+   ``kernels_per_launch`` in the kernels line says how many kernels one
+   call runs: two for nomination, its tiled and merge kernels), then one
+   pass through the plain versions on the card: assignments and final
    tables must be identical;
 5. the committed golden (``tests/data/torch_golden_loadaware.npz``): the
    JAX package's ``solve_stream`` result on a 2×512-pod × 2,000-node
@@ -37,6 +41,7 @@ copy of ``bench.build_fixture``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
@@ -194,10 +199,11 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int, name_part: str):
-    """Mean device time per call of the kernels whose name contains
-    ``name_part``, from ``torch.profiler``; None when the profiler shows no
-    device time."""
+def device_ms(torch, fn, iters: int, name_part: "str | None"):
+    """Mean device time per call of the CUDA kernels whose name contains
+    ``name_part`` (all of them for None), from ``torch.profiler``; None
+    when the profiler shows no device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -205,19 +211,27 @@ def device_ms(torch, fn, iters: int, name_part: str):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
-    for evt in prof.key_averages():
-        if name_part in evt.key:
-            total += getattr(evt, "device_time_total", 0.0) or getattr(
-                evt, "cuda_time_total", 0.0
-            )
+    total = sum(
+        evt.time_range.elapsed_us()
+        for evt in prof.events()
+        if evt.device_type == DeviceType.CUDA
+        and (name_part is None or name_part in evt.name)
+    )
     return total / iters / 1000.0 if total > 0 else None
 
 
+#: kernels one wrapper call launches together, listed under one name
+KERNEL_GROUPS = {
+    "nominate_kernel": "nominate_kernel + nominate_merge_kernel",
+    "nominate_merge_kernel": "nominate_kernel + nominate_merge_kernel",
+}
+
+
 def stream_profile(torch, fn, wall_s: float) -> dict:
-    """Device time of one profiled call of ``fn``, by kernel: the sum of
-    the CUDA kernel and copy intervals ``torch.profiler`` records, and that
-    sum's share of ``wall_s`` (an unprofiled run's wall time)."""
+    """Device time of one profiled call of ``fn``, by kernel (a wrapper's
+    kernels together, ``KERNEL_GROUPS``): the sum of the CUDA kernel and
+    copy intervals ``torch.profiler`` records, and that sum's share of
+    ``wall_s`` (an unprofiled run's wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -232,6 +246,7 @@ def stream_profile(torch, fn, wall_s: float) -> dict:
         name = evt.name.replace("(anonymous namespace)::", "")
         name = name.removeprefix("void ").split("(")[0].split("<")[0]
         name = name.split("::")[-1].strip()[:60]
+        name = KERNEL_GROUPS.get(name, name)
         by_name[name] = by_name.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
     if busy_ms <= 0:
@@ -250,15 +265,22 @@ def plain_versions():
     the card (the wrappers launch the kernels for every CUDA tensor)."""
     from koordinator_tpu_torch.ops import commit as commit_ops
     from koordinator_tpu_torch.ops import nominate as nominate_ops
+    from koordinator_tpu_torch.ops import solver
 
-    saved = (nominate_ops.nominate, commit_ops.commit, commit_ops.segment_sum)
+    def enforce_gangs_plain_(result, pods):
+        out = solver.enforce_gangs_plain(result, pods)
+        for name in solver._GANG_FIELDS:
+            if getattr(result, name) is not None:
+                getattr(result, name).copy_(getattr(out, name))
+
+    saved = (nominate_ops.nominate, commit_ops.commit, solver._enforce_gangs_)
     nominate_ops.nominate = nominate_ops.nominate_plain
     commit_ops.commit = commit_ops.commit_plain
-    commit_ops.segment_sum = commit_ops.segment_sum_plain
+    solver._enforce_gangs_ = enforce_gangs_plain_
     try:
         yield
     finally:
-        nominate_ops.nominate, commit_ops.commit, commit_ops.segment_sum = saved
+        nominate_ops.nominate, commit_ops.commit, solver._enforce_gangs_ = saved
 
 
 def port_inputs(torch, nodes, pods, params, device):
@@ -288,7 +310,63 @@ def round_inputs(pods_b, nodes_t, params_t):
     return spods, nom_args
 
 
+def ptxas_summary(kernels) -> dict:
+    """Registers, shared memory and spills of the main path's kernels
+    (nominate at D=2 with four list slots, K <= 4), from ``nvcc -Xptxas -v``
+    in the build logs, and the most registers and spill bytes over every
+    nominate instantiation."""
+    import re
+
+    wanted = {
+        "nominate_kernelILi2ELi4E": "nominate_kernel<2,4>",
+        "nominate_merge_kernelILi4E": "nominate_merge_kernel<4>",
+        "commit_kernel": "commit_kernel",
+        "enforce_gangs_kernel": "enforce_gangs_kernel",
+    }
+    out: dict = {}
+    worst = {"registers": 0, "spill_bytes": 0}
+    for src in ("nominate", "commit", "gangs"):
+        entry = None
+        for line in kernels.build_log(src).splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry = m.group(1)
+                continue
+            if entry is None:
+                continue
+            label = next((v for k, v in wanted.items() if k in entry), None)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spill = int(m.group(1)) + int(m.group(2))
+                if label:
+                    out.setdefault(label, {})["spill_bytes"] = spill
+                if src == "nominate":
+                    worst["spill_bytes"] = max(worst["spill_bytes"], spill)
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs = int(m.group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                if label:
+                    out.setdefault(label, {}).update(
+                        registers=regs, smem_bytes=int(smem.group(1)) if smem else 0
+                    )
+                if src == "nominate":
+                    worst["registers"] = max(worst["registers"], regs)
+    out["nominate, every instantiation"] = worst
+    return out
+
+
 # ----------------------------------------------------------------- phases
+
+
+def gang_check_inputs(pods_b, state, params_t):
+    """What ``enforce_gangs`` receives for batch ``pods_b`` at node state
+    ``state``: the batch's solve result before the rollback. The rounds do
+    not read the gang fields, so this is ``assign`` with gangs off."""
+    from koordinator_tpu_torch.ops import solver
+
+    free = dataclasses.replace(pods_b, gang_id=pods_b.gang_id.new_full(pods_b.gang_id.shape, -1))
+    return solver.assign(free, state, params_t, **SOLVE)
 
 
 def phase_kernels(torch, dev, report):
@@ -306,7 +384,8 @@ def phase_kernels(torch, dev, report):
     _, later, _, _ = solver.solve_stream(
         solver.tree_map(lambda a: a[:15], pods_s), nodes_t, params_t, **SOLVE
     )
-    checks = {"nominate": 0.0, "commit": 0.0, "segment_sum": 0.0}
+    checks = {"nominate": 0.0, "commit": 0.0, "enforce_gangs": 0.0}
+    rollbacks = []
     timing_inputs = None
     for label, state, b in (("start", nodes_t, 0), ("after 15 batches", later, 15)):
         pods_b = solver.tree_map(lambda a: a[b], pods_s)
@@ -343,26 +422,34 @@ def phase_kernels(torch, dev, report):
             if not bits_equal(tk.cpu().numpy(), tp.numpy()):
                 fail(f"commit ({label}): post-commit tables differ from commit_plain")
             checks["commit"] = max(checks["commit"], max_abs(tk.cpu().numpy(), tp.numpy()))
-        # segment sum, as enforce_gangs calls it: refunds of a third of the
-        # round's accepted pods, sentinel N for the rest
-        rng = np.random.default_rng(3)
-        refund = torch.as_tensor(rng.random(BATCH) < 0.33, device=dev) & acc_k
-        values = torch.cat([sreq, sest, torch.where(sprod[:, None], sest, 0.0)], dim=1)
-        seg_ids = torch.where(refund, snode, n)
-        sk = commit_ops.segment_sum(values, seg_ids, n)
-        sp = commit_ops.segment_sum_plain(values.cpu(), seg_ids.cpu(), n)
+        # gang rollback of this batch's solve result (Strict and NonStrict
+        # gangs), against the plain version on CPU copies
+        pre = gang_check_inputs(pods_b, state, params_t)
+        got = solver.enforce_gangs(pre, pods_b)
+        want = solver.enforce_gangs_plain(
+            solver.tree_map(lambda a: a.cpu(), pre), solver.tree_map(lambda a: a.cpu(), pods_b)
+        )
         torch.cuda.synchronize()
-        if not bits_equal(sk.cpu().numpy(), sp.numpy()):
-            fail(f"segment_sum ({label}): differs from segment_sum_plain")
-        checks["segment_sum"] = max(checks["segment_sum"], max_abs(sk.cpu().numpy(), sp.numpy()))
+        for f in ("assignment", "pod_zone", "node_requested", "node_estimated_used", "node_prod_used"):
+            gk, gp = getattr(got, f).cpu().numpy(), getattr(want, f).numpy()
+            if not bits_equal(gk, gp):
+                fail(f"enforce_gangs ({label}): {f} differs from enforce_gangs_plain")
+            checks["enforce_gangs"] = max(checks["enforce_gangs"], max_abs(gk, gp))
+        before = pre.assignment.cpu().numpy()
+        rolled = (before >= 0) & (got.assignment.cpu().numpy() < 0)
+        most = int(np.bincount(before[rolled]).max()) if rolled.any() else 0
+        if most < 2:
+            fail(f"enforce_gangs ({label}): the check needs rollbacks with a node refunded "
+                 f"twice; got {int(rolled.sum())} rollbacks, at most {most} on one node")
+        rollbacks.append(dict(at=label, rolled_back=int(rolled.sum()), most_on_one_node=most))
         if timing_inputs is None:
-            timing_inputs = (nom_args, fixed, tables, values, seg_ids, spods)
-    print(f"kernel checks: bitwise equal to the plain versions {json.dumps(checks)}", flush=True)
+            timing_inputs = (nom_args, fixed, tables, spods, pre, pods_b)
+    print(f"kernel checks: bitwise equal to the plain versions {json.dumps(checks)}; "
+          f"gang rollbacks {json.dumps(rollbacks)}", flush=True)
 
-    nom_args, fixed, tables, values, seg_ids, spods = timing_inputs
+    nom_args, fixed, tables, spods, pre, pods_b = timing_inputs
     p, d = spods.requests.shape
     n = nom_args[5].shape[0]
-    c = values.shape[1]
 
     def t_nominate():
         nominate_ops.nominate(*nom_args, 4, 4.0, False)
@@ -378,17 +465,29 @@ def phase_kernels(torch, dev, report):
     def t_commit_plain():
         commit_ops.commit_plain(*fixed, *[t.clone() for t in tables], 0.35)
 
-    def t_segsum():
-        commit_ops.segment_sum(values, seg_ids, n)
+    # the rollback works in place: every timed call gets its own copy, and
+    # the list keeps it alive, so no call pays for freeing the one before
+    gang_iters = 200
+    copies = [solver.tree_map(lambda a: a.clone(), pre) for _ in range(2 * gang_iters + 2)]
+    fresh_copies = iter(copies)
 
-    def t_segsum_plain():
-        commit_ops.segment_sum_plain(values, seg_ids, n)
+    def t_gangs():
+        solver._enforce_gangs_(next(fresh_copies), pods_b)
 
-    keep = seg_ids < n
-    ids_l, vals_l = seg_ids[keep].long(), values[keep]
+    def t_gangs_plain():
+        solver.enforce_gangs_plain(pre, pods_b)
+
+    # yardstick: one index_add_ of the same refunds into a fresh [N, 3D]
+    before = pre.assignment
+    after = solver.enforce_gangs(pre, pods_b).assignment
+    rolled = (before >= 0) & (after < 0)
+    ids_l = before[rolled].long()
+    refunds = torch.cat([pods_b.requests, pods_b.estimate,
+                         torch.where(pods_b.is_prod[:, None], pods_b.estimate, 0.0)], dim=1)
+    vals_l = refunds[rolled]
 
     def t_index_add():
-        torch.zeros((n, c), device=dev).index_add_(0, ids_l, vals_l)
+        torch.zeros((n, 3 * d), device=dev).index_add_(0, ids_l, vals_l)
 
     # operation and byte counts from these inputs (see PERF.md)
     valid = spods.valid
@@ -408,9 +507,15 @@ def phase_kernels(torch, dev, report):
     touched = int(torch.unique(snode[snode < n]).numel())
     commit_bytes = p * (4 + 2 * d * 4 + 1) + touched * d * 4 * 10 + touched + p
     commit_ops_n = p * (3 * d * 2 + d * 3 + 2 * d * 7 + d * 4)
-    seg_rows = int(keep.sum())
-    seg_bytes = seg_ids.numel() * 4 + values.numel() * 4 + n * c * 4
-    seg_ops = seg_rows * c
+    n_rolled = int(rolled.sum())
+    refunded_nodes = int(torch.unique(ids_l).numel())
+    gang_bytes = p * (4 * 4 + 2 * d * 4 + 2) + refunded_nodes * 3 * d * 4 * 2
+    gang_ops = p * 4 + n_rolled * 3 * d + refunded_nodes * 3 * d
+
+    # kernels a wrapper call launches: nomination adds a merge kernel when
+    # the node axis is cut into chunks
+    nom_chunk = nominate_ops.chunk_of(kernels.library("nominate"), p, n, d, 4, dev.index or 0)
+    per_call = {"nominate": 1 if nom_chunk >= n else 2, "commit": 1, "enforce_gangs": 1}
 
     def bound(nbytes, nops):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -418,29 +523,31 @@ def phase_kernels(torch, dev, report):
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     rows = []
-    for name, source, replaces, fn, plain, lib_fn, kname, nbytes, nops, err in (
+    for name, source, replaces, fn, plain, lib_fn, kname, nbytes, nops, err, iters in (
         ("nominate", "koordinator_tpu_torch/csrc/nominate.cu",
          "koordinator_tpu/ops/solver.py:1121", t_nominate, t_nominate_plain, None,
-         "nominate_kernel", nom_bytes, nom_ops, checks["nominate"]),
+         "nominate", nom_bytes, nom_ops, checks["nominate"], 200),
         ("commit", "koordinator_tpu_torch/csrc/commit.cu",
          "koordinator_tpu/ops/solver.py:1204", t_commit, t_commit_plain, None,
-         "commit_kernel", commit_bytes, commit_ops_n, checks["commit"]),
-        ("segment_sum", "koordinator_tpu_torch/csrc/commit.cu",
-         "koordinator_tpu/ops/solver.py:1898", t_segsum, t_segsum_plain, t_index_add,
-         "segment_sum_kernel", seg_bytes, seg_ops, checks["segment_sum"]),
+         "commit_kernel", commit_bytes, commit_ops_n, checks["commit"], 200),
+        ("enforce_gangs", "koordinator_tpu_torch/csrc/gangs.cu",
+         "koordinator_tpu/ops/solver.py:1858", t_gangs, t_gangs_plain, t_index_add,
+         "enforce_gangs_kernel", gang_bytes, gang_ops, checks["enforce_gangs"], gang_iters),
     ):
         b_ms, b_by = bound(nbytes, nops)
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=None, max_abs_err=err,
-            ms=cuda_ms(torch, fn, 200),
+            launches=None, kernels_per_launch=per_call[name], max_abs_err=err,
+            ms=cuda_ms(torch, fn, iters),
             plain_ms=cuda_ms(torch, plain, 5),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=None if lib_fn is None else cuda_ms(torch, lib_fn, 200),
-            device_ms=device_ms(torch, fn, 50, kname),
+            device_ms=device_ms(torch, fn, min(50, iters // 4), kname),
+            library_device_ms=None if lib_fn is None else device_ms(torch, lib_fn, 50, None),
             bytes=nbytes, operations=nops,
         ))
     report["kernels"] = rows
+    report["rollbacks"] = rollbacks
     kernels.reset_launches()
 
 
@@ -464,10 +571,12 @@ def phase_stream(torch, dev, report):
     out, placed, seconds = run()
     launches = dict(kernels.launches)
     times = [seconds] + [run()[2] for _ in range(PASSES - 1)]
-    for name in ("nominate", "commit", "segment_sum"):
+    n_batches = N_PODS // BATCH
+    for name in ("nominate", "commit", "enforce_gangs"):
         if launches.get(name, 0) <= 0:
             fail(f"the headline stream launched no {name} kernel")
-    n_batches = N_PODS // BATCH
+    if launches["enforce_gangs"] != n_batches:
+        fail(f"enforce_gangs launched {launches['enforce_gangs']} times, not once a batch")
     with plain_versions():
         p_out, p_placed, p_seconds = run()
     if not bits_equal(out[0].cpu().numpy(), p_out[0].cpu().numpy()):
@@ -537,6 +646,11 @@ def main() -> int:
     )
     smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a"
     print(f"nvidia-smi: {smi_line}", flush=True)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, check=False,
+    )
+    print(f"clocks (sm, max sm, temperature, power): {clocks.stdout.strip()}", flush=True)
 
     t0 = time.perf_counter()
     build = kernels.build()
@@ -545,6 +659,7 @@ def main() -> int:
         f"total {time.perf_counter() - t0:.2f}s",
         flush=True,
     )
+    print(f"ptxas: {json.dumps(ptxas_summary(kernels))}", flush=True)
     report: dict = {}
     phase_kernels(torch, dev, report)
     phase_stream(torch, dev, report)

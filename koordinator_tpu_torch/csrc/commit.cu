@@ -1,4 +1,4 @@
-// Segmented commit of one solver round, and an ordered segment sum.
+// Segmented commit of one solver round.
 //
 // koord_commit replaces the LoadAware commit block of
 // koordinator_tpu/ops/solver.py:assign (:1204-1385): given the pods of one
@@ -7,14 +7,9 @@
 // rounded-percent usage and prod thresholds, spread quantum) and adds the
 // winners' charges to the node tables in place.
 //
-// koord_segment_sum replaces the jax.ops.segment_sum refunds of
-// enforce_gangs (:1858-1987): an ordered sum over rows already sorted by
-// segment, one sequential sum per segment.
-//
-// What bounds them on an H100: neither has enough work to fill the card
-// (one round is 512 rows × 2 dims; the bytes needed are a few tens of KB).
-// They are latency-bound: the commit's floor is the sequential walk over
-// the round's rows.
+// What bounds it on an H100: it has not enough work to fill the card (one
+// round is 512 rows × 2 dims; the bytes needed are a few tens of KB). It is
+// latency-bound: its floor is the sequential walk over the round's rows.
 //
 // Design: determinism and the reference's rounding come first. The
 // reference computes a segment's inclusive prefix as a global cumsum minus
@@ -206,20 +201,6 @@ commit_kernel(const int* __restrict__ snode, const float* __restrict__ sreq,
   }
 }
 
-__global__ void segment_sum_kernel(const int* __restrict__ skey,
-                                   const float* __restrict__ vals, int M,
-                                   int C, int S, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M) return;
-  const int key = skey[i];
-  if (key < 0 || key >= S || (i > 0 && skey[i - 1] == key)) return;
-  for (int c = 0; c < C; ++c) {
-    float acc = 0.0f;
-    for (int j = i; j < M && skey[j] == key; ++j) acc = acc + vals[(size_t)j * C + c];
-    out[(size_t)key * C + c] = acc;
-  }
-}
-
 size_t commit_smem_bytes(int P, int D) {
   return (size_t)3 * D * scan_levels(P).total * sizeof(float) +
          (size_t)3 * P * sizeof(int);
@@ -253,17 +234,6 @@ extern "C" int koord_commit(const void* snode, const void* sreq,
       (const float*)thr, (const float*)pthr, (float*)requested,
       (float*)est_used, (float*)prod_used, round_quantum, P, N, D,
       (bool*)accept_out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int koord_segment_sum(const void* skey, const void* vals, int M,
-                                 int C, int S, void* out, void* stream) {
-  if (M <= 0) return (int)cudaSuccess;
-  const int threads = 256;
-  segment_sum_kernel<<<(M + threads - 1) / threads, threads, 0,
-                       (cudaStream_t)stream>>>((const int*)skey,
-                                               (const float*)vals, M, C, S,
-                                               (float*)out);
   return (int)cudaGetLastError();
 }
 

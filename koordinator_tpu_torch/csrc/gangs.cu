@@ -1,0 +1,168 @@
+// All-or-nothing gang rollback of one solved batch, in one launch.
+//
+// Replaces the LoadAware part of koordinator_tpu/ops/solver.py:enforce_gangs
+// (:1858-1987, the counts and decisions at :1883-1894, the node-table
+// refunds at :1896-1912 and :1973-1978): count each gang's placed members,
+// roll back every pod of a Strict gang below its minMember, and take the
+// rolled-back pods' request, estimate and prod estimate off the node tables.
+//
+// What bounds it on an H100: latency. A batch is a few hundred rows and a
+// few KB; the bytes it must move take nanoseconds. What costs is launches:
+// done in PyTorch ops it is ~20 launches and a stable sort a batch.
+//
+// Design: one block holds the batch in shared memory. Gang counts are
+// integer adds in shared memory (exact in any order). Rolled-back rows are
+// compacted into 64-bit keys (node << 32 | row), which a bitonic sort puts
+// in (node, row) order — the keys are unique, so the order does not depend
+// on the compaction's. One thread per touched node then sums its rows'
+// refunds 0 + v0 + v1 + ... in original row order, the order the plain
+// version (index_add_ on the CPU) sums in, and subtracts the sum from the
+// table in place. Rows with nothing to refund are not touched, which equals
+// the reference's `table - segment_sum(...)` bit for bit since x - 0 == x.
+// No float atomics. A batch without rollbacks skips the sort and the sums.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 1024;
+
+__host__ __device__ inline int pow2_at_least(int x) {
+  int v = 1;
+  while (v < x) v <<= 1;
+  return v;
+}
+
+// Shared layout: s_asg[P] int, s_count[P] int, s_rb (the rollback count)
+// and one int of padding, then keys[pow2(P)] uint64 (8-byte aligned).
+size_t gangs_smem_bytes(int P) {
+  return ((size_t)2 * P + 2) * sizeof(int) +
+         (size_t)pow2_at_least(P) * sizeof(uint64_t);
+}
+
+__global__ void __launch_bounds__(kThreads)
+enforce_gangs_kernel(int* __restrict__ assignment,
+                     const int* __restrict__ gang_id,
+                     const int* __restrict__ gang_min,
+                     const bool* __restrict__ gang_nonstrict,
+                     const float* __restrict__ requests,
+                     const float* __restrict__ estimate,
+                     const bool* __restrict__ is_prod,
+                     float* __restrict__ requested,
+                     float* __restrict__ est_used,
+                     float* __restrict__ prod_used,
+                     int* __restrict__ pod_zone, int P, int N, int D) {
+  extern __shared__ int smem[];
+  int* s_asg = smem;
+  int* s_count = s_asg + P;
+  int* s_rb = s_count + P;
+  uint64_t* keys = (uint64_t*)(smem + 2 * P + 2);
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < P; i += blockDim.x) {
+    s_asg[i] = assignment[i];
+    s_count[i] = 0;
+  }
+  if (tid == 0) *s_rb = 0;
+  __syncthreads();
+  // placed members per gang (gid clipped to [0, P-1], as the reference)
+  for (int i = tid; i < P; i += blockDim.x) {
+    const int g = gang_id[i];
+    if (g >= 0 && s_asg[i] >= 0) atomicAdd(&s_count[min(g, P - 1)], 1);
+  }
+  __syncthreads();
+  for (int i = tid; i < P; i += blockDim.x) {
+    const int a = s_asg[i];
+    const int g = gang_id[i];
+    const int gid = min(max(g, 0), P - 1);
+    const bool gang_ok = s_count[gid] >= gang_min[gid] || gang_nonstrict[gid];
+    const bool placed = a >= 0;
+    const bool keep = placed && (g < 0 || gang_ok);
+    assignment[i] = keep ? a : -1;
+    if (placed && !keep) {
+      if (pod_zone != nullptr) pod_zone[i] = -1;
+      const uint64_t node = (uint64_t)min(max(a, 0), N - 1);
+      keys[atomicAdd(s_rb, 1)] = (node << 32) | (uint64_t)i;
+    }
+  }
+  __syncthreads();
+  const int R = *s_rb;
+  if (R == 0) return;
+
+  const int L = pow2_at_least(R);
+  for (int i = R + tid; i < L; i += blockDim.x) keys[i] = UINT64_MAX;
+  __syncthreads();
+  for (int k = 2; k <= L; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < L; i += blockDim.x) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const uint64_t a = keys[i], b = keys[ixj];
+          const bool up = (i & k) == 0;
+          if (up ? a > b : a < b) {
+            keys[i] = b;
+            keys[ixj] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // one thread per touched node: ordered sums, subtracted in place
+  for (int s = tid; s < R; s += blockDim.x) {
+    const int node = (int)(keys[s] >> 32);
+    if (s > 0 && (int)(keys[s - 1] >> 32) == node) continue;
+    for (int d = 0; d < D; ++d) {
+      float r = 0.0f, e = 0.0f, pr = 0.0f;
+      for (int j = s; j < R && (int)(keys[j] >> 32) == node; ++j) {
+        const int row = (int)(keys[j] & 0xFFFFFFFFu);
+        const float est = estimate[(size_t)row * D + d];
+        r = r + requests[(size_t)row * D + d];
+        e = e + est;
+        pr = pr + (is_prod[row] ? est : 0.0f);
+      }
+      const size_t at = (size_t)node * D + d;
+      requested[at] = requested[at] - r;
+      est_used[at] = est_used[at] - e;
+      prod_used[at] = prod_used[at] - pr;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int koord_enforce_gangs(void* assignment, const void* gang_id,
+                                   const void* gang_min,
+                                   const void* gang_nonstrict,
+                                   const void* requests, const void* estimate,
+                                   const void* is_prod, void* requested,
+                                   void* est_used, void* prod_used,
+                                   void* pod_zone, int P, int N, int D,
+                                   void* stream) {
+  if (P <= 0) return (int)cudaSuccess;
+  if (D < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  // one block holds the whole batch; a batch too large for the card's
+  // shared memory is refused here (cudaFuncSetAttribute's error)
+  const size_t smem = gangs_smem_bytes(P);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        enforce_gangs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, so the next launch's check is clean
+      return (int)err;
+    }
+  }
+  enforce_gangs_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
+      (int*)assignment, (const int*)gang_id, (const int*)gang_min,
+      (const bool*)gang_nonstrict, (const float*)requests,
+      (const float*)estimate, (const bool*)is_prod, (float*)requested,
+      (float*)est_used, (float*)prod_used, (int*)pod_zone, P, N, D);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* koord_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -8,20 +8,58 @@
 // fused into one program on the TPU.
 //
 // What bounds it on an H100: arithmetic. Per pair it does ~40 fp32
-// operations, three of them IEEE divisions, over node tables of ~55 bytes a
-// node that stay in L2 (10k nodes ≈ 0.55 MB). At P=512, N=10,000 that is
-// ~2e8 operations against ~0.6 MB of traffic, so the fp32 rate, not memory,
-// sets the floor.
+// operations, up to five of them IEEE divisions (each ~10 instructions),
+// over node tables of ~55 bytes a node that stay in L2 (10k nodes ≈
+// 0.55 MB). At P=512, N=10,000 that is ~2.6e8 operations against ~0.6 MB of
+// traffic, so the fp32 rate, not memory, sets the floor.
 //
-// Design: one block per pod row. Threads stride over the node axis, so
-// neighbouring threads read neighbouring node rows; each keeps a register
-// top-K ordered by (cost, node index). A shared-memory tree merge then
-// reduces the block's lists to one. No atomics, no [P, N] buffer.
+// Design:
+// - A block holds kPods pods, two a thread (lane l of every warp holds pods
+//   l and l + 32 of the tile), and walks one chunk of the node axis; its
+//   kWarps warps take turns over the chunk's nodes. Node rows are staged in
+//   shared memory as SoA columns, a tile at a time, double-buffered: the
+//   next tile's loads are in registers while the current tile is
+//   evaluated. Every lane of a warp reads the same node at once (a
+//   broadcast), so a node row leaves L2 once per kPods pods, not once per
+//   pod. The staging also does the per-node arithmetic once for all pods
+//   (alloc - requested + EPS, alloc + _SAFE, max(cpu_amp, 1)): the same
+//   operations on the same values, so the same bits.
+// - What limits it on an H100 is instruction issue along each pair's chain
+//   of dependent tests, divisions and top-K insertion: a lone warp spends
+//   ~900 cycles a pair; at P=512, N=10,000 the kernel takes ~0.047 ms.
+//   Two pods a thread share the node loads and the warp votes and give
+//   each warp two chains to interleave; kWarps warps a block multiply the
+//   chains an SM holds without cutting the node axis finer.
+// - Node-dependent branches (fresh, a threshold of 0) are uniform across
+//   a warp, so skipped work is really skipped: a percent whose threshold is
+//   ≤ 0 is never computed. Pod-dependent tests are predicated, not
+//   branched; a test, or the score's divisions, is skipped for the warp
+//   once every pair it holds is infeasible (__any_sync).
+// - D is a template parameter, so every loop over dims unrolls. K is a
+//   run-time count; a top-K list has C register slots, C = 4 for K <= 4
+//   and 8 above (32 instantiations in all), kept worst first, so its entry
+//   test reads the fixed slot 0 and the slots past K hold pairs that rank
+//   before every real one, where an insertion stops. On an H100, eight
+//   slots at K = 4 cost the kernel 14 registers a thread, a resident block
+//   an SM and a fifth of its time.
+// - The warps' lists of a pod are merged in shared memory at the end of
+//   the chunk. Enough blocks for the card: at P=512 a pod tile alone gives
+//   8 blocks, so the node axis is cut into as many chunks as fill one wave
+//   of resident blocks (koord_nominate_chunk; a second, partial wave would
+//   cost nearly a whole one). Each block then writes its pods' partial
+//   top-K, padded to C pairs, and a merge kernel (one warp a pod) takes the
+//   K best of the partial lists by warp-wide (cost, index) minima over
+//   __shfl_xor_sync. (cost, index) is a total order with unique indices,
+//   so the merges give what one pass over all nodes gives.
+// - The epilogue writes the round's nomination vector itself: with
+//   approx_topk the reference's [best, best, 2nd, ...] (solver.py:1147-1153).
 //
 // Bit-exactness with the reference: every float operation is written in
 // the reference's order, division is IEEE `/` and the file is compiled
 // with -fmad=false so no a*b+c is contracted into an FMA. Ties of cost go
-// to the lower node index, as jax.lax.top_k and jnp.argmin break them.
+// to the lower node index, as jax.lax.top_k and jnp.argmin break them;
+// infeasible slots keep the lowest infeasible indices at +inf, as top_k
+// ranks them.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -29,10 +67,21 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarps = 4;  // warps a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPodsPerThread = 2;
+constexpr int kPods = 32 * kPodsPerThread;  // pods a block
 constexpr int kMaxDims = 16;
-constexpr float kEps = 1e-3f;   // masks.EPS
-constexpr float kSafe = 1e-9f;  // costs._SAFE
+constexpr int kMaxK = 8;
+constexpr int kMinChunk = 32;     // fewest nodes a block walks
+constexpr int kMergeWarps = 8;    // pods a merge block
+constexpr float kEps = 1e-3f;     // masks.EPS
+constexpr float kSafe = 1e-9f;    // costs._SAFE
+constexpr uint8_t kFresh = 1, kSched = 2;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// nodes a tile: two tiles stay under 32 KB of shared memory
+__host__ __device__ constexpr int tile_nodes(int D) { return D <= 4 ? 128 : D <= 8 ? 64 : 32; }
 
 __device__ __forceinline__ bool less_pair(float va, int ia, float vb, int ib) {
   return va < vb || (va == vb && ia < ib);
@@ -44,7 +93,127 @@ __device__ __forceinline__ float usage_percent(float used, float alloc) {
   return floorf(pct + 0.5f);
 }
 
-template <int K>
+// A register top-K by (cost, index) with room for C pairs, for a run-time
+// K <= C, kept worst first: v[0] holds the K-th best pair, v[K-1] the
+// best. Slots K..C-1 hold (-inf, INT32_MIN), which ranks before every pair
+// the kernel ranks (costs are finite or +inf), so an inserted pair stops
+// below them and the insertion never reads K.
+template <int C>
+struct TopK {
+  float v[C];
+  int i[C];
+
+  __device__ __forceinline__ void clear(int K) {
+#pragma unroll
+    for (int s = 0; s < C; ++s) {
+      v[s] = s < K ? CUDART_INF_F : -CUDART_INF_F;
+      i[s] = s < K ? INT32_MAX : INT32_MIN;
+    }
+  }
+
+  // (cv, ci) replaces the K-th best if it ranks before it, then moves up.
+  __device__ __forceinline__ void insert(float cv, int ci) {
+    if (!less_pair(cv, ci, v[0], i[0])) return;
+    v[0] = cv;
+    i[0] = ci;
+#pragma unroll
+    for (int s = 0; s + 1 < C; ++s) {
+      if (less_pair(v[s], i[s], v[s + 1], i[s + 1])) {
+        const float tv = v[s];
+        v[s] = v[s + 1];
+        v[s + 1] = tv;
+        const int ti = i[s];
+        i[s] = i[s + 1];
+        i[s + 1] = ti;
+      }
+    }
+  }
+};
+
+// Writes the pair of rank r (0 = best) of a top-K into the round's
+// nomination vector: the top-K itself, or with approx_topk
+// [best, best, 2nd, ..., (K-1)th] (solver.py:1147-1153).
+__device__ __forceinline__ void put_ranked(float* oc, int* oi, int r, int K, bool approx,
+                                           float v, int i) {
+  const int at = approx ? r + 1 : r;
+  if (at < K) {
+    oc[at] = v;
+    oi[at] = i;
+  }
+  if (approx && r == 0) {
+    oc[0] = v;
+    oi[0] = i;
+  }
+}
+
+// One tile of node rows, SoA, with the per-node arithmetic done.
+template <int D>
+struct Tile {
+  static constexpr int T = tile_nodes(D);
+  float fe[D][T];   // alloc - requested + EPS
+  float a[D][T];    // alloc
+  float as[D][T];   // alloc + _SAFE
+  float e[D][T];    // estimated used
+  float pr[D][T];   // prod used
+  float t[D][T];    // effective usage threshold
+  float pt[D][T];   // effective prod threshold
+  float amp[T];     // max(cpu_amp, 1)
+  uint8_t flags[T]; // kFresh | kSched
+};
+
+// A node row in registers, between its loads and its store into a tile.
+template <int D>
+struct Row {
+  float a[D], r[D], e[D], pr[D], t[D], pt[D];
+  float amp;
+  bool fresh, sched;
+
+  __device__ __forceinline__ void load(int n, const float* alloc, const float* requested,
+                                       const float* est_used, const float* prod_used,
+                                       const bool* fresh_, const bool* sched_,
+                                       const float* cpu_amp, const float* thr,
+                                       const float* pthr) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const size_t at = (size_t)n * D + d;
+      a[d] = alloc[at];
+      r[d] = requested[at];
+      e[d] = est_used[at];
+      pr[d] = prod_used[at];
+      t[d] = thr[at];
+      pt[d] = pthr[at];
+    }
+    amp = cpu_amp[n];
+    fresh = fresh_[n];
+    sched = sched_[n];
+  }
+
+  __device__ __forceinline__ void store(Tile<D>& s, int j) const {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      s.fe[d][j] = (a[d] - r[d]) + kEps;
+      s.a[d][j] = a[d];
+      s.as[d][j] = a[d] + kSafe;
+      s.e[d][j] = e[d];
+      s.pr[d][j] = pr[d];
+      s.t[d][j] = t[d];
+      s.pt[d][j] = pt[d];
+    }
+    s.amp[j] = fmaxf(amp, 1.0f);
+    s.flags[j] = (fresh ? kFresh : 0) | (sched ? kSched : 0);
+  }
+};
+
+template <int D, int C>
+union Shared {
+  Tile<D> tiles[2];
+  struct {
+    float v[kWarps][kPods][C];
+    int i[kWarps][kPods][C];
+  } lists;  // each warp's top-K of each pod, after the last tile
+};
+
+template <int D, int C>
 __global__ void __launch_bounds__(kThreads)
 nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
                 const bool* __restrict__ is_prod,
@@ -59,183 +228,365 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
                 const float* __restrict__ cpu_amp,
                 const float* __restrict__ thr,
                 const float* __restrict__ pthr,
-                const float* __restrict__ weights, int N, int D,
-                float jitter_scale, int jitter_on,
+                const float* __restrict__ weights, int P, int N, int K, int chunk,
+                float jitter_scale, int jitter_on, int approx,
                 float* __restrict__ out_cost, int* __restrict__ out_idx) {
-  __shared__ float s_req[kMaxDims];
-  __shared__ float s_est[kMaxDims];
-  __shared__ float s_w[kMaxDims];
-  __shared__ float s_val[kThreads * K];
-  __shared__ int s_idx[kThreads * K];
+  constexpr int T = tile_nodes(D);
+  constexpr int Q = kPodsPerThread;
+  __shared__ Shared<D, C> sh;
 
-  const int p = blockIdx.x;
   const int tid = threadIdx.x;
-  if (tid < D) {
-    s_req[tid] = req[p * D + tid];
-    s_est[tid] = est[p * D + tid];
-    s_w[tid] = weights[tid];
-  }
-  __syncthreads();
+  const int warp = tid >> 5, lane = tid & 31;
+  const int c0 = blockIdx.y * chunk;
+  const int c1 = min(N, c0 + chunk);
 
-  const bool pod_gate = gate[p];
-  const bool pod_bind = cpu_bind[p];
-  const bool pod_prod = is_prod[p];
   // jnp.sum(weights) + _SAFE, summed in d order
+  float w[D];
   float wsum = 0.0f;
-  for (int d = 0; d < D; ++d) wsum = wsum + s_w[d];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    w[d] = weights[d];
+    wsum = wsum + w[d];
+  }
   wsum = wsum + kSafe;
 
-  float best_v[K];
-  int best_i[K];
+  float rq[Q][D], es[Q][D];
+  TopK<C> top[Q];
+  bool pod_gate[Q], pod_bind[Q], pod_prod[Q];
+  uint32_t hp[Q];
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    best_v[j] = CUDART_INF_F;
-    best_i[j] = INT32_MAX;
-  }
-
-  for (int n = tid; n < N; n += kThreads) {
-    const float* a_row = alloc + (size_t)n * D;
-    const float* r_row = requested + (size_t)n * D;
-    const float* e_row = est_used + (size_t)n * D;
-    const float* pr_row = prod_used + (size_t)n * D;
-    const float* t_row = thr + (size_t)n * D;
-    const float* pt_row = pthr + (size_t)n * D;
-    const bool node_fresh = fresh[n];
-
-    // _feasible: fit, amplified-CPU fit, usage and prod thresholds,
-    // schedulable, pod gate
-    bool feas = pod_gate && sched[n];
-    for (int d = 0; d < D; ++d) {
-      float free_d = a_row[d] - r_row[d];
-      feas = feas && (s_req[d] <= free_d + kEps);
-    }
-    if (pod_bind) {
-      float amp = fmaxf(cpu_amp[n], 1.0f);
-      float eff_cpu = s_req[0] * amp;
-      float free0 = a_row[0] - r_row[0];
-      feas = feas && (eff_cpu <= free0 + kEps);
-    }
-    if (node_fresh) {
+  for (int q = 0; q < Q; ++q) {
+    const int p = blockIdx.x * kPods + lane + 32 * q;
+    pod_gate[q] = pod_bind[q] = pod_prod[q] = false;
+    if (p < P) {
+#pragma unroll
       for (int d = 0; d < D; ++d) {
-        float t = t_row[d];
-        float pct = usage_percent(e_row[d] + s_est[d], a_row[d]);
-        feas = feas && !(t > 0.0f && pct > t);
+        rq[q][d] = req[(size_t)p * D + d];
+        es[q][d] = est[(size_t)p * D + d];
       }
-      if (pod_prod) {
-        for (int d = 0; d < D; ++d) {
-          float t = pt_row[d];
-          float pct = usage_percent(pr_row[d] + s_est[d], a_row[d]);
-          feas = feas && !(t > 0.0f && pct > t);
-        }
-      }
-    }
-    if (!feas) {
-      // +inf cost: still ranked, by index, as top_k ranks -inf entries
-      if (less_pair(CUDART_INF_F, n, best_v[K - 1], best_i[K - 1])) {
-        best_v[K - 1] = CUDART_INF_F;
-        best_i[K - 1] = n;
-      } else {
-        continue;
-      }
+      pod_gate[q] = gate[p];
+      pod_bind[q] = cpu_bind[p];
+      pod_prod[q] = is_prod[p];
     } else {
-      // load_aware_cost: integer-floor least-used score, 0 when stale
-      float score = 0.0f;
-      if (node_fresh) {
-        float total = 0.0f;
-        for (int d = 0; d < D; ++d) {
-          float a = a_row[d];
-          float after = e_row[d] + s_est[d];
-          float free_d = fmaxf(a - after, 0.0f);
-          float per_dim = a > 0.0f ? floorf(free_d * 100.0f / (a + kSafe)) : 0.0f;
-          float term = per_dim * s_w[d];
-          total = d == 0 ? term : total + term;
-        }
-        score = floorf(total / wsum);
-      }
-      float cost = -score;
-      if (jitter_on) {
-        // _jitter_hash on the priority-sorted pod position, uint32 wrap
-        uint32_t h = ((uint32_t)p * 2654435761u + (uint32_t)n * 40503u) & 0xFFFFu;
-        cost = cost + (float)h * jitter_scale;
-      }
-      if (!less_pair(cost, n, best_v[K - 1], best_i[K - 1])) continue;
-      best_v[K - 1] = cost;
-      best_i[K - 1] = n;
-    }
 #pragma unroll
-    for (int j = K - 1; j > 0; --j) {
-      if (less_pair(best_v[j], best_i[j], best_v[j - 1], best_i[j - 1])) {
-        float tv = best_v[j];
-        best_v[j] = best_v[j - 1];
-        best_v[j - 1] = tv;
-        int ti = best_i[j];
-        best_i[j] = best_i[j - 1];
-        best_i[j - 1] = ti;
-      }
+      for (int d = 0; d < D; ++d) rq[q][d] = es[q][d] = 0.0f;
     }
+    // _jitter_hash on the priority-sorted pod position, uint32 wrap
+    hp[q] = (uint32_t)p * 2654435761u;
+    top[q].clear(K);
   }
 
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    s_val[tid * K + j] = best_v[j];
-    s_idx[tid * K + j] = best_i[j];
-  }
+  Row<D> row;
+  if (tid < T && c0 + tid < c1)
+    row.load(c0 + tid, alloc, requested, est_used, prod_used, fresh, sched,
+             cpu_amp, thr, pthr);
+  if (tid < T) row.store(sh.tiles[0], tid);
   __syncthreads();
 
-  // tree merge of sorted K-lists: list tid absorbs list tid + s
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      const int A = tid * K;
-      const int B = (tid + s) * K;
-      float mv[K];
-      int mi[K];
-      int a = 0, b = 0;
+  int buf = 0;
+  for (int base = c0; base < c1; base += T) {
+    const int next = base + T;
+    const bool more = next < c1;
+    if (more && tid < T && next + tid < c1)
+      row.load(next + tid, alloc, requested, est_used, prod_used, fresh, sched,
+               cpu_amp, thr, pthr);
+    const Tile<D>& s = sh.tiles[buf];
+    const int count = min(T, c1 - base);
+    for (int j = warp; j < count; j += kWarps) {
+      const int n = base + j;
+      // the node's columns, loaded once for both pods: every lane of the
+      // block reads the same words (a broadcast)
+      const uint8_t fl = s.flags[j];
+      const float amp = s.amp[j];
+      float fe[D], a[D], after[Q][D];
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
-        // a + b == j < K, so both cursors stay in range
-        float va = s_val[A + a], vb = s_val[B + b];
-        int ia = s_idx[A + a], ib = s_idx[B + b];
-        if (less_pair(va, ia, vb, ib)) {
-          mv[j] = va;
-          mi[j] = ia;
-          ++a;
-        } else {
-          mv[j] = vb;
-          mi[j] = ib;
-          ++b;
+      for (int d = 0; d < D; ++d) {
+        fe[d] = s.fe[d][j];
+        a[d] = s.a[d][j];
+        const float e = s.e[d][j];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) after[q][d] = e + es[q][d];
+      }
+      // _feasible: schedulable, pod gate, fit, amplified-CPU fit, then
+      // usage and prod thresholds on fresh nodes
+      bool feas[Q];
+      bool any = false;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        feas[q] = pod_gate[q] && (fl & kSched) != 0;
+#pragma unroll
+        for (int d = 0; d < D; ++d) feas[q] = feas[q] & (rq[q][d] <= fe[d]);
+        feas[q] = feas[q] & (!pod_bind[q] | (rq[q][0] * amp <= fe[0]));
+        any = any | feas[q];
+      }
+      const bool node_fresh = (fl & kFresh) != 0;
+      if (node_fresh && __any_sync(kFull, any)) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          const float t = s.t[d][j];
+          if (t > 0.0f && __any_sync(kFull, any)) {
+            any = false;
+#pragma unroll
+            for (int q = 0; q < Q; ++q) {
+              feas[q] = feas[q] & !(usage_percent(after[q][d], a[d]) > t);
+              any = any | feas[q];
+            }
+          }
+        }
+        bool any_prod = false;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) any_prod = any_prod | (feas[q] & pod_prod[q]);
+        if (__any_sync(kFull, any_prod)) {
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            const float t = s.pt[d][j];
+            if (t > 0.0f) {
+              const float pr = s.pr[d][j];
+#pragma unroll
+              for (int q = 0; q < Q; ++q)
+                feas[q] = feas[q] & !(pod_prod[q] & (usage_percent(pr + es[q][d], a[d]) > t));
+            }
+          }
+          any = false;
+#pragma unroll
+          for (int q = 0; q < Q; ++q) any = any | feas[q];
+        }
+      }
+      // +inf for an infeasible pair: still ranked, by index, as top_k
+      // ranks -inf entries
+      float cost[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) cost[q] = CUDART_INF_F;
+      if (__any_sync(kFull, any)) {
+        float as[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) as[d] = s.as[d][j];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          // load_aware_cost: integer-floor least-used score, 0 when stale
+          float score = 0.0f;
+          if (node_fresh) {
+            float total = 0.0f;
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+              const float free_d = fmaxf(a[d] - after[q][d], 0.0f);
+              const float per_dim = a[d] > 0.0f ? floorf(free_d * 100.0f / as[d]) : 0.0f;
+              const float term = per_dim * w[d];
+              total = d == 0 ? term : total + term;
+            }
+            score = floorf(total / wsum);
+          }
+          float c = -score;
+          if (jitter_on) {
+            const uint32_t h = (hp[q] + (uint32_t)n * 40503u) & 0xFFFFu;
+            c = c + (float)h * jitter_scale;
+          }
+          if (feas[q]) cost[q] = c;
         }
       }
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
-        s_val[A + j] = mv[j];
-        s_idx[A + j] = mi[j];
-      }
+      for (int q = 0; q < Q; ++q) top[q].insert(cost[q], n);
     }
+    if (more && tid < T) row.store(sh.tiles[buf ^ 1], tid);
+    buf ^= 1;
     __syncthreads();
   }
-  if (tid < K) {
-    out_cost[p * K + tid] = s_val[tid];
-    out_idx[p * K + tid] = s_idx[tid];
+
+  // the warps' lists of each pod, merged in shared memory
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+#pragma unroll
+    for (int s = 0; s < C; ++s) {
+      sh.lists.v[warp][lane + 32 * q][s] = top[q].v[s];
+      sh.lists.i[warp][lane + 32 * q][s] = top[q].i[s];
+    }
+  }
+  __syncthreads();
+  if (tid >= kPods) return;
+  const int p = blockIdx.x * kPods + tid;
+  if (p >= P) return;
+  TopK<C> m;
+#pragma unroll
+  for (int s = 0; s < C; ++s) {
+    m.v[s] = sh.lists.v[0][tid][s];
+    m.i[s] = sh.lists.i[0][tid][s];
+  }
+#pragma unroll
+  for (int u = 1; u < kWarps; ++u) {
+#pragma unroll
+    for (int s = 0; s < C; ++s)
+      if (s < K) m.insert(sh.lists.v[u][tid][s], sh.lists.i[u][tid][s]);
+  }
+  if (gridDim.y == 1) {
+#pragma unroll
+    for (int s = 0; s < C; ++s)
+      if (s < K)
+        put_ranked(out_cost + (size_t)p * K, out_idx + (size_t)p * K, K - 1 - s, K, approx,
+                   m.v[s], m.i[s]);
+  } else {
+    // partial list of this chunk, in any order, padded to C pairs with
+    // (+inf, INT32_MAX), which rank after every real pair: [P, chunks, C]
+    const size_t at = ((size_t)p * gridDim.y + blockIdx.y) * C;
+#pragma unroll
+    for (int s = 0; s < C; ++s) {
+      out_cost[at + s] = s < K ? m.v[s] : CUDART_INF_F;
+      out_idx[at + s] = s < K ? m.i[s] : INT32_MAX;
+    }
   }
 }
 
-template <int K>
-cudaError_t launch(const float* req, const float* est, const bool* is_prod,
-                   const bool* cpu_bind, const bool* gate, const float* alloc,
-                   const float* requested, const float* est_used,
-                   const float* prod_used, const bool* fresh,
-                   const bool* sched, const float* cpu_amp, const float* thr,
-                   const float* pthr, const float* weights, int P, int N,
-                   int D, float jitter_scale, int jitter_on, float* out_cost,
-                   int* out_idx, cudaStream_t stream) {
-  nominate_kernel<K><<<P, kThreads, 0, stream>>>(
-      req, est, is_prod, cpu_bind, gate, alloc, requested, est_used,
-      prod_used, fresh, sched, cpu_amp, thr, pthr, weights, N, D,
-      jitter_scale, jitter_on, out_cost, out_idx);
+// Merge of the chunks' partial lists: one warp a pod. Each lane keeps a
+// register top-C of the entries it reads; then K rounds of a warp-wide
+// (cost, index) minimum over __shfl_xor_sync, the winning lane popping its
+// best pair each round. The lists hold C real pairs (the padding ranks
+// last), so every slot index is fixed.
+template <int C>
+__global__ void __launch_bounds__(kMergeWarps * 32)
+nominate_merge_kernel(const float* __restrict__ part_cost,
+                      const int* __restrict__ part_idx, int P, int K, int chunks,
+                      int approx, float* __restrict__ out_cost,
+                      int* __restrict__ out_idx) {
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
+  if (p >= P) return;
+  TopK<C> top;
+  top.clear(C);
+  const int m = chunks * C;
+  const float* pc = part_cost + (size_t)p * m;
+  const int* pi = part_idx + (size_t)p * m;
+  for (int e = lane; e < m; e += 32) top.insert(pc[e], pi[e]);
+
+#pragma unroll
+  for (int r = 0; r < C; ++r) {
+    if (r >= K) break;
+    float v = top.v[C - 1];
+    int i = top.i[C - 1];
+    const float own_v = v;
+    const int own_i = i;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, v, off);
+      const int oi = __shfl_xor_sync(kFull, i, off);
+      if (less_pair(ov, oi, v, i)) {
+        v = ov;
+        i = oi;
+      }
+    }
+    if (lane == 0)
+      put_ranked(out_cost + (size_t)p * K, out_idx + (size_t)p * K, r, K, approx, v, i);
+    if (own_i == i && own_v == v) {
+      // pop: every pair moves one slot toward the best end
+#pragma unroll
+      for (int s = C - 1; s > 0; --s) {
+        top.v[s] = top.v[s - 1];
+        top.i[s] = top.i[s - 1];
+      }
+      top.v[0] = CUDART_INF_F;
+      top.i[0] = INT32_MAX;
+    }
+  }
+}
+
+struct Args {
+  const float *req, *est;
+  const bool *is_prod, *cpu_bind, *gate;
+  const float *alloc, *requested, *est_used, *prod_used;
+  const bool *fresh, *sched;
+  const float *cpu_amp, *thr, *pthr, *weights;
+  int P, N, K, chunk;
+  float jitter_scale;
+  int jitter_on, approx;
+  float* part_cost;
+  int* part_idx;
+  float* out_cost;
+  int* out_idx;
+  cudaStream_t stream;
+};
+
+template <int D, int C>
+cudaError_t launch(const Args& a) {
+  const int chunks = (a.N + a.chunk - 1) / a.chunk;
+  const dim3 grid((a.P + kPods - 1) / kPods, chunks);
+  const bool split = chunks > 1;
+  nominate_kernel<D, C><<<grid, kThreads, 0, a.stream>>>(
+      a.req, a.est, a.is_prod, a.cpu_bind, a.gate, a.alloc, a.requested,
+      a.est_used, a.prod_used, a.fresh, a.sched, a.cpu_amp, a.thr, a.pthr,
+      a.weights, a.P, a.N, a.K, a.chunk, a.jitter_scale, a.jitter_on, a.approx,
+      split ? a.part_cost : a.out_cost, split ? a.part_idx : a.out_idx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !split) return err;
+  nominate_merge_kernel<C><<<(a.P + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0,
+                          a.stream>>>(a.part_cost, a.part_idx, a.P, a.K, chunks, a.approx,
+                                      a.out_cost, a.out_idx);
   return cudaGetLastError();
 }
 
+// op.run<D, C>() for a runtime D in 1..16 and list capacity C: every width
+// the wrapper accepts is instantiated, so the loops over dims unroll.
+template <int C, class Op>
+cudaError_t with_d(int D, const Op& op) {
+  switch (D) {
+    case 1: return op.template run<1, C>();
+    case 2: return op.template run<2, C>();
+    case 3: return op.template run<3, C>();
+    case 4: return op.template run<4, C>();
+    case 5: return op.template run<5, C>();
+    case 6: return op.template run<6, C>();
+    case 7: return op.template run<7, C>();
+    case 8: return op.template run<8, C>();
+    case 9: return op.template run<9, C>();
+    case 10: return op.template run<10, C>();
+    case 11: return op.template run<11, C>();
+    case 12: return op.template run<12, C>();
+    case 13: return op.template run<13, C>();
+    case 14: return op.template run<14, C>();
+    case 15: return op.template run<15, C>();
+    case 16: return op.template run<16, C>();
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The instantiation for width D and fan-out K: lists of 4 slots up to
+// K = 4, of kMaxK above.
+template <class Op>
+cudaError_t with_dk(int D, int K, const Op& op) {
+  return K <= 4 ? with_d<4>(D, op) : with_d<kMaxK>(D, op);
+}
+
+struct Launch {
+  const Args& a;
+  template <int D, int C>
+  cudaError_t run() const { return launch<D, C>(a); }
+};
+
+struct Resident {
+  int* blocks;
+  template <int D, int C>
+  cudaError_t run() const {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, nominate_kernel<D, C>,
+                                                         kThreads, 0);
+  }
+};
+
 }  // namespace
+
+// Nodes each block walks, for P pods and N nodes at width D and fan-out K
+// on a card of `sms` SMs: as many chunks as fill one wave of resident
+// blocks (the occupancy of this instantiation), none shorter than
+// kMinChunk nodes. The caller makes room for partial lists of
+// [P, ceil(N / chunk), kMaxK] pairs when there is more than one chunk.
+extern "C" int koord_nominate_chunk(int P, int N, int D, int K, int sms, int* chunk) {
+  if (P < 1 || N < 1 || sms < 1 || K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  const cudaError_t err = with_dk(D, K, Resident{&per_sm});
+  if (err != cudaSuccess) return (int)err;
+  const int pod_blocks = (P + kPods - 1) / kPods;
+  const int most = (N + kMinChunk - 1) / kMinChunk;
+  int chunks = (int)((long long)per_sm * sms / pod_blocks);
+  chunks = chunks < 1 ? 1 : chunks > most ? most : chunks;
+  *chunk = (N + chunks - 1) / chunks;
+  return (int)cudaSuccess;
+}
 
 extern "C" int koord_nominate(
     const void* req, const void* est, const void* is_prod,
@@ -243,33 +594,21 @@ extern "C" int koord_nominate(
     const void* requested, const void* est_used, const void* prod_used,
     const void* fresh, const void* sched, const void* cpu_amp,
     const void* thr, const void* pthr, const void* weights, int P, int N,
-    int D, int K, float jitter_scale, int jitter_on, void* out_cost,
-    void* out_idx, void* stream) {
+    int D, int K, int chunk, float jitter_scale, int jitter_on, int approx,
+    void* part_cost, void* part_idx, void* out_cost, void* out_idx,
+    void* stream) {
   if (P <= 0) return (int)cudaSuccess;
-  if (D < 1 || D > kMaxDims || N < 1) return (int)cudaErrorInvalidValue;
-#define KOORD_NOMINATE_CASE(KK)                                              \
-  case KK:                                                                   \
-    return (int)launch<KK>(                                                  \
-        (const float*)req, (const float*)est, (const bool*)is_prod,          \
-        (const bool*)cpu_bind, (const bool*)gate, (const float*)alloc,       \
-        (const float*)requested, (const float*)est_used,                     \
-        (const float*)prod_used, (const bool*)fresh, (const bool*)sched,     \
-        (const float*)cpu_amp, (const float*)thr, (const float*)pthr,        \
-        (const float*)weights, P, N, D, jitter_scale, jitter_on,             \
-        (float*)out_cost, (int*)out_idx, (cudaStream_t)stream);
-  switch (K) {
-    KOORD_NOMINATE_CASE(1)
-    KOORD_NOMINATE_CASE(2)
-    KOORD_NOMINATE_CASE(3)
-    KOORD_NOMINATE_CASE(4)
-    KOORD_NOMINATE_CASE(5)
-    KOORD_NOMINATE_CASE(6)
-    KOORD_NOMINATE_CASE(7)
-    KOORD_NOMINATE_CASE(8)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef KOORD_NOMINATE_CASE
+  if (D < 1 || D > kMaxDims || N < 1 || K < 1 || K > kMaxK || chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  const Args a{(const float*)req, (const float*)est, (const bool*)is_prod,
+               (const bool*)cpu_bind, (const bool*)gate, (const float*)alloc,
+               (const float*)requested, (const float*)est_used,
+               (const float*)prod_used, (const bool*)fresh, (const bool*)sched,
+               (const float*)cpu_amp, (const float*)thr, (const float*)pthr,
+               (const float*)weights, P, N, K, chunk, jitter_scale, jitter_on,
+               approx, (float*)part_cost, (int*)part_idx, (float*)out_cost,
+               (int*)out_idx, (cudaStream_t)stream};
+  return (int)with_dk(D, K, Launch{a});
 }
 
 extern "C" const char* koord_error_string(int code) {

@@ -28,11 +28,12 @@ BUILD = Path(__file__).resolve().parent / "build"
 
 #: sm_90a (Hopper), IEEE division and no FMA contraction: the kernels must
 #: round exactly as the reference's float32 arithmetic does. Never
-#: --use_fast_math.
+#: --use_fast_math. ``-Xptxas -v`` writes each kernel's registers, shared
+#: memory and spills into the build log (:func:`build_log`).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -40,14 +41,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 #: C signatures, by source: entry name → argument types. Every pointer and
-#: the stream are ``c_void_p``; ints are ``c_int``, scalars ``c_float``.
+#: the stream are ``c_void_p`` (an int written back is ``POINTER(c_int)``);
+#: ints are ``c_int``, scalars ``c_float``.
 SIGNATURES: dict[str, dict[str, list]] = {
     "nominate": {
-        "koord_nominate": [_P] * 15 + [_I, _I, _I, _I, _F, _I, _P, _P, _P],
+        "koord_nominate": [_P] * 15 + [_I] * 5 + [_F, _I, _I] + [_P] * 5,
+        "koord_nominate_chunk": [_I] * 5 + [ctypes.POINTER(_I)],
     },
     "commit": {
         "koord_commit": [_P] * 11 + [_F, _I, _I, _I, _P, _P],
-        "koord_segment_sum": [_P, _P, _I, _I, _I, _P, _P],
+    },
+    "gangs": {
+        "koord_enforce_gangs": [_P] * 11 + [_I, _I, _I, _P],
     },
 }
 
@@ -110,10 +115,18 @@ def build(names: "list[str] | None" = None) -> dict[str, float]:
         if proc.returncode != 0:
             failures.append(f"{src.name}: nvcc exit {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return seconds
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed when it built ``csrc/<name>.cu`` ('' when the
+    library was built before logs were kept)."""
+    log = library_path(CSRC / f"{name}.cu").with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -142,14 +155,29 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def require_cuda(what: str, *tensors: torch.Tensor) -> None:
-    """A kernel launch takes contiguous tensors on one CUDA device."""
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev or dev.type != "cuda":
+def checked_ptrs(what: str, tensors, dtypes, sizes) -> list:
+    """The data pointers of a launch's tensors (None stays None), after
+    checking that each lies on the first tensor's CUDA device, has its
+    dtype and number of elements and is contiguous; raises ValueError on
+    any other tensor. The checks are cheap attribute reads: a launch's host
+    time is most of a small kernel's time on the card."""
+    index = tensors[0].get_device()
+    ptrs = []
+    for t, dtype, size in zip(tensors, dtypes, sizes):
+        if t is None:
+            ptrs.append(None)
+            continue
+        if index < 0 or t.get_device() != index:
             raise ValueError(f"{what}: every tensor must lie on one CUDA device")
+        if t.dtype is not dtype or t.numel() != size:
+            raise ValueError(
+                f"{what}: expected {dtype} of {size} elements, got {t.dtype} {tuple(t.shape)}"
+            )
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
+        ptrs.append(t.data_ptr())
+    return ptrs

@@ -1,10 +1,11 @@
 """Segmented commit of one solver round, and ordered segment sums.
 
 Port of the LoadAware commit block of ``koordinator_tpu/ops/solver.py:
-assign`` (:1204-1385) and of the ``jax.ops.segment_sum`` refunds of
-``enforce_gangs`` (:1858-1987). :func:`commit` and :func:`segment_sum`
-launch the hand-written kernels of ``csrc/commit.cu`` on CUDA tensors and
-run :func:`commit_plain` / :func:`segment_sum_plain` on CPU tensors.
+assign`` (:1204-1385). :func:`commit` launches the hand-written kernel of
+``csrc/commit.cu`` on CUDA tensors and runs :func:`commit_plain` on CPU
+tensors. :func:`segment_sum_plain` is the ``jax.ops.segment_sum`` of the
+plain ``enforce_gangs`` (``ops/solver.py:enforce_gangs_plain``); its kernel
+counterpart is part of ``csrc/gangs.cu``.
 
 Order of summation is part of the contract, and it is the order XLA's CPU
 backend gives the reference: ``jnp.cumsum`` sums in chunks of 16
@@ -94,27 +95,9 @@ def _scatter_add_(tables, seg_ids, values) -> None:
         table.copy_(host)
 
 
-def segment_sum(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """:func:`segment_sum_plain` on the tensors' device. On CUDA the rows
-    are stably sorted by segment and ``koord_segment_sum`` sums each
-    segment sequentially, so the result has the CPU's bits."""
-    if values.device.type == "cpu":
-        return segment_sum_plain(values, seg_ids, num_segments)
-    kernels.require_cuda("segment_sum", values, seg_ids)
-    if values.dtype != torch.float32 or values.dim() != 2:
-        raise ValueError("segment_sum: values must be [M, C] float32")
-    m, c = values.shape
-    skey, order = torch.sort(seg_ids.to(torch.int32), stable=True)
-    svals = values[order].contiguous()
-    out = torch.zeros((num_segments, c), dtype=torch.float32, device=values.device)
-    lib = kernels.library("commit")
-    code = lib.koord_segment_sum(
-        skey.data_ptr(), svals.data_ptr(), m, c, num_segments,
-        out.data_ptr(), kernels.stream_of(values),
-    )
-    kernels.check(lib, code, "segment_sum")
-    kernels.launches["segment_sum"] += 1
-    return out
+_I32, _F32, _BOOL = torch.int32, torch.float32, torch.bool
+#: dtypes of koord_commit's tensors, in its argument order
+_COMMIT_DTYPES = (_I32, _F32, _F32, _BOOL, _F32, _BOOL, _F32, _F32, _F32, _F32, _F32)
 
 
 def commit_plain(
@@ -173,23 +156,20 @@ def commit(
     and in-place updates as :func:`commit_plain`."""
     args = (snode, sreq, sest, sprod, alloc, fresh, thr, pthr,
             requested, est_used, prod_used)
-    if snode.device.type == "cpu":
+    if snode.is_cpu:
         return commit_plain(*args, round_quantum)
-    kernels.require_cuda("commit", *args)
     p, d = sreq.shape
     n = alloc.shape[0]
-    if snode.dtype != torch.int32:
-        raise ValueError("commit: snode must be int32")
-    for t in (sreq, sest, alloc, thr, pthr, requested, est_used, prod_used):
-        if t.dtype != torch.float32 or t.shape[-1] != d:
-            raise ValueError("commit: [.., D] tables must be float32")
     if not 1 <= d <= 8:
         raise ValueError(f"commit: D={d} must be in 1..8")
+    pd, nd = p * d, n * d
+    ptrs = kernels.checked_ptrs(
+        "commit", args, _COMMIT_DTYPES, (p, pd, pd, p, nd, n, nd, nd, nd, nd, nd)
+    )
     lib = kernels.library("commit")
     accept = torch.empty((p,), dtype=torch.bool, device=snode.device)
     code = lib.koord_commit(
-        *(t.data_ptr() for t in args),
-        ctypes.c_float(round_quantum), p, n, d,
+        *ptrs, ctypes.c_float(round_quantum), p, n, d,
         accept.data_ptr(), kernels.stream_of(snode),
     )
     kernels.check(lib, code, "commit")

@@ -15,6 +15,7 @@ promise, so neither path uses it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -91,6 +92,63 @@ def nominate_plain(
     )
 
 
+#: the largest k the kernel takes (``kMaxK`` in ``csrc/nominate.cu``)
+MAX_K = 8
+_F32, _BOOL = torch.float32, torch.bool
+#: dtypes of koord_nominate's tensors, in its argument order
+_DTYPES = (_F32, _F32, _BOOL, _BOOL, _BOOL, _F32, _F32, _F32, _F32, _BOOL, _BOOL,
+           _F32, _F32, _F32, _F32)
+
+
+def launch(lib, ptrs, p: int, n: int, d: int, k: int, nomination_jitter: float,
+           approx_topk: bool, chunk: int, device):
+    """One ``koord_nominate`` call of ``lib`` on checked pointers, each
+    block walking ``chunk`` nodes. Returns (cost [P, k], node [P, k], the
+    C entry's error code)."""
+    chunks = -(-n // chunk)
+    # [P, chunks, C] partial lists, C <= MAX_K list slots
+    parts = p * chunks * MAX_K if chunks > 1 else 1
+    part_cost = torch.empty(parts, dtype=torch.float32, device=device)
+    part_idx = torch.empty(parts, dtype=torch.int32, device=device)
+    out_cost = torch.empty((p, k), dtype=torch.float32, device=device)
+    out_idx = torch.empty((p, k), dtype=torch.int32, device=device)
+    code = lib.koord_nominate(
+        *ptrs, p, n, d, k, chunk,
+        ctypes.c_float(nomination_jitter / 65536.0),
+        int(nomination_jitter > 0.0), int(approx_topk),
+        part_cost.data_ptr(), part_idx.data_ptr(),
+        out_cost.data_ptr(), out_idx.data_ptr(),
+        kernels.stream_of(out_cost),
+    )
+    return out_cost, out_idx, code
+
+
+def checked(args, k: int) -> list:
+    """The pointers of ``nominate``'s tensors after the launch checks."""
+    req, alloc = args[0], args[5]
+    p, d = req.shape
+    n = alloc.shape[0]
+    if not 1 <= k <= min(MAX_K, n):
+        raise ValueError(f"nominate: k={k} must be in 1..min({MAX_K}, N={n})")
+    if not 1 <= d <= 16:
+        raise ValueError(f"nominate: D={d} must be in 1..16")
+    pd, nd = p * d, n * d
+    return kernels.checked_ptrs(
+        "nominate", args, _DTYPES, (pd, pd, p, p, p, nd, nd, nd, nd, n, n, n, nd, nd, d)
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def chunk_of(lib, p: int, n: int, d: int, k: int, index: int) -> int:
+    """Nodes each block of ``lib``'s kernel walks at this shape on device
+    ``index`` (``koord_nominate_chunk``: one wave of resident blocks)."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    chunk = ctypes.c_int(0)
+    kernels.check(lib, lib.koord_nominate_chunk(p, n, d, k, sms, ctypes.byref(chunk)),
+                  "nominate chunk")
+    return chunk.value
+
+
 def nominate(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
@@ -98,33 +156,20 @@ def nominate(
 ):
     """Round nomination on the tensors' device: the CUDA kernel for CUDA
     tensors, :func:`nominate_plain` for CPU tensors. Same arguments and
-    result as :func:`nominate_plain`."""
+    result as :func:`nominate_plain`; on the card the kernel writes the
+    nomination vector itself."""
     args = (req, est, is_prod, cpu_bind, gate, alloc, requested, est_used,
             prod_used, fresh, sched, cpu_amp, thr, pthr, weights)
-    if req.device.type == "cpu":
+    if req.is_cpu:
         return nominate_plain(*args, k, nomination_jitter, approx_topk)
-    kernels.require_cuda("nominate", *args)
+    ptrs = checked(args, k)
     p, d = req.shape
     n = alloc.shape[0]
-    if not 1 <= k <= min(8, n):
-        raise ValueError(f"nominate: k={k} must be in 1..min(8, N={n})")
-    for t in (req, est, alloc, requested, est_used, prod_used, thr, pthr):
-        if t.dtype != torch.float32 or t.shape[-1] != d:
-            raise ValueError("nominate: [.., D] tables must be float32")
-    for t in (is_prod, cpu_bind, gate, fresh, sched):
-        if t.dtype != torch.bool:
-            raise ValueError("nominate: masks must be bool")
-    out_cost = torch.empty((p, k), dtype=torch.float32, device=req.device)
-    out_idx = torch.empty((p, k), dtype=torch.int32, device=req.device)
     lib = kernels.library("nominate")
-    code = lib.koord_nominate(
-        *(t.data_ptr() for t in args),
-        p, n, d, k,
-        ctypes.c_float(nomination_jitter / 65536.0),
-        int(nomination_jitter > 0.0),
-        out_cost.data_ptr(), out_idx.data_ptr(),
-        kernels.stream_of(req),
+    chunk = chunk_of(lib, p, n, d, k, req.get_device())
+    out_cost, out_idx, code = launch(
+        lib, ptrs, p, n, d, k, nomination_jitter, approx_topk, chunk, req.device
     )
     kernels.check(lib, code, "nominate")
     kernels.launches["nominate"] += 1
-    return nomination_vector(out_cost, out_idx, approx_topk)
+    return out_cost, out_idx

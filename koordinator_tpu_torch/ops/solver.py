@@ -2,7 +2,8 @@
 
 Port of ``koordinator_tpu/ops/solver.py``'s LoadAware round solver
 (:func:`assign`, :679-1535) and its stream (:func:`solve_stream`,
-:1671-1733), with :func:`enforce_gangs` (:1858-1987). Each round:
+:1671-1733), with :func:`enforce_gangs` (:1858-1987, the CUDA kernel
+``csrc/gangs.cu`` on the card, one launch a batch). Each round:
 
 1. nominate — every still-unassigned pod's masked, jittered LoadAware cost
    over all nodes and its top-k (:func:`.nominate.nominate`, the CUDA kernel
@@ -29,7 +30,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .. import resolve_device
+from .. import kernels, resolve_device
 from . import commit as commit_ops
 from . import nominate as nominate_ops
 from .commit import _segment_prefix_sums  # noqa: F401  (reference name)
@@ -455,7 +456,10 @@ def assign(
         pod_zone_charge=torch.zeros((p, 1), dtype=torch.float32, device=dev),
         shortlist_fallbacks=torch.zeros((2,), dtype=torch.int32, device=dev),
     )
-    return enforce_gangs(result, pods)
+    # the tables were cloned above and the assignment is fresh: roll back
+    # in place
+    _enforce_gangs_(result, pods)
+    return result
 
 
 def solve_stream(
@@ -505,13 +509,14 @@ def solve_stream(
     return torch.stack(assignments), cur, torch.stack(placed), quotas
 
 
-def enforce_gangs(result: SolveResult, pods: PodBatch) -> SolveResult:
+def enforce_gangs_plain(result: SolveResult, pods: PodBatch) -> SolveResult:
     """All-or-nothing gang rollback (Coscheduling Permit semantics,
     ``solver.py:1858-1987``), node tables and gang counts only: gangs whose
     placed-member count is below ``minMember`` lose all their placements
     and their node charges, unless the gang is NonStrict. Refunds use the
     unamplified ``pods.requests`` in original pod order, as the reference
-    does; the sums are ordered (:func:`.commit.segment_sum`)."""
+    does; the sums are ordered (:func:`.commit.segment_sum_plain`). The
+    plain version of ``csrc/gangs.cu``; returns a new result."""
     p, d = pods.requests.shape
     n = result.node_requested.shape[0]
     assignment = result.assignment
@@ -533,7 +538,7 @@ def enforce_gangs(result: SolveResult, pods: PodBatch) -> SolveResult:
         ],
         dim=1,
     )
-    delta = commit_ops.segment_sum(refunds, torch.where(rollback, node_of, n), n)
+    delta = commit_ops.segment_sum_plain(refunds, torch.where(rollback, node_of, n), n)
     return dataclasses.replace(
         result,
         assignment=torch.where(keep, assignment, -1),
@@ -546,3 +551,54 @@ def enforce_gangs(result: SolveResult, pods: PodBatch) -> SolveResult:
             else torch.where(rollback, -1, result.pod_zone)
         ),
     )
+
+
+_GANG_FIELDS = (
+    "assignment", "node_requested", "node_estimated_used", "node_prod_used",
+    "pod_zone",
+)
+_I32, _F32, _BOOL = torch.int32, torch.float32, torch.bool
+#: dtypes of koord_enforce_gangs' tensors, in its argument order
+_GANG_DTYPES = (_I32, _I32, _I32, _BOOL, _F32, _F32, _BOOL, _F32, _F32, _F32, _I32)
+
+
+def _enforce_gangs_(result: SolveResult, pods: PodBatch) -> None:
+    """Gang rollback in place on ``result``'s assignment, node tables and
+    ``pod_zone``: one ``koord_enforce_gangs`` launch (``csrc/gangs.cu``)
+    for CUDA tensors, :func:`enforce_gangs_plain` written into ``result``'s
+    tensors for CPU tensors."""
+    asg = result.assignment
+    if asg.is_cpu:
+        out = enforce_gangs_plain(result, pods)
+        for name in _GANG_FIELDS:
+            if getattr(result, name) is not None:
+                getattr(result, name).copy_(getattr(out, name))
+        return
+    p, d = pods.requests.shape
+    n = result.node_requested.shape[0]
+    pd, nd = p * d, n * d
+    ptrs = kernels.checked_ptrs(
+        "enforce_gangs",
+        (asg, pods.gang_id, pods.gang_min, pods.gang_nonstrict, pods.requests,
+         pods.estimate, pods.is_prod, result.node_requested,
+         result.node_estimated_used, result.node_prod_used, result.pod_zone),
+        _GANG_DTYPES, (p, p, p, p, pd, pd, p, nd, nd, nd, p),
+    )
+    lib = kernels.library("gangs")
+    code = lib.koord_enforce_gangs(*ptrs, p, n, d, kernels.stream_of(asg))
+    kernels.check(lib, code, "enforce_gangs")
+    kernels.launches["enforce_gangs"] += 1
+
+
+def enforce_gangs(result: SolveResult, pods: PodBatch) -> SolveResult:
+    """All-or-nothing gang rollback (``solver.py:1858-1987``) on the
+    tensors' device, functional as the reference is: the result's
+    assignment, node tables and ``pod_zone`` are cloned, then rolled back
+    in place (:func:`_enforce_gangs_`)."""
+    out = dataclasses.replace(result, **{
+        name: getattr(result, name).clone()
+        for name in _GANG_FIELDS
+        if getattr(result, name) is not None
+    })
+    _enforce_gangs_(out, pods)
+    return out

@@ -5,10 +5,13 @@ no JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Shapes cover the kernels' edges: one pod, fewer nodes than threads, node
-counts off the block size, D = 1..3, k = 1..8, commit rounds of 1 to 4,100
-pods (one to three scan levels). Tolerance: none — the kernels round as
-the plain versions do, so results must be bitwise equal.
+Shapes cover the kernels' edges: one pod, fewer nodes than a node tile,
+node counts off the tile and chunk sizes (1, 31, 5,003, 10,001), D = 1, 2,
+3, 8 and 16 (the two tile heights), k = 1..8, commit rounds of 1 to 4,100
+pods (one to three scan levels), gang rollbacks of 1 to 1,000 pods with no
+gangs, every gang short, NonStrict gangs, all refunds on one node and
+refunds on node N-1. Tolerance: none — the kernels round as the plain
+versions do, so results must be bitwise equal.
 """
 
 import numpy as np
@@ -64,7 +67,9 @@ def nominate_inputs(seed, p, n, d):
 
 @pytest.mark.parametrize(
     "p, n, d, k",
-    [(1, 1, 1, 1), (3, 7, 2, 4), (37, 300, 3, 8), (512, 1000, 2, 4), (200, 5003, 2, 2)],
+    [(1, 1, 1, 1), (3, 7, 2, 4), (37, 300, 3, 8), (512, 1000, 2, 4), (200, 5003, 2, 2),
+     (5, 31, 1, 3), (65, 31, 8, 8), (130, 10_001, 2, 4), (512, 10_001, 3, 4),
+     (64, 1, 2, 1), (70, 10_001, 8, 5), (33, 257, 16, 4)],
 )
 @pytest.mark.parametrize("jitter, approx", [(4.0, False), (4.0, True), (0.0, False)])
 def test_nominate_kernel_matches_plain(cuda, p, n, d, k, jitter, approx):
@@ -122,14 +127,77 @@ def test_commit_refuses_a_round_too_large_for_one_block(cuda):
         tcommit.commit(*dev, 0.35)
 
 
-@pytest.mark.parametrize("m, c, s", [(1, 1, 1), (700, 6, 50), (512, 6, 10_000)])
-def test_segment_sum_kernel_matches_plain(cuda, m, c, s):
-    rng = np.random.default_rng(m)
-    vals = torch.from_numpy((rng.uniform(0, 5000, (m, c)) * 0.85).astype(np.float32))
-    ids = torch.from_numpy(rng.integers(-2, s + 3, m).astype(np.int32))
-    got = tcommit.segment_sum(vals.to(cuda), ids.to(cuda), s)
-    want = tcommit.segment_sum_plain(vals, ids, s)
-    np.testing.assert_array_equal(bits(got.cpu().numpy()), bits(want.numpy()))
+def gang_inputs(seed, p, n, d, kind):
+    """A solved batch (numpy result fields, PodBatch fields) for one kind
+    of rollback."""
+    rng = np.random.default_rng(seed)
+    assignment = np.where(rng.random(p) < 0.85, rng.integers(0, n, p), -1)
+    if kind == "one node":
+        assignment = np.where(assignment >= 0, n // 2, -1)
+    if kind == "sink row":
+        assignment = np.where(rng.random(p) < 0.5, n - 1, assignment)
+    gangs = max(1, min(p, 8))
+    gang_id = np.where(rng.random(p) < 0.6, rng.integers(0, gangs, p), -1)
+    if kind == "no gangs":
+        gang_id[:] = -1
+    gang_min = np.zeros(p, np.int32)
+    gang_min[:gangs] = rng.integers(1, 1 + max(2, p // 16), gangs)
+    if kind != "nonstrict":
+        gang_min[:gangs] = p + 1  # every gang short of its minMember
+    nonstrict = np.zeros(p, bool)
+    if kind == "nonstrict":
+        nonstrict[:gangs] = rng.random(gangs) < 0.5
+    req = (rng.uniform(100, 5000, (p, d)) * np.float32(0.85)).astype(np.float32)
+    pods = dict(
+        requests=req, estimate=(req * np.float32(0.7)).astype(np.float32),
+        priority=rng.integers(5000, 9999, p).astype(np.int32),
+        is_prod=rng.random(p) < 0.4, gang_id=gang_id.astype(np.int32),
+        gang_min=gang_min, gang_nonstrict=nonstrict,
+    )
+    result = dict(
+        assignment=assignment.astype(np.int32),
+        **{f: rng.uniform(1e4, 1e5, (n, d)).astype(np.float32)
+           for f in ("node_requested", "node_estimated_used", "node_prod_used")},
+    )
+    return result, pods
+
+
+def solve_result(result, device):
+    p, d = len(result["assignment"]), result["node_requested"].shape[1]
+    return T.SolveResult(
+        quota_used=torch.zeros((1, d), device=device),
+        rounds_used=torch.tensor(1, dtype=torch.int32, device=device),
+        pod_zone=torch.full((p,), -1, dtype=torch.int32, device=device),
+        **{k: torch.from_numpy(v.copy()).to(device) for k, v in result.items()},
+    )
+
+
+@pytest.mark.parametrize("kind", ["no gangs", "all short", "nonstrict", "one node", "sink row"])
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("p", [1, 17, 512, 1000])
+def test_enforce_gangs_kernel_matches_plain(cuda, p, d, kind):
+    n = max(2, p // 4)
+    result, pods = gang_inputs(p * 10 + d, p, n, d, kind)
+    got = solve_result(result, cuda)
+    before = kernels.launches["enforce_gangs"]
+    T._enforce_gangs_(got, from_numpy(T.PodBatch, device=cuda, **pods))
+    torch.cuda.synchronize()
+    assert kernels.launches["enforce_gangs"] == before + 1
+    want = T.enforce_gangs_plain(solve_result(result, "cpu"), from_numpy(T.PodBatch, device="cpu", **pods))
+    for f in ("assignment", "pod_zone", "node_requested", "node_estimated_used", "node_prod_used"):
+        np.testing.assert_array_equal(bits(getattr(got, f).cpu().numpy()),
+                                      bits(getattr(want, f).numpy()), err_msg=f)
+    rolled = (result["assignment"] >= 0) & (want.assignment.numpy() < 0)
+    if kind != "no gangs" and kind != "nonstrict" and p >= 17:
+        assert rolled.any()
+    if kind == "no gangs":
+        assert not rolled.any()
+
+
+def test_enforce_gangs_refuses_a_batch_too_large_for_one_block(cuda):
+    result, pods = gang_inputs(1, 20_000, 100, 2, "all short")
+    with pytest.raises(RuntimeError, match="enforce_gangs: CUDA error"):
+        T._enforce_gangs_(solve_result(result, cuda), from_numpy(T.PodBatch, device=cuda, **pods))
 
 
 @pytest.mark.parametrize("approx", [False, True])
@@ -172,7 +240,7 @@ def test_assign_on_card_matches_cpu(cuda, approx):
 
     kernels.reset_launches()
     got = run(cuda)
-    assert min(kernels.launches[k] for k in ("nominate", "commit", "segment_sum")) > 0
+    assert min(kernels.launches[k] for k in ("nominate", "commit", "enforce_gangs")) > 0
     want = run("cpu")
     for f in ("assignment", "rounds_used", "node_requested",
               "node_estimated_used", "node_prod_used"):

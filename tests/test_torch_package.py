@@ -4,13 +4,16 @@
   running it with ``jax`` blocked, and by an AST scan);
 - its constructors default to CUDA and raise without a card; its kernel
   wrappers launch or raise, never fall back;
-- its build helper lists every CUDA source with its C entries;
+- its build helper lists every CUDA source with its C entries, bound with
+  as many arguments as each entry takes;
 - ``chip_smoke.py`` keeps an exact copy of ``bench.build_fixture`` and
   fails, printing no result, where there is no card or no package.
 """
 
 import ast
+import ctypes
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -111,8 +114,18 @@ def test_wrappers_launch_or_raise_never_fall_back():
     with pytest.raises(ValueError, match="CUDA"):
         tcommit.commit(flags.int(), meta, meta, flags, meta, flags, meta, meta,
                        meta, meta, meta, 0.35)
+    ints = flags.int()
+    result = T.SolveResult(
+        assignment=ints, node_requested=meta, node_estimated_used=meta,
+        node_prod_used=meta, quota_used=meta[:1], rounds_used=ints[0],
+    )
+    pods = T.PodBatch(
+        requests=meta, estimate=meta, priority=ints, is_prod=flags, valid=flags,
+        gang_id=ints, gang_min=ints, quota_chain=ints[:, None], qos=ints,
+        gpu_whole=ints, gpu_share=meta[:, 0], gang_nonstrict=flags,
+    )
     with pytest.raises(ValueError, match="CUDA"):
-        tcommit.segment_sum(meta, flags.int(), 4)
+        T.enforce_gangs(result, pods)
 
 
 def test_build_helper_lists_every_source_and_entry():
@@ -128,6 +141,23 @@ def test_build_helper_lists_every_source_and_entry():
     assert "fast_math" not in flags and "fast-math" not in flags
     assert kernels.BUILD == PACKAGE / "build"
     assert "koordinator_tpu_torch/build/" in (ROOT / ".gitignore").read_text().split()
+
+
+@pytest.mark.parametrize(
+    "src, entry",
+    [(src, entry) for src, entries in kernels.SIGNATURES.items() for entry in entries],
+)
+def test_c_entry_takes_the_bound_arguments(src, entry):
+    """ctypes passes exactly what ``SIGNATURES`` binds: the C entry must
+    take as many arguments, pointers where pointers are bound."""
+    text = (PACKAGE / "csrc" / f"{src}.cu").read_text()
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
+    assert m, entry
+    params = [p.strip() for p in m.group(1).split(",")]
+    bound = kernels.SIGNATURES[src][entry]
+    assert len(params) == len(bound)
+    for param, argtype in zip(params, bound):
+        assert ("*" in param) == (argtype is not ctypes.c_int and argtype is not ctypes.c_float), param
 
 
 def test_chip_smoke_fixture_is_bench_fixture():
