@@ -13,20 +13,26 @@ Phases (any failure exits non-zero and prints no result line):
    shapes (P=512 pods, N=10,000 nodes, D=2) on a fixture with stale
    metrics, unschedulable nodes, custom thresholds, amplified CPU with
    cpuset-bound pods, prod pods and gangs: nomination indices and finite
-   costs bitwise equal, commit accepts and post-commit tables bitwise equal
-   to ``commit_plain`` on CPU copies, gang rollback (with real rollbacks,
-   one node refunded twice or more) bitwise equal to
-   ``enforce_gangs_plain``; then time each kernel, its plain version and,
-   where one exists, the one PyTorch call that computes the same function;
+   costs bitwise equal; the round tail's tables, assignments, active flags
+   and state word bitwise equal to ``round_tail_plain`` on CPU copies at
+   round 0, after 15 batches and at P=4,096 (the JAX scheduler's batch
+   bucket); gang rollback (with real rollbacks, one node refunded twice or
+   more) bitwise equal to ``enforce_gangs_plain``; then time each kernel,
+   its plain version and, where one exists, the one PyTorch call that
+   computes the same function;
 4. the headline stream: ``solve_stream`` over 98,304 pods and 10,000 nodes
-   in 192 batches of 512 (``bench.py``'s fixture and parameters), one
-   warm-up pass and 3 timed passes through the kernels (launch counts are
-   zeroed just before the first timed pass and read just after it; one
-   ``enforce_gangs`` launch a batch; a count is of wrapper calls, and
-   ``kernels_per_launch`` in the kernels line says how many kernels one
-   call runs: two for nomination, its tiled and merge kernels), then one
-   pass through the plain versions on the card: assignments and final
-   tables must be identical;
+   in 192 batches of 512 (``bench.py``'s fixture and parameters), one CUDA
+   graph replay a batch. One warm-up pass (it captures the graph; its host
+   syncs are counted), then 3 timed passes that must make no host sync
+   (``torch.cuda.set_sync_debug_mode("error")``); launch counts are zeroed
+   just before the first timed pass and read just after it (a count is of
+   wrapper launches, replays included; ``kernels_per_launch`` in the
+   kernels line says how many kernels one runs: two for nomination, its
+   tiled and merge kernels); ``rounds_used`` a batch comes from the
+   device. Then the kernels launched in one profiled pass, the busy share,
+   the cost of the trips after each batch's fixed point (a graph of empty
+   trips, timed), and one eager pass through the plain versions on the
+   card: assignments, final tables and rounds must be identical;
 5. the committed golden (``tests/data/torch_golden_loadaware.npz``): the
    JAX package's ``solve_stream`` result on a 2×512-pod × 2,000-node
    fixture; the port on the card must reproduce it bit for bit.
@@ -206,18 +212,23 @@ def device_ms(torch, fn, iters: int, name_part: "str | None"):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    # a profiled window has been seen to lose its kernel intervals now and
+    # then (PERF.md section 7): one more window before "not measured"
+    for _ in range(2):
         torch.cuda.synchronize()
-    total = sum(
-        evt.time_range.elapsed_us()
-        for evt in prof.events()
-        if evt.device_type == DeviceType.CUDA
-        and (name_part is None or name_part in evt.name)
-    )
-    return total / iters / 1000.0 if total > 0 else None
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(
+            evt.time_range.elapsed_us()
+            for evt in prof.events()
+            if evt.device_type == DeviceType.CUDA
+            and (name_part is None or name_part in evt.name)
+        )
+        if total > 0:
+            return total / iters / 1000.0
+    return None
 
 
 #: kernels one wrapper call launches together, listed under one name
@@ -225,6 +236,13 @@ KERNEL_GROUPS = {
     "nominate_kernel": "nominate_kernel + nominate_merge_kernel",
     "nominate_merge_kernel": "nominate_kernel + nominate_merge_kernel",
 }
+
+
+def is_sync_warning(w) -> bool:
+    """A host sync reported by ``torch.cuda.set_sync_debug_mode("warn")``
+    (not the notice that the mode is a prototype, given when it is set)."""
+    msg = str(w.message)
+    return "synchronizing" in msg and "prototype" not in msg
 
 
 def stream_profile(torch, fn, wall_s: float) -> dict:
@@ -240,9 +258,14 @@ def stream_profile(torch, fn, wall_s: float) -> dict:
         fn()
         torch.cuda.synchronize()
     by_name: dict = {}
+    kernels = copies = 0
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
+        if evt.name.startswith(("Memcpy", "Memset")):
+            copies += 1
+        else:
+            kernels += 1
         name = evt.name.replace("(anonymous namespace)::", "")
         name = name.removeprefix("void ").split("(")[0].split("<")[0]
         name = name.split("::")[-1].strip()[:60]
@@ -250,11 +273,13 @@ def stream_profile(torch, fn, wall_s: float) -> dict:
         by_name[name] = by_name.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
     if busy_ms <= 0:
-        return {"device_busy_ms": "not measured"}
+        return {"device_busy_ms": "not measured", "kernels_launched": "not measured"}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / (wall_s * 1e3),
+        "kernels_launched": kernels,
+        "copies_launched": copies,
         "top_device_ms": dict(top),
     }
 
@@ -267,20 +292,23 @@ def plain_versions():
     from koordinator_tpu_torch.ops import nominate as nominate_ops
     from koordinator_tpu_torch.ops import solver
 
+    def nominate_plain(*args, state=None):
+        return nominate_ops.nominate_plain(*args)
+
     def enforce_gangs_plain_(result, pods):
         out = solver.enforce_gangs_plain(result, pods)
         for name in solver._GANG_FIELDS:
             if getattr(result, name) is not None:
                 getattr(result, name).copy_(getattr(out, name))
 
-    saved = (nominate_ops.nominate, commit_ops.commit, solver._enforce_gangs_)
-    nominate_ops.nominate = nominate_ops.nominate_plain
-    commit_ops.commit = commit_ops.commit_plain
+    saved = (nominate_ops.nominate, commit_ops.round_tail, solver._enforce_gangs_)
+    nominate_ops.nominate = nominate_plain
+    commit_ops.round_tail = commit_ops.round_tail_plain
     solver._enforce_gangs_ = enforce_gangs_plain_
     try:
         yield
     finally:
-        nominate_ops.nominate, commit_ops.commit, solver._enforce_gangs_ = saved
+        nominate_ops.nominate, commit_ops.round_tail, solver._enforce_gangs_ = saved
 
 
 def port_inputs(torch, nodes, pods, params, device):
@@ -310,6 +338,27 @@ def round_inputs(pods_b, nodes_t, params_t):
     return spods, nom_args
 
 
+def round_tail_args(torch, spods, nom_args, top_cost, top_idx):
+    """``round_tail``'s arguments for round 0 of a batch: its nomination,
+    the sorted pods, the node state of ``nom_args`` (tables cloned), and
+    the loop state before the first round (nothing assigned, every valid
+    pod active, ``done`` clear, no rounds)."""
+    p = spods.requests.shape[0]
+    dev = top_cost.device
+    state = torch.zeros((2,), dtype=torch.int32, device=dev)
+    state[0].copy_(~spods.valid.any())
+    return [
+        top_cost, top_idx, spods.requests, spods.estimate, spods.is_prod, nom_args[3],
+        nom_args[11], nom_args[5], nom_args[9], nom_args[12], nom_args[13],
+        nom_args[6].clone(), nom_args[7].clone(), nom_args[8].clone(),
+        torch.full((p,), -1, dtype=torch.int32, device=dev), spods.valid.clone(), state,
+    ]
+
+
+#: the arguments ``round_tail`` updates in place (tables and loop state)
+ROUND_MUTABLE = slice(11, 17)
+
+
 def ptxas_summary(kernels) -> dict:
     """Registers, shared memory and spills of the main path's kernels
     (nominate at D=2 with four list slots, K <= 4), from ``nvcc -Xptxas -v``
@@ -320,12 +369,12 @@ def ptxas_summary(kernels) -> dict:
     wanted = {
         "nominate_kernelILi2ELi4E": "nominate_kernel<2,4>",
         "nominate_merge_kernelILi4E": "nominate_merge_kernel<4>",
-        "commit_kernel": "commit_kernel",
+        "round_tail_kernelILi2E": "round_tail_kernel<2>",
         "enforce_gangs_kernel": "enforce_gangs_kernel",
     }
     out: dict = {}
     worst = {"registers": 0, "spill_bytes": 0}
-    for src in ("nominate", "commit", "gangs"):
+    for src in ("nominate", "round", "gangs"):
         entry = None
         for line in kernels.build_log(src).splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -384,9 +433,29 @@ def phase_kernels(torch, dev, report):
     _, later, _, _ = solver.solve_stream(
         solver.tree_map(lambda a: a[:15], pods_s), nodes_t, params_t, **SOLVE
     )
-    checks = {"nominate": 0.0, "commit": 0.0, "enforce_gangs": 0.0}
+    checks = {"nominate": 0.0, "round_tail": 0.0, "enforce_gangs": 0.0}
     rollbacks = []
     timing_inputs = None
+
+    def check_round_tail(label, spods, nom_args):
+        """The round tail on the kernel's own nomination of round 0 against
+        round_tail_plain on CPU copies; returns its arguments."""
+        top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True)
+        args = round_tail_args(torch, spods, nom_args, top_cost, top_idx)
+        host = [t.cpu() for t in args]
+        work = [t.clone() for t in args]
+        commit_ops.round_tail(*work, 0.35)
+        commit_ops.round_tail_plain(*host, 0.35)
+        torch.cuda.synchronize()
+        names = ("requested", "estimated_used", "prod_used", "assigned", "active", "state")
+        for name, tk, tp in zip(names, work[ROUND_MUTABLE], host[ROUND_MUTABLE]):
+            if not bits_equal(tk.cpu().numpy(), tp.numpy()):
+                fail(f"round_tail ({label}): {name} differs from round_tail_plain")
+            checks["round_tail"] = max(checks["round_tail"], max_abs(tk.cpu().numpy(), tp.numpy()))
+        if int((work[14] >= 0).sum()) == 0:
+            fail(f"round_tail ({label}): the check needs a round that places pods")
+        return args
+
     for label, state, b in (("start", nodes_t, 0), ("after 15 batches", later, 15)):
         pods_b = solver.tree_map(lambda a: a[b], pods_s)
         spods, nom_args = round_inputs(pods_b, state, params_t)
@@ -401,27 +470,7 @@ def phase_kernels(torch, dev, report):
             if not (bits_equal(kc[fin], pc[fin]) and np.array_equal(ki[fin], pi[fin])):
                 fail(f"nominate ({label}, approx={approx}): differs from nominate_plain")
             checks["nominate"] = max(checks["nominate"], max_abs(kc[fin], pc[fin]))
-        # commit, on the kernel's own nomination of this round
-        top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True)
-        n = state.allocatable.shape[0]
-        _, node_key = solver._choose(top_cost, top_idx, spods.valid, n)
-        _, snode, sreq, sest, sprod = solver._commit_inputs(
-            node_key, spods, nom_args[3], state.cpu_amp, n
-        )
-        thr, pthr = nom_args[12], nom_args[13]
-        fixed = (snode, sreq, sest, sprod, state.allocatable, state.metric_fresh, thr, pthr)
-        tables = [state.requested.clone(), state.estimated_used.clone(), state.prod_used.clone()]
-        acc_k = commit_ops.commit(*fixed, *tables, 0.35)
-        host_fixed = [t.cpu() for t in fixed]
-        host_tables = [t.cpu() for t in (state.requested, state.estimated_used, state.prod_used)]
-        acc_p = commit_ops.commit_plain(*host_fixed, *host_tables, 0.35)
-        torch.cuda.synchronize()
-        if not np.array_equal(acc_k.cpu().numpy(), acc_p.numpy()):
-            fail(f"commit ({label}): accepts differ from commit_plain")
-        for tk, tp in zip(tables, host_tables):
-            if not bits_equal(tk.cpu().numpy(), tp.numpy()):
-                fail(f"commit ({label}): post-commit tables differ from commit_plain")
-            checks["commit"] = max(checks["commit"], max_abs(tk.cpu().numpy(), tp.numpy()))
+        rt_args = check_round_tail(label, spods, nom_args)
         # gang rollback of this batch's solve result (Strict and NonStrict
         # gangs), against the plain version on CPU copies
         pre = gang_check_inputs(pods_b, state, params_t)
@@ -443,11 +492,15 @@ def phase_kernels(torch, dev, report):
                  f"twice; got {int(rolled.sum())} rollbacks, at most {most} on one node")
         rollbacks.append(dict(at=label, rolled_back=int(rolled.sum()), most_on_one_node=most))
         if timing_inputs is None:
-            timing_inputs = (nom_args, fixed, tables, spods, pre, pods_b)
-    print(f"kernel checks: bitwise equal to the plain versions {json.dumps(checks)}; "
+            timing_inputs = (nom_args, rt_args, spods, pre, pods_b)
+    # the JAX scheduler's batch bucket: 4,096 pods in one round
+    big = solver.tree_map(lambda a: a[:8].reshape((-1,) + a.shape[2:]), pods_s)
+    check_round_tail("P=4096", *round_inputs(big, nodes_t, params_t))
+    print(f"kernel checks: bitwise equal to the plain versions {json.dumps(checks)} "
+          f"(round tail at round 0, after 15 batches and at P=4096); "
           f"gang rollbacks {json.dumps(rollbacks)}", flush=True)
 
-    nom_args, fixed, tables, spods, pre, pods_b = timing_inputs
+    nom_args, rt_args, spods, pre, pods_b = timing_inputs
     p, d = spods.requests.shape
     n = nom_args[5].shape[0]
 
@@ -457,13 +510,20 @@ def phase_kernels(torch, dev, report):
     def t_nominate_plain():
         nominate_ops.nominate_plain(*nom_args, 4, 4.0, False)
 
-    work = [t.clone() for t in tables]
+    # the round tail works in place and may set `done`: every timed call
+    # gets its own copy of the tables and the loop state
+    rt_iters = 200
+    rt_copies = iter([[t.clone() for t in rt_args[ROUND_MUTABLE]]
+                      for _ in range(2 * rt_iters + 2)])
+    rt_fixed = rt_args[:ROUND_MUTABLE.start]
 
-    def t_commit():
-        commit_ops.commit(*fixed, *work, 0.35)
+    def t_round_tail():
+        commit_ops.round_tail(*rt_fixed, *next(rt_copies), 0.35)
 
-    def t_commit_plain():
-        commit_ops.commit_plain(*fixed, *[t.clone() for t in tables], 0.35)
+    def t_round_tail_plain():
+        commit_ops.round_tail_plain(
+            *rt_fixed, *[t.clone() for t in rt_args[ROUND_MUTABLE]], 0.35
+        )
 
     # the rollback works in place: every timed call gets its own copy, and
     # the list keeps it alive, so no call pays for freeing the one before
@@ -503,10 +563,21 @@ def phase_kernels(torch, dev, report):
         + feas_pairs * (9 * d + 3 + 7)
     )
     nom_bytes = n * (6 * d * 4 + 2 + 4) + p * (2 * d * 4 + 3) + d * 4 + p * 4 * 8
-    snode = fixed[0]
-    touched = int(torch.unique(snode[snode < n]).numel())
-    commit_bytes = p * (4 + 2 * d * 4 + 1) + touched * d * 4 * 10 + touched + p
-    commit_ops_n = p * (3 * d * 2 + d * 3 + 2 * d * 7 + d * 4)
+    # round tail: the nomination, the pods' columns and the loop state read
+    # once, each nominated node's row of the node tables read once, the
+    # winners' node rows and the loop state written once
+    k = rt_args[0].shape[1]
+    _, node_key = commit_ops._choose(rt_args[0], rt_args[1], rt_args[15], n)
+    touched = int(torch.unique(node_key[node_key < n]).numel())
+    after = [t.clone() for t in rt_args[ROUND_MUTABLE]]
+    commit_ops.round_tail(*rt_fixed, *after, 0.35)
+    won = int((after[0] != rt_args[11]).any(dim=1).sum())
+    rt_bytes = (p * k * 8 + p * (2 * d * 4 + 2) + p * (1 + 4) * 2 + 8 * 2
+                + touched * (6 * d * 4 + 1 + 4) + won * 3 * d * 4)
+    sort_len = 1 << max(p - 1, 0).bit_length()
+    lg = sort_len.bit_length() - 1
+    rt_ops = (p * (k + 4) + (sort_len // 2) * lg * (lg + 1) // 2
+              + p * d * (3 * 2 + 20) + p * d * 3)
     n_rolled = int(rolled.sum())
     refunded_nodes = int(torch.unique(ids_l).numel())
     gang_bytes = p * (4 * 4 + 2 * d * 4 + 2) + refunded_nodes * 3 * d * 4 * 2
@@ -515,7 +586,7 @@ def phase_kernels(torch, dev, report):
     # kernels a wrapper call launches: nomination adds a merge kernel when
     # the node axis is cut into chunks
     nom_chunk = nominate_ops.chunk_of(kernels.library("nominate"), p, n, d, 4, dev.index or 0)
-    per_call = {"nominate": 1 if nom_chunk >= n else 2, "commit": 1, "enforce_gangs": 1}
+    per_call = {"nominate": 1 if nom_chunk >= n else 2, "round_tail": 1, "enforce_gangs": 1}
 
     def bound(nbytes, nops):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -527,9 +598,9 @@ def phase_kernels(torch, dev, report):
         ("nominate", "koordinator_tpu_torch/csrc/nominate.cu",
          "koordinator_tpu/ops/solver.py:1121", t_nominate, t_nominate_plain, None,
          "nominate", nom_bytes, nom_ops, checks["nominate"], 200),
-        ("commit", "koordinator_tpu_torch/csrc/commit.cu",
-         "koordinator_tpu/ops/solver.py:1204", t_commit, t_commit_plain, None,
-         "commit_kernel", commit_bytes, commit_ops_n, checks["commit"], 200),
+        ("round_tail", "koordinator_tpu_torch/csrc/round.cu",
+         "koordinator_tpu/ops/solver.py:1204", t_round_tail, t_round_tail_plain, None,
+         "round_tail_kernel", rt_bytes, rt_ops, checks["round_tail"], rt_iters),
         ("enforce_gangs", "koordinator_tpu_torch/csrc/gangs.cu",
          "koordinator_tpu/ops/solver.py:1858", t_gangs, t_gangs_plain, t_index_add,
          "enforce_gangs_kernel", gang_bytes, gang_ops, checks["enforce_gangs"], gang_iters),
@@ -549,52 +620,108 @@ def phase_kernels(torch, dev, report):
     report["kernels"] = rows
     report["rollbacks"] = rollbacks
     kernels.reset_launches()
+    return nom_args, rt_args
 
 
-def phase_stream(torch, dev, report):
-    """Phase 4: the headline stream through the kernels, then once through
-    the plain versions on the card."""
+def empty_trip_ms(torch, nom_args, rt_args, trips: int = 100):
+    """CUDA-event milliseconds of one round trip after the fixed point —
+    nomination (tiled and merge kernels) and round tail, each returning at
+    once on ``done`` — from a CUDA graph of ``trips`` such trips, as the
+    stream's graph runs them."""
+    from koordinator_tpu_torch.ops import commit as commit_ops
+    from koordinator_tpu_torch.ops import nominate as nominate_ops
+
+    args = list(rt_args)
+    args[16] = torch.tensor([1, 0], dtype=torch.int32, device=rt_args[0].device)
+
+    def trip():
+        nominate_ops.nominate(*nom_args, 4, 4.0, True, state=args[16])
+        commit_ops.round_tail(*args, 0.35)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        trip()
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        for _ in range(trips):
+            trip()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    ms = cuda_ms(torch, graph.replay, 10) / trips
+    torch.cuda.synchronize()
+    return ms
+
+
+def phase_stream(torch, dev, report, trip_inputs):
+    """Phase 4: the headline stream through the kernels, one CUDA graph
+    replay a batch, then once eagerly through the plain versions."""
+    import warnings
+
     from koordinator_tpu_torch import kernels
     from koordinator_tpu_torch.ops import solver
 
     nodes, pods, params = headline_inputs(build_fixture(0))
     nodes_t, pods_t, params_t = port_inputs(torch, nodes, stacked(pods), params, dev)
+    n_batches = N_PODS // BATCH
+    rounds = torch.zeros(n_batches, dtype=torch.int32, device=dev)
 
-    def run():
+    def run(sync_mode="error", **kw):
         t0 = time.perf_counter()
-        out = solver.solve_stream(pods_t, nodes_t, params_t, **SOLVE)
-        placed_total = int(out[2].sum())  # waits for the card
+        torch.cuda.set_sync_debug_mode(sync_mode)
+        try:
+            out = solver.solve_stream(pods_t, nodes_t, params_t, **SOLVE, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        placed_total = int(out[2].sum())  # the caller's read: waits for the card
         return out, placed_total, time.perf_counter() - t0
 
-    run()  # warm-up: first launches, allocator
+    # first pass: captures the graph; every host sync it makes is a warning
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, _, first_seconds = run("warn")
+    first_syncs = sum(is_sync_warning(w) for w in caught)
     kernels.reset_launches()
-    out, placed, seconds = run()
+    # timed passes: any host sync inside solve_stream raises
+    out, placed, seconds = run(rounds_out=rounds)
     launches = dict(kernels.launches)
+    replays = dict(kernels.replays)
+    rounds_np = rounds.cpu().numpy()
     times = [seconds] + [run()[2] for _ in range(PASSES - 1)]
-    n_batches = N_PODS // BATCH
-    for name in ("nominate", "commit", "enforce_gangs"):
+    for name in ("nominate", "round_tail", "enforce_gangs"):
         if launches.get(name, 0) <= 0:
             fail(f"the headline stream launched no {name} kernel")
-    if launches["enforce_gangs"] != n_batches:
-        fail(f"enforce_gangs launched {launches['enforce_gangs']} times, not once a batch")
+    if launches["enforce_gangs"] != n_batches or replays.get("solve_stream") != n_batches:
+        fail(f"enforce_gangs launched {launches['enforce_gangs']} times and the graph "
+             f"replayed {replays} times, not once a batch")
+    plain_rounds = torch.zeros(n_batches, dtype=torch.int32, device=dev)
     with plain_versions():
-        p_out, p_placed, p_seconds = run()
+        p_out, p_placed, p_seconds = run(0, cuda_graph=False, rounds_out=plain_rounds)
     if not bits_equal(out[0].cpu().numpy(), p_out[0].cpu().numpy()):
         fail("headline stream: kernel and plain assignments differ")
     for f in ("requested", "estimated_used", "prod_used"):
         if not bits_equal(getattr(out[1], f).cpu().numpy(), getattr(p_out[1], f).cpu().numpy()):
             fail(f"headline stream: kernel and plain final {f} differ")
+    if not np.array_equal(rounds_np, plain_rounds.cpu().numpy()):
+        fail("headline stream: rounds_used a batch differ between the graph and the plain run")
     if placed < 0.5 * N_PODS:
         fail(f"headline stream placed only {placed}/{N_PODS} pods")
     med = sorted(times)[len(times) // 2]
     profile = stream_profile(torch, run, med)
+    empty_trips = int((SOLVE["max_rounds"] - rounds_np).sum())
+    trip_ms = empty_trip_ms(torch, *trip_inputs)
     report["stream"] = dict(
         pods=N_PODS, nodes=N_NODES, batches=n_batches, placed=placed,
         pods_per_s=N_PODS / med, pass_seconds=times,
-        plain_pass_seconds=p_seconds,
-        mean_rounds_per_batch=launches["nominate"] / n_batches,
+        first_pass_seconds=first_seconds, plain_pass_seconds=p_seconds,
+        rounds_used=int(rounds_np.sum()), plain_rounds_used=int(plain_rounds.sum()),
+        mean_rounds_per_batch=float(rounds_np.mean()),
+        rounds_per_batch_histogram=np.bincount(rounds_np).tolist(),
+        graph_replays=replays.get("solve_stream", 0),
         launches=launches,
-        syncs_per_stream=launches["nominate"] + n_batches,
+        host_syncs_per_pass=0, host_syncs_first_pass=first_syncs,
+        empty_trips=empty_trips, empty_trip_ms=trip_ms,
+        empty_trips_ms_per_pass=empty_trips * trip_ms,
         **profile,
     )
     print(json.dumps({"stream": report["stream"]}), flush=True)
@@ -661,8 +788,8 @@ def main() -> int:
     )
     print(f"ptxas: {json.dumps(ptxas_summary(kernels))}", flush=True)
     report: dict = {}
-    phase_kernels(torch, dev, report)
-    phase_stream(torch, dev, report)
+    trip_inputs = phase_kernels(torch, dev, report)
+    phase_stream(torch, dev, report, trip_inputs)
     phase_golden(torch, dev)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": report["kernels"]}), flush=True)

@@ -53,6 +53,9 @@
 //   so the merges give what one pass over all nodes gives.
 // - The epilogue writes the round's nomination vector itself: with
 //   approx_topk the reference's [best, best, 2nd, ...] (solver.py:1147-1153).
+// - Both kernels take the round loop's state word (csrc/round.cu) and
+//   return at once when its `done` is set, so a round loop of a fixed trip
+//   count costs two near-empty launches a trip after its fixed point.
 //
 // Bit-exactness with the reference: every float operation is written in
 // the reference's order, division is IEEE `/` and the file is compiled
@@ -230,7 +233,10 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
                 const float* __restrict__ pthr,
                 const float* __restrict__ weights, int P, int N, int K, int chunk,
                 float jitter_scale, int jitter_on, int approx,
-                float* __restrict__ out_cost, int* __restrict__ out_idx) {
+                float* __restrict__ out_cost, int* __restrict__ out_idx,
+                const int* __restrict__ state) {
+  // the round loop reached its fixed point: nothing to nominate
+  if (state != nullptr && state[0] != 0) return;
   constexpr int T = tile_nodes(D);
   constexpr int Q = kPodsPerThread;
   __shared__ Shared<D, C> sh;
@@ -445,7 +451,8 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
 nominate_merge_kernel(const float* __restrict__ part_cost,
                       const int* __restrict__ part_idx, int P, int K, int chunks,
                       int approx, float* __restrict__ out_cost,
-                      int* __restrict__ out_idx) {
+                      int* __restrict__ out_idx, const int* __restrict__ state) {
+  if (state != nullptr && state[0] != 0) return;
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
   if (p >= P) return;
@@ -500,6 +507,7 @@ struct Args {
   int* part_idx;
   float* out_cost;
   int* out_idx;
+  const int* state;
   cudaStream_t stream;
 };
 
@@ -512,12 +520,12 @@ cudaError_t launch(const Args& a) {
       a.req, a.est, a.is_prod, a.cpu_bind, a.gate, a.alloc, a.requested,
       a.est_used, a.prod_used, a.fresh, a.sched, a.cpu_amp, a.thr, a.pthr,
       a.weights, a.P, a.N, a.K, a.chunk, a.jitter_scale, a.jitter_on, a.approx,
-      split ? a.part_cost : a.out_cost, split ? a.part_idx : a.out_idx);
+      split ? a.part_cost : a.out_cost, split ? a.part_idx : a.out_idx, a.state);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
   nominate_merge_kernel<C><<<(a.P + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0,
                           a.stream>>>(a.part_cost, a.part_idx, a.P, a.K, chunks, a.approx,
-                                      a.out_cost, a.out_idx);
+                                      a.out_cost, a.out_idx, a.state);
   return cudaGetLastError();
 }
 
@@ -596,7 +604,7 @@ extern "C" int koord_nominate(
     const void* thr, const void* pthr, const void* weights, int P, int N,
     int D, int K, int chunk, float jitter_scale, int jitter_on, int approx,
     void* part_cost, void* part_idx, void* out_cost, void* out_idx,
-    void* stream) {
+    const void* state, void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (D < 1 || D > kMaxDims || N < 1 || K < 1 || K > kMaxK || chunk < 1)
     return (int)cudaErrorInvalidValue;
@@ -607,7 +615,7 @@ extern "C" int koord_nominate(
                (const float*)cpu_amp, (const float*)thr, (const float*)pthr,
                (const float*)weights, P, N, K, chunk, jitter_scale, jitter_on,
                approx, (float*)part_cost, (int*)part_idx, (float*)out_cost,
-               (int*)out_idx, (cudaStream_t)stream};
+               (int*)out_idx, (const int*)state, (cudaStream_t)stream};
   return (int)with_dk(D, K, Launch{a});
 }
 

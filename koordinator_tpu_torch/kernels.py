@@ -45,27 +45,53 @@ _F = ctypes.c_float
 #: ints are ``c_int``, scalars ``c_float``.
 SIGNATURES: dict[str, dict[str, list]] = {
     "nominate": {
-        "koord_nominate": [_P] * 15 + [_I] * 5 + [_F, _I, _I] + [_P] * 5,
+        "koord_nominate": [_P] * 15 + [_I] * 5 + [_F, _I, _I] + [_P] * 6,
         "koord_nominate_chunk": [_I] * 5 + [ctypes.POINTER(_I)],
     },
-    "commit": {
-        "koord_commit": [_P] * 11 + [_F, _I, _I, _I, _P, _P],
+    "round": {
+        "koord_round_tail": [_P] * 17 + [_F, _I, _I, _I, _I, _P],
     },
     "gangs": {
         "koord_enforce_gangs": [_P] * 11 + [_I, _I, _I, _P],
     },
 }
 
-#: Kernel launches by wrapper name. Each wrapper adds one where it launches
-#: its kernel and nowhere else, so a run can show which kernels it went
-#: through.
+#: Kernel launches by wrapper name, eager or replayed from a CUDA graph.
+#: Each wrapper calls :func:`count` where it launches its kernel and nowhere
+#: else, so a run can show which kernels it went through.
 launches: collections.Counter = collections.Counter()
+#: Wrapper launches recorded into a CUDA graph being captured: they run only
+#: when the graph is replayed (:func:`replay`).
+captured: collections.Counter = collections.Counter()
+#: CUDA graph replays
+replays: collections.Counter = collections.Counter()
 
 _libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
     launches.clear()
+    captured.clear()
+    replays.clear()
+
+
+def count(name: str) -> None:
+    """One launch of wrapper ``name``'s kernel: counted in ``launches``,
+    or in ``captured`` while the current stream is capturing a graph."""
+    if torch.cuda.is_current_stream_capturing():
+        captured[name] += 1
+    else:
+        launches[name] += 1
+
+
+def replay(graph, name: str, nodes: collections.Counter, times: int) -> None:
+    """Replay ``graph`` ``times`` times; it holds ``nodes`` wrapper
+    launches by name, each of which runs once a replay."""
+    for _ in range(times):
+        graph.replay()
+    replays[name] += times
+    for kernel, n in nodes.items():
+        launches[kernel] += n * times
 
 
 def sources() -> list[Path]:

@@ -1,10 +1,13 @@
-"""Segmented commit of one solver round, and ordered segment sums.
+"""The tail of one solver round — choice, node sort, segmented commit and
+the loop state — and ordered segment sums.
 
-Port of the LoadAware commit block of ``koordinator_tpu/ops/solver.py:
-assign`` (:1204-1385). :func:`commit` launches the hand-written kernel of
-``csrc/commit.cu`` on CUDA tensors and runs :func:`commit_plain` on CPU
-tensors. :func:`segment_sum_plain` is the ``jax.ops.segment_sum`` of the
-plain ``enforce_gangs`` (``ops/solver.py:enforce_gangs_plain``); its kernel
+Port of what a round of ``koordinator_tpu/ops/solver.py:assign`` does
+after nomination, LoadAware branch (:1204-1452). :func:`round_tail`
+launches the hand-written kernel of ``csrc/round.cu`` on CUDA tensors and
+runs :func:`round_tail_plain` (:func:`_choose`, :func:`_commit_inputs`,
+:func:`commit_plain` and the carry update) on CPU tensors.
+:func:`segment_sum_plain` is the ``jax.ops.segment_sum`` of the plain
+``enforce_gangs`` (``ops/solver.py:enforce_gangs_plain``); its kernel
 counterpart is part of ``csrc/gangs.cu``.
 
 Order of summation is part of the contract, and it is the order XLA's CPU
@@ -95,9 +98,38 @@ def _scatter_add_(tables, seg_ids, values) -> None:
         table.copy_(host)
 
 
-_I32, _F32, _BOOL = torch.int32, torch.float32, torch.bool
-#: dtypes of koord_commit's tensors, in its argument order
-_COMMIT_DTYPES = (_I32, _F32, _F32, _BOOL, _F32, _BOOL, _F32, _F32, _F32, _F32, _F32)
+def _choose(top_cost, top_idx, active, n: int):
+    """Rank-modular choice (``solver.py:1204-1213``): the pod with the r-th
+    highest priority among active pods takes slot ``r mod n_feas`` of its
+    nomination vector. Returns (choice [P] int32, node_key [P] int32 with
+    N where the pod has no finite slot)."""
+    finite = torch.isfinite(top_cost)
+    n_feas = finite.sum(dim=1, dtype=torch.int32)
+    rank = torch.cumsum(active.to(torch.int32), dim=0, dtype=torch.int32) - 1
+    slot = torch.where(
+        n_feas > 0, torch.remainder(rank, torch.clamp(n_feas, min=1)), 0
+    ).long()
+    choice = top_idx.gather(1, slot[:, None])[:, 0]
+    has = finite.gather(1, slot[:, None])[:, 0]
+    return choice, torch.where(has, choice, n).to(torch.int32)
+
+
+def _commit_inputs(node_key, req, est, is_prod, cpu_bind, cpu_amp, n: int):
+    """The commit's sorted inputs (``solver.py:1215-1229``): pods stably
+    sorted by nominated node, CPU charged ×amp for cpu-bind pods. Returns
+    (sortidx, snode, sreq, sest, sprod)."""
+    snode, sortidx = torch.sort(node_key, stable=True)
+    gnode = torch.clamp(snode, max=n - 1).long()
+    sreq = req[sortidx]
+    samp = torch.where(cpu_bind[sortidx], torch.clamp(cpu_amp, min=1.0)[gnode], 1.0)
+    sreq[:, 0] = sreq[:, 0] * samp
+    return (
+        sortidx,
+        snode.contiguous(),
+        sreq.contiguous(),
+        est[sortidx].contiguous(),
+        is_prod[sortidx].contiguous(),
+    )
 
 
 def commit_plain(
@@ -147,31 +179,73 @@ def commit_plain(
     return accept
 
 
-def commit(
-    snode, sreq, sest, sprod, alloc, fresh, thr, pthr,
-    requested, est_used, prod_used, round_quantum: float,
-):
-    """One round's commit on the tensors' device: ``koord_commit`` for CUDA
-    tensors, :func:`commit_plain` for CPU tensors. Same arguments, result
-    and in-place updates as :func:`commit_plain`."""
-    args = (snode, sreq, sest, sprod, alloc, fresh, thr, pthr,
-            requested, est_used, prod_used)
-    if snode.is_cpu:
-        return commit_plain(*args, round_quantum)
-    p, d = sreq.shape
+def round_tail_plain(
+    top_cost, top_idx, req, est, is_prod, cpu_bind, cpu_amp,
+    alloc, fresh, thr, pthr, requested, est_used, prod_used,
+    assigned, active, state, round_quantum: float,
+) -> None:
+    """Plain PyTorch round tail: everything a round of ``assign`` does
+    after nomination (``solver.py:1204-1229``, the LoadAware commit
+    :1230-1380, the carry update :1433-1447 and ``round_cond`` :1450-1452).
+
+    ``top_cost``/``top_idx`` [P, K] are the round's nomination; the pod
+    tensors ([P, D] / [P]) are priority-sorted; ``thr``/``pthr`` are the
+    effective [N, D] thresholds. Updates in place the node tables
+    ``requested``, ``est_used`` and ``prod_used``, and the loop state:
+    ``assigned`` [P] int32 (-1 = none), ``active`` [P] bool and ``state``
+    [2] int32 = (done, rounds). Changes nothing while ``done`` is set."""
+    if bool(state[0]):
+        return
     n = alloc.shape[0]
+    choice, node_key = _choose(top_cost, top_idx, active, n)
+    sortidx, snode, sreq, sest, sprod = _commit_inputs(
+        node_key, req, est, is_prod, cpu_bind, cpu_amp, n
+    )
+    accept = commit_plain(
+        snode, sreq, sest, sprod, alloc, fresh, thr, pthr,
+        requested, est_used, prod_used, round_quantum,
+    )
+    accepted = torch.zeros_like(accept)
+    accepted[sortidx] = accept
+    assigned.copy_(torch.where(accepted, choice, assigned))
+    active &= assigned < 0
+    state[1] += 1
+    state[0] = ~accepted.any() | ~active.any()
+
+
+_I32, _F32, _BOOL = torch.int32, torch.float32, torch.bool
+#: dtypes of koord_round_tail's tensors, in its argument order
+_ROUND_DTYPES = (_F32, _I32, _F32, _F32, _BOOL, _BOOL, _F32, _F32, _BOOL, _F32,
+                 _F32, _F32, _F32, _F32, _I32, _BOOL, _I32)
+
+
+def round_tail(
+    top_cost, top_idx, req, est, is_prod, cpu_bind, cpu_amp,
+    alloc, fresh, thr, pthr, requested, est_used, prod_used,
+    assigned, active, state, round_quantum: float,
+) -> None:
+    """One round's tail on the tensors' device: one ``koord_round_tail``
+    launch (``csrc/round.cu``) for CUDA tensors, :func:`round_tail_plain`
+    for CPU tensors. Same arguments and in-place updates as
+    :func:`round_tail_plain`; on the card nothing is read back to the
+    host."""
+    args = (top_cost, top_idx, req, est, is_prod, cpu_bind, cpu_amp,
+            alloc, fresh, thr, pthr, requested, est_used, prod_used,
+            assigned, active, state)
+    if top_cost.is_cpu:
+        return round_tail_plain(*args, round_quantum)
+    p, k = top_cost.shape
+    n, d = alloc.shape
     if not 1 <= d <= 8:
-        raise ValueError(f"commit: D={d} must be in 1..8")
-    pd, nd = p * d, n * d
+        raise ValueError(f"round_tail: D={d} must be in 1..8")
+    pk, pd, nd = p * k, p * d, n * d
     ptrs = kernels.checked_ptrs(
-        "commit", args, _COMMIT_DTYPES, (p, pd, pd, p, nd, n, nd, nd, nd, nd, nd)
+        "round_tail", args, _ROUND_DTYPES,
+        (pk, pk, pd, pd, p, p, n, nd, n, nd, nd, nd, nd, nd, p, p, 2),
     )
-    lib = kernels.library("commit")
-    accept = torch.empty((p,), dtype=torch.bool, device=snode.device)
-    code = lib.koord_commit(
-        *ptrs, ctypes.c_float(round_quantum), p, n, d,
-        accept.data_ptr(), kernels.stream_of(snode),
+    lib = kernels.library("round")
+    code = lib.koord_round_tail(
+        *ptrs, ctypes.c_float(round_quantum), p, n, d, k, kernels.stream_of(top_cost)
     )
-    kernels.check(lib, code, "commit")
-    kernels.launches["commit"] += 1
-    return accept
+    kernels.check(lib, code, "round_tail")
+    kernels.count("round_tail")

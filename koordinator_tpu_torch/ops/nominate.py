@@ -101,10 +101,11 @@ _DTYPES = (_F32, _F32, _BOOL, _BOOL, _BOOL, _F32, _F32, _F32, _F32, _BOOL, _BOOL
 
 
 def launch(lib, ptrs, p: int, n: int, d: int, k: int, nomination_jitter: float,
-           approx_topk: bool, chunk: int, device):
+           approx_topk: bool, chunk: int, device, state_ptr=None):
     """One ``koord_nominate`` call of ``lib`` on checked pointers, each
-    block walking ``chunk`` nodes. Returns (cost [P, k], node [P, k], the
-    C entry's error code)."""
+    block walking ``chunk`` nodes; with ``state_ptr`` (a round loop's state
+    word) the kernels return at once once its ``done`` is set. Returns
+    (cost [P, k], node [P, k], the C entry's error code)."""
     chunks = -(-n // chunk)
     # [P, chunks, C] partial lists, C <= MAX_K list slots
     parts = p * chunks * MAX_K if chunks > 1 else 1
@@ -117,7 +118,7 @@ def launch(lib, ptrs, p: int, n: int, d: int, k: int, nomination_jitter: float,
         ctypes.c_float(nomination_jitter / 65536.0),
         int(nomination_jitter > 0.0), int(approx_topk),
         part_cost.data_ptr(), part_idx.data_ptr(),
-        out_cost.data_ptr(), out_idx.data_ptr(),
+        out_cost.data_ptr(), out_idx.data_ptr(), state_ptr,
         kernels.stream_of(out_cost),
     )
     return out_cost, out_idx, code
@@ -152,12 +153,16 @@ def chunk_of(lib, p: int, n: int, d: int, k: int, index: int) -> int:
 def nominate(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
-    weights, k: int, nomination_jitter: float, approx_topk: bool,
+    weights, k: int, nomination_jitter: float, approx_topk: bool, state=None,
 ):
     """Round nomination on the tensors' device: the CUDA kernel for CUDA
     tensors, :func:`nominate_plain` for CPU tensors. Same arguments and
     result as :func:`nominate_plain`; on the card the kernel writes the
-    nomination vector itself."""
+    nomination vector itself. ``state`` is the round loop's int32 state
+    word (:func:`.commit.round_tail`): while its ``done`` is set the kernel
+    returns at once and the result is left unwritten, which the round tail
+    then does not read. The plain version needs no such word: a round tail
+    after the fixed point ignores its nomination."""
     args = (req, est, is_prod, cpu_bind, gate, alloc, requested, est_used,
             prod_used, fresh, sched, cpu_amp, thr, pthr, weights)
     if req.is_cpu:
@@ -165,11 +170,17 @@ def nominate(
     ptrs = checked(args, k)
     p, d = req.shape
     n = alloc.shape[0]
+    state_ptr = None
+    if state is not None:
+        state_ptr = kernels.checked_ptrs(
+            "nominate", (req, state), (_F32, torch.int32), (p * d, 2)
+        )[1]
     lib = kernels.library("nominate")
     chunk = chunk_of(lib, p, n, d, k, req.get_device())
     out_cost, out_idx, code = launch(
-        lib, ptrs, p, n, d, k, nomination_jitter, approx_topk, chunk, req.device
+        lib, ptrs, p, n, d, k, nomination_jitter, approx_topk, chunk, req.device,
+        state_ptr,
     )
     kernels.check(lib, code, "nominate")
-    kernels.launches["nominate"] += 1
+    kernels.count("nominate")
     return out_cost, out_idx

@@ -1,5 +1,5 @@
-"""Round commit: the port's ``commit`` (plain path on the CPU) and its
-ordered sums against the JAX package.
+"""Round commit: the port's ``commit_plain`` (the commit step of the plain
+round tail) and its ordered sums against the JAX package.
 
 The reference's commit block lives inside ``assign``'s round body
 (``solver.py:1204-1385``); :func:`jax_commit` restates its LoadAware branch
@@ -17,7 +17,6 @@ import torch
 
 from koordinator_tpu.ops import masks as jmasks
 from koordinator_tpu.ops import solver as J
-from koordinator_tpu_torch import kernels
 from koordinator_tpu_torch.ops import commit as tcommit
 from koordinator_tpu_torch.ops import solver as T
 from koordinator_tpu_torch.ops.convert import from_numpy, to_numpy
@@ -99,9 +98,7 @@ def test_commit_plain_matches_reference_block(seed, quantum):
     case = commit_case(seed)
     j_acc, *j_tables = jax_commit(*[jnp.asarray(v) for v in case.values()], quantum)
     t = {k: torch.from_numpy(v.copy()) for k, v in case.items()}
-    before = dict(kernels.launches)
-    t_acc = tcommit.commit(*t.values(), quantum)
-    assert dict(kernels.launches) == before  # CPU tensors: no kernel launch
+    t_acc = tcommit.commit_plain(*t.values(), quantum)
     np.testing.assert_array_equal(np.asarray(j_acc), t_acc.numpy())
     assert 0 < t_acc.sum() < len(t_acc)
     for jt, name in zip(j_tables, ("requested", "est_used", "prod_used")):

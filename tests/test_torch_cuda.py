@@ -7,17 +7,20 @@ no JAX, so it runs on a machine that has only PyTorch:
 
 Shapes cover the kernels' edges: one pod, fewer nodes than a node tile,
 node counts off the tile and chunk sizes (1, 31, 5,003, 10,001), D = 1, 2,
-3, 8 and 16 (the two tile heights), k = 1..8, commit rounds of 1 to 4,100
-pods (one to three scan levels), gang rollbacks of 1 to 1,000 pods with no
-gangs, every gang short, NonStrict gangs, all refunds on one node and
-refunds on node N-1. Tolerance: none — the kernels round as the plain
-versions do, so results must be bitwise equal.
+3, 8 and 16 (the two tile heights), k = 1..8, round tails of 1 to 4,100
+pods (one to three scan levels; more than one tile of 1,024 threads) at
+D = 1 to 8 with hot nodes, negative ranks and a set ``done``, gang
+rollbacks of 1 to 1,000 pods with no gangs, every gang short, NonStrict
+gangs, all refunds on one node and refunds on node N-1, and the stream as
+one CUDA graph replay a batch. Tolerance: none — the kernels round as the
+plain versions do, so results must be bitwise equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from koordinator_tpu_torch import kernels
 from koordinator_tpu_torch.ops import commit as tcommit
 from koordinator_tpu_torch.ops import nominate as tnom
@@ -85,46 +88,111 @@ def test_nominate_kernel_matches_plain(cuda, p, n, d, k, jitter, approx):
     np.testing.assert_array_equal(ki.cpu().numpy(), pi.numpy())
 
 
-def commit_inputs(seed, p, n, d):
+def round_inputs(seed, p, n, d, k=4):
+    """A round tail's arguments (numpy, in ``round_tail``'s order): a
+    nomination with tied costs, +inf tails and pods with no finite slot,
+    inactive pods (some before the first active one, with finite slots: a
+    negative rank), pods assigned earlier, near-threshold tables."""
     rng = np.random.default_rng(seed)
+    cost = np.sort(rng.integers(-100, 0, (p, k)).astype(np.float32), axis=1)
+    cost[np.arange(k)[None, :] >= rng.integers(0, k + 1, p)[:, None]] = np.inf
+    idx = rng.integers(0, n, (p, k)).astype(np.int32)
+    active = rng.random(p) > 0.1
+    active[: min(3, p)] = False
     alloc = rng.choice([0.0, 32_000.0, 96_000.0], (n, d), p=[0.05, 0.5, 0.45]).astype(np.float32)
     used = (alloc * rng.uniform(0.0, 0.7, (n, d))).astype(np.float32)
-    key = np.sort(np.where(rng.random(p) < 0.1, n, rng.integers(0, n, p))).astype(np.int32)
     req = (rng.choice([500.0, 1000.0, 4000.0], (p, d)) * rng.uniform(0.9, 1.6, (p, 1)))
+    req = req.astype(np.float32)
     return [
-        key,
-        req.astype(np.float32),
-        (req * 0.85).astype(np.float32),
-        rng.random(p) < 0.4,
+        cost, idx, req, (req * np.float32(0.85)).astype(np.float32),
+        rng.random(p) < 0.4,                                   # is_prod
+        rng.random(p) < 0.3,                                   # cpu_bind
+        np.where(rng.random(n) < 0.3, 1.5, 1.0).astype(np.float32),
         alloc,
-        rng.random(n) > 0.1,
+        rng.random(n) > 0.1,                                   # fresh
         np.where(rng.random((n, d)) < 0.7, 65.0, 0.0).astype(np.float32),
         np.where(rng.random((n, d)) < 0.5, 55.0, 0.0).astype(np.float32),
         (alloc * rng.uniform(0.0, 0.5, (n, d))).astype(np.float32),
         used,
         (used * np.float32(0.6)).astype(np.float32),
+        np.where(active, -1, rng.integers(-1, n, p)).astype(np.int32),
+        active,
+        np.array([0, 3], np.int32),                            # (done, rounds)
     ]
+
+
+def round_tail_both(cuda, arrays):
+    """The kernel on the card and the plain version on the CPU, each on its
+    own copy; returns the two lists of arguments after the call."""
+    host = [torch.from_numpy(a.copy()) for a in arrays]
+    dev = [torch.from_numpy(a.copy()).to(cuda) for a in arrays]
+    before = kernels.launches["round_tail"]
+    tcommit.round_tail(*dev, 0.35)
+    torch.cuda.synchronize()
+    assert kernels.launches["round_tail"] == before + 1
+    tcommit.round_tail_plain(*host, 0.35)
+    return dev, host
+
+
+def assert_round_equal(dev, host):
+    for i, (tk, tp) in enumerate(zip(dev, host)):
+        np.testing.assert_array_equal(bits(tk.cpu().numpy()), bits(tp.numpy()), err_msg=str(i))
 
 
 @pytest.mark.parametrize("p", [1, 5, 16, 17, 100, 512, 1000, 4100])
 @pytest.mark.parametrize("d", [1, 2, 3])
 def test_commit_kernel_matches_plain(cuda, p, d):
-    arrays = commit_inputs(p + d, p, max(3, p // 12), d)
-    host = [torch.from_numpy(a.copy()) for a in arrays]
+    """The round tail (the commit's successor) at rounds of 1 to 4,100
+    pods."""
+    dev, host = round_tail_both(cuda, round_inputs(p + d, p, max(3, p // 12), d))
+    assert_round_equal(dev, host)
+
+
+@pytest.mark.parametrize("p, n, d", [(512, 10_000, 2), (4096, 10_000, 2), (64, 40, 8),
+                                     (512, 2, 2), (2048, 3, 1)])
+def test_round_tail_kernel_matches_plain(cuda, p, n, d):
+    """The main path's shapes, the JAX scheduler's batch bucket (4,096),
+    D = 8, and hot nodes holding far more than 16 pods of a round."""
+    arrays = round_inputs(p * 3 + d, p, n, d)
+    dev, host = round_tail_both(cuda, arrays)
+    assert_round_equal(dev, host)
+    if n <= 3:
+        _, key = tcommit._choose(*(torch.from_numpy(arrays[i]) for i in (0, 1, 15)), n)
+        key = key.numpy()
+        assert np.bincount(key[key < n]).max() > 16
+        assert (host[14].numpy() != arrays[14]).any()
+
+
+def test_round_loop_trips_after_done_change_nothing(cuda):
+    """A trip after the fixed point — nomination and round tail with
+    ``done`` set — leaves every tensor as it was."""
+    arrays = round_inputs(5, 512, 1000, 2)
+    arrays[16] = np.array([1, 4], np.int32)
     dev = [torch.from_numpy(a.copy()).to(cuda) for a in arrays]
-    acc_k = tcommit.commit(*dev, 0.35)
-    acc_p = tcommit.commit_plain(*host, 0.35)
+    nom = [torch.from_numpy(a).to(cuda) for a in nominate_inputs(5, 512, 1000, 2)]
+    before = [t.clone() for t in dev + nom]
+    tnom.nominate(*nom, 4, 4.0, True, state=dev[16])
+    tcommit.round_tail(*dev, 0.35)
     torch.cuda.synchronize()
-    np.testing.assert_array_equal(acc_k.cpu().numpy(), acc_p.numpy())
-    for tk, tp in zip(dev[8:], host[8:]):
-        np.testing.assert_array_equal(bits(tk.cpu().numpy()), bits(tp.numpy()))
+    for a, b in zip(dev + nom, before):
+        assert torch.equal(a, b)
+
+
+def test_round_tail_refuses_misaligned_rows(cuda):
+    """Node rows move as float2 at D = 2: a table 4 bytes off that is
+    refused, not read."""
+    dev = [torch.from_numpy(a).to(cuda) for a in round_inputs(2, 64, 40, 2)]
+    shifted = torch.empty(dev[11].numel() + 1, device=cuda)[1:].view(dev[11].shape)
+    shifted.copy_(dev[11])
+    dev[11] = shifted
+    with pytest.raises(RuntimeError, match="round_tail: CUDA error"):
+        tcommit.round_tail(*dev, 0.35)
 
 
 def test_commit_refuses_a_round_too_large_for_one_block(cuda):
-    arrays = commit_inputs(1, 20_000, 100, 8)
-    dev = [torch.from_numpy(a.copy()).to(cuda) for a in arrays]
-    with pytest.raises(RuntimeError, match="commit: CUDA error"):
-        tcommit.commit(*dev, 0.35)
+    dev = [torch.from_numpy(a).to(cuda) for a in round_inputs(1, 20_000, 100, 8)]
+    with pytest.raises(RuntimeError, match="round_tail: CUDA error"):
+        tcommit.round_tail(*dev, 0.35)
 
 
 def gang_inputs(seed, p, n, d, kind):
@@ -240,8 +308,51 @@ def test_assign_on_card_matches_cpu(cuda, approx):
 
     kernels.reset_launches()
     got = run(cuda)
-    assert min(kernels.launches[k] for k in ("nominate", "commit", "enforce_gangs")) > 0
+    assert min(kernels.launches[k] for k in ("nominate", "round_tail", "enforce_gangs")) > 0
+    assert kernels.launches["round_tail"] == 12  # max_rounds trips, no host read
     want = run("cpu")
     for f in ("assignment", "rounds_used", "node_requested",
               "node_estimated_used", "node_prod_used"):
         np.testing.assert_array_equal(bits(got[f]), bits(want[f]), err_msg=f)
+
+
+def test_stream_graph_matches_eager_plain_and_golden(cuda):
+    """``solve_stream`` as one CUDA graph replay a batch equals the eager
+    run through the plain versions and the JAX package's golden result;
+    a second call reuses the graph and reads nothing back to the host."""
+    gold = np.load(chip_smoke.GOLDEN)
+    nodes, pods, params = chip_smoke.rich_fixture(
+        chip_smoke.GOLDEN_SEED, chip_smoke.GOLDEN_NODES, chip_smoke.GOLDEN_PODS
+    )
+    args = (
+        from_numpy(T.PodBatch, device=cuda, **chip_smoke.stacked(pods)),
+        from_numpy(T.NodeState, device=cuda, **nodes),
+        from_numpy(T.SolverParams, device=cuda, **params),
+    )
+    b = gold["assignments"].shape[0]
+    rounds = torch.zeros(b, dtype=torch.int32, device=cuda)
+    asg, final, placed, _ = T.solve_stream(*args, **chip_smoke.SOLVE, rounds_out=rounds)
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = T.solve_stream(*args, **chip_smoke.SOLVE)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    trips = b * chip_smoke.SOLVE["max_rounds"]
+    assert kernels.replays["solve_stream"] == b and not kernels.captured
+    assert dict(kernels.launches) == {"nominate": trips, "round_tail": trips, "enforce_gangs": b}
+    plain_rounds = torch.zeros(b, dtype=torch.int32, device=cuda)
+    with chip_smoke.plain_versions():
+        p_asg, p_final, p_placed, _ = T.solve_stream(
+            *args, **chip_smoke.SOLVE, cuda_graph=False, rounds_out=plain_rounds
+        )
+    np.testing.assert_array_equal(asg.cpu().numpy(), gold["assignments"])
+    for out in (again, (p_asg, p_final, p_placed, None)):
+        np.testing.assert_array_equal(asg.cpu().numpy(), out[0].cpu().numpy())
+        np.testing.assert_array_equal(placed.cpu().numpy(), out[2].cpu().numpy())
+    np.testing.assert_array_equal(rounds.cpu().numpy(), plain_rounds.cpu().numpy())
+    assert 0 < rounds.min() and rounds.max() <= chip_smoke.SOLVE["max_rounds"]
+    for f in ("requested", "estimated_used", "prod_used"):
+        want = bits(gold[f])
+        for got in (final, again[1], p_final):
+            np.testing.assert_array_equal(bits(getattr(got, f).cpu().numpy()), want, err_msg=f)

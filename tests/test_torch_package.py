@@ -111,10 +111,11 @@ def test_wrappers_launch_or_raise_never_fall_back():
     with pytest.raises(ValueError, match="CUDA"):
         tnom.nominate(meta, meta, flags, flags, flags, meta, meta, meta, meta,
                       flags, flags, meta[:, 0], meta, meta, meta[0], 1, 4.0, False)
-    with pytest.raises(ValueError, match="CUDA"):
-        tcommit.commit(flags.int(), meta, meta, flags, meta, flags, meta, meta,
-                       meta, meta, meta, 0.35)
     ints = flags.int()
+    with pytest.raises(ValueError, match="CUDA"):
+        tcommit.round_tail(meta, ints[:, None], meta, meta, flags, flags, meta[:, 0],
+                           meta, flags, meta, meta, meta, meta, meta, ints, flags,
+                           ints[:2], 0.35)
     result = T.SolveResult(
         assignment=ints, node_requested=meta, node_estimated_used=meta,
         node_prod_used=meta, quota_used=meta[:1], rounds_used=ints[0],

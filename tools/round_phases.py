@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Where the round-tail kernel spends its cycles, phase by phase.
+
+    python3 tools/round_phases.py [--pods 512 4096]
+
+Builds a copy of ``koordinator_tpu_torch/csrc/round.cu`` in which thread 0
+reads ``clock64()`` at the start of the kernel, before each numbered
+phase comment of ``round_tail_kernel`` ("// 1. ...", "// 2. ...", ...) and
+before the state word is written, then runs it on the card on round 0 of
+``chip_smoke.py``'s kernel-check fixture (batch 0, and the first P / 512
+batches as one round for P > 512, N = 10,000, D = 2). Each run's tables,
+assignments, active flags and state word must equal the built kernel's
+(``round_tail``); the script prints, for each P, the median over 15 runs of
+the SM cycles from the kernel's start to each mark, and the CUDA-event
+time of a call. Needs a CUDA device and ``nvcc``; the copy is built under
+``koordinator_tpu_torch/build/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+MARK = "if (threadIdx.x == 0) koord_phase_clock[{}] = clock64();"
+
+
+def instrumented(src: str) -> "tuple[str, list[str]]":
+    """The source with a clock read before each numbered phase comment of
+    the kernel and before the state word's write; and the marks' names."""
+    head = "__device__ long long koord_phase_clock[32];\n"
+    body_at = src.index("round_tail_kernel(")
+    names, out, k = ["start"], [], 1
+    for line in src[body_at:].splitlines(keepends=True):
+        m = re.match(r"  // (\d+(?:-\d+)?)\. (.*)", line)
+        if m:
+            out.append("  " + MARK.format(k) + "\n")
+            names.append(f"{m.group(1)}. {re.split(r' \(|:|,', m.group(2))[0]}")
+            k += 1
+        if line.startswith("  if (state[0] != 0) return;"):
+            out.append("  " + MARK.format(0) + "\n")
+        if line.startswith("    state[1] = state[1] + 1;"):
+            out.append("    " + MARK.format(k) + "\n")
+            names.append("state written")
+        out.append(line)
+    read = ('\nextern "C" int koord_phase_read(long long* out) {\n'
+            "  return (int)cudaMemcpyFromSymbol(out, koord_phase_clock, sizeof(long long) * 32);\n}\n")
+    first = src.index("namespace {")
+    return src[:first] + head + src[first:body_at] + "".join(out) + read, names
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--pods", type=int, nargs="+", default=[512, 4096])
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from koordinator_tpu_torch import kernels
+    from koordinator_tpu_torch.ops import commit as commit_ops
+    from koordinator_tpu_torch.ops import nominate as nominate_ops
+    from koordinator_tpu_torch.ops import solver
+
+    if not torch.cuda.is_available():
+        print("FAIL: CUDA is not available", file=sys.stderr)
+        return 1
+    src, names = instrumented((kernels.CSRC / "round.cu").read_text())
+    kernels.BUILD.mkdir(parents=True, exist_ok=True)
+    cu = kernels.BUILD / "round_phases.cu"
+    so = kernels.BUILD / "libround_phases.so"
+    cu.write_text(src)
+    build = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", str(so), str(cu)],
+                           capture_output=True, text=True)
+    if build.returncode != 0:
+        print(build.stdout + build.stderr, file=sys.stderr)
+        return 1
+    lib = ctypes.CDLL(str(so))
+    fn = lib.koord_round_tail
+    fn.argtypes = kernels.SIGNATURES["round"]["koord_round_tail"]
+    dev = torch.device("cuda")
+    nodes, pods, params = chip_smoke.rich_fixture(1, chip_smoke.N_NODES, 16 * chip_smoke.BATCH)
+    nodes_t, pods_t, params_t = chip_smoke.port_inputs(torch, nodes, pods, params, dev)
+    pods_s = solver.tree_map(lambda a: a.reshape((-1, chip_smoke.BATCH) + a.shape[1:]), pods_t)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=False).stdout.strip()
+    for p in args.pods:
+        batch = solver.tree_map(
+            lambda a: a[: max(1, p // chip_smoke.BATCH)].reshape((-1,) + a.shape[2:]), pods_s
+        )
+        spods, nom_args = chip_smoke.round_inputs(batch, nodes_t, params_t)
+        top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True)
+        rt = chip_smoke.round_tail_args(torch, spods, nom_args, top_cost, top_idx)
+        want = [t.clone() for t in rt]
+        commit_ops.round_tail(*want, 0.35)
+        n, d = nom_args[5].shape
+
+        def call(work):
+            code = fn(*[t.data_ptr() for t in work], ctypes.c_float(0.35), p, n, d, 4,
+                      kernels.stream_of(work[0]))
+            if code != 0:
+                raise RuntimeError(f"round_phases: CUDA error {code}")
+
+        clocks = []
+        for _ in range(20):
+            work = [t.clone() for t in rt]
+            torch.cuda.synchronize()
+            call(work)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(work, want)):
+                print(f"FAIL: P={p}: the instrumented kernel differs from round_tail")
+                return 1
+            buf = (ctypes.c_longlong * 32)()
+            if lib.koord_phase_read(buf) != 0:
+                print("FAIL: could not read the phase clocks")
+                return 1
+            clocks.append(list(buf)[: len(names)])
+        c = np.array(clocks[5:], dtype=np.int64)
+        cycles = np.median(c - c[:, :1], axis=0)
+        copies = [[t.clone() for t in rt] for _ in range(101)]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        call(copies[0])
+        torch.cuda.synchronize()
+        start.record()
+        for work in copies[1:]:
+            call(work)
+        end.record()
+        torch.cuda.synchronize()
+        print(json.dumps({
+            "pods": p, "card": smi,
+            "cycles_from_start": {name: int(v) for name, v in zip(names, cycles)},
+            "event_ms_per_call": start.elapsed_time(end) / 100,
+        }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,116 @@
+#!/usr/bin/env python3
+"""Count what one pass of the headline stream launches and syncs.
+
+    python3 tools/stream_launches.py [--tree DIR]
+
+Imports ``koordinator_tpu_torch`` from ``DIR`` (default: this checkout; an
+unpacked older commit of the repository compares two versions), builds its
+kernels, and runs ``chip_smoke.py``'s headline stream (``bench.py``'s
+fixture and parameters: 98,304 pods, 10,000 nodes, 192 batches of 512) on
+the card: one warm-up pass, then
+
+- one pass under ``torch.profiler``: kernels and copies that ran on the
+  device, their busy milliseconds, and the host's launch calls
+  (``cudaLaunchKernel``, ``cuLaunchKernel``, ``cudaGraphLaunch``) as the
+  profiler sees them;
+- one pass under ``torch.cuda.set_sync_debug_mode("warn")``: the host
+  syncs PyTorch reports inside ``solve_stream``, and the pass's wall time.
+
+Prints one JSON line with the card's name and power limit. Needs a CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                 "cudaLaunchKernelExC", "cuLaunchKernelEx")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=str(ROOT), help="root of the tree whose port to run")
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("FAIL: CUDA is not available", file=sys.stderr)
+        return 1
+    spec = importlib.util.spec_from_file_location("smoke_fixture", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from koordinator_tpu_torch import kernels
+    from koordinator_tpu_torch.ops import solver
+
+    if not str(Path(solver.__file__).resolve()).startswith(str(tree)):
+        print(f"FAIL: imported {solver.__file__}, not the port of {tree}", file=sys.stderr)
+        return 1
+    kernels.build()
+    dev = torch.device("cuda")
+    nodes, pods, params = smoke.headline_inputs(smoke.build_fixture(0))
+    nodes_t, pods_t, params_t = smoke.port_inputs(torch, nodes, smoke.stacked(pods), params, dev)
+    inputs = (pods_t, nodes_t, params_t)
+
+    def run():
+        out = solver.solve_stream(*inputs, **smoke.SOLVE)
+        return int(out[2].sum())
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        placed = run()
+        torch.cuda.synchronize()
+    device_kernels = copies = host_launches = 0
+    busy_us = 0.0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            busy_us += evt.time_range.elapsed_us()
+            if evt.name.startswith(("Memcpy", "Memset")):
+                copies += 1
+            else:
+                device_kernels += 1
+        elif evt.name in HOST_LAUNCHES:
+            host_launches += 1
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = solver.solve_stream(*inputs, **smoke.SOLVE)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    placed_after = int(out[2].sum())
+    seconds = time.perf_counter() - t0
+    syncs = sum(smoke.is_sync_warning(w) for w in caught)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=False,
+    ).stdout.strip()
+    print(json.dumps(dict(
+        tree=str(tree), card=smi, placed=placed, placed_again=placed_after,
+        device_kernels=device_kernels, device_copies=copies,
+        device_busy_ms=busy_us / 1e3, host_launch_calls=host_launches,
+        host_syncs=syncs, sync_pass_seconds=seconds,
+    )), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
