@@ -56,19 +56,26 @@
 // - Both kernels take the round loop's state word (csrc/round.cu) and
 //   return at once when its `done` is set, so a round loop of a fixed trip
 //   count costs two near-empty launches a trip after its fixed point.
+// - With the candidate shortlist on, this is the round's fallback: both
+//   kernels also take the trigger word the shortlist round sets
+//   (csrc/shortlist_round.cu) and return at once while it is clear — the
+//   port's form of the reference's lax.cond (solver.py:1158-1201). They
+//   then write into the buffers the shortlist round wrote, so the round
+//   tail reads one address whichever branch ran.
 //
 // Bit-exactness with the reference: every float operation is written in
-// the reference's order, division is IEEE `/` and the file is compiled
-// with -fmad=false so no a*b+c is contracted into an FMA. Ties of cost go
+// the reference's order (the arithmetic of a pair is loadaware.cuh's),
+// division is IEEE `/` and the file is compiled with -fmad=false so no
+// a*b+c is contracted into an FMA. Ties of cost go
 // to the lower node index, as jax.lax.top_k and jnp.argmin break them;
 // infeasible slots keep the lowest infeasible indices at +inf, as top_k
 // ranks them.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "loadaware.cuh"
 
 namespace {
+
+using namespace koord;
 
 constexpr int kWarps = 4;  // warps a block
 constexpr int kThreads = 32 * kWarps;
@@ -78,76 +85,10 @@ constexpr int kMaxDims = 16;
 constexpr int kMaxK = 8;
 constexpr int kMinChunk = 32;     // fewest nodes a block walks
 constexpr int kMergeWarps = 8;    // pods a merge block
-constexpr float kEps = 1e-3f;     // masks.EPS
-constexpr float kSafe = 1e-9f;    // costs._SAFE
 constexpr uint8_t kFresh = 1, kSched = 2;
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // nodes a tile: two tiles stay under 32 KB of shared memory
 __host__ __device__ constexpr int tile_nodes(int D) { return D <= 4 ? 128 : D <= 8 ? 64 : 32; }
-
-__device__ __forceinline__ bool less_pair(float va, int ia, float vb, int ib) {
-  return va < vb || (va == vb && ia < ib);
-}
-
-// Go's math.Round of the utilization percent (masks.usage_percent).
-__device__ __forceinline__ float usage_percent(float used, float alloc) {
-  float pct = alloc > 0.0f ? used * 100.0f / alloc : 0.0f;
-  return floorf(pct + 0.5f);
-}
-
-// A register top-K by (cost, index) with room for C pairs, for a run-time
-// K <= C, kept worst first: v[0] holds the K-th best pair, v[K-1] the
-// best. Slots K..C-1 hold (-inf, INT32_MIN), which ranks before every pair
-// the kernel ranks (costs are finite or +inf), so an inserted pair stops
-// below them and the insertion never reads K.
-template <int C>
-struct TopK {
-  float v[C];
-  int i[C];
-
-  __device__ __forceinline__ void clear(int K) {
-#pragma unroll
-    for (int s = 0; s < C; ++s) {
-      v[s] = s < K ? CUDART_INF_F : -CUDART_INF_F;
-      i[s] = s < K ? INT32_MAX : INT32_MIN;
-    }
-  }
-
-  // (cv, ci) replaces the K-th best if it ranks before it, then moves up.
-  __device__ __forceinline__ void insert(float cv, int ci) {
-    if (!less_pair(cv, ci, v[0], i[0])) return;
-    v[0] = cv;
-    i[0] = ci;
-#pragma unroll
-    for (int s = 0; s + 1 < C; ++s) {
-      if (less_pair(v[s], i[s], v[s + 1], i[s + 1])) {
-        const float tv = v[s];
-        v[s] = v[s + 1];
-        v[s + 1] = tv;
-        const int ti = i[s];
-        i[s] = i[s + 1];
-        i[s + 1] = ti;
-      }
-    }
-  }
-};
-
-// Writes the pair of rank r (0 = best) of a top-K into the round's
-// nomination vector: the top-K itself, or with approx_topk
-// [best, best, 2nd, ..., (K-1)th] (solver.py:1147-1153).
-__device__ __forceinline__ void put_ranked(float* oc, int* oi, int r, int K, bool approx,
-                                           float v, int i) {
-  const int at = approx ? r + 1 : r;
-  if (at < K) {
-    oc[at] = v;
-    oi[at] = i;
-  }
-  if (approx && r == 0) {
-    oc[0] = v;
-    oi[0] = i;
-  }
-}
 
 // One tile of node rows, SoA, with the per-node arithmetic done.
 template <int D>
@@ -194,15 +135,15 @@ struct Row {
   __device__ __forceinline__ void store(Tile<D>& s, int j) const {
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      s.fe[d][j] = (a[d] - r[d]) + kEps;
+      s.fe[d][j] = free_eps(a[d], r[d]);
       s.a[d][j] = a[d];
-      s.as[d][j] = a[d] + kSafe;
+      s.as[d][j] = alloc_safe(a[d]);
       s.e[d][j] = e[d];
       s.pr[d][j] = pr[d];
       s.t[d][j] = t[d];
       s.pt[d][j] = pt[d];
     }
-    s.amp[j] = fmaxf(amp, 1.0f);
+    s.amp[j] = amp_of(amp);
     s.flags[j] = (fresh ? kFresh : 0) | (sched ? kSched : 0);
   }
 };
@@ -234,9 +175,11 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
                 const float* __restrict__ weights, int P, int N, int K, int chunk,
                 float jitter_scale, int jitter_on, int approx,
                 float* __restrict__ out_cost, int* __restrict__ out_idx,
-                const int* __restrict__ state) {
-  // the round loop reached its fixed point: nothing to nominate
+                const int* __restrict__ state, const int* __restrict__ trigger) {
+  // the round loop reached its fixed point, or the shortlist round needs
+  // no fallback: nothing to nominate
   if (state != nullptr && state[0] != 0) return;
+  if (trigger != nullptr && trigger[0] == 0) return;
   constexpr int T = tile_nodes(D);
   constexpr int Q = kPodsPerThread;
   __shared__ Shared<D, C> sh;
@@ -246,15 +189,8 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
   const int c0 = blockIdx.y * chunk;
   const int c1 = min(N, c0 + chunk);
 
-  // jnp.sum(weights) + _SAFE, summed in d order
   float w[D];
-  float wsum = 0.0f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    w[d] = weights[d];
-    wsum = wsum + w[d];
-  }
-  wsum = wsum + kSafe;
+  const float wsum = weights_sum<D>(weights, w);
 
   float rq[Q][D], es[Q][D];
   TopK<C> top[Q];
@@ -277,8 +213,8 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
 #pragma unroll
       for (int d = 0; d < D; ++d) rq[q][d] = es[q][d] = 0.0f;
     }
-    // _jitter_hash on the priority-sorted pod position, uint32 wrap
-    hp[q] = (uint32_t)p * 2654435761u;
+    // _jitter_hash on the priority-sorted pod position
+    hp[q] = jitter_pod(p);
     top[q].clear(K);
   }
 
@@ -375,18 +311,13 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
             float total = 0.0f;
 #pragma unroll
             for (int d = 0; d < D; ++d) {
-              const float free_d = fmaxf(a[d] - after[q][d], 0.0f);
-              const float per_dim = a[d] > 0.0f ? floorf(free_d * 100.0f / as[d]) : 0.0f;
-              const float term = per_dim * w[d];
+              const float term = score_term(a[d], as[d], after[q][d], w[d]);
               total = d == 0 ? term : total + term;
             }
             score = floorf(total / wsum);
           }
           float c = -score;
-          if (jitter_on) {
-            const uint32_t h = (hp[q] + (uint32_t)n * 40503u) & 0xFFFFu;
-            c = c + (float)h * jitter_scale;
-          }
+          if (jitter_on) c = add_jitter(c, hp[q], n, jitter_scale);
           if (feas[q]) cost[q] = c;
         }
       }
@@ -451,8 +382,10 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
 nominate_merge_kernel(const float* __restrict__ part_cost,
                       const int* __restrict__ part_idx, int P, int K, int chunks,
                       int approx, float* __restrict__ out_cost,
-                      int* __restrict__ out_idx, const int* __restrict__ state) {
+                      int* __restrict__ out_idx, const int* __restrict__ state,
+                      const int* __restrict__ trigger) {
   if (state != nullptr && state[0] != 0) return;
+  if (trigger != nullptr && trigger[0] == 0) return;
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
   if (p >= P) return;
@@ -508,6 +441,7 @@ struct Args {
   float* out_cost;
   int* out_idx;
   const int* state;
+  const int* trigger;
   cudaStream_t stream;
 };
 
@@ -520,12 +454,12 @@ cudaError_t launch(const Args& a) {
       a.req, a.est, a.is_prod, a.cpu_bind, a.gate, a.alloc, a.requested,
       a.est_used, a.prod_used, a.fresh, a.sched, a.cpu_amp, a.thr, a.pthr,
       a.weights, a.P, a.N, a.K, a.chunk, a.jitter_scale, a.jitter_on, a.approx,
-      split ? a.part_cost : a.out_cost, split ? a.part_idx : a.out_idx, a.state);
+      split ? a.part_cost : a.out_cost, split ? a.part_idx : a.out_idx, a.state, a.trigger);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
   nominate_merge_kernel<C><<<(a.P + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0,
                           a.stream>>>(a.part_cost, a.part_idx, a.P, a.K, chunks, a.approx,
-                                      a.out_cost, a.out_idx, a.state);
+                                      a.out_cost, a.out_idx, a.state, a.trigger);
   return cudaGetLastError();
 }
 
@@ -604,7 +538,7 @@ extern "C" int koord_nominate(
     const void* thr, const void* pthr, const void* weights, int P, int N,
     int D, int K, int chunk, float jitter_scale, int jitter_on, int approx,
     void* part_cost, void* part_idx, void* out_cost, void* out_idx,
-    const void* state, void* stream) {
+    const void* state, const void* trigger, void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (D < 1 || D > kMaxDims || N < 1 || K < 1 || K > kMaxK || chunk < 1)
     return (int)cudaErrorInvalidValue;
@@ -615,7 +549,8 @@ extern "C" int koord_nominate(
                (const float*)cpu_amp, (const float*)thr, (const float*)pthr,
                (const float*)weights, P, N, K, chunk, jitter_scale, jitter_on,
                approx, (float*)part_cost, (int*)part_idx, (float*)out_cost,
-               (int*)out_idx, (const int*)state, (cudaStream_t)stream};
+               (int*)out_idx, (const int*)state, (const int*)trigger,
+               (cudaStream_t)stream};
   return (int)with_dk(D, K, Launch{a});
 }
 

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into ``build/lib<name>-<hash>.so`` on first use, then loaded with
-``ctypes``. The hash covers the source and the flags, so an edited source
-is rebuilt and never served stale. Every C entry returns
+``ctypes``. The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and never
+served stale. Every C entry returns
 ``cudaGetLastError()`` after its launch; :func:`check` raises on non-zero.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -45,7 +46,7 @@ _F = ctypes.c_float
 #: ints are ``c_int``, scalars ``c_float``.
 SIGNATURES: dict[str, dict[str, list]] = {
     "nominate": {
-        "koord_nominate": [_P] * 15 + [_I] * 5 + [_F, _I, _I] + [_P] * 6,
+        "koord_nominate": [_P] * 15 + [_I] * 5 + [_F, _I, _I] + [_P] * 7,
         "koord_nominate_chunk": [_I] * 5 + [ctypes.POINTER(_I)],
     },
     "round": {
@@ -53,6 +54,12 @@ SIGNATURES: dict[str, dict[str, list]] = {
     },
     "gangs": {
         "koord_enforce_gangs": [_P] * 11 + [_I, _I, _I, _P],
+    },
+    "shortlist_build": {
+        "koord_shortlist_build": [_P] * 14 + [_I] * 4 + [_F, _I] + [_P] * 3,
+    },
+    "shortlist_round": {
+        "koord_shortlist_round": [_P] * 17 + [_I] * 4 + [_F, _I, _I] + [_P] * 6,
     },
 }
 
@@ -112,6 +119,8 @@ def nvcc() -> str:
 
 def library_path(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,9 +1,9 @@
 """LoadAware score as a vectorized cost term over (pods × nodes).
 
-Port of ``koordinator_tpu/ops/costs.py:22-69``. Lower cost = better node.
+Port of ``koordinator_tpu/ops/costs.py:22-87``. Lower cost = better node.
 Scores follow the reference's 0..100 integer-floor convention
 (``load_aware.go:387-406``), then negate into costs. The plain form here is
-also what the nomination kernel (``csrc/nominate.cu``) computes per pair.
+also what the kernels compute per pair (``csrc/loadaware.cuh``).
 """
 
 from __future__ import annotations
@@ -43,4 +43,21 @@ def load_aware_cost(
     score = _utilization_free_score(after, node_allocatable[None, :, :], weights)
     if metric_fresh is not None:
         score = torch.where(metric_fresh[None, :], score, 0.0)
+    return -score
+
+
+def load_aware_cost_cols(
+    pod_estimate: torch.Tensor,
+    node_estimated_used: torch.Tensor,
+    node_allocatable: torch.Tensor,
+    weights: torch.Tensor,
+    metric_fresh: "torch.Tensor | None" = None,
+) -> torch.Tensor:
+    """Gathered-column :func:`load_aware_cost`: node arguments are
+    [P, K, D] / [P, K] candidate columns, and each pair gets the bits the
+    full axis gives it. Returns [P, K]."""
+    after = node_estimated_used + pod_estimate[:, None, :]  # [P,K,D]
+    score = _utilization_free_score(after, node_allocatable, weights)
+    if metric_fresh is not None:
+        score = torch.where(metric_fresh, score, 0.0)
     return -score

@@ -1,15 +1,18 @@
 """Filter predicates as boolean masks over (pods × nodes).
 
-Port of ``koordinator_tpu/ops/masks.py:17-106`` (full-axis forms):
+Port of ``koordinator_tpu/ops/masks.py:17-170``:
   * NodeResourcesFit            → :func:`fit_mask`
   * LoadAwareScheduling.Filter  → :func:`usage_threshold_mask`
     (reference ``pkg/scheduler/plugins/loadaware/load_aware.go:122-186,290-313``)
+  * the gathered-column ``_cols`` forms of the candidate shortlist, whose
+    node arguments are each pod's [P, K] candidate columns
 
 Masks compose by logical AND; ``True`` means feasible. The arithmetic and
 its order follow the JAX module operation for operation, so both give the
-same float32 bits on the same inputs. These are the plain forms: the round
-solver's hot path evaluates the same predicates inside the nomination
-kernel (``csrc/nominate.cu``).
+same float32 bits on the same inputs, and a ``_cols`` form gives the bits
+of its full-axis form for every (pod, node) pair. These are the plain
+forms: the round solver's hot path evaluates the same predicates inside
+its kernels (``csrc/loadaware.cuh``).
 """
 
 from __future__ import annotations
@@ -88,6 +91,73 @@ def prod_usage_threshold_mask(
     """LoadAware prod-usage thresholds: only prod-band pods are checked
     against prod-tier utilization. Returns [P, N] bool."""
     base = usage_threshold_mask(
+        pod_estimate,
+        node_prod_used,
+        node_allocatable,
+        prod_thresholds,
+        metric_fresh,
+        node_custom=node_custom,
+    )
+    return base | ~pod_is_prod[:, None]
+
+
+def fit_mask_cols(pod_req: torch.Tensor, node_free: torch.Tensor) -> torch.Tensor:
+    """Gathered-column :func:`fit_mask`: ``node_free`` is [P, K, D], each
+    pod's K candidate columns. Returns [P, K] bool."""
+    return torch.all(pod_req[:, None, :] <= node_free + EPS, dim=-1)
+
+
+def effective_thresholds_cols(
+    thresholds: torch.Tensor, node_custom: "torch.Tensor | None"
+) -> torch.Tensor:
+    """Gathered-column :func:`effective_thresholds`: ``node_custom`` is
+    [P, K, D] (or None). Returns [P, K, D] ([1, 1, D] without a custom
+    table)."""
+    if node_custom is None:
+        return thresholds[None, None, :]
+    has_custom = torch.any(node_custom > 0.0, dim=-1, keepdim=True)  # [P, K, 1]
+    return torch.where(has_custom, node_custom, thresholds[None, None, :])
+
+
+def usage_ok_cols(pod_estimate, node_used, node_allocatable, thr, metric_fresh):
+    """:func:`usage_threshold_mask_cols` on effective thresholds ``thr``
+    ([P, K, D], or broadcastable to it)."""
+    after = node_used + pod_estimate[:, None, :]
+    pct = usage_percent(after, node_allocatable)
+    over = (thr > 0.0) & (pct > thr)
+    return ~torch.any(over, dim=-1) | ~metric_fresh
+
+
+def usage_threshold_mask_cols(
+    pod_estimate: torch.Tensor,
+    node_estimated_used: torch.Tensor,
+    node_allocatable: torch.Tensor,
+    thresholds: torch.Tensor,
+    metric_fresh: torch.Tensor,
+    node_custom: "torch.Tensor | None" = None,
+) -> torch.Tensor:
+    """Gathered-column :func:`usage_threshold_mask`: node arguments are
+    [P, K, D] / [P, K] candidate columns. Returns [P, K] bool."""
+    return usage_ok_cols(
+        pod_estimate,
+        node_estimated_used,
+        node_allocatable,
+        effective_thresholds_cols(thresholds, node_custom),
+        metric_fresh,
+    )
+
+
+def prod_usage_threshold_mask_cols(
+    pod_is_prod: torch.Tensor,
+    pod_estimate: torch.Tensor,
+    node_prod_used: torch.Tensor,
+    node_allocatable: torch.Tensor,
+    prod_thresholds: torch.Tensor,
+    metric_fresh: torch.Tensor,
+    node_custom: "torch.Tensor | None" = None,
+) -> torch.Tensor:
+    """Gathered-column :func:`prod_usage_threshold_mask`. Returns [P, K]."""
+    base = usage_threshold_mask_cols(
         pod_estimate,
         node_prod_used,
         node_allocatable,

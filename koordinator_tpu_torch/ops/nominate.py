@@ -3,7 +3,9 @@
 Port of ``koordinator_tpu/ops/solver.py:_full_nominate`` (:1121-1156) with
 ``full_feas_cost`` (:864-947). :func:`nominate` launches the hand-written
 kernel ``csrc/nominate.cu`` on CUDA tensors and runs :func:`nominate_plain`
-on CPU tensors; there is no fallback from one to the other.
+on CPU tensors; there is no fallback from one to the other. With the
+candidate shortlist on it is the round's full-axis fallback, run only when
+the shortlist round sets its trigger word (``trigger=``).
 
 Pods arrive in priority-sorted order: the jitter hash is keyed on a pod's
 sorted position, as the reference's ``add_jitter`` keys it on ``arange(P)``
@@ -65,31 +67,63 @@ def nomination_vector(top_cost, top_idx, approx_topk: bool):
     )
 
 
-def nominate_plain(
+def add_jitter(cost, node_ids, nomination_jitter: float):
+    """``cost`` [P, M] plus the 16-bit jitter of each (sorted pod position,
+    original node id) pair, ``node_ids`` [P, M] or [1, M]
+    (``solver.py:add_jitter`` :732-742 and ``add_jitter_cols`` :744-753):
+    a pair gets the same jitter on the full axis and in the shortlist."""
+    if nomination_jitter <= 0.0:
+        return cost
+    pi = torch.arange(cost.shape[0], device=cost.device)[:, None]
+    h = _jitter_hash(pi, node_ids)
+    return cost + h.to(torch.float32) * (nomination_jitter / 65536.0)
+
+
+def masked_cost(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
-    weights, k: int, nomination_jitter: float, approx_topk: bool,
+    weights, nomination_jitter: float,
 ):
-    """Plain PyTorch nomination: the reference's formulas on [P, N]
-    tensors. Pod tensors ([P, D] / [P]) are priority-sorted; node tables
-    are [N, D] / [N]; ``thr``/``pthr`` are the effective [N, D] usage and
-    prod thresholds. Returns (cost [P, k] float32, node [P, k] int32)."""
-    p, n = req.shape[0], alloc.shape[0]
+    """[P, N] masked, jittered LoadAware cost (``full_feas_cost``
+    :864-947), +inf where a pair is infeasible."""
     feas = feasible_mask(
         req, est, is_prod, cpu_bind, gate,
         alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
     )
     cost = load_aware_cost(est, est_used, alloc, weights, metric_fresh=fresh)
-    if nomination_jitter > 0.0:
-        pi = torch.arange(p, device=req.device)[:, None]
-        ni = torch.arange(n, device=req.device)[None, :]
-        h = _jitter_hash(pi, ni)
-        cost = cost + h.to(torch.float32) * (nomination_jitter / 65536.0)
-    cost = torch.where(feas, cost, torch.inf)
+    nodes = torch.arange(alloc.shape[0], device=req.device)[None, :]
+    cost = add_jitter(cost, nodes, nomination_jitter)
+    return torch.where(feas, cost, torch.inf)
+
+
+def nominate_plain(
+    req, est, is_prod, cpu_bind, gate,
+    alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
+    weights, k: int, nomination_jitter: float, approx_topk: bool,
+    trigger=None, out=None,
+):
+    """Plain PyTorch nomination: the reference's formulas on [P, N]
+    tensors. Pod tensors ([P, D] / [P]) are priority-sorted; node tables
+    are [N, D] / [N]; ``thr``/``pthr`` are the effective [N, D] usage and
+    prod thresholds. Returns (cost [P, k] float32, node [P, k] int32).
+    ``trigger`` and ``out`` are :func:`nominate`'s: with ``trigger[0]``
+    clear nothing is computed and ``out`` is returned as it is; otherwise
+    the result is written into ``out``."""
+    if trigger is not None and not bool(trigger[0]):
+        return out
+    cost = masked_cost(
+        req, est, is_prod, cpu_bind, gate, alloc, requested, est_used,
+        prod_used, fresh, sched, cpu_amp, thr, pthr, weights, nomination_jitter,
+    )
     vals, idx = torch.sort(cost, dim=1, stable=True)
-    return nomination_vector(
+    top = nomination_vector(
         vals[:, :k].contiguous(), idx[:, :k].to(torch.int32), approx_topk
     )
+    if out is None:
+        return top
+    for buf, val in zip(out, top):
+        buf.copy_(val)
+    return out
 
 
 #: the largest k the kernel takes (``kMaxK`` in ``csrc/nominate.cu``)
@@ -101,24 +135,29 @@ _DTYPES = (_F32, _F32, _BOOL, _BOOL, _BOOL, _F32, _F32, _F32, _F32, _BOOL, _BOOL
 
 
 def launch(lib, ptrs, p: int, n: int, d: int, k: int, nomination_jitter: float,
-           approx_topk: bool, chunk: int, device, state_ptr=None):
+           approx_topk: bool, chunk: int, device, state_ptr=None, trigger_ptr=None,
+           out=None):
     """One ``koord_nominate`` call of ``lib`` on checked pointers, each
     block walking ``chunk`` nodes; with ``state_ptr`` (a round loop's state
-    word) the kernels return at once once its ``done`` is set. Returns
-    (cost [P, k], node [P, k], the C entry's error code)."""
+    word) the kernels return at once once its ``done`` is set, with
+    ``trigger_ptr`` (a shortlist round's word) while its trigger is clear.
+    Writes into ``out`` (cost, node) when given, checked buffers of
+    [P, k]. Returns (cost [P, k], node [P, k], the C entry's error code)."""
     chunks = -(-n // chunk)
     # [P, chunks, C] partial lists, C <= MAX_K list slots
     parts = p * chunks * MAX_K if chunks > 1 else 1
     part_cost = torch.empty(parts, dtype=torch.float32, device=device)
     part_idx = torch.empty(parts, dtype=torch.int32, device=device)
-    out_cost = torch.empty((p, k), dtype=torch.float32, device=device)
-    out_idx = torch.empty((p, k), dtype=torch.int32, device=device)
+    if out is None:
+        out = (torch.empty((p, k), dtype=torch.float32, device=device),
+               torch.empty((p, k), dtype=torch.int32, device=device))
+    out_cost, out_idx = out
     code = lib.koord_nominate(
         *ptrs, p, n, d, k, chunk,
         ctypes.c_float(nomination_jitter / 65536.0),
         int(nomination_jitter > 0.0), int(approx_topk),
         part_cost.data_ptr(), part_idx.data_ptr(),
-        out_cost.data_ptr(), out_idx.data_ptr(), state_ptr,
+        out_cost.data_ptr(), out_idx.data_ptr(), state_ptr, trigger_ptr,
         kernels.stream_of(out_cost),
     )
     return out_cost, out_idx, code
@@ -154,6 +193,7 @@ def nominate(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
     weights, k: int, nomination_jitter: float, approx_topk: bool, state=None,
+    trigger=None, out=None,
 ):
     """Round nomination on the tensors' device: the CUDA kernel for CUDA
     tensors, :func:`nominate_plain` for CPU tensors. Same arguments and
@@ -162,24 +202,30 @@ def nominate(
     word (:func:`.commit.round_tail`): while its ``done`` is set the kernel
     returns at once and the result is left unwritten, which the round tail
     then does not read. The plain version needs no such word: a round tail
-    after the fixed point ignores its nomination."""
+    after the fixed point ignores its nomination.
+
+    The shortlist's fallback: ``trigger`` is the round's int32 word of
+    :func:`.shortlist.shortlist_round`, ``out`` the (cost, node) buffers it
+    wrote. While ``trigger[0]`` is clear nothing runs and ``out`` keeps the
+    shortlist's nomination; when it is set the full-axis nomination is
+    written into ``out``. Returns ``out`` (a new pair without it)."""
     args = (req, est, is_prod, cpu_bind, gate, alloc, requested, est_used,
             prod_used, fresh, sched, cpu_amp, thr, pthr, weights)
     if req.is_cpu:
-        return nominate_plain(*args, k, nomination_jitter, approx_topk)
+        return nominate_plain(*args, k, nomination_jitter, approx_topk,
+                              trigger=trigger, out=out)
     ptrs = checked(args, k)
     p, d = req.shape
     n = alloc.shape[0]
-    state_ptr = None
-    if state is not None:
-        state_ptr = kernels.checked_ptrs(
-            "nominate", (req, state), (_F32, torch.int32), (p * d, 2)
-        )[1]
+    extra = kernels.checked_ptrs(
+        "nominate", (req, state, trigger) + (out or (None, None)),
+        (_F32, torch.int32, torch.int32, _F32, torch.int32), (p * d, 2, 4, p * k, p * k),
+    )
     lib = kernels.library("nominate")
     chunk = chunk_of(lib, p, n, d, k, req.get_device())
     out_cost, out_idx, code = launch(
         lib, ptrs, p, n, d, k, nomination_jitter, approx_topk, chunk, req.device,
-        state_ptr,
+        extra[1], extra[2], out,
     )
     kernels.check(lib, code, "nominate")
     kernels.count("nominate")

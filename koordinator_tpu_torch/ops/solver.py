@@ -3,11 +3,18 @@
 Port of ``koordinator_tpu/ops/solver.py``'s LoadAware round solver
 (:func:`assign`, :679-1535) and its stream (:func:`solve_stream`,
 :1671-1733), with :func:`enforce_gangs` (:1858-1987, the CUDA kernel
-``csrc/gangs.cu`` on the card, one launch a batch). Each round:
+``csrc/gangs.cu`` on the card, one launch a batch), the candidate
+shortlist (:func:`shortlist_plan`, :1547-1657) and the resident-row
+helpers :func:`scatter_rows` / :func:`gather_rows` (:248-283). Each round:
 
 1. nominate — every still-unassigned pod's masked, jittered LoadAware cost
    over all nodes and its top-k (:func:`.nominate.nominate`, the CUDA kernel
-   ``csrc/nominate.cu`` on the card);
+   ``csrc/nominate.cu`` on the card). With ``shortlist_k`` each batch first
+   builds every pod's K candidates (:func:`.shortlist.shortlist_build`,
+   ``csrc/shortlist_build.cu``), and a round nominates over them
+   (:func:`.shortlist.shortlist_round`, ``csrc/shortlist_round.cu``),
+   falling back to the full axis only when the exactness check fails —
+   a branch taken on the device;
 2. the round tail — the pod with the r-th highest priority among active
    pods takes its (r mod k)-th best finite node; pods stably sorted by
    node, segmented prefix sums, acceptance under capacity, thresholds and
@@ -39,6 +46,7 @@ import torch
 from .. import kernels, resolve_device
 from . import commit as commit_ops
 from . import nominate as nominate_ops
+from . import shortlist as shortlist_ops
 from .commit import _segment_prefix_sums  # noqa: F401  (reference name)
 from .masks import effective_thresholds
 from .nominate import _jitter_hash  # noqa: F401  (reference name)
@@ -241,8 +249,11 @@ class SolverParams:
 @dataclass
 class SolveResult:
     """One solve's assignments plus its POST-COMMIT capacity tables,
-    ``solver.py:438-486``. The device, NUMA and shortlist fields carry the
-    reference's placeholders: their slices are not ported yet."""
+    ``solver.py:438-486``. The device and NUMA fields carry the
+    reference's placeholders: their slices are not ported yet.
+    ``shortlist_fallbacks`` [2] int32 counts the shortlist rounds that fell
+    back to the full axis (bound, exhausted); zeros with the shortlist
+    off."""
 
     assignment: torch.Tensor       # [P] int32 node index, -1 = unschedulable
     node_requested: torch.Tensor   # [N, D] post-commit
@@ -340,7 +351,6 @@ _NOT_PORTED = {
     "numa_carry": "queue 1 item 9 (NUMA)",
     "numa_scoring": "queue 1 item 9 (NUMA)",
     "device_scoring": "queue 1 item 10 (devices)",
-    "shortlist_k": "queue 1 item 4 (shortlist)",
     "cost_transform": "queue 1 item 13 (score terms and transformers)",
 }
 
@@ -351,6 +361,13 @@ def _reject_unported(**options) -> None:
             raise NotImplementedError(
                 f"{name} is not ported yet: ROADMAP.md {_NOT_PORTED[name]}"
             )
+
+
+def _shortlist_on(shortlist_k, topk: int, n: int) -> bool:
+    """The reference's static gate (``solver.py:856-862``) for the options
+    the port takes: a shortlist of K nodes with k <= K < N, where k is the
+    nomination fan-out."""
+    return shortlist_k is not None and min(topk, n) <= shortlist_k < n
 
 
 def assign(
@@ -378,13 +395,14 @@ def assign(
     allocatable (per dim, in estimated usage) it may accept per round;
     ``topk`` the nomination fan-out; ``nomination_jitter`` the per-(pod,
     node) tie-break band in score points; ``approx_topk`` pins slot 0 to
-    the argmin as the reference's TPU path does. Options of other slices
-    raise ``NotImplementedError``."""
+    the argmin as the reference's TPU path does; ``shortlist_k`` prunes
+    each round's node axis to each pod's K build-time candidates, with the
+    same decisions (off unless k <= K < N). Options of other slices raise
+    ``NotImplementedError``."""
     _reject_unported(
         quotas=quotas, numa=numa, devices=devices, node_mask=node_mask,
         dev_carry=dev_carry, numa_carry=numa_carry, numa_scoring=numa_scoring,
-        device_scoring=device_scoring, shortlist_k=shortlist_k,
-        cost_transform=cost_transform,
+        device_scoring=device_scoring, cost_transform=cost_transform,
     )
     p, d = pods.requests.shape
     n = nodes.allocatable.shape[0]
@@ -395,9 +413,10 @@ def assign(
         estimated_used=nodes.estimated_used.clone(),
         prod_used=nodes.prod_used.clone(),
     )
-    assignment, rounds = _assign_(
+    assignment, rounds, fallbacks = _assign_(
         pods, tables, params, max_rounds=max_rounds, round_quantum=round_quantum,
         topk=topk, nomination_jitter=nomination_jitter, approx_topk=approx_topk,
+        shortlist_k=shortlist_k,
     )
     return SolveResult(
         assignment=assignment,
@@ -413,7 +432,10 @@ def assign(
         # no zone is picked without NUMA, so no rollback writes one
         pod_zone=torch.full((p,), -1, dtype=torch.int32, device=dev),
         pod_zone_charge=torch.zeros((p, 1), dtype=torch.float32, device=dev),
-        shortlist_fallbacks=torch.zeros((2,), dtype=torch.int32, device=dev),
+        shortlist_fallbacks=(
+            torch.zeros((2,), dtype=torch.int32, device=dev)
+            if fallbacks is None else fallbacks
+        ),
     )
 
 
@@ -426,12 +448,20 @@ def _assign_(
     topk: int,
     nomination_jitter: float,
     approx_topk: bool,
+    shortlist_k=None,
     thresholds=None,
 ):
     """:func:`assign`'s rounds and gang rollback with ``nodes``' tables
     (``requested``, ``estimated_used``, ``prod_used``) updated in place.
-    Returns (assignment [P] int32, rounds_used [] int32). Reads nothing
-    back to the host on the card, so a CUDA graph can capture it."""
+    Returns (assignment [P] int32, rounds_used [] int32, the shortlist's
+    fallback counts [2] int32 or None with the shortlist off). Reads
+    nothing back to the host on the card, so a CUDA graph can capture it.
+
+    With the shortlist on, the build runs once, from the tables as they
+    are before the first round; each trip then runs the shortlist round,
+    the full-axis nomination (which returns at once unless the round's
+    trigger word is set) and the round tail, all reading one nomination
+    buffer."""
     p = pods.requests.shape[0]
     n = nodes.allocatable.shape[0]
     dev = nodes.allocatable.device
@@ -444,15 +474,35 @@ def _assign_(
     # (done, rounds): done before the first round when no pod is active
     state = torch.zeros((2,), dtype=torch.int32, device=dev)
     state[0].copy_(~active.any())
-    for _ in range(max_rounds):
+    node_args = (nodes.allocatable, requested, est_used, prod_used,
+                 nodes.metric_fresh, nodes.schedulable, nodes.cpu_amp, thr, pthr,
+                 params.score_weights)
+    fallbacks = None
+    if _shortlist_on(shortlist_k, topk, n):
+        plan = shortlist_ops.shortlist_build(
+            spods.requests, spods.estimate, spods.is_prod, bind_mask, *node_args,
+            shortlist_k, nomination_jitter,
+        )
+        # one word a trip: trip t is round t while the loop runs
+        words = torch.zeros((max_rounds, shortlist_ops.WORD), dtype=torch.int32, device=dev)
+        fallbacks = torch.zeros((2,), dtype=torch.int32, device=dev)
+    for t in range(max_rounds):
         if state.is_cpu and bool(state[0]):
             break
-        top_cost, top_idx = nominate_ops.nominate(
-            spods.requests, spods.estimate, spods.is_prod, bind_mask, active,
-            nodes.allocatable, requested, est_used, prod_used,
-            nodes.metric_fresh, nodes.schedulable, nodes.cpu_amp, thr, pthr,
-            params.score_weights, k, nomination_jitter, approx_topk, state=state,
-        )
+        pod_args = (spods.requests, spods.estimate, spods.is_prod, bind_mask, active)
+        if fallbacks is None:
+            top_cost, top_idx = nominate_ops.nominate(
+                *pod_args, *node_args, k, nomination_jitter, approx_topk, state=state,
+            )
+        else:
+            top = shortlist_ops.shortlist_round(
+                *pod_args, *node_args, *plan, k, nomination_jitter, approx_topk,
+                words[t], fallbacks, state,
+            )
+            top_cost, top_idx = nominate_ops.nominate(
+                *pod_args, *node_args, k, nomination_jitter, approx_topk, state=state,
+                trigger=words[t], out=top,
+            )
         commit_ops.round_tail(
             top_cost, top_idx, spods.requests, spods.estimate, spods.is_prod,
             bind_mask, nodes.cpu_amp, nodes.allocatable, nodes.metric_fresh,
@@ -472,7 +522,7 @@ def _assign_(
         ),
         pods,
     )
-    return assignment, state[1].clone()
+    return assignment, state[1].clone(), fallbacks
 
 
 def solve_stream(
@@ -489,6 +539,7 @@ def solve_stream(
     shortlist_k=None,
     cuda_graph: bool = True,
     rounds_out: "torch.Tensor | None" = None,
+    fallbacks_out: "torch.Tensor | None" = None,
 ):
     """Multi-batch solve over a [B, P, ...] stacked :class:`PodBatch`,
     threading consumed node capacity from batch to batch on the device.
@@ -496,7 +547,10 @@ def solve_stream(
     Returns ``(assignments [B, P], final NodeState, placed-per-batch [B],
     final QuotaState)``, as ``solver.py:1671-1733`` does, in fresh tensors
     (the caller's are never written). ``rounds_out``, a [B] int32 tensor on
-    the device, receives each batch's ``rounds_used``.
+    the device, receives each batch's ``rounds_used``; ``fallbacks_out``, a
+    [B, 2] int32 tensor, each batch's ``shortlist_fallbacks`` (zeros with
+    the shortlist off), as ``solve_stream_full`` returns them
+    (``solver.py:1748-1855``).
 
     On CUDA tensors one batch's :func:`assign` — the priority sort, the
     gathers, ``max_rounds`` trips of nomination and round tail, the gang
@@ -505,19 +559,20 @@ def solve_stream(
     advances (:class:`_StreamGraph`); nothing is read back to the host.
     ``cuda_graph=False`` runs the batches eagerly instead (the plain route
     on the card, whose plain versions read through the host)."""
-    _reject_unported(
-        quotas=quotas, shortlist_k=shortlist_k, cost_transform=cost_transform
-    )
+    _reject_unported(quotas=quotas, cost_transform=cost_transform)
     dev = nodes.allocatable.device
     b, p = pods_stacked.requests.shape[:2]
     quotas = QuotaState.disabled(pods_stacked.requests.shape[-1], device=dev)
     kw = dict(max_rounds=max_rounds, round_quantum=round_quantum, topk=topk,
-              nomination_jitter=nomination_jitter, approx_topk=approx_topk)
+              nomination_jitter=nomination_jitter, approx_topk=approx_topk,
+              shortlist_k=shortlist_k)
     if dev.type == "cuda" and cuda_graph:
-        tables, (asg, placed, rounds) = _StreamGraph.run(pods_stacked, nodes, params, kw)
+        tables, (asg, placed, rounds, fallbacks) = _StreamGraph.run(
+            pods_stacked, nodes, params, kw
+        )
     else:
-        tables, outs = _stream_buffers(nodes, b, p)
-        asg, placed, rounds = outs
+        tables, outs = _stream_buffers(nodes, b, p, kw)
+        asg, placed, rounds, fallbacks = outs
         index = torch.arange(b, device=dev)
         thresholds = _effective_thresholds(nodes, params)
         for i in range(b):
@@ -525,22 +580,31 @@ def solve_stream(
                          index[i : i + 1], kw)
     if rounds_out is not None:
         rounds_out.copy_(rounds)
+    if fallbacks_out is not None:
+        if fallbacks is None:
+            fallbacks_out.zero_()
+        else:
+            fallbacks_out.copy_(fallbacks)
     final = dataclasses.replace(
         nodes, requested=tables[0], estimated_used=tables[1], prod_used=tables[2]
     )
     return asg, final, placed, quotas
 
 
-def _stream_buffers(nodes: NodeState, b: int, p: int):
+def _stream_buffers(nodes: NodeState, b: int, p: int, kw: dict):
     """A stream's node tables (copies of ``nodes``', updated in place batch
-    by batch) and its outputs: assignments [B, P], placed [B] and rounds
-    [B]."""
+    by batch) and its outputs: assignments [B, P], placed [B], rounds [B]
+    and, with the shortlist on (``kw``, the solver's arguments), its
+    fallback counts [B, 2] (None with it off)."""
+    n = nodes.allocatable.shape[0]
+    shortlist = _shortlist_on(kw["shortlist_k"], kw["topk"], n)
     dev = nodes.allocatable.device
     tables = [nodes.requested.clone(), nodes.estimated_used.clone(), nodes.prod_used.clone()]
     outs = (
         torch.empty((b, p), dtype=torch.int32, device=dev),
         torch.empty((b,), dtype=torch.int32, device=dev),
         torch.empty((b,), dtype=torch.int32, device=dev),
+        torch.empty((b, 2), dtype=torch.int32, device=dev) if shortlist else None,
     )
     return tables, outs
 
@@ -549,17 +613,21 @@ def _stream_step(pods_stacked, nodes, params, thresholds, tables, outs, index, k
     """Batch ``index`` ([1] int64 on the device) of a stream: its pods
     gathered from the stacked batch, solved with ``tables`` (requested,
     estimated, prod) updated in place and the stream's effective
-    ``thresholds``, its assignment, placed count and rounds written into
-    row ``index`` of ``outs``."""
+    ``thresholds``, its assignment, placed count, rounds and fallback
+    counts written into row ``index`` of ``outs``."""
     pods = _only(pods_stacked, _SOLVE_FIELDS, lambda a: a.index_select(0, index)[0])
     cur = dataclasses.replace(
         nodes, requested=tables[0], estimated_used=tables[1], prod_used=tables[2]
     )
-    assignment, rounds_used = _assign_(pods, cur, params, thresholds=thresholds, **kw)
-    asg, placed, rounds = outs
+    assignment, rounds_used, fallbacks = _assign_(
+        pods, cur, params, thresholds=thresholds, **kw
+    )
+    asg, placed, rounds, fb = outs
     asg.index_copy_(0, index, assignment[None])
     placed.index_copy_(0, index, (assignment >= 0).sum(dtype=torch.int32)[None])
     rounds.index_copy_(0, index, rounds_used[None])
+    if fb is not None:
+        fb.index_copy_(0, index, fallbacks[None])
 
 
 class _StreamGraph:
@@ -569,12 +637,15 @@ class _StreamGraph:
     copies of the node tables (updated in place by every replay), the
     effective thresholds (computed once a call, outside the graph), a
     device batch index that each replay advances, and static [B, P] / [B]
-    outputs.
+    / [B, 2] outputs. With the shortlist on, a batch's build, its words and
+    counts are inside the graph.
 
     A graph is kept for the last input it ran, keyed by the shapes, the
     solver arguments and the input tensors' addresses: a replay reads the
     inputs' contents at run time, so a call with the same key reuses it
-    and a call with another key captures anew. The graph holds the input
+    and a call with another key captures anew. Node rows refreshed in
+    place (:func:`scatter_rows`) keep their addresses: the next call
+    replays the same graph and reads the new rows. The graph holds the input
     tensors themselves, so no other tensor can take their addresses while
     it is kept. The kernels are warmed up once a key, on a side stream,
     before the capture (library loads, ``cudaFuncSetAttribute``,
@@ -590,7 +661,7 @@ class _StreamGraph:
         b, p = pods_stacked.requests.shape[:2]
         self.key = key
         self.nodes = nodes
-        self.tables, self.outs = _stream_buffers(nodes, b, p)
+        self.tables, self.outs = _stream_buffers(nodes, b, p, kw)
         self.index = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.batches = b
         self.params = params
@@ -641,7 +712,8 @@ class _StreamGraph:
             cls._retired = [g for g in cls._retired if not g.done.query()]
             last = cls._last = cls(key, pods_stacked, nodes, params, kw)
         last.replay()
-        return [t.clone() for t in last.tables], tuple(t.clone() for t in last.outs)
+        return ([t.clone() for t in last.tables],
+                tuple(None if t is None else t.clone() for t in last.outs))
 
 
 def enforce_gangs_plain(result: SolveResult, pods: PodBatch) -> SolveResult:
@@ -737,3 +809,65 @@ def enforce_gangs(result: SolveResult, pods: PodBatch) -> SolveResult:
     })
     _enforce_gangs_(out, pods)
     return out
+
+
+def shortlist_plan(
+    pods: PodBatch,
+    nodes: NodeState,
+    params: SolverParams,
+    numa=None,
+    devices=None,
+    node_mask=None,
+    shortlist_k: int = 64,
+    nomination_jitter: float = 4.0,
+    numa_scoring=None,
+    device_scoring=None,
+):
+    """The shortlist build as its own entry (``solver.py:1547-1657``),
+    LoadAware only: the round-0 masked cost with every pod gate open and
+    each pod's top-(K+1). Returns ``(plan_cand [P, K] int32, candidates
+    ascending by node id in the solver's priority-sorted pod order,
+    plan_bound [P] float32, the (K+1)-th best build cost, +inf when the
+    shortlist holds every feasible node)``. One launch of
+    ``csrc/shortlist_build.cu`` on the card; :func:`assign` runs its own
+    build inside the solve."""
+    _reject_unported(numa=numa, devices=devices, node_mask=node_mask,
+                     numa_scoring=numa_scoring, device_scoring=device_scoring)
+    _, spods, bind, thr, pthr = _round_setup(pods, nodes, params)
+    return shortlist_ops.shortlist_build(
+        spods.requests, spods.estimate, spods.is_prod, bind, nodes.allocatable,
+        nodes.requested, nodes.estimated_used, nodes.prod_used, nodes.metric_fresh,
+        nodes.schedulable, nodes.cpu_amp, thr, pthr, params.score_weights,
+        shortlist_k, nomination_jitter,
+    )
+
+
+def scatter_rows(full, idx: torch.Tensor, rows):
+    """Refresh rows of a resident node-axis dataclass in place
+    (``solver.py:248-264``): every [N, ...] field of ``full`` (a
+    :class:`NodeState`) takes ``rows``' matching [K, ...] field at the node
+    rows ``idx`` [K]. ``idx`` may repeat a row as long as the repeats carry
+    identical data. The reference donates ``full``; the port writes into
+    its tensors with ``index_copy_``, so every ``data_ptr`` stays and a
+    :class:`_StreamGraph` keyed by them replays with the new rows. Returns
+    ``full``."""
+    index = idx.long()
+    for f in dataclasses.fields(full):
+        table = getattr(full, f.name)
+        if table is not None:
+            table.index_copy_(0, index, getattr(rows, f.name))
+    return full
+
+
+def gather_rows(full, idx: torch.Tensor, valid: torch.Tensor):
+    """Rows ``idx`` [B] of a resident node-axis dataclass, rows where
+    ``valid`` [B] is False zeroed (``solver.py:267-283``): padding rows
+    then read unschedulable and mask out. ``full`` is not written."""
+    index = idx.long()
+
+    def take(table):
+        out = table.index_select(0, index)
+        keep = valid.reshape((-1,) + (1,) * (out.dim() - 1))
+        return torch.where(keep, out, torch.zeros_like(out))
+
+    return tree_map(take, full)

@@ -12,8 +12,14 @@ pods (one to three scan levels; more than one tile of 1,024 threads) at
 D = 1 to 8 with hot nodes, negative ranks and a set ``done``, gang
 rollbacks of 1 to 1,000 pods with no gangs, every gang short, NonStrict
 gangs, all refunds on one node and refunds on node N-1, and the stream as
-one CUDA graph replay a batch. Tolerance: none — the kernels round as the
-plain versions do, so results must be bitwise equal.
+one CUDA graph replay a batch. The shortlist build at K = 1 to 200 (K + 1
+= N; ties with the jitter off; keys in shared memory and, above 51,200
+nodes, priced again each pass), the shortlist round at k = 1 to 8 with
+real, lowered and unbounded bounds and a set ``done``, the fallback firing
+on the contention fixture, the shortlist stream against the stream without
+it and the shortlist golden, and two cycles on resident rows replaying one
+graph. Tolerance: none — the kernels round as the plain versions do, so
+results must be bitwise equal.
 """
 
 import numpy as np
@@ -24,6 +30,7 @@ import chip_smoke
 from koordinator_tpu_torch import kernels
 from koordinator_tpu_torch.ops import commit as tcommit
 from koordinator_tpu_torch.ops import nominate as tnom
+from koordinator_tpu_torch.ops import shortlist as tsl
 from koordinator_tpu_torch.ops import solver as T
 from koordinator_tpu_torch.ops.convert import from_numpy, to_numpy
 
@@ -356,3 +363,136 @@ def test_stream_graph_matches_eager_plain_and_golden(cuda):
         want = bits(gold[f])
         for got in (final, again[1], p_final):
             np.testing.assert_array_equal(bits(getattr(got, f).cpu().numpy()), want, err_msg=f)
+
+
+def shortlist_inputs(seed, p, n, d):
+    """``nominate_inputs`` without the gate: the build's arguments."""
+    arrays = nominate_inputs(seed, p, n, d)
+    return arrays[:4] + arrays[5:]
+
+
+@pytest.mark.parametrize(
+    "p, n, d, k",
+    [(1, 2, 1, 1), (3, 70, 2, 8), (37, 300, 3, 64), (512, 10_000, 2, 64), (5, 65, 2, 64),
+     (64, 1000, 8, 200), (16, 60_000, 2, 64), (130, 10_001, 2, 1)],
+)
+@pytest.mark.parametrize("jitter", [4.0, 0.0])
+def test_shortlist_build_kernel_matches_plain(cuda, p, n, d, k, jitter):
+    host = [torch.from_numpy(a) for a in shortlist_inputs(p * 5 + n, p, n, d)]
+    dev = [t.to(cuda) for t in host]
+    before = kernels.launches["shortlist_build"]
+    kc, kb = tsl.shortlist_build(*dev, k, jitter)
+    torch.cuda.synchronize()
+    assert kernels.launches["shortlist_build"] == before + 1
+    pc, pb = tsl.shortlist_build_plain(*host, k, jitter)
+    np.testing.assert_array_equal(kc.cpu().numpy(), pc.numpy())
+    np.testing.assert_array_equal(bits(kb.cpu().numpy()), bits(pb.numpy()))
+
+
+def round_both(cuda, arrays, plan, k, approx, done=False, bound=None):
+    """The shortlist round on the card and its plain version on the CPU;
+    returns ((cost, node, word, counts) kernel, the same plain)."""
+    outs = []
+    for device in (cuda, "cpu"):
+        args = [torch.from_numpy(a).to(device) for a in arrays]
+        cand, b = (t.to(device) for t in plan)
+        if bound is not None:
+            b = bound(b)
+        word = torch.zeros(tsl.WORD, dtype=torch.int32, device=device)
+        counts = torch.tensor([2, 3], dtype=torch.int32, device=device)
+        state = torch.tensor([int(done), 1], dtype=torch.int32, device=device)
+        top = tsl.shortlist_round(*args, cand, b, k, 4.0, approx, word, counts, state)
+        outs.append((*top, word[:3], counts))
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize("bound", ["plan", "lowered", "unbounded", "done"])
+@pytest.mark.parametrize(
+    "p, n, d, sk, k, approx",
+    [(1, 9, 1, 8, 1, False), (37, 300, 3, 64, 4, True), (512, 10_000, 2, 64, 4, True),
+     (100, 1000, 2, 70, 8, False), (64, 500, 8, 4, 4, False)],
+)
+def test_shortlist_round_kernel_matches_plain(cuda, p, n, d, sk, k, approx, bound):
+    arrays = nominate_inputs(p * 3 + n, p, n, d)
+    plan = tsl.shortlist_build_plain(
+        *[torch.from_numpy(a) for a in arrays[:4] + arrays[5:]], sk, 4.0
+    )
+    change = {
+        "plan": None, "done": None,
+        "lowered": lambda b: b - 200.0,
+        "unbounded": lambda b: torch.where(torch.arange(b.shape[0], device=b.device) % 2 == 0,
+                                           torch.inf, b),
+    }[bound]
+    before = kernels.launches["shortlist_round"]
+    (kc, ki, kw, kn), (pc, pi, pw, pn) = round_both(
+        cuda, arrays, plan, k, approx, done=bound == "done", bound=change
+    )
+    assert kernels.launches["shortlist_round"] == before + 1
+    np.testing.assert_array_equal(kw.cpu().numpy(), pw.numpy())
+    np.testing.assert_array_equal(kn.cpu().numpy(), pn.numpy())
+    if bound == "done":
+        assert not pw.any() and pn.tolist() == [2, 3]
+        return
+    np.testing.assert_array_equal(bits(kc.cpu().numpy()), bits(pc.numpy()))
+    np.testing.assert_array_equal(ki.cpu().numpy(), pi.numpy())
+    if bound == "lowered" and p > 1:
+        assert pw[0] == 1
+
+
+def test_shortlist_fallback_fires_on_card(cuda):
+    """The contention fixture's rounds fall back on the card, as on the
+    CPU, with the same decisions and counts."""
+    nodes, pods, params = chip_smoke.contention_fixture()
+
+    def run(device):
+        return to_numpy(T.assign(
+            from_numpy(T.PodBatch, device=device, **pods),
+            from_numpy(T.NodeState, device=device, **nodes),
+            from_numpy(T.SolverParams, device=device, **params),
+            shortlist_k=chip_smoke.CONTENTION_K,
+        ))
+
+    kernels.reset_launches()
+    got = run(cuda)
+    assert kernels.launches["shortlist_build"] == 1 and kernels.launches["shortlist_round"] == 24
+    want = run("cpu")
+    assert (want["shortlist_fallbacks"] > 0).all()
+    for f in ("assignment", "rounds_used", "shortlist_fallbacks", "node_requested",
+              "node_estimated_used", "node_prod_used"):
+        np.testing.assert_array_equal(bits(got[f]), bits(want[f]), err_msg=f)
+
+
+def test_shortlist_stream_equals_full_stream_and_golden(cuda):
+    """The shortlist stream through the graph decides what the stream
+    without it decides, and reproduces the JAX package's shortlist golden;
+    a second call replays with no host sync."""
+    assert chip_smoke.shortlist_golden_mismatches(torch, cuda) == []
+    nodes, pods, params = chip_smoke.rich_fixture(
+        chip_smoke.GOLDEN_SEED, chip_smoke.GOLDEN_NODES, chip_smoke.GOLDEN_PODS
+    )
+    nodes_t, pods_t, params_t = chip_smoke.port_inputs(
+        torch, nodes, chip_smoke.stacked(pods), params, cuda
+    )
+    args = (pods_t, nodes_t, params_t)
+    full = T.solve_stream(*args, **chip_smoke.SOLVE)
+    kw = dict(chip_smoke.SOLVE, shortlist_k=chip_smoke.SHORTLIST_K)
+    T.solve_stream(*args, **kw)  # captures the shortlist stream's graph
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = T.solve_stream(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    b = chip_smoke.GOLDEN_PODS // chip_smoke.BATCH
+    assert not kernels.captured and kernels.launches["shortlist_build"] == b
+    np.testing.assert_array_equal(full[0].cpu().numpy(), again[0].cpu().numpy())
+    for f in ("requested", "estimated_used", "prod_used"):
+        np.testing.assert_array_equal(bits(getattr(full[1], f).cpu().numpy()),
+                                      bits(getattr(again[1], f).cpu().numpy()), err_msg=f)
+
+
+def test_two_cycles_replay_one_graph_on_resident_rows(cuda):
+    out = chip_smoke.two_cycles(torch, cuda, 2000, 2)
+    assert out["mismatches"] == [], out["mismatches"]
+    assert out["replayed"] and out["same_ptrs"]

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Count what one pass of the headline stream launches and syncs.
 
-    python3 tools/stream_launches.py [--tree DIR]
+    python3 tools/stream_launches.py [--tree DIR] [--shortlist-k K]
 
 Imports ``koordinator_tpu_torch`` from ``DIR`` (default: this checkout; an
 unpacked older commit of the repository compares two versions), builds its
 kernels, and runs ``chip_smoke.py``'s headline stream (``bench.py``'s
-fixture and parameters: 98,304 pods, 10,000 nodes, 192 batches of 512) on
-the card: one warm-up pass, then
+fixture and parameters: 98,304 pods, 10,000 nodes, 192 batches of 512;
+with ``--shortlist-k`` the candidate shortlist of that size) on the card:
+one warm-up pass, then
 
 - one pass under ``torch.profiler``: kernels and copies that ran on the
   device, their busy milliseconds, and the host's launch calls
@@ -40,6 +41,8 @@ HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(ROOT), help="root of the tree whose port to run")
+    ap.add_argument("--shortlist-k", type=int, default=None,
+                    help="run the stream with the candidate shortlist of this size")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -54,6 +57,9 @@ def main() -> int:
     spec = importlib.util.spec_from_file_location("smoke_fixture", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    solve = dict(smoke.SOLVE)
+    if args.shortlist_k is not None:
+        solve["shortlist_k"] = args.shortlist_k
     from koordinator_tpu_torch import kernels
     from koordinator_tpu_torch.ops import solver
 
@@ -67,7 +73,7 @@ def main() -> int:
     inputs = (pods_t, nodes_t, params_t)
 
     def run():
-        out = solver.solve_stream(*inputs, **smoke.SOLVE)
+        out = solver.solve_stream(*inputs, **solve)
         return int(out[2].sum())
 
     run()  # warm-up
@@ -93,7 +99,7 @@ def main() -> int:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            out = solver.solve_stream(*inputs, **smoke.SOLVE)
+            out = solver.solve_stream(*inputs, **solve)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     placed_after = int(out[2].sum())
@@ -104,7 +110,8 @@ def main() -> int:
         capture_output=True, text=True, check=False,
     ).stdout.strip()
     print(json.dumps(dict(
-        tree=str(tree), card=smi, placed=placed, placed_again=placed_after,
+        tree=str(tree), card=smi, shortlist_k=args.shortlist_k, placed=placed,
+        placed_again=placed_after,
         device_kernels=device_kernels, device_copies=copies,
         device_busy_ms=busy_us / 1e3, host_launch_calls=host_launches,
         host_syncs=syncs, sync_pass_seconds=seconds,
