@@ -56,6 +56,26 @@ Phases (any failure exits non-zero and prints no result line):
    replay the first one's graph and equal a fresh solve on freshly built
    tables; ``gather_rows`` and ``_apply_commit_deltas_`` against the CPU;
    the row functions' times.
+7. quotas and node masks, kernels: on the kernel check's fixture with the
+   quota trees of ``QUOTA_TREES`` (Q = 21, ``_quota_commit``'s one-hot
+   branch; Q = 1,057, its sorted branch), their chains and node masks, the
+   quota gate (``csrc/quota.cu``), the round tail's quota commit and next
+   gate, and ``enforce_gangs``' quota refund (with rollbacks), bitwise
+   equal to their plain versions at P=512 (round 0, and after
+   ``QUOTA_LATER`` batches, where the quotas refuse pods their nodes
+   accept) and P=4,096; the three pricing kernels with a node mask, some
+   rows all false, equal to theirs; then their times;
+8. the quota and node-mask streams: the scheduler's ``solve_stream_full``
+   at full size (98,304 pods, 10,000 nodes, 192 batches of 512, bench's
+   arguments) with each tree, its chains and the stacked [192, 512,
+   10,000] node mask, with ``shortlist_k=64`` and without: one graph
+   replay a chunk, a first pass, then 3 timed passes with no host sync
+   (counts zeroed just before the first and read just after it, every
+   kernel of the path launched), one profiled pass; placed pods and
+   summed rounds equal to the JAX package's (``QUOTA_EXPECTED``), the
+   assignments' sha256, placed count, rounds and fallback counts equal to
+   ``tests/data/torch_golden_quota.npz``; then one eager pass through the
+   plain versions, equal.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -103,6 +123,22 @@ GOLDEN_PODS = 2 * BATCH
 SHORTLIST_K = 64
 #: the contention fixture's shortlist: small enough that rounds fall back
 CONTENTION_K = 4
+
+GOLDEN_QUOTA = os.path.join(ROOT, "tests", "data", "torch_golden_quota.npz")
+#: the quota streams' trees, (orgs, teams an org) under one root, the
+#: 3-level shape of ``bench_suite.py:_build_quota`` at two sizes: Q = 21
+#: takes ``_quota_commit``'s one-hot branch (Q·D = 42 <= 1024), Q = 1,057
+#: its sorted branch
+QUOTA_TREES = {"onehot": (4, 4), "sorted": (32, 32)}
+#: the draws of the pods' orgs, teams and node constraints
+QUOTA_SEED = 11
+#: what the JAX package gives on the full-size quota streams (98,304 pods,
+#: 10,000 nodes, 192 x 512, bench's arguments; the same with K=64 and
+#: without): placed pods, rounds summed over the batches
+QUOTA_EXPECTED = {"onehot": (58_826, 205), "sorted": (59_112, 252)}
+#: the kernel checks' later state: this many batches of the check fixture
+#: committed, after which both trees refuse pods their nodes accept
+QUOTA_LATER = 9
 
 
 def build_fixture(seed: int = 0, n_nodes: int = N_NODES, n_pods: int = N_PODS):
@@ -206,6 +242,55 @@ def contention_fixture():
     return nodes, pods, params
 
 
+def quota_tree(orgs: int, teams: int, requests):
+    """A 3-level ElasticQuota tree over ``requests`` [P, D] float32: row 0
+    the root with runtime 0.6 of the pods' summed demand, rows 1..orgs the
+    orgs at 1.1 times an even share of it, then each org's teams at 1.2
+    times an even share (teams of org o at rows 1 + orgs + o * teams + t);
+    the shares overlap, so the tree binds at every level. Returns (runtime,
+    used) [Q, D] float32, used zero; the arithmetic is numpy's in float32
+    (``requests.sum(0)``, then ``0.6 * demand / orgs * 1.1`` and so on)."""
+    demand = requests.sum(0)
+    q = 1 + orgs + orgs * teams
+    runtime = np.empty((q, requests.shape[1]), np.float32)
+    runtime[0] = 0.6 * demand
+    runtime[1 : 1 + orgs] = 0.6 * demand / orgs * 1.1
+    runtime[1 + orgs :] = 0.6 * demand / (orgs * teams) * 1.2
+    return runtime, np.zeros_like(runtime)
+
+
+def quota_draws(orgs: int, teams: int, n_pods: int):
+    """Each pod's quota chain [P, 4] int32 (team, org, root, one open
+    level) and its node constraint: ``constrained`` pods (a quarter) may
+    use only the nodes of their ``zone`` (node % 4 == zone)."""
+    rng = np.random.default_rng(QUOTA_SEED)
+    org = rng.integers(0, orgs, n_pods)
+    team = rng.integers(0, teams, n_pods)
+    constrained = rng.random(n_pods) < 0.25
+    zone = rng.integers(0, 4, n_pods)
+    chain = np.stack(
+        [1 + orgs + org * teams + team, 1 + org, np.zeros(n_pods, np.int64),
+         np.full(n_pods, -1)], axis=1,
+    ).astype(np.int32)
+    return chain, constrained, zone
+
+
+def node_mask_np(constrained, zone, n_nodes: int):
+    """[P, N] bool: pod p may use node n unless it is constrained to a
+    zone node n is not in."""
+    return ~constrained[:, None] | ((np.arange(n_nodes)[None, :] % 4) == zone[:, None])
+
+
+def quota_fixture(tree: str, nodes, pods, params):
+    """The quota streams' inputs over a fixture's numpy dicts: the pods
+    with their chains, the tree's (runtime, used) and the constraint
+    draws (constrained, zone)."""
+    orgs, teams = QUOTA_TREES[tree]
+    chain, constrained, zone = quota_draws(orgs, teams, pods["requests"].shape[0])
+    pods = dict(pods, quota_chain=chain)
+    return nodes, pods, params, quota_tree(orgs, teams, pods["requests"]), (constrained, zone)
+
+
 def fixture_digest(*dicts) -> str:
     h = hashlib.sha256()
     for d in dicts:
@@ -213,6 +298,11 @@ def fixture_digest(*dicts) -> str:
             h.update(k.encode())
             h.update(np.ascontiguousarray(d[k]).tobytes())
     return h.hexdigest()
+
+
+def assignments_digest(asg) -> str:
+    """sha256 of a stream's assignments as little-endian int32 [C, P]."""
+    return hashlib.sha256(np.ascontiguousarray(asg, dtype="<i4").tobytes()).hexdigest()
 
 
 def stacked(pods: dict, batch: int = BATCH) -> dict:
@@ -360,6 +450,7 @@ def plain_versions():
     the card (the wrappers launch the kernels for every CUDA tensor)."""
     from koordinator_tpu_torch.ops import commit as commit_ops
     from koordinator_tpu_torch.ops import nominate as nominate_ops
+    from koordinator_tpu_torch.ops import quota as quota_ops
     from koordinator_tpu_torch.ops import shortlist as shortlist_ops
     from koordinator_tpu_torch.ops import solver
 
@@ -378,6 +469,7 @@ def plain_versions():
         (solver, "_enforce_gangs_", enforce_gangs_plain_),
         (shortlist_ops, "shortlist_build", shortlist_ops.shortlist_build_plain),
         (shortlist_ops, "shortlist_round", shortlist_ops.shortlist_round_plain),
+        (quota_ops, "quota_gate", quota_ops.quota_gate_plain),
     )
     saved = [getattr(module, name) for module, name, _ in swaps]
     for module, name, plain in swaps:
@@ -433,28 +525,84 @@ def round_tail_args(torch, spods, nom_args, top_cost, top_idx):
     ]
 
 
+def setup_bytes_per_batch(pods_stacked) -> int:
+    """Bytes one batch of ``solve_stream`` moves outside the kernels, in
+    its PyTorch ops: the gather of the pods' fields the solve reads from
+    the stacked batch (read and written), the priority sort (priorities
+    read, the order written as int64), the gather of the rounds' fields
+    in that order (read and written) and the un-sort of the assignment
+    (order and assignment read, the result written)."""
+    from koordinator_tpu_torch.ops import solver
+
+    p = pods_stacked.requests.shape[1]
+
+    def row(fields):
+        return sum(getattr(pods_stacked, f).element_size() * getattr(pods_stacked, f)[0, 0].numel()
+                   for f in fields)
+
+    return p * (2 * row(solver._SOLVE_FIELDS) + (4 + 8) + 2 * row(solver._ROUND_FIELDS)
+                + (8 + 4 + 4))
+
+
+def round_tail_bytes(torch, args, n: int, quota=None) -> int:
+    """Bytes a round-tail launch on ``args`` (``round_tail_args``) must
+    move: the nomination, the pods' columns and the loop state read once,
+    each nominated node's row of the node tables read once, the winners'
+    node rows and the loop state written once (winners counted by running
+    the round on copies, with ``quota`` when given)."""
+    from koordinator_tpu_torch.ops import commit as commit_ops
+
+    p, k = args[0].shape
+    d = args[2].shape[1]
+    _, node_key = commit_ops._choose(args[0], args[1], args[15], n)
+    touched = int(torch.unique(node_key[node_key < n]).numel())
+    after = [t.clone() for t in args[ROUND_MUTABLE]]
+    if quota is not None:
+        quota = (quota[0], quota[1], quota[2].clone(), quota[3].clone())
+    commit_ops.round_tail(*args[:ROUND_MUTABLE.start], *after, 0.35, quota=quota)
+    won = int((after[0] != args[11]).any(dim=1).sum())
+    return (p * k * 8 + p * (2 * d * 4 + 2) + p * (1 + 4) * 2 + 8 * 2
+            + touched * (6 * d * 4 + 1 + 4) + won * 3 * d * 4)
+
+
+def round_tail_ops(args) -> int:
+    """fp32 and integer operations of a round-tail launch: the choice, the
+    sort's comparators, the cumsums and the tests."""
+    p, k = args[0].shape
+    d = args[2].shape[1]
+    sort_len = 1 << max(p - 1, 0).bit_length()
+    lg = sort_len.bit_length() - 1
+    return (p * (k + 4) + (sort_len // 2) * lg * (lg + 1) // 2
+            + p * d * (3 * 2 + 20) + p * d * 3)
+
+
 #: the arguments ``round_tail`` updates in place (tables and loop state)
 ROUND_MUTABLE = slice(11, 17)
 
 
 def ptxas_summary(kernels) -> dict:
     """Registers, shared memory and spills of the main path's kernels
-    (nominate at D=2 with four list slots, K <= 4), from ``nvcc -Xptxas -v``
-    in the build logs, and the most registers and spill bytes over every
-    nominate instantiation."""
+    (nominate at D=2 with four list slots, K <= 4, with and without a node
+    mask; the round tail at D=2 without quotas and with them, one and four
+    rows a thread), from ``nvcc -Xptxas -v`` in the build logs, and the
+    most registers and spill bytes over every nominate instantiation."""
     import re
 
     wanted = {
-        "nominate_kernelILi2ELi4E": "nominate_kernel<2,4>",
+        "nominate_kernelILi2ELi4ELb0E": "nominate_kernel<2,4>",
+        "nominate_kernelILi2ELi4ELb1E": "nominate_kernel<2,4,masked>",
         "nominate_merge_kernelILi4E": "nominate_merge_kernel<4>",
-        "round_tail_kernelILi2E": "round_tail_kernel<2>",
+        "round_tail_kernelILi2ELi1ELb0E": "round_tail_kernel<2,1>",
+        "round_tail_kernelILi2ELi1ELb1E": "round_tail_kernel<2,1,quota>",
+        "round_tail_kernelILi2ELi4ELb1E": "round_tail_kernel<2,4,quota>",
         "enforce_gangs_kernel": "enforce_gangs_kernel",
         "shortlist_build_kernelILi2ELb1E": "shortlist_build_kernel<2,stored>",
         "shortlist_round_kernelILi2ELi4E": "shortlist_round_kernel<2,4>",
+        "quota_gate_kernel": "quota_gate_kernel",
     }
     out: dict = {}
     worst = {"registers": 0, "spill_bytes": 0}
-    for src in ("nominate", "round", "gangs", "shortlist_build", "shortlist_round"):
+    for src in ("nominate", "round", "gangs", "shortlist_build", "shortlist_round", "quota"):
         entry = None
         for line in kernels.build_log(src).splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -735,21 +883,8 @@ def phase_kernels(torch, dev, report):
     nom_ops = pair_ops(d, p * n, bind_pods * n, (active_pods + prod_pods) * fresh_nodes,
                        feas_pairs)
     nom_bytes = n * (6 * d * 4 + 2 + 4) + p * (2 * d * 4 + 3) + d * 4 + p * 4 * 8
-    # round tail: the nomination, the pods' columns and the loop state read
-    # once, each nominated node's row of the node tables read once, the
-    # winners' node rows and the loop state written once
-    k = rt_args[0].shape[1]
-    _, node_key = commit_ops._choose(rt_args[0], rt_args[1], rt_args[15], n)
-    touched = int(torch.unique(node_key[node_key < n]).numel())
-    after = [t.clone() for t in rt_args[ROUND_MUTABLE]]
-    commit_ops.round_tail(*rt_fixed, *after, 0.35)
-    won = int((after[0] != rt_args[11]).any(dim=1).sum())
-    rt_bytes = (p * k * 8 + p * (2 * d * 4 + 2) + p * (1 + 4) * 2 + 8 * 2
-                + touched * (6 * d * 4 + 1 + 4) + won * 3 * d * 4)
-    sort_len = 1 << max(p - 1, 0).bit_length()
-    lg = sort_len.bit_length() - 1
-    rt_ops = (p * (k + 4) + (sort_len // 2) * lg * (lg + 1) // 2
-              + p * d * (3 * 2 + 20) + p * d * 3)
+    rt_bytes = round_tail_bytes(torch, rt_args, n)
+    rt_ops = round_tail_ops(rt_args)
     n_rolled = int(rolled.sum())
     refunded_nodes = int(torch.unique(ids_l).numel())
     gang_bytes = p * (4 * 4 + 2 * d * 4 + 2) + refunded_nodes * 3 * d * 4 * 2
@@ -894,8 +1029,10 @@ def phase_stream(torch, dev, report, trip_inputs):
     profile = stream_profile(torch, run, med)
     empty_trips = int((SOLVE["max_rounds"] - rounds_np).sum())
     trip_ms = empty_trip_ms(torch, *trip_inputs)
+    setup_bytes = n_batches * setup_bytes_per_batch(pods_t)
     report["stream"] = dict(
         pods=N_PODS, nodes=N_NODES, batches=n_batches, placed=placed,
+        setup_bytes_per_pass=setup_bytes, setup_bound_ms=bound_of(setup_bytes, 0)[0],
         pods_per_s=N_PODS / med, pass_seconds=times,
         first_pass_seconds=first_seconds, plain_pass_seconds=p_seconds,
         rounds_used=int(rounds_np.sum()), plain_rounds_used=int(plain_rounds.sum()),
@@ -1176,6 +1313,426 @@ def phase_shortlist_stream(torch, dev, report, headline):
             row["launches"] = launches[row["name"]]
 
 
+
+def quota_port_inputs(torch, tree: str, fixture, device, batch: int = BATCH):
+    """A fixture's numpy dicts with ``tree``'s quotas and node mask as the
+    port's tensors on ``device``: (stacked pods, nodes, params,
+    QuotaState, the stacked [C, P, N] bool mask, built on the device)."""
+    from koordinator_tpu_torch.ops import solver
+
+    nodes, pods, params, (runtime, used), (constrained, zone) = quota_fixture(tree, *fixture)
+    nodes_t, pods_t, params_t = port_inputs(torch, nodes, stacked(pods, batch), params, device)
+    quotas = solver.QuotaState(runtime=torch.from_numpy(runtime).to(device),
+                               used=torch.from_numpy(used).to(device))
+    n = nodes["allocatable"].shape[0]
+    zone_t = torch.from_numpy(zone).to(device)
+    in_zone = (torch.arange(n, device=device) % 4)[None, :] == zone_t[:, None]
+    mask = ~torch.from_numpy(constrained).to(device)[:, None] | in_zone
+    return pods_t, nodes_t, params_t, quotas, mask.reshape(-1, batch, n)
+
+
+def quota_round_case(torch, pods_b, state, params_t, used, mask_b, runtime):
+    """Round 0 of batch ``pods_b`` with quotas: the sorted pods, the
+    nomination kernel's arguments with the gate in place of the active
+    flags (``quota_gate``'s plain version), the node mask (``mask_b``
+    [P, N], read through the priority order) and the round's quota
+    arguments (chains, runtime, a copy of ``used``, the gate)."""
+    from koordinator_tpu_torch.ops import quota as quota_ops
+    from koordinator_tpu_torch.ops import solver
+
+    order, spods, bind, thr, pthr = solver._round_setup(pods_b, state, params_t, quota=True)
+    gate = torch.empty_like(spods.valid)
+    quota_ops.quota_gate_plain(spods.valid, spods.requests, spods.quota_chain, runtime, used, gate)
+    nom_args = (
+        spods.requests, spods.estimate, spods.is_prod, bind, gate, state.allocatable,
+        state.requested, state.estimated_used, state.prod_used, state.metric_fresh,
+        state.schedulable, state.cpu_amp, thr, pthr, params_t.score_weights,
+    )
+    return spods, nom_args, (mask_b, order), (spods.quota_chain, runtime, used.clone(), gate)
+
+
+def phase_quota_kernels(torch, dev, report):
+    """Phase 7, quotas and node masks: the quota gate (``csrc/quota.cu``),
+    the round tail's quota commit on both of ``_quota_commit``'s branches
+    and its next gate (``csrc/round.cu``), and ``enforce_gangs``' quota
+    refund (``csrc/gangs.cu``) against their plain versions on CPU copies
+    at P=512 (round 0 of the first batch, and after ``QUOTA_LATER`` batches,
+    where the quotas refuse pods the nodes accept) and P=4,096; the three pricing kernels with a node mask
+    (some rows all false) against theirs; then their times."""
+    from koordinator_tpu_torch import kernels
+    from koordinator_tpu_torch.ops import commit as commit_ops
+    from koordinator_tpu_torch.ops import nominate as nominate_ops
+    from koordinator_tpu_torch.ops import quota as quota_ops
+    from koordinator_tpu_torch.ops import shortlist as sl
+    from koordinator_tpu_torch.ops import solver
+
+    fixture = rich_fixture(1, N_NODES, 16 * BATCH)
+    checks = {name: 0.0 for name in ("quota_gate", "quota_commit_onehot", "quota_commit_sorted",
+                                     "quota_refund", "nominate_masked",
+                                     "shortlist_build_masked", "shortlist_round_masked")}
+    refused, refunds, timing = {}, [], {}
+
+    def host(ts):
+        return [None if t is None else t.cpu().clone() for t in ts]
+
+    for tree in QUOTA_TREES:
+        pods_s, nodes_t, params_t, quotas, mask = quota_port_inputs(torch, tree, fixture, dev)
+        # a later state: 9 batches through the kernels, after which the
+        # quotas refuse pods that the nodes accept (at P=512 and 4,096)
+        _, later, _, later_q = solver.solve_stream(
+            solver.tree_map(lambda a: a[:QUOTA_LATER], pods_s), nodes_t, params_t, quotas=quotas,
+            **SOLVE
+        )
+        branch = f"quota_commit_{tree}"
+        big = solver.tree_map(lambda a: a[:8].reshape((-1,) + a.shape[2:]), pods_s)
+        cases = (
+            ("start", solver.tree_map(lambda a: a[0], pods_s), nodes_t, quotas.used, mask[0]),
+            (f"after {QUOTA_LATER} batches", solver.tree_map(lambda a: a[QUOTA_LATER], pods_s),
+             later, later_q.used, mask[QUOTA_LATER]),
+            # eight batches' gangs under one id each: minMember x 8, so
+            # some gangs still fall short and roll back
+            ("P=4096", dataclasses.replace(big, gang_min=big.gang_min * 8), later, later_q.used,
+             mask[:8].reshape(8 * BATCH, -1)),
+        )
+        for label, pods_b, state, used, mask_b in cases:
+            spods, nom_args, smask, quota = quota_round_case(
+                torch, pods_b, state, params_t, used, mask_b.clone(), quotas.runtime)
+            # the gate of round 0: kernel against plain
+            gate = torch.empty_like(spods.valid)
+            quota_ops.quota_gate(spods.valid, spods.requests, spods.quota_chain, quotas.runtime,
+                                 used, gate)
+            torch.cuda.synchronize()
+            if not bits_equal(gate.cpu(), quota[3].cpu()):
+                fail(f"quota_gate ({tree}, {label}): differs from quota_gate_plain")
+            # the round tail with quotas, on the masked nomination of round 0
+            top = nominate_ops.nominate(*nom_args, 4, 4.0, True, mask=smask)
+            args = round_tail_args(torch, spods, nom_args, *top)
+            args[15] = spods.valid.clone()
+            work = [t.clone() for t in args]
+            wq = [quota[0], quota[1], quota[2].clone(), quota[3].clone()]
+            commit_ops.round_tail(*work, 0.35, quota=wq)
+            plain = host(args)
+            pq = host(quota)
+            commit_ops.round_tail_plain(*plain, 0.35, quota=pq)
+            nodes_only = host(args)
+            commit_ops.round_tail_plain(*nodes_only, 0.35)
+            torch.cuda.synchronize()
+            names = ("requested", "estimated_used", "prod_used", "assigned", "active", "state")
+            for name, tk, tp in zip(names + ("quota_used", "gate"),
+                                    work[ROUND_MUTABLE] + wq[2:], plain[ROUND_MUTABLE] + pq[2:]):
+                if not bits_equal(tk.cpu(), tp):
+                    fail(f"round_tail with quotas ({tree}, {label}): {name} differs from "
+                         "round_tail_plain")
+                checks[branch] = max(checks[branch], max_abs(tk.cpu().numpy(), tp.numpy()))
+            placed = int((plain[14] >= 0).sum())
+            by_node = int((nodes_only[14] >= 0).sum())
+            refused[f"{tree}, {label}"] = dict(node_accepted=by_node, placed=placed)
+            if placed == 0:
+                fail(f"round_tail with quotas ({tree}, {label}): the check needs a round that "
+                     "places pods")
+            # gang rollback with the quota refund, on the batch's solve result
+            free = dataclasses.replace(pods_b, gang_id=torch.full_like(pods_b.gang_id, -1))
+            pre = solver.assign(free, state, params_t, quotas=solver.QuotaState(
+                runtime=quotas.runtime, used=used), **SOLVE)
+            got = solver.enforce_gangs(pre, pods_b)
+            want = solver.enforce_gangs_plain(solver.tree_map(lambda a: a.cpu(), pre),
+                                              solver.tree_map(lambda a: a.cpu(), pods_b))
+            torch.cuda.synchronize()
+            for f in ("assignment", "node_requested", "node_estimated_used", "node_prod_used",
+                      "quota_used"):
+                if not bits_equal(getattr(got, f).cpu(), getattr(want, f)):
+                    fail(f"enforce_gangs with quotas ({tree}, {label}): {f} differs from "
+                         "enforce_gangs_plain")
+                checks["quota_refund"] = max(checks["quota_refund"], max_abs(
+                    getattr(got, f).cpu().numpy(), getattr(want, f).numpy()))
+            rolled = int(((pre.assignment >= 0) & (got.assignment < 0)).sum())
+            changed = int((got.quota_used != pre.quota_used).any(dim=1).sum())
+            if rolled == 0 or changed == 0:
+                fail(f"enforce_gangs with quotas ({tree}, {label}): the check needs rollbacks "
+                     f"that refund quotas; got {rolled} rollbacks, {changed} quotas refunded")
+            refunds.append(dict(tree=tree, at=label, rolled_back=rolled, quotas_refunded=changed))
+            if label == f"after {QUOTA_LATER} batches":
+                timing[tree] = (spods, nom_args, smask, quota, args, pre, pods_b)
+        if all(v["placed"] == v["node_accepted"] for k, v in refused.items() if k.startswith(tree)):
+            fail(f"round_tail with quotas ({tree}): no check had a node-accepted pod refused "
+                 "by its quotas")
+
+    # the pricing kernels with a node mask, some rows all false
+    spods, nom_args, (mask_b, order), _, _, _, _ = timing["onehot"]
+    mask_b = mask_b.clone()
+    mask_b[order[::37]] = False  # every 37th sorted pod may use no node
+    smask = (mask_b, order)
+    empty = torch.zeros(spods.valid.shape, dtype=torch.bool, device=dev)
+    empty[::37] = True
+    for approx in (False, True):
+        kc, ki = nominate_ops.nominate(*nom_args, 4, 4.0, approx, mask=smask)
+        pc, pi = nominate_ops.nominate_plain(*nom_args, 4, 4.0, approx, mask=smask)
+        torch.cuda.synchronize()
+        kc, ki, pc, pi = (t.cpu().numpy() for t in (kc, ki, pc, pi))
+        fin = np.isfinite(kc)
+        if not (np.array_equal(fin, np.isfinite(pc)) and bits_equal(kc[fin], pc[fin])
+                and np.array_equal(ki[fin], pi[fin])):
+            fail(f"nominate with a node mask (approx={approx}): differs from nominate_plain")
+        if fin[empty.cpu().numpy()].any():
+            fail("nominate with a node mask: a pod with an all-false row nominated a node")
+        checks["nominate_masked"] = max(checks["nominate_masked"], max_abs(kc[fin], pc[fin]))
+    build_args = nom_args[:4] + nom_args[5:]
+    kc, kb = sl.shortlist_build(*build_args, SHORTLIST_K, 4.0, smask)
+    pc, pb = sl.shortlist_build_plain(*build_args, SHORTLIST_K, 4.0, smask)
+    torch.cuda.synchronize()
+    if not (bits_equal(kc.cpu(), pc.cpu()) and bits_equal(kb.cpu(), pb.cpu())):
+        fail("shortlist_build with a node mask: differs from shortlist_build_plain")
+    if torch.isfinite(kb[empty]).any():
+        fail("shortlist_build with a node mask: an all-false row has a finite bound")
+    fin = torch.isfinite(pb).cpu().numpy()
+    checks["shortlist_build_masked"] = max_abs(kb.cpu()[fin], pb.cpu()[fin])
+    outs = []
+    for fn in (sl.shortlist_round, sl.shortlist_round_plain):
+        word = torch.zeros(sl.WORD, dtype=torch.int32, device=dev)
+        counts = torch.zeros(2, dtype=torch.int32, device=dev)
+        st = torch.zeros(2, dtype=torch.int32, device=dev)
+        top = fn(*nom_args, kc, kb, 4, 4.0, True, word, counts, st, smask)
+        outs.append([t.cpu().numpy() for t in (*top, word[:3], counts)])
+    for name, got, want in zip(("cost", "node", "word", "counts"), *outs):
+        if not bits_equal(got, want):
+            fail(f"shortlist_round with a node mask: {name} differs from the plain version")
+    fin = np.isfinite(outs[1][0])
+    checks["shortlist_round_masked"] = max_abs(outs[0][0][fin], outs[1][0][fin])
+    print(f"quota checks: bitwise equal to the plain versions {json.dumps(checks)}; "
+          f"rounds {json.dumps(refused)}; rollbacks {json.dumps(refunds)}; masked shortlist "
+          f"counts {outs[0][3].tolist()} with {int(empty.sum())} all-false rows", flush=True)
+
+    # times, after QUOTA_LATER batches (the quotas bind), each timed as it is
+    # set up
+    def add_row(name, source, replaces, fn, plain, kname, nbytes, nops, iters):
+        b_ms, b_by = bound_of(nbytes, nops)
+        report["kernels"].append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=None,
+            kernels_per_launch=2 if name == "nominate_masked" else 1,
+            max_abs_err=checks[name], ms=cuda_ms(torch, fn, iters),
+            plain_ms=cuda_ms(torch, plain, 3), bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            device_ms=device_ms(torch, fn, min(50, iters // 4), kname),
+            library_device_ms=None, bytes=nbytes, operations=nops,
+        ))
+
+    for tree in QUOTA_TREES:
+        spods, nom_args_t, smask_t, quota, args, pre, pods_b = timing[tree]
+        p, d = spods.requests.shape
+        q_cap, levels = quota[1].shape[0], quota[0].shape[1]
+        n = nom_args_t[5].shape[0]
+        iters = 200
+        copies = iter([([t.clone() for t in args[ROUND_MUTABLE]], quota[2].clone(),
+                        quota[3].clone()) for _ in range(2 * iters + 2)])
+        fixed = args[:ROUND_MUTABLE.start]
+
+        def t_commit():
+            mut, used_c, gate_c = next(copies)
+            commit_ops.round_tail(*fixed, *mut, 0.35, quota=(quota[0], quota[1], used_c, gate_c))
+
+        def t_commit_plain():
+            commit_ops.round_tail_plain(
+                *fixed, *[t.clone() for t in args[ROUND_MUTABLE]], 0.35,
+                quota=(quota[0], quota[1], quota[2].clone(), quota[3].clone()))
+
+        # bound: the round tail's bytes (as phase 3 counts them) plus the
+        # quota phase's: chains read, each named quota row of the runtime
+        # and used tables read once, the used rows and the gate written
+        named = int(torch.unique(quota[0][quota[0] >= 0]).numel())
+        q_bytes = p * levels * 4 + named * d * 4 * 3 + p
+        commit_bytes = round_tail_bytes(torch, args, n, quota) + q_bytes
+        # operations: per level a sum and a test a pod and dim, and the
+        # charges; the sorted branch also sorts every level
+        sort_len = 1 << max(p - 1, 0).bit_length()
+        lg = sort_len.bit_length() - 1
+        q_ops = levels * (p * d * 4 + (sort_len // 2) * lg * (lg + 1) // 2)
+        add_row(f"quota_commit_{tree}", "koordinator_tpu_torch/csrc/round.cu",
+                "koordinator_tpu/ops/solver.py:504", t_commit, t_commit_plain,
+                "round_tail_kernel", commit_bytes, round_tail_ops(args) + q_ops, iters)
+        if tree != "onehot":
+            continue
+        gate_out = torch.empty_like(spods.valid)
+
+        def t_gate():
+            quota_ops.quota_gate(spods.valid, spods.requests, quota[0], quota[1], quota[2],
+                                 gate_out)
+
+        def t_gate_plain():
+            quota_ops.quota_gate_plain(spods.valid, spods.requests, quota[0], quota[1],
+                                       quota[2], gate_out)
+
+        gate_bytes = p * (1 + d * 4 + levels * 4 + 1) + named * d * 4 * 2
+        gate_ops = int((quota[0] >= 0).sum()) * d * 3
+        add_row("quota_gate", "koordinator_tpu_torch/csrc/quota.cu",
+                "koordinator_tpu/ops/solver.py:489", t_gate, t_gate_plain,
+                "quota_gate_kernel", gate_bytes, gate_ops, 200)
+        gang_copies = iter([solver.tree_map(lambda a: a.clone(), pre) for _ in range(402)])
+
+        def t_refund():
+            solver._enforce_gangs_(next(gang_copies), pods_b)
+
+        def t_refund_plain():
+            solver.enforce_gangs_plain(pre, pods_b)
+
+        after = solver.enforce_gangs(pre, pods_b)
+        rolled = (pre.assignment >= 0) & (after.assignment < 0)
+        n_rolled = int(rolled.sum())
+        touched = int(torch.unique(pre.assignment[rolled]).numel())
+        refunded = int((after.quota_used != pre.quota_used).any(dim=1).sum())
+        refund_bytes = (p * (4 * 4 + 2 * d * 4 + 2) + touched * 3 * d * 4 * 2
+                        + n_rolled * levels * 4 + refunded * d * 4 * 2)
+        refund_ops = p * 4 + (n_rolled + touched) * 3 * d + levels * (n_rolled + refunded) * d
+        add_row("quota_refund", "koordinator_tpu_torch/csrc/gangs.cu",
+                "koordinator_tpu/ops/solver.py:1963", t_refund, t_refund_plain,
+                "enforce_gangs_kernel", refund_bytes, refund_ops, 200)
+        # the pricing kernels with the node mask: phase 3's counts plus the
+        # mask, a byte a pair (the round and the build) or a candidate
+        gate = nom_args_t[4]
+        feas = int(nominate_ops.feasible_mask(*nom_args_t[:14], mask=smask_t).sum())
+        fresh_nodes = int(nom_args_t[9].sum())
+        nom_ops = pair_ops(d, p * n, int(nom_args_t[3].sum()) * n,
+                           (int(gate.sum()) + int(spods.is_prod.sum())) * fresh_nodes, feas)
+        node_row = 6 * d * 4 + 2 + 4
+        nom_bytes = n * node_row + p * (2 * d * 4 + 3) + d * 4 + p * 4 * 8 + p * n + p * 8
+        b_args = nom_args_t[:4] + nom_args_t[5:]
+        plan = sl.shortlist_build(*b_args, SHORTLIST_K, 4.0, smask_t)
+        open_feas = int(nominate_ops.feasible_mask(*nom_args_t[:4], torch.ones_like(gate),
+                                                   *nom_args_t[5:14], mask=smask_t).sum())
+        build_ops = pair_ops(d, p * n, int(nom_args_t[3].sum()) * n,
+                             (p + int(spods.is_prod.sum())) * fresh_nodes, open_feas)
+        build_bytes = n * node_row + p * (2 * d * 4 + 2) + d * 4 + p * (SHORTLIST_K + 1) * 4 + p * n
+        cand = plan[0].long()
+        r_feas = int(nominate_ops.feasible_mask(*nom_args_t[:14], mask=smask_t).gather(1, cand).sum())
+        round_ops = pair_ops(d, p * SHORTLIST_K, int(nom_args_t[3].sum()) * SHORTLIST_K,
+                             int(((gate.int() + spods.is_prod.int())
+                                  * nom_args_t[9][cand].sum(dim=1)).sum()), r_feas)
+        round_bytes = (p * (SHORTLIST_K + 1) * 4 + p * (2 * d * 4 + 3)
+                       + int(torch.unique(cand).numel()) * node_row + d * 4 + p * 4 * 8
+                       + (sl.WORD + 4) * 4 + p * SHORTLIST_K)
+        word = torch.zeros(sl.WORD, dtype=torch.int32, device=dev)
+        counts = torch.zeros(2, dtype=torch.int32, device=dev)
+        st = torch.zeros(2, dtype=torch.int32, device=dev)
+        add_row("nominate_masked", "koordinator_tpu_torch/csrc/nominate.cu",
+                "koordinator_tpu/ops/solver.py:1121",
+                lambda: nominate_ops.nominate(*nom_args_t, 4, 4.0, True, mask=smask_t),
+                lambda: nominate_ops.nominate_plain(*nom_args_t, 4, 4.0, True, mask=smask_t),
+                "nominate", nom_bytes, nom_ops, 200)
+        add_row("shortlist_build_masked", "koordinator_tpu_torch/csrc/shortlist_build.cu",
+                "koordinator_tpu/ops/solver.py:949",
+                lambda: sl.shortlist_build(*b_args, SHORTLIST_K, 4.0, smask_t),
+                lambda: sl.shortlist_build_plain(*b_args, SHORTLIST_K, 4.0, smask_t),
+                "shortlist_build_kernel", build_bytes, build_ops, 100)
+        add_row("shortlist_round_masked", "koordinator_tpu_torch/csrc/shortlist_round.cu",
+                "koordinator_tpu/ops/solver.py:1017",
+                lambda: sl.shortlist_round(*nom_args_t, *plan, 4, 4.0, True, word, counts, st,
+                                           smask_t),
+                lambda: sl.shortlist_round_plain(*nom_args_t, *plan, 4, 4.0, True, word, counts,
+                                                 st, smask_t),
+                "shortlist_round_kernel", round_bytes, round_ops, 200)
+    report["quota_checks"] = dict(rounds=refused, rollbacks=refunds)
+    kernels.reset_launches()
+
+
+def phase_quota_streams(torch, dev, report):
+    """Phase 8: the scheduler's stream, ``solve_stream_full`` with quotas
+    and the node mask, at full size (98,304 pods, 10,000 nodes, 192 x 512,
+    bench's arguments) for each tree, with ``shortlist_k=64`` and without:
+    one CUDA graph replay a chunk, a first pass (the capture) then 3
+    timed passes with no host sync; counts zeroed just before the first
+    timed pass and read just after it, every kernel of the path launched;
+    placed pods and summed rounds equal to the JAX package's
+    (``QUOTA_EXPECTED``), the assignments' sha256, placed count, rounds
+    and fallback counts equal to the quota golden's; then one eager pass
+    through the plain versions, equal."""
+    from koordinator_tpu_torch import kernels
+    from koordinator_tpu_torch.ops import solver
+
+    gold = np.load(GOLDEN_QUOTA)
+    fixture = headline_inputs(build_fixture(0))
+    if str(gold["full_fixture_sha256"]) != fixture_digest(*fixture):
+        fail("quota streams: the fixture differs from the one the golden was made from")
+    n_batches = N_PODS // BATCH
+    lines = {}
+    for tree in QUOTA_TREES:
+        pods_t, nodes_t, params_t, quotas, mask = quota_port_inputs(torch, tree, fixture, dev)
+        for k in (SHORTLIST_K, None):
+            kw = dict(SOLVE, quotas=quotas, node_mask=mask, shortlist_k=k)
+
+            def run(sync_mode="error", **more):
+                t0 = time.perf_counter()
+                torch.cuda.set_sync_debug_mode(sync_mode)
+                try:
+                    out = solver.solve_stream_full(pods_t, nodes_t, params_t, **kw, **more)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                placed = int((out[0] >= 0).sum())  # the caller's read
+                return out, placed, time.perf_counter() - t0
+
+            import warnings
+
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                first_seconds = run("warn")[2]
+            first_syncs = sum(is_sync_warning(w) for w in caught)
+            kernels.reset_launches()
+            out, placed, seconds = run()
+            launches = dict(kernels.launches)
+            replays = dict(kernels.replays)
+            times = [seconds] + [run()[2] for _ in range(PASSES - 1)]
+            need = ["quota_gate", f"quota_commit_{tree}", "round_tail", "enforce_gangs",
+                    "quota_refund", "nominate"]
+            if k:
+                need += ["shortlist_build", "shortlist_round"]
+            for name in need:
+                if launches.get(name, 0) <= 0:
+                    fail(f"quota stream ({tree}, K={k}): launched no {name} kernel")
+            if replays.get("solve_stream") != n_batches or launches["quota_gate"] != n_batches:
+                fail(f"quota stream ({tree}, K={k}): {replays} replays and "
+                     f"{launches['quota_gate']} gates, not one a chunk")
+            asg, _, rounds, fallbacks = (t.cpu().numpy() for t in out)
+            key = f"full_{tree}_k{k or 0}"
+            want_placed, want_rounds = QUOTA_EXPECTED[tree]
+            got = dict(placed=placed, rounds=int(rounds.sum()),
+                       fallbacks=fallbacks.sum(axis=0).tolist(), sha256=assignments_digest(asg))
+            if (got["placed"], got["rounds"]) != (want_placed, want_rounds):
+                fail(f"quota stream ({tree}, K={k}): placed {got['placed']} and rounds "
+                     f"{got['rounds']}, the JAX package's {want_placed} and {want_rounds}")
+            if (got["sha256"] != str(gold[f"{key}_sha256"])
+                    or got["placed"] != int(gold[f"{key}_placed"])
+                    or got["rounds"] != int(gold[f"{key}_rounds"])
+                    or got["fallbacks"] != gold[f"{key}_fallbacks"].tolist()):
+                fail(f"quota stream ({tree}, K={k}): {got} differs from the golden")
+            with plain_versions():
+                p_out, _, p_seconds = run(0, cuda_graph=False)
+            if not all(bits_equal(a.cpu(), b) for a, b in zip(p_out, (asg, out[1].cpu(),
+                                                                      rounds, fallbacks))):
+                fail(f"quota stream ({tree}, K={k}): the graph and the eager plain pass differ")
+            med = sorted(times)[len(times) // 2]
+            profile = stream_profile(torch, run, med)
+            lines[f"{tree}, K={k or 'off'}"] = dict(
+                quotas=int(quotas.runtime.shape[0]), placed=placed, pods_per_s=N_PODS / med,
+                pass_seconds=times, first_pass_seconds=first_seconds,
+                plain_pass_seconds=p_seconds, rounds_used=got["rounds"],
+                fallbacks=got["fallbacks"], graph_replays=replays.get("solve_stream", 0),
+                launches=launches, kernels_a_pass=sum(launches.get(n, 0) for n in (
+                    "nominate", "round_tail", "enforce_gangs", "quota_gate", "shortlist_build",
+                    "shortlist_round")),
+                host_syncs_per_pass=0, host_syncs_first_pass=first_syncs, sha256=got["sha256"],
+                **profile,
+            )
+            print(json.dumps({"quota_stream": {f"{tree}, K={k or 'off'}": lines[
+                f"{tree}, K={k or 'off'}"]}}), flush=True)
+            for row in report["kernels"]:
+                name = row["name"]
+                if name in (f"quota_commit_{tree}", "quota_gate", "quota_refund"):
+                    row["launches"] = row["launches"] or launches.get(name)
+                elif name == "nominate_masked" and not k:
+                    row["launches"] = row["launches"] or launches.get("nominate")
+                elif name.endswith("_masked") and k and name[:-7] in launches:
+                    row["launches"] = row["launches"] or launches[name[:-7]]
+            kernels.reset_launches()
+        del mask
+    report["quota_streams"] = lines
+
 def phase_two_cycles(torch, dev, report):
     """Phase 6: two scheduling cycles on resident node tables at 10,000
     nodes (``two_cycles``): the in-place refresh keeps every address, the
@@ -1226,8 +1783,17 @@ def phase_two_cycles(torch, dev, report):
         apply_commit_deltas_device_ms=device_ms(
             torch, lambda: batch_solver._apply_commit_deltas_(*cur, *tables, *results), 50, None),
     )
+    # bounds: each refreshed row read from ``rows`` and written into the
+    # tables once; each gathered row read and written once, with its flag
+    row_bytes = sum(t.element_size() * t[0].numel() for t in to_tensors(resident))
+    scatter_bytes = 2 * row_bytes * int(refresh.numel()) + 8 * int(refresh.numel())
+    gather_bytes = 2 * row_bytes * int(window.numel()) + 9 * int(window.numel())
     report["two_cycles"] = dict(nodes=N_NODES, batches=16, refreshed_rows=out["refreshed"],
                                 window_rows=500, graph_replayed=True, addresses_kept=True,
+                                scatter_rows_bytes=scatter_bytes,
+                                scatter_rows_bound_ms=bound_of(scatter_bytes, 0)[0],
+                                gather_rows_bytes=gather_bytes,
+                                gather_rows_bound_ms=bound_of(gather_bytes, 0)[0],
                                 **times)
     print(json.dumps({"two_cycles": report["two_cycles"]}), flush=True)
 
@@ -1273,6 +1839,8 @@ def main() -> int:
     phase_shortlist_stream(torch, dev, report, headline)
     phase_golden(torch, dev)
     phase_two_cycles(torch, dev, report)
+    phase_quota_kernels(torch, dev, report)
+    phase_quota_streams(torch, dev, report)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(json.dumps({

@@ -1,10 +1,13 @@
 // All-or-nothing gang rollback of one solved batch, in one launch.
 //
-// Replaces the LoadAware part of koordinator_tpu/ops/solver.py:enforce_gangs
-// (:1858-1987, the counts and decisions at :1883-1894, the node-table
-// refunds at :1896-1912 and :1973-1978): count each gang's placed members,
-// roll back every pod of a Strict gang below its minMember, and take the
-// rolled-back pods' request, estimate and prod estimate off the node tables.
+// Replaces the LoadAware and quota parts of
+// koordinator_tpu/ops/solver.py:enforce_gangs (:1858-1987, the counts and
+// decisions at :1883-1894, the node-table refunds at :1896-1912 and
+// :1973-1978, the quota refund at :1963-1973): count each gang's placed
+// members, roll back every pod of a Strict gang below its minMember, take
+// the rolled-back pods' request, estimate and prod estimate off the node
+// tables and, with a quota tree, their requests off every quota of their
+// chains.
 //
 // What bounds it on an H100: latency. A batch is a few hundred rows and a
 // few KB; the bytes it must move take nanoseconds. What costs is launches:
@@ -20,6 +23,11 @@
 // table in place. Rows with nothing to refund are not touched, which equals
 // the reference's `table - segment_sum(...)` bit for bit since x - 0 == x.
 // No float atomics. A batch without rollbacks skips the sort and the sums.
+// The quota refund, level by level (the reference's `used - segment_sum`
+// per level, not folded by XLA): the rolled-back rows keyed (quota << 32 |
+// row) and sorted again, one thread a quota sums 0 + v0 + v1 + ... in row
+// order and subtracts the sum. Q == 1 (the disabled sentinel) passes no
+// chain and refunds nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,10 +43,32 @@ __host__ __device__ inline int pow2_at_least(int x) {
 }
 
 // Shared layout: s_asg[P] int, s_count[P] int, s_rb (the rollback count)
-// and one int of padding, then keys[pow2(P)] uint64 (8-byte aligned).
-size_t gangs_smem_bytes(int P) {
+// and one int of padding, then keys[pow2(P)] uint64 (8-byte aligned) and,
+// with a quota tree, qkeys[pow2(P)] uint64.
+size_t gangs_smem_bytes(int P, bool quota) {
   return ((size_t)2 * P + 2) * sizeof(int) +
-         (size_t)pow2_at_least(P) * sizeof(uint64_t);
+         (size_t)pow2_at_least(P) * sizeof(uint64_t) * (quota ? 2 : 1);
+}
+
+// Sorts keys[0, L) ascending (L a power of two), the whole block.
+__device__ void bitonic_sort(uint64_t* keys, int L) {
+  const int tid = threadIdx.x;
+  for (int k = 2; k <= L; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < L; i += blockDim.x) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const uint64_t a = keys[i], b = keys[ixj];
+          const bool up = (i & k) == 0;
+          if (up ? a > b : a < b) {
+            keys[i] = b;
+            keys[ixj] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -52,7 +82,9 @@ enforce_gangs_kernel(int* __restrict__ assignment,
                      float* __restrict__ requested,
                      float* __restrict__ est_used,
                      float* __restrict__ prod_used,
-                     int* __restrict__ pod_zone, int P, int N, int D) {
+                     int* __restrict__ pod_zone, int P, int N, int D,
+                     const int* __restrict__ chain, float* __restrict__ quota_used,
+                     int Q, int levels) {
   extern __shared__ int smem[];
   int* s_asg = smem;
   int* s_count = s_asg + P;
@@ -93,22 +125,7 @@ enforce_gangs_kernel(int* __restrict__ assignment,
   const int L = pow2_at_least(R);
   for (int i = R + tid; i < L; i += blockDim.x) keys[i] = UINT64_MAX;
   __syncthreads();
-  for (int k = 2; k <= L; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < L; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const uint64_t a = keys[i], b = keys[ixj];
-          const bool up = (i & k) == 0;
-          if (up ? a > b : a < b) {
-            keys[i] = b;
-            keys[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
+  bitonic_sort(keys, L);
 
   // one thread per touched node: ordered sums, subtracted in place
   for (int s = tid; s < R; s += blockDim.x) {
@@ -129,6 +146,37 @@ enforce_gangs_kernel(int* __restrict__ assignment,
       prod_used[at] = prod_used[at] - pr;
     }
   }
+  if (chain == nullptr) return;
+
+  // the quota refund, one chain level after another: rows keyed (quota <<
+  // 32 | row), rows without a quota at this level last
+  uint64_t* qkeys = keys + pow2_at_least(P);
+  for (int level = 0; level < levels; ++level) {
+    for (int s = tid; s < L; s += blockDim.x) {
+      uint64_t key = UINT64_MAX;
+      if (s < R) {
+        const int row = (int)(keys[s] & 0xFFFFFFFFu);
+        const int q = chain[(size_t)row * levels + level];
+        // a row past the table is dropped, as segment_sum drops it
+        key = ((uint64_t)(q >= 0 && q < Q ? q : Q) << 32) | (uint64_t)row;
+      }
+      qkeys[s] = key;
+    }
+    __syncthreads();
+    bitonic_sort(qkeys, L);
+    for (int s = tid; s < R; s += blockDim.x) {
+      const int q = (int)(qkeys[s] >> 32);
+      if (q >= Q || (s > 0 && (int)(qkeys[s - 1] >> 32) == q)) continue;
+      for (int d = 0; d < D; ++d) {
+        float r = 0.0f;
+        for (int j = s; j < R && (int)(qkeys[j] >> 32) == q; ++j)
+          r = r + requests[(size_t)(qkeys[j] & 0xFFFFFFFFu) * D + d];
+        const size_t at = (size_t)q * D + d;
+        quota_used[at] = quota_used[at] - r;
+      }
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace
@@ -140,12 +188,14 @@ extern "C" int koord_enforce_gangs(void* assignment, const void* gang_id,
                                    const void* is_prod, void* requested,
                                    void* est_used, void* prod_used,
                                    void* pod_zone, int P, int N, int D,
-                                   void* stream) {
+                                   const void* chain, void* quota_used, int Q,
+                                   int levels, void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (D < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const bool quota = chain != nullptr && quota_used != nullptr && Q > 1;
   // one block holds the whole batch; a batch too large for the card's
   // shared memory is refused here (cudaFuncSetAttribute's error)
-  const size_t smem = gangs_smem_bytes(P);
+  const size_t smem = gangs_smem_bytes(P, quota);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         enforce_gangs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -159,7 +209,8 @@ extern "C" int koord_enforce_gangs(void* assignment, const void* gang_id,
       (int*)assignment, (const int*)gang_id, (const int*)gang_min,
       (const bool*)gang_nonstrict, (const float*)requests,
       (const float*)estimate, (const bool*)is_prod, (float*)requested,
-      (float*)est_used, (float*)prod_used, (int*)pod_zone, P, N, D);
+      (float*)est_used, (float*)prod_used, (int*)pod_zone, P, N, D,
+      quota ? (const int*)chain : nullptr, quota ? (float*)quota_used : nullptr, Q, levels);
   return (int)cudaGetLastError();
 }
 

@@ -135,13 +135,23 @@ struct Nodes {
   const float *cpu_amp, *thr, *pthr;
 };
 
-// A pod's columns: requests, estimate, prod flag, cpuset binding and its
-// half of the jitter hash.
+// The row of the node mask (the pods' hard node constraints: [M, N] bool)
+// sorted pod p reads: row rows[p], or none (every node allowed) without a
+// mask. A stream's stacked [C, P, N] mask is read in place through rows
+// that already hold the chunk's offset.
+__device__ __forceinline__ const bool* mask_row_of(const bool* mask, const long long* rows,
+                                                   int p, int N) {
+  return mask == nullptr ? nullptr : mask + rows[p] * (long long)N;
+}
+
+// A pod's columns: requests, estimate, prod flag, cpuset binding, its
+// half of the jitter hash and its node-mask row (nullptr: no mask).
 template <int D>
 struct Pod {
   float req[D], est[D];
   bool prod, bind;
   uint32_t hash;
+  const bool* mask;
 
   __device__ __forceinline__ void load(int p, const float* req_, const float* est_,
                                        const bool* is_prod, const bool* cpu_bind) {
@@ -153,6 +163,7 @@ struct Pod {
     prod = is_prod[p];
     bind = cpu_bind[p];
     hash = jitter_pod(p);
+    mask = nullptr;
   }
 };
 
@@ -161,13 +172,14 @@ struct Pod {
 // :1017-1086 for one pair): schedulable and the pod gate, fit, amplified
 // CPU fit for cpuset-bound pods, usage and prod thresholds on nodes with a
 // fresh metric, then the integer-floor score (0 on a stale node), negated,
-// plus the jitter keyed on the node's original id.
+// plus the jitter keyed on the node's original id. The node mask
+// (:896-897, :1070-1071) is one more feasibility term.
 template <int D>
 __device__ __forceinline__ float pair_cost(const Pod<D>& pod, bool gate, int n, const Nodes& t,
                                            const float (&w)[D], float wsum, float jitter_scale,
                                            bool jitter_on) {
   const bool fresh = t.fresh[n];
-  bool feas = gate && t.sched[n];
+  bool feas = gate && t.sched[n] && (pod.mask == nullptr || pod.mask[n]);
   float a[D], fe[D], after[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {

@@ -37,7 +37,7 @@
 //   once every pair it holds is infeasible (__any_sync).
 // - D is a template parameter, so every loop over dims unrolls. K is a
 //   run-time count; a top-K list has C register slots, C = 4 for K <= 4
-//   and 8 above (32 instantiations in all), kept worst first, so its entry
+//   and 8 above (32 instantiations, and as many with a node mask), kept worst first, so its entry
 //   test reads the fixed slot 0 and the slots past K hold pairs that rank
 //   before every real one, where an insertion stops. On an H100, eight
 //   slots at K = 4 cost the kernel 14 registers a thread, a resident block
@@ -56,6 +56,12 @@
 // - Both kernels take the round loop's state word (csrc/round.cu) and
 //   return at once when its `done` is set, so a round loop of a fixed trip
 //   count costs two near-empty launches a trip after its fixed point.
+// - The pods' hard node constraints (a node mask, solver.py:896-897) are
+//   one more feasibility term: pod p reads row mask_row[p] of an [M, N]
+//   bool table in place (a stream's stacked [C, P, N] mask, its rows
+//   offset by the chunk), one byte a pair, which L1 keeps for the node
+//   chunk a warp walks. The masked kernel is its own instantiation
+//   (kMasked), so the kernel without a mask keeps its registers.
 // - With the candidate shortlist on, this is the round's fallback: both
 //   kernels also take the trigger word the shortlist round sets
 //   (csrc/shortlist_round.cu) and return at once while it is clear — the
@@ -157,7 +163,7 @@ union Shared {
   } lists;  // each warp's top-K of each pod, after the last tile
 };
 
-template <int D, int C>
+template <int D, int C, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
                 const bool* __restrict__ is_prod,
@@ -175,7 +181,8 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
                 const float* __restrict__ weights, int P, int N, int K, int chunk,
                 float jitter_scale, int jitter_on, int approx,
                 float* __restrict__ out_cost, int* __restrict__ out_idx,
-                const int* __restrict__ state, const int* __restrict__ trigger) {
+                const int* __restrict__ state, const int* __restrict__ trigger,
+                const bool* __restrict__ mask, const long long* __restrict__ mask_row) {
   // the round loop reached its fixed point, or the shortlist round needs
   // no fallback: nothing to nominate
   if (state != nullptr && state[0] != 0) return;
@@ -196,11 +203,15 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
   TopK<C> top[Q];
   bool pod_gate[Q], pod_bind[Q], pod_prod[Q];
   uint32_t hp[Q];
+  // each pod's row of the node mask (kMasked only)
+  const bool* pod_mask[Q];
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
     const int p = blockIdx.x * kPods + lane + 32 * q;
     pod_gate[q] = pod_bind[q] = pod_prod[q] = false;
+    pod_mask[q] = nullptr;
     if (p < P) {
+      if constexpr (kMasked) pod_mask[q] = mask_row_of(mask, mask_row, p, N);
 #pragma unroll
       for (int d = 0; d < D; ++d) {
         rq[q][d] = req[(size_t)p * D + d];
@@ -256,6 +267,7 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
 #pragma unroll
       for (int q = 0; q < Q; ++q) {
         feas[q] = pod_gate[q] && (fl & kSched) != 0;
+        if constexpr (kMasked) feas[q] = feas[q] && (pod_mask[q] == nullptr || pod_mask[q][n]);
 #pragma unroll
         for (int d = 0; d < D; ++d) feas[q] = feas[q] & (rq[q][d] <= fe[d]);
         feas[q] = feas[q] & (!pod_bind[q] | (rq[q][0] * amp <= fe[0]));
@@ -442,6 +454,8 @@ struct Args {
   int* out_idx;
   const int* state;
   const int* trigger;
+  const bool* mask;
+  const long long* mask_row;
   cudaStream_t stream;
 };
 
@@ -450,11 +464,13 @@ cudaError_t launch(const Args& a) {
   const int chunks = (a.N + a.chunk - 1) / a.chunk;
   const dim3 grid((a.P + kPods - 1) / kPods, chunks);
   const bool split = chunks > 1;
-  nominate_kernel<D, C><<<grid, kThreads, 0, a.stream>>>(
+  auto kernel = a.mask != nullptr ? nominate_kernel<D, C, true> : nominate_kernel<D, C, false>;
+  kernel<<<grid, kThreads, 0, a.stream>>>(
       a.req, a.est, a.is_prod, a.cpu_bind, a.gate, a.alloc, a.requested,
       a.est_used, a.prod_used, a.fresh, a.sched, a.cpu_amp, a.thr, a.pthr,
       a.weights, a.P, a.N, a.K, a.chunk, a.jitter_scale, a.jitter_on, a.approx,
-      split ? a.part_cost : a.out_cost, split ? a.part_idx : a.out_idx, a.state, a.trigger);
+      split ? a.part_cost : a.out_cost, split ? a.part_idx : a.out_idx, a.state, a.trigger,
+      a.mask, a.mask_row);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
   nominate_merge_kernel<C><<<(a.P + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0,
@@ -503,24 +519,29 @@ struct Launch {
 
 struct Resident {
   int* blocks;
+  bool masked;
   template <int D, int C>
   cudaError_t run() const {
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, nominate_kernel<D, C>,
-                                                         kThreads, 0);
+    return masked ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        blocks, nominate_kernel<D, C, true>, kThreads, 0)
+                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        blocks, nominate_kernel<D, C, false>, kThreads, 0);
   }
 };
 
 }  // namespace
 
 // Nodes each block walks, for P pods and N nodes at width D and fan-out K
-// on a card of `sms` SMs: as many chunks as fill one wave of resident
-// blocks (the occupancy of this instantiation), none shorter than
-// kMinChunk nodes. The caller makes room for partial lists of
-// [P, ceil(N / chunk), kMaxK] pairs when there is more than one chunk.
-extern "C" int koord_nominate_chunk(int P, int N, int D, int K, int sms, int* chunk) {
+// (with a node mask when `masked`) on a card of `sms` SMs: as many chunks
+// as fill one wave of resident blocks (the occupancy of this
+// instantiation), none shorter than kMinChunk nodes. The caller makes
+// room for partial lists of [P, ceil(N / chunk), kMaxK] pairs when there
+// is more than one chunk.
+extern "C" int koord_nominate_chunk(int P, int N, int D, int K, int sms, int masked,
+                                    int* chunk) {
   if (P < 1 || N < 1 || sms < 1 || K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
   int per_sm = 0;
-  const cudaError_t err = with_dk(D, K, Resident{&per_sm});
+  const cudaError_t err = with_dk(D, K, Resident{&per_sm, masked != 0});
   if (err != cudaSuccess) return (int)err;
   const int pod_blocks = (P + kPods - 1) / kPods;
   const int most = (N + kMinChunk - 1) / kMinChunk;
@@ -538,7 +559,8 @@ extern "C" int koord_nominate(
     const void* thr, const void* pthr, const void* weights, int P, int N,
     int D, int K, int chunk, float jitter_scale, int jitter_on, int approx,
     void* part_cost, void* part_idx, void* out_cost, void* out_idx,
-    const void* state, const void* trigger, void* stream) {
+    const void* state, const void* trigger, const void* mask, const void* mask_row,
+    void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (D < 1 || D > kMaxDims || N < 1 || K < 1 || K > kMaxK || chunk < 1)
     return (int)cudaErrorInvalidValue;
@@ -549,8 +571,8 @@ extern "C" int koord_nominate(
                (const float*)cpu_amp, (const float*)thr, (const float*)pthr,
                (const float*)weights, P, N, K, chunk, jitter_scale, jitter_on,
                approx, (float*)part_cost, (int*)part_idx, (float*)out_cost,
-               (int*)out_idx, (const int*)state, (const int*)trigger,
-               (cudaStream_t)stream};
+               (int*)out_idx, (const int*)state, (const int*)trigger, (const bool*)mask,
+               (const long long*)mask_row, (cudaStream_t)stream};
   return (int)with_dk(D, K, Launch{a});
 }
 

@@ -36,7 +36,8 @@
 //   rank: each id's place is the number of ids below it.
 // - Its cost is the bound: +inf when fewer than K+1 pairs are feasible,
 //   and then the shortlist holds the lowest infeasible ids, as top_k's
-//   -inf ties do.
+//   -inf ties do. A pod whose node-mask row is all false prices every
+//   node +inf: its bound is +inf and its shortlist complete.
 
 #include "loadaware.cuh"
 
@@ -77,6 +78,8 @@ struct Args {
   int jitter_on;
   int* out_cand;
   float* out_bound;
+  const bool* mask;
+  const long long* mask_row;
   cudaStream_t stream;
 };
 
@@ -92,6 +95,7 @@ __global__ void __launch_bounds__(kThreads) shortlist_build_kernel(const Args a)
   const int N = a.N, K = a.K;
   Pod<D> pod;
   pod.load(p, a.req, a.est, a.is_prod, a.cpu_bind);
+  pod.mask = mask_row_of(a.mask, a.mask_row, p, N);
   float w[D];
   const float wsum = weights_sum<D>(a.weights, w);
   // every pod gate open: a pod that is not active now may be later
@@ -195,15 +199,17 @@ struct Launch {
 }  // namespace
 
 // Pods are priority-sorted [P, D] / [P]; node tables [N, D] / [N]; thr and
-// pthr the effective [N, D] thresholds. Writes cand [P, K] int32 (ids
-// ascending) and bound [P] float32. Needs 1 <= K <= 1024, K < N, D <= 8.
+// pthr the effective [N, D] thresholds; mask [M, N] bool and mask_row [P]
+// int64 the pods' node constraints (both null: none). Writes cand [P, K]
+// int32 (ids ascending) and bound [P] float32. Needs 1 <= K <= 1024,
+// K < N, D <= 8.
 extern "C" int koord_shortlist_build(
     const void* req, const void* est, const void* is_prod, const void* cpu_bind,
     const void* alloc, const void* requested, const void* est_used,
     const void* prod_used, const void* fresh, const void* sched,
     const void* cpu_amp, const void* thr, const void* pthr, const void* weights,
     int P, int N, int D, int K, float jitter_scale, int jitter_on, void* cand,
-    void* bound, void* stream) {
+    void* bound, const void* mask, const void* mask_row, void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (K < 1 || K > kMaxShortlist || K >= N) return (int)cudaErrorInvalidValue;
   int index_bits = 1;
@@ -214,7 +220,8 @@ extern "C" int koord_shortlist_build(
                      (const float*)prod_used, (const bool*)fresh, (const bool*)sched,
                      (const float*)cpu_amp, (const float*)thr, (const float*)pthr},
                (const float*)weights, P, N, K, index_bits, jitter_scale, jitter_on,
-               (int*)cand, (float*)bound, (cudaStream_t)stream};
+               (int*)cand, (float*)bound, (const bool*)mask, (const long long*)mask_row,
+               (cudaStream_t)stream};
   return (int)with_d8(D, Launch{a});
 }
 

@@ -47,7 +47,7 @@ struct Args {
   const float* weights;
   const int* cand;
   const float* bound;
-  int P, K, k;
+  int P, N, K, k;
   float jitter_scale;
   int jitter_on, approx;
   float* out_cost;
@@ -55,6 +55,8 @@ struct Args {
   int* word;    // [4]: trigger, bound flag, exhausted flag, ticket
   int* counts;  // [2]
   const int* state;
+  const bool* mask;
+  const long long* mask_row;
   cudaStream_t stream;
 };
 
@@ -71,6 +73,7 @@ __global__ void __launch_bounds__(kWarps * 32) shortlist_round_kernel(const Args
   if (p < a.P) {  // uniform across the warp
     Pod<D> pod;
     pod.load(p, a.req, a.est, a.is_prod, a.cpu_bind);
+    pod.mask = mask_row_of(a.mask, a.mask_row, p, a.N);  // read at each candidate's id
     const bool gate = a.gate[p];
     float w[D];
     const float wsum = weights_sum<D>(a.weights, w);
@@ -161,19 +164,22 @@ struct Launch {
 }  // namespace
 
 // Pods are priority-sorted [P, D] / [P] with the round's gate (active
-// flags); node tables [N, D] / [N] with the effective thresholds; cand
-// [P, K] int32 ascending and bound [P] from the build. Writes the
-// nomination [P, k] into out_cost / out_idx, ORs the round's flags into
-// word [4] (zero before the round) and adds them to counts [2]. Needs
-// 1 <= k <= min(8, K), D <= 8; `state` is the round loop's state word.
+// flags, with quotas those with headroom); node tables [N, D] / [N] with
+// the effective thresholds; cand [P, K] int32 ascending and bound [P] from
+// the build; mask [M, N] bool and mask_row [P] int64 the pods' node
+// constraints (both null: none). Writes the nomination [P, k] into
+// out_cost / out_idx, ORs the round's flags into word [4] (zero before the
+// round) and adds them to counts [2]. Needs 1 <= k <= min(8, K), D <= 8;
+// `state` is the round loop's state word.
 extern "C" int koord_shortlist_round(
     const void* req, const void* est, const void* is_prod, const void* cpu_bind,
     const void* gate, const void* alloc, const void* requested,
     const void* est_used, const void* prod_used, const void* fresh,
     const void* sched, const void* cpu_amp, const void* thr, const void* pthr,
-    const void* weights, const void* cand, const void* bound, int P, int D, int K,
-    int k, float jitter_scale, int jitter_on, int approx, void* out_cost,
-    void* out_idx, void* word, void* counts, const void* state, void* stream) {
+    const void* weights, const void* cand, const void* bound, int P, int N, int D,
+    int K, int k, float jitter_scale, int jitter_on, int approx, void* out_cost,
+    void* out_idx, void* word, void* counts, const void* state, const void* mask,
+    const void* mask_row, void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (k < 1 || k > 8 || k > K) return (int)cudaErrorInvalidValue;
   const Args a{(const float*)req, (const float*)est, (const bool*)is_prod,
@@ -181,9 +187,10 @@ extern "C" int koord_shortlist_round(
                Nodes{(const float*)alloc, (const float*)requested, (const float*)est_used,
                      (const float*)prod_used, (const bool*)fresh, (const bool*)sched,
                      (const float*)cpu_amp, (const float*)thr, (const float*)pthr},
-               (const float*)weights, (const int*)cand, (const float*)bound, P, K, k,
+               (const float*)weights, (const int*)cand, (const float*)bound, P, N, K, k,
                jitter_scale, jitter_on, approx, (float*)out_cost, (int*)out_idx,
-               (int*)word, (int*)counts, (const int*)state, (cudaStream_t)stream};
+               (int*)word, (int*)counts, (const int*)state, (const bool*)mask,
+               (const long long*)mask_row, (cudaStream_t)stream};
   return (int)with_d8(D, Launch{a});
 }
 

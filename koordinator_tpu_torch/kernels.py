@@ -46,20 +46,23 @@ _F = ctypes.c_float
 #: ints are ``c_int``, scalars ``c_float``.
 SIGNATURES: dict[str, dict[str, list]] = {
     "nominate": {
-        "koord_nominate": [_P] * 15 + [_I] * 5 + [_F, _I, _I] + [_P] * 7,
-        "koord_nominate_chunk": [_I] * 5 + [ctypes.POINTER(_I)],
+        "koord_nominate": [_P] * 15 + [_I] * 5 + [_F, _I, _I] + [_P] * 9,
+        "koord_nominate_chunk": [_I] * 6 + [ctypes.POINTER(_I)],
     },
     "round": {
-        "koord_round_tail": [_P] * 17 + [_F, _I, _I, _I, _I, _P],
+        "koord_round_tail": [_P] * 17 + [_F, _I, _I, _I, _I] + [_P] * 4 + [_I, _I, _P],
     },
     "gangs": {
-        "koord_enforce_gangs": [_P] * 11 + [_I, _I, _I, _P],
+        "koord_enforce_gangs": [_P] * 11 + [_I, _I, _I] + [_P] * 2 + [_I, _I, _P],
     },
     "shortlist_build": {
-        "koord_shortlist_build": [_P] * 14 + [_I] * 4 + [_F, _I] + [_P] * 3,
+        "koord_shortlist_build": [_P] * 14 + [_I] * 4 + [_F, _I] + [_P] * 5,
     },
     "shortlist_round": {
-        "koord_shortlist_round": [_P] * 17 + [_I] * 4 + [_F, _I, _I] + [_P] * 6,
+        "koord_shortlist_round": [_P] * 17 + [_I] * 5 + [_F, _I, _I] + [_P] * 8,
+    },
+    "quota": {
+        "koord_quota_gate": [_P] * 6 + [_I] * 4 + [_P],
     },
 }
 

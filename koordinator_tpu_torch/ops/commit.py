@@ -28,6 +28,7 @@ import ctypes
 import torch
 
 from .. import kernels
+from . import quota as quota_ops
 from .masks import EPS, usage_percent
 
 
@@ -134,14 +135,16 @@ def _commit_inputs(node_key, req, est, is_prod, cpu_bind, cpu_amp, n: int):
 
 def commit_plain(
     snode, sreq, sest, sprod, alloc, fresh, thr, pthr,
-    requested, est_used, prod_used, round_quantum: float,
+    requested, est_used, prod_used, round_quantum: float, admit=None,
 ):
     """Plain PyTorch commit of one round. ``snode`` [P] int32 holds the
     nominated nodes stably sorted (N = none); ``sreq`` [P, D] the sorted
     requests with CPU already multiplied by the node's amplification for
     cpu-bind pods; ``sest`` [P, D] and ``sprod`` [P] the sorted estimates
     and prod flags; ``thr``/``pthr`` the effective [N, D] thresholds.
-    Returns ``accept`` [P] bool in sorted order and adds the winners'
+    ``admit``, when given, maps the node acceptance (sorted order) to the
+    pods that also clear their quotas (``solver.py:1362-1370``). Returns
+    the final ``accept`` [P] bool in sorted order and adds the winners'
     charges to ``requested``, ``est_used`` and ``prod_used`` in place."""
     n = alloc.shape[0]
     gnode = torch.clamp(snode, max=n - 1).long()
@@ -168,6 +171,8 @@ def commit_plain(
     accept &= torch.all(
         (alloc_g <= 0) | (prior_est <= round_quantum * alloc_g + EPS), dim=-1
     )
+    if admit is not None:
+        accept = admit(accept)
 
     # winners' charges land on the tables one row at a time, in sorted
     # order: XLA folds the reference's ``table + segment_sum(...)`` into a
@@ -182,7 +187,7 @@ def commit_plain(
 def round_tail_plain(
     top_cost, top_idx, req, est, is_prod, cpu_bind, cpu_amp,
     alloc, fresh, thr, pthr, requested, est_used, prod_used,
-    assigned, active, state, round_quantum: float,
+    assigned, active, state, round_quantum: float, quota=None,
 ) -> None:
     """Plain PyTorch round tail: everything a round of ``assign`` does
     after nomination (``solver.py:1204-1229``, the LoadAware commit
@@ -193,7 +198,14 @@ def round_tail_plain(
     effective [N, D] thresholds. Updates in place the node tables
     ``requested``, ``est_used`` and ``prod_used``, and the loop state:
     ``assigned`` [P] int32 (-1 = none), ``active`` [P] bool and ``state``
-    [2] int32 = (done, rounds). Changes nothing while ``done`` is set."""
+    [2] int32 = (done, rounds). Changes nothing while ``done`` is set.
+
+    ``quota`` = (chain [P, L] int32, runtime [Q, D], used [Q, D], gate
+    [P] bool) turns on ElasticQuota admission: node-accepted pods must also
+    clear their chains (:func:`.quota.quota_commit_plain`, ``used`` updated
+    in place), only those are charged and assigned, the loop ends on a
+    round that assigns nothing (``progress = any(final)``, :1446), and
+    ``gate`` becomes the next round's: active pods with quota headroom."""
     if bool(state[0]):
         return
     n = alloc.shape[0]
@@ -201,9 +213,20 @@ def round_tail_plain(
     sortidx, snode, sreq, sest, sprod = _commit_inputs(
         node_key, req, est, is_prod, cpu_bind, cpu_amp, n
     )
+    admit = None
+    if quota is not None:
+        chain, runtime, used, gate = quota
+
+        def admit(accept):
+            accepted = torch.zeros_like(accept)
+            accepted[sortidx] = accept
+            final, new_used = quota_ops.quota_commit_plain(accepted, req, chain, runtime, used)
+            used.copy_(new_used)
+            return final[sortidx]
+
     accept = commit_plain(
         snode, sreq, sest, sprod, alloc, fresh, thr, pthr,
-        requested, est_used, prod_used, round_quantum,
+        requested, est_used, prod_used, round_quantum, admit,
     )
     accepted = torch.zeros_like(accept)
     accepted[sortidx] = accept
@@ -211,6 +234,8 @@ def round_tail_plain(
     active &= assigned < 0
     state[1] += 1
     state[0] = ~accepted.any() | ~active.any()
+    if quota is not None:
+        quota_ops.quota_gate_plain(active, req, chain, runtime, used, gate)
 
 
 _I32, _F32, _BOOL = torch.int32, torch.float32, torch.bool
@@ -222,18 +247,22 @@ _ROUND_DTYPES = (_F32, _I32, _F32, _F32, _BOOL, _BOOL, _F32, _F32, _BOOL, _F32,
 def round_tail(
     top_cost, top_idx, req, est, is_prod, cpu_bind, cpu_amp,
     alloc, fresh, thr, pthr, requested, est_used, prod_used,
-    assigned, active, state, round_quantum: float,
+    assigned, active, state, round_quantum: float, quota=None,
 ) -> None:
     """One round's tail on the tensors' device: one ``koord_round_tail``
     launch (``csrc/round.cu``) for CUDA tensors, :func:`round_tail_plain`
     for CPU tensors. Same arguments and in-place updates as
     :func:`round_tail_plain`; on the card nothing is read back to the
-    host."""
+    host. With ``quota`` the quota commit (the branch ``_quota_commit``
+    takes for the table's shape) and the next round's gate are phases of
+    the same launch, counted also as ``quota_commit_onehot`` or
+    ``quota_commit_sorted``; the kernel takes such a round up to 4,096
+    pods and refuses a larger one."""
     args = (top_cost, top_idx, req, est, is_prod, cpu_bind, cpu_amp,
             alloc, fresh, thr, pthr, requested, est_used, prod_used,
             assigned, active, state)
     if top_cost.is_cpu:
-        return round_tail_plain(*args, round_quantum)
+        return round_tail_plain(*args, round_quantum, quota)
     p, k = top_cost.shape
     n, d = alloc.shape
     if not 1 <= d <= 8:
@@ -243,9 +272,23 @@ def round_tail(
         "round_tail", args, _ROUND_DTYPES,
         (pk, pk, pd, pd, p, p, n, nd, n, nd, nd, nd, nd, nd, p, p, 2),
     )
+    q_cap = levels = 0
+    q_ptrs = [None] * 4
+    if quota is not None:
+        chain, runtime, used, gate = quota
+        q_cap, levels = runtime.shape[0], chain.shape[1]
+        q_ptrs = kernels.checked_ptrs(
+            "round_tail", (top_cost, chain, runtime, used, gate),
+            (_F32, _I32, _F32, _F32, _BOOL),
+            (pk, p * levels, q_cap * d, q_cap * d, p),
+        )[1:]
     lib = kernels.library("round")
     code = lib.koord_round_tail(
-        *ptrs, ctypes.c_float(round_quantum), p, n, d, k, kernels.stream_of(top_cost)
+        *ptrs, ctypes.c_float(round_quantum), p, n, d, k, *q_ptrs, q_cap, levels,
+        kernels.stream_of(top_cost),
     )
     kernels.check(lib, code, "round_tail")
     kernels.count("round_tail")
+    if quota is not None:
+        branch = "onehot" if quota_ops.onehot_branch(q_cap, d) else "sorted"
+        kernels.count(f"quota_commit_{branch}")

@@ -34,13 +34,26 @@ def _jitter_hash(pi: torch.Tensor, ni: torch.Tensor) -> torch.Tensor:
     return (pi.long() * 2654435761 + ni.long() * 40503) & 0xFFFF
 
 
+def mask_rows(mask) -> "torch.Tensor | None":
+    """The [P, N] bool node mask of the priority-sorted pods from ``mask``
+    = (table [M, N] bool, rows [P] int64): pod j may use node n where
+    ``table[rows[j], n]``. None for no mask."""
+    if mask is None:
+        return None
+    table, rows = mask
+    return table.reshape(-1, table.shape[-1])[rows]
+
+
 def feasible_mask(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
+    mask=None,
 ):
     """[P, N] feasibility (``solver.py:_feasible``, :625-657): fit,
     amplified-CPU fit for cpu-bind pods, usage and prod thresholds (``thr``
-    and ``pthr`` effective, [N, D]), schedulable, pod gate."""
+    and ``pthr`` effective, [N, D]), schedulable, pod gate, and the pods'
+    hard node constraints (:896-897; ``mask`` as :func:`mask_rows` takes
+    it)."""
     free = alloc - requested
     feas = fit_mask(req, free)
     amp = torch.clamp(cpu_amp, min=1.0)
@@ -50,6 +63,8 @@ def feasible_mask(
     feas &= usage_ok(est, prod_used, alloc, pthr, fresh) | ~is_prod[:, None]
     feas &= sched[None, :]
     feas &= gate[:, None]
+    if mask is not None:
+        feas &= mask_rows(mask)
     return feas
 
 
@@ -82,13 +97,13 @@ def add_jitter(cost, node_ids, nomination_jitter: float):
 def masked_cost(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
-    weights, nomination_jitter: float,
+    weights, nomination_jitter: float, mask=None,
 ):
     """[P, N] masked, jittered LoadAware cost (``full_feas_cost``
     :864-947), +inf where a pair is infeasible."""
     feas = feasible_mask(
         req, est, is_prod, cpu_bind, gate,
-        alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
+        alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr, mask,
     )
     cost = load_aware_cost(est, est_used, alloc, weights, metric_fresh=fresh)
     nodes = torch.arange(alloc.shape[0], device=req.device)[None, :]
@@ -100,20 +115,20 @@ def nominate_plain(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
     weights, k: int, nomination_jitter: float, approx_topk: bool,
-    trigger=None, out=None,
+    trigger=None, out=None, mask=None,
 ):
     """Plain PyTorch nomination: the reference's formulas on [P, N]
     tensors. Pod tensors ([P, D] / [P]) are priority-sorted; node tables
     are [N, D] / [N]; ``thr``/``pthr`` are the effective [N, D] usage and
     prod thresholds. Returns (cost [P, k] float32, node [P, k] int32).
-    ``trigger`` and ``out`` are :func:`nominate`'s: with ``trigger[0]``
-    clear nothing is computed and ``out`` is returned as it is; otherwise
-    the result is written into ``out``."""
+    ``trigger``, ``out`` and ``mask`` are :func:`nominate`'s: with
+    ``trigger[0]`` clear nothing is computed and ``out`` is returned as it
+    is; otherwise the result is written into ``out``."""
     if trigger is not None and not bool(trigger[0]):
         return out
     cost = masked_cost(
         req, est, is_prod, cpu_bind, gate, alloc, requested, est_used,
-        prod_used, fresh, sched, cpu_amp, thr, pthr, weights, nomination_jitter,
+        prod_used, fresh, sched, cpu_amp, thr, pthr, weights, nomination_jitter, mask,
     )
     vals, idx = torch.sort(cost, dim=1, stable=True)
     top = nomination_vector(
@@ -136,11 +151,12 @@ _DTYPES = (_F32, _F32, _BOOL, _BOOL, _BOOL, _F32, _F32, _F32, _F32, _BOOL, _BOOL
 
 def launch(lib, ptrs, p: int, n: int, d: int, k: int, nomination_jitter: float,
            approx_topk: bool, chunk: int, device, state_ptr=None, trigger_ptr=None,
-           out=None):
+           out=None, mask_ptrs=(None, None)):
     """One ``koord_nominate`` call of ``lib`` on checked pointers, each
     block walking ``chunk`` nodes; with ``state_ptr`` (a round loop's state
     word) the kernels return at once once its ``done`` is set, with
-    ``trigger_ptr`` (a shortlist round's word) while its trigger is clear.
+    ``trigger_ptr`` (a shortlist round's word) while its trigger is clear;
+    ``mask_ptrs`` are the node mask's table and rows (:func:`checked_mask`).
     Writes into ``out`` (cost, node) when given, checked buffers of
     [P, k]. Returns (cost [P, k], node [P, k], the C entry's error code)."""
     chunks = -(-n // chunk)
@@ -157,10 +173,25 @@ def launch(lib, ptrs, p: int, n: int, d: int, k: int, nomination_jitter: float,
         ctypes.c_float(nomination_jitter / 65536.0),
         int(nomination_jitter > 0.0), int(approx_topk),
         part_cost.data_ptr(), part_idx.data_ptr(),
-        out_cost.data_ptr(), out_idx.data_ptr(), state_ptr, trigger_ptr,
+        out_cost.data_ptr(), out_idx.data_ptr(), state_ptr, trigger_ptr, *mask_ptrs,
         kernels.stream_of(out_cost),
     )
     return out_cost, out_idx, code
+
+
+def checked_mask(what: str, mask, p: int, n: int) -> tuple:
+    """The pointers of a node mask (table [M, N] bool, rows [P] int64) for
+    a kernel launch, after the checks; (None, None) without a mask. The
+    kernels read row ``rows[j]`` of the table for sorted pod j, so a
+    stream's stacked [C, P, N] mask is read in place, never copied."""
+    if mask is None:
+        return (None, None)
+    table, rows = mask
+    if table.dim() < 2 or table.shape[-1] != n or rows.shape != (p,):
+        raise ValueError(f"{what}: the node mask must be [..., N={n}] with [P={p}] rows")
+    return tuple(kernels.checked_ptrs(
+        what, (table, rows), (torch.bool, torch.int64), (table.numel(), p)
+    ))
 
 
 def checked(args, k: int) -> list:
@@ -179,12 +210,14 @@ def checked(args, k: int) -> list:
 
 
 @functools.lru_cache(maxsize=256)
-def chunk_of(lib, p: int, n: int, d: int, k: int, index: int) -> int:
-    """Nodes each block of ``lib``'s kernel walks at this shape on device
-    ``index`` (``koord_nominate_chunk``: one wave of resident blocks)."""
+def chunk_of(lib, p: int, n: int, d: int, k: int, index: int, masked: bool = False) -> int:
+    """Nodes each block of ``lib``'s kernel (its node-mask instantiation
+    when ``masked``) walks at this shape on device ``index``
+    (``koord_nominate_chunk``: one wave of resident blocks)."""
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     chunk = ctypes.c_int(0)
-    kernels.check(lib, lib.koord_nominate_chunk(p, n, d, k, sms, ctypes.byref(chunk)),
+    kernels.check(lib, lib.koord_nominate_chunk(p, n, d, k, sms, int(masked),
+                                                ctypes.byref(chunk)),
                   "nominate chunk")
     return chunk.value
 
@@ -193,7 +226,7 @@ def nominate(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
     weights, k: int, nomination_jitter: float, approx_topk: bool, state=None,
-    trigger=None, out=None,
+    trigger=None, out=None, mask=None,
 ):
     """Round nomination on the tensors' device: the CUDA kernel for CUDA
     tensors, :func:`nominate_plain` for CPU tensors. Same arguments and
@@ -208,12 +241,16 @@ def nominate(
     :func:`.shortlist.shortlist_round`, ``out`` the (cost, node) buffers it
     wrote. While ``trigger[0]`` is clear nothing runs and ``out`` keeps the
     shortlist's nomination; when it is set the full-axis nomination is
-    written into ``out``. Returns ``out`` (a new pair without it)."""
+    written into ``out``. Returns ``out`` (a new pair without it).
+
+    ``mask`` holds the pods' hard node constraints (nodeSelector, required
+    nodeAffinity, ``spec.nodeName``): (table [M, N] bool, rows [P] int64),
+    sorted pod j may use node n only where ``table[rows[j], n]``."""
     args = (req, est, is_prod, cpu_bind, gate, alloc, requested, est_used,
             prod_used, fresh, sched, cpu_amp, thr, pthr, weights)
     if req.is_cpu:
         return nominate_plain(*args, k, nomination_jitter, approx_topk,
-                              trigger=trigger, out=out)
+                              trigger=trigger, out=out, mask=mask)
     ptrs = checked(args, k)
     p, d = req.shape
     n = alloc.shape[0]
@@ -222,10 +259,10 @@ def nominate(
         (_F32, torch.int32, torch.int32, _F32, torch.int32), (p * d, 2, 4, p * k, p * k),
     )
     lib = kernels.library("nominate")
-    chunk = chunk_of(lib, p, n, d, k, req.get_device())
+    chunk = chunk_of(lib, p, n, d, k, req.get_device(), mask is not None)
     out_cost, out_idx, code = launch(
         lib, ptrs, p, n, d, k, nomination_jitter, approx_topk, chunk, req.device,
-        extra[1], extra[2], out,
+        extra[1], extra[2], out, checked_mask("nominate", mask, p, n),
     )
     kernels.check(lib, code, "nominate")
     kernels.count("nominate")

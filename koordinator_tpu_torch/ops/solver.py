@@ -1,14 +1,18 @@
 """Batched assignment solver: masked argmin with capacity-consuming commit.
 
 Port of ``koordinator_tpu/ops/solver.py``'s LoadAware round solver
-(:func:`assign`, :679-1535) and its stream (:func:`solve_stream`,
-:1671-1733), with :func:`enforce_gangs` (:1858-1987, the CUDA kernel
-``csrc/gangs.cu`` on the card, one launch a batch), the candidate
-shortlist (:func:`shortlist_plan`, :1547-1657) and the resident-row
-helpers :func:`scatter_rows` / :func:`gather_rows` (:248-283). Each round:
+(:func:`assign`, :679-1535) and its streams (:func:`solve_stream`,
+:1671-1733, and the scheduler's :func:`solve_stream_full`, :1748-1855),
+with ElasticQuota admission (``quotas``: :mod:`.quota`) and the pods' hard
+node constraints (``node_mask``), :func:`enforce_gangs` (:1858-1987, the
+CUDA kernel ``csrc/gangs.cu`` on the card, one launch a batch), the
+candidate shortlist (:func:`shortlist_plan`, :1547-1657) and the
+resident-row helpers :func:`scatter_rows` / :func:`gather_rows`
+(:248-283). Each round:
 
 1. nominate — every still-unassigned pod's masked, jittered LoadAware cost
-   over all nodes and its top-k (:func:`.nominate.nominate`, the CUDA kernel
+   over all nodes (with quotas only the pods with headroom along their
+   chains, the round's gate) and its top-k (:func:`.nominate.nominate`, the CUDA kernel
    ``csrc/nominate.cu`` on the card). With ``shortlist_k`` each batch first
    builds every pod's K candidates (:func:`.shortlist.shortlist_build`,
    ``csrc/shortlist_build.cu``), and a round nominates over them
@@ -18,7 +22,8 @@ helpers :func:`scatter_rows` / :func:`gather_rows` (:248-283). Each round:
 2. the round tail — the pod with the r-th highest priority among active
    pods takes its (r mod k)-th best finite node; pods stably sorted by
    node, segmented prefix sums, acceptance under capacity, thresholds and
-   the spread quantum, the winners' charges, and the loop state
+   the spread quantum, with quotas the admission along each pod's chain
+   and the next round's gate, the winners' charges, and the loop state
    (:func:`.commit.round_tail`, one launch of ``csrc/round.cu`` on the
    card).
 
@@ -46,6 +51,7 @@ import torch
 from .. import kernels, resolve_device
 from . import commit as commit_ops
 from . import nominate as nominate_ops
+from . import quota as quota_ops
 from . import shortlist as shortlist_ops
 from .commit import _segment_prefix_sums  # noqa: F401  (reference name)
 from .masks import effective_thresholds
@@ -311,10 +317,14 @@ def _effective_thresholds(nodes: NodeState, params: SolverParams):
     )
 
 
-#: the pod fields the LoadAware rounds read
+#: the pod fields the LoadAware rounds read (and, with quotas, the chains)
 _ROUND_FIELDS = ("requests", "estimate", "is_prod", "valid", "qos")
 #: the pod fields a LoadAware solve reads: the rounds' and the gang rollback's
 _SOLVE_FIELDS = _ROUND_FIELDS + ("priority", "gang_id", "gang_min", "gang_nonstrict")
+
+
+def _with_quota(fields, quota: bool):
+    return fields + ("quota_chain",) if quota else fields
 
 
 def _only(pods: PodBatch, fields, fn) -> PodBatch:
@@ -326,13 +336,15 @@ def _only(pods: PodBatch, fields, fn) -> PodBatch:
     })
 
 
-def _round_setup(pods: PodBatch, nodes: NodeState, params: SolverParams, thresholds=None):
+def _round_setup(pods: PodBatch, nodes: NodeState, params: SolverParams, thresholds=None,
+                 quota: bool = False):
     """What stays fixed over a batch's rounds: the priority order, the
-    sorted pods (only the fields the rounds read; the others are None),
-    their cpu-bind flags and the effective thresholds (``thresholds`` when
-    the caller has them: they do not change within a stream)."""
+    sorted pods (only the fields the rounds read, with ``quota`` the
+    chains too; the others are None), their cpu-bind flags and the
+    effective thresholds (``thresholds`` when the caller has them: they do
+    not change within a stream)."""
     order = _priority_order(pods)
-    spods = _only(pods, _ROUND_FIELDS, lambda a: a[order])
+    spods = _only(pods, _with_quota(_ROUND_FIELDS, quota), lambda a: a[order])
     thr, pthr = thresholds or _effective_thresholds(nodes, params)
     return order, spods, _cpu_bind(spods), thr, pthr
 
@@ -343,10 +355,8 @@ def _priority_order(pods: PodBatch) -> torch.Tensor:
 
 
 _NOT_PORTED = {
-    "quotas": "queue 1 item 7 (quota)",
     "numa": "queue 1 item 9 (NUMA)",
     "devices": "queue 1 item 10 (devices)",
-    "node_mask": "queue 1 item 11 (solve_stream_full)",
     "dev_carry": "queue 1 item 10 (devices)",
     "numa_carry": "queue 1 item 9 (NUMA)",
     "numa_scoring": "queue 1 item 9 (NUMA)",
@@ -397,12 +407,16 @@ def assign(
     node) tie-break band in score points; ``approx_topk`` pins slot 0 to
     the argmin as the reference's TPU path does; ``shortlist_k`` prunes
     each round's node axis to each pod's K build-time candidates, with the
-    same decisions (off unless k <= K < N). Options of other slices raise
-    ``NotImplementedError``."""
+    same decisions (off unless k <= K < N). ``quotas`` turns on
+    ElasticQuota admission along each pod's ``quota_chain``
+    (``SolveResult.quota_used`` is the post-commit table); ``node_mask``
+    [P, N] bool holds the pods' hard node constraints (nodeSelector,
+    required nodeAffinity, ``spec.nodeName``). Options of other slices
+    raise ``NotImplementedError``."""
     _reject_unported(
-        quotas=quotas, numa=numa, devices=devices, node_mask=node_mask,
-        dev_carry=dev_carry, numa_carry=numa_carry, numa_scoring=numa_scoring,
-        device_scoring=device_scoring, cost_transform=cost_transform,
+        numa=numa, devices=devices, dev_carry=dev_carry, numa_carry=numa_carry,
+        numa_scoring=numa_scoring, device_scoring=device_scoring,
+        cost_transform=cost_transform,
     )
     p, d = pods.requests.shape
     n = nodes.allocatable.shape[0]
@@ -413,17 +427,18 @@ def assign(
         estimated_used=nodes.estimated_used.clone(),
         prod_used=nodes.prod_used.clone(),
     )
+    quota = None if quotas is None else (quotas.runtime, quotas.used.clone())
     assignment, rounds, fallbacks = _assign_(
         pods, tables, params, max_rounds=max_rounds, round_quantum=round_quantum,
         topk=topk, nomination_jitter=nomination_jitter, approx_topk=approx_topk,
-        shortlist_k=shortlist_k,
+        shortlist_k=shortlist_k, quota=quota, node_mask=node_mask,
     )
     return SolveResult(
         assignment=assignment,
         node_requested=tables.requested,
         node_estimated_used=tables.estimated_used,
         node_prod_used=tables.prod_used,
-        quota_used=QuotaState.disabled(d, device=dev).used,
+        quota_used=QuotaState.disabled(d, device=dev).used if quota is None else quota[1],
         rounds_used=rounds,
         node_dev_slots=torch.zeros((n, 1), dtype=torch.float32, device=dev),
         node_rdma_free=torch.zeros((n,), dtype=torch.float32, device=dev),
@@ -450,6 +465,9 @@ def _assign_(
     approx_topk: bool,
     shortlist_k=None,
     thresholds=None,
+    quota=None,
+    node_mask=None,
+    mask_base=None,
 ):
     """:func:`assign`'s rounds and gang rollback with ``nodes``' tables
     (``requested``, ``estimated_used``, ``prod_used``) updated in place.
@@ -461,12 +479,27 @@ def _assign_(
     are before the first round; each trip then runs the shortlist round,
     the full-axis nomination (which returns at once unless the round's
     trigger word is set) and the round tail, all reading one nomination
-    buffer."""
+    buffer.
+
+    ``quota`` = (runtime, used) [Q, D] turns on the quota gate and commit;
+    ``used`` is updated in place (commits, then the gang rollback's
+    refund). The rounds price only gated pods — active, with headroom along
+    their chains — written for round 0 by :func:`.quota.quota_gate` and
+    for each next round by the round tail. ``node_mask`` [M, N] bool (or
+    any [..., N]) holds the pods' node constraints: sorted pod j reads row
+    ``order[j]``, plus ``mask_base * P`` when ``mask_base`` (a [1] int64
+    tensor on the device: a stream's batch index into its stacked
+    [C, P, N] mask) is given. The mask is read in place, never copied."""
     p = pods.requests.shape[0]
     n = nodes.allocatable.shape[0]
     dev = nodes.allocatable.device
-    order, spods, bind_mask, thr, pthr = _round_setup(pods, nodes, params, thresholds)
+    order, spods, bind_mask, thr, pthr = _round_setup(
+        pods, nodes, params, thresholds, quota is not None
+    )
     k = min(topk, n)
+    mask = None
+    if node_mask is not None:
+        mask = (node_mask, order if mask_base is None else order + mask_base * p)
 
     requested, est_used, prod_used = nodes.requested, nodes.estimated_used, nodes.prod_used
     assigned = torch.full((p,), -1, dtype=torch.int32, device=dev)
@@ -477,11 +510,17 @@ def _assign_(
     node_args = (nodes.allocatable, requested, est_used, prod_used,
                  nodes.metric_fresh, nodes.schedulable, nodes.cpu_amp, thr, pthr,
                  params.score_weights)
+    gate, round_quota = active, None
+    if quota is not None:
+        runtime, used = quota
+        gate = torch.empty_like(active)
+        quota_ops.quota_gate(active, spods.requests, spods.quota_chain, runtime, used, gate)
+        round_quota = (spods.quota_chain, runtime, used, gate)
     fallbacks = None
     if _shortlist_on(shortlist_k, topk, n):
         plan = shortlist_ops.shortlist_build(
             spods.requests, spods.estimate, spods.is_prod, bind_mask, *node_args,
-            shortlist_k, nomination_jitter,
+            shortlist_k, nomination_jitter, mask,
         )
         # one word a trip: trip t is round t while the loop runs
         words = torch.zeros((max_rounds, shortlist_ops.WORD), dtype=torch.int32, device=dev)
@@ -489,25 +528,28 @@ def _assign_(
     for t in range(max_rounds):
         if state.is_cpu and bool(state[0]):
             break
-        pod_args = (spods.requests, spods.estimate, spods.is_prod, bind_mask, active)
+        # the pricing kernels take the gate; the round tail ranks the
+        # active pods
+        pod_args = (spods.requests, spods.estimate, spods.is_prod, bind_mask, gate)
         if fallbacks is None:
             top_cost, top_idx = nominate_ops.nominate(
                 *pod_args, *node_args, k, nomination_jitter, approx_topk, state=state,
+                mask=mask,
             )
         else:
             top = shortlist_ops.shortlist_round(
                 *pod_args, *node_args, *plan, k, nomination_jitter, approx_topk,
-                words[t], fallbacks, state,
+                words[t], fallbacks, state, mask,
             )
             top_cost, top_idx = nominate_ops.nominate(
                 *pod_args, *node_args, k, nomination_jitter, approx_topk, state=state,
-                trigger=words[t], out=top,
+                trigger=words[t], out=top, mask=mask,
             )
         commit_ops.round_tail(
             top_cost, top_idx, spods.requests, spods.estimate, spods.is_prod,
             bind_mask, nodes.cpu_amp, nodes.allocatable, nodes.metric_fresh,
             thr, pthr, requested, est_used, prod_used, assigned, active, state,
-            round_quantum,
+            round_quantum, round_quota,
         )
 
     # back to original pod order: assignment[order[j]] = assigned[j]
@@ -518,7 +560,7 @@ def _assign_(
         SolveResult(
             assignment=assignment, node_requested=requested,
             node_estimated_used=est_used, node_prod_used=prod_used,
-            quota_used=None, rounds_used=None,
+            quota_used=None if quota is None else quota[1], rounds_used=None,
         ),
         pods,
     )
@@ -542,15 +584,17 @@ def solve_stream(
     fallbacks_out: "torch.Tensor | None" = None,
 ):
     """Multi-batch solve over a [B, P, ...] stacked :class:`PodBatch`,
-    threading consumed node capacity from batch to batch on the device.
+    threading consumed node capacity (and with ``quotas`` the quota table)
+    from batch to batch on the device.
 
     Returns ``(assignments [B, P], final NodeState, placed-per-batch [B],
     final QuotaState)``, as ``solver.py:1671-1733`` does, in fresh tensors
-    (the caller's are never written). ``rounds_out``, a [B] int32 tensor on
-    the device, receives each batch's ``rounds_used``; ``fallbacks_out``, a
-    [B, 2] int32 tensor, each batch's ``shortlist_fallbacks`` (zeros with
-    the shortlist off), as ``solve_stream_full`` returns them
-    (``solver.py:1748-1855``).
+    (the caller's are never written; without ``quotas`` the final
+    QuotaState is the disabled sentinel). ``rounds_out``, a [B] int32
+    tensor on the device, receives each batch's ``rounds_used``;
+    ``fallbacks_out``, a [B, 2] int32 tensor, each batch's
+    ``shortlist_fallbacks`` (zeros with the shortlist off), as
+    ``solve_stream_full`` returns them (``solver.py:1748-1855``).
 
     On CUDA tensors one batch's :func:`assign` — the priority sort, the
     gathers, ``max_rounds`` trips of nomination and round tail, the gang
@@ -559,25 +603,75 @@ def solve_stream(
     advances (:class:`_StreamGraph`); nothing is read back to the host.
     ``cuda_graph=False`` runs the batches eagerly instead (the plain route
     on the card, whose plain versions read through the host)."""
-    _reject_unported(quotas=quotas, cost_transform=cost_transform)
-    dev = nodes.allocatable.device
-    b, p = pods_stacked.requests.shape[:2]
-    quotas = QuotaState.disabled(pods_stacked.requests.shape[-1], device=dev)
+    _reject_unported(cost_transform=cost_transform)
     kw = dict(max_rounds=max_rounds, round_quantum=round_quantum, topk=topk,
               nomination_jitter=nomination_jitter, approx_topk=approx_topk,
               shortlist_k=shortlist_k)
-    if dev.type == "cuda" and cuda_graph:
-        tables, (asg, placed, rounds, fallbacks) = _StreamGraph.run(
-            pods_stacked, nodes, params, kw
+    tables, (asg, placed, rounds, fallbacks), qused = _run_stream(
+        pods_stacked, nodes, params, quotas, None, kw, cuda_graph
+    )
+    _copy_out(rounds, fallbacks, rounds_out, fallbacks_out)
+    final = dataclasses.replace(
+        nodes, requested=tables[0], estimated_used=tables[1], prod_used=tables[2]
+    )
+    if quotas is None:
+        final_quotas = QuotaState.disabled(
+            pods_stacked.requests.shape[-1], device=nodes.allocatable.device
         )
     else:
-        tables, outs = _stream_buffers(nodes, b, p, kw)
-        asg, placed, rounds, fallbacks = outs
-        index = torch.arange(b, device=dev)
-        thresholds = _effective_thresholds(nodes, params)
-        for i in range(b):
-            _stream_step(pods_stacked, nodes, params, thresholds, tables, outs,
-                         index[i : i + 1], kw)
+        final_quotas = QuotaState(runtime=quotas.runtime, used=qused)
+    return asg, final, placed, final_quotas
+
+
+def solve_stream_full(
+    pods_stacked: PodBatch,
+    nodes: NodeState,
+    params: SolverParams,
+    quotas: "QuotaState | None" = None,
+    numa=None,
+    devices=None,
+    max_rounds: int = 24,
+    round_quantum: float = 0.35,
+    topk: int = 4,
+    nomination_jitter: float = 4.0,
+    approx_topk: bool = False,
+    numa_scoring=None,
+    device_scoring=None,
+    node_mask=None,
+    shortlist_k=None,
+    cuda_graph: bool = True,
+):
+    """The scheduler's stream (``solver.py:1748-1855``): chunks of a
+    [C, P, ...] stacked :class:`PodBatch` solved one after another,
+    threading node capacity and the quota table, with ``node_mask``
+    [C, P, N] bool the chunks' hard node constraints (None: none).
+
+    Returns ``(assignments [C, P], pod_zones [C, P], rounds [C],
+    shortlist_fallbacks [C, 2])``, the fallback counts zeros with the
+    shortlist off. ``pod_zones`` is all -1: no zone is picked without NUMA
+    (ROADMAP queue 1 item 9, as ``numa``, ``devices`` and their scoring
+    are). On CUDA tensors each chunk is one CUDA graph replay, as in
+    :func:`solve_stream`; chunk c's pods read rows ``c * P + order`` of the
+    stacked mask through the graph's device index, so the mask is never
+    copied."""
+    _reject_unported(numa=numa, devices=devices, numa_scoring=numa_scoring,
+                     device_scoring=device_scoring)
+    c, p = pods_stacked.requests.shape[:2]
+    n = nodes.allocatable.shape[0]
+    if node_mask is not None and tuple(node_mask.shape) != (c, p, n):
+        raise ValueError(f"solve_stream_full: node_mask must be [C={c}, P={p}, N={n}] bool")
+    kw = dict(max_rounds=max_rounds, round_quantum=round_quantum, topk=topk,
+              nomination_jitter=nomination_jitter, approx_topk=approx_topk,
+              shortlist_k=shortlist_k)
+    _, (asg, _, rounds, fallbacks), _ = _run_stream(
+        pods_stacked, nodes, params, quotas, node_mask, kw, cuda_graph
+    )
+    if fallbacks is None:
+        fallbacks = torch.zeros((c, 2), dtype=torch.int32, device=asg.device)
+    return asg, torch.full_like(asg, -1), rounds, fallbacks
+
+
+def _copy_out(rounds, fallbacks, rounds_out, fallbacks_out) -> None:
     if rounds_out is not None:
         rounds_out.copy_(rounds)
     if fallbacks_out is not None:
@@ -585,44 +679,75 @@ def solve_stream(
             fallbacks_out.zero_()
         else:
             fallbacks_out.copy_(fallbacks)
-    final = dataclasses.replace(
-        nodes, requested=tables[0], estimated_used=tables[1], prod_used=tables[2]
-    )
-    return asg, final, placed, quotas
 
 
-def _stream_buffers(nodes: NodeState, b: int, p: int, kw: dict):
-    """A stream's node tables (copies of ``nodes``', updated in place batch
-    by batch) and its outputs: assignments [B, P], placed [B], rounds [B]
-    and, with the shortlist on (``kw``, the solver's arguments), its
-    fallback counts [B, 2] (None with it off)."""
-    n = nodes.allocatable.shape[0]
-    shortlist = _shortlist_on(kw["shortlist_k"], kw["topk"], n)
+def _run_stream(pods_stacked, nodes, params, quotas, node_mask, kw, cuda_graph):
+    """The batches of a stream on the tensors' device: one CUDA graph
+    replay a batch on the card (:class:`_StreamGraph`), else eagerly.
+    Returns fresh (tables, outputs, quota used table or None)."""
     dev = nodes.allocatable.device
-    tables = [nodes.requested.clone(), nodes.estimated_used.clone(), nodes.prod_used.clone()]
-    outs = (
-        torch.empty((b, p), dtype=torch.int32, device=dev),
-        torch.empty((b,), dtype=torch.int32, device=dev),
-        torch.empty((b,), dtype=torch.int32, device=dev),
-        torch.empty((b, 2), dtype=torch.int32, device=dev) if shortlist else None,
-    )
-    return tables, outs
+    b, p = pods_stacked.requests.shape[:2]
+    if dev.type == "cuda" and cuda_graph:
+        return _StreamGraph.run(pods_stacked, nodes, params, quotas, node_mask, kw)
+    bufs = _StreamBuffers(nodes, quotas, b, p, kw)
+    index = torch.arange(b, device=dev)
+    thresholds = _effective_thresholds(nodes, params)
+    for i in range(b):
+        _stream_step(pods_stacked, nodes, params, quotas, node_mask, thresholds, bufs,
+                     index[i : i + 1], kw)
+    return bufs.tables, bufs.outs, bufs.qused
 
 
-def _stream_step(pods_stacked, nodes, params, thresholds, tables, outs, index, kw) -> None:
+class _StreamBuffers:
+    """A stream's state: its node tables and, with quotas, its quota used
+    table (copies of the inputs', updated in place batch by batch), and its
+    outputs: assignments [B, P], placed [B], rounds [B] and, with the
+    shortlist on (``kw``, the solver's arguments), its fallback counts
+    [B, 2] (None with it off)."""
+
+    def __init__(self, nodes: NodeState, quotas, b: int, p: int, kw: dict):
+        n = nodes.allocatable.shape[0]
+        shortlist = _shortlist_on(kw["shortlist_k"], kw["topk"], n)
+        dev = nodes.allocatable.device
+        self.tables = [nodes.requested.clone(), nodes.estimated_used.clone(),
+                       nodes.prod_used.clone()]
+        self.qused = None if quotas is None else quotas.used.clone()
+        self.outs = (
+            torch.empty((b, p), dtype=torch.int32, device=dev),
+            torch.empty((b,), dtype=torch.int32, device=dev),
+            torch.empty((b,), dtype=torch.int32, device=dev),
+            torch.empty((b, 2), dtype=torch.int32, device=dev) if shortlist else None,
+        )
+
+    def reset(self, nodes: NodeState, quotas) -> None:
+        """Back to the inputs' tables, in place."""
+        for table, src in zip(self.tables, (nodes.requested, nodes.estimated_used,
+                                            nodes.prod_used)):
+            table.copy_(src)
+        if self.qused is not None:
+            self.qused.copy_(quotas.used)
+
+
+def _stream_step(pods_stacked, nodes, params, quotas, node_mask, thresholds, bufs,
+                 index, kw) -> None:
     """Batch ``index`` ([1] int64 on the device) of a stream: its pods
-    gathered from the stacked batch, solved with ``tables`` (requested,
-    estimated, prod) updated in place and the stream's effective
-    ``thresholds``, its assignment, placed count, rounds and fallback
-    counts written into row ``index`` of ``outs``."""
-    pods = _only(pods_stacked, _SOLVE_FIELDS, lambda a: a.index_select(0, index)[0])
+    gathered from the stacked batch, solved with the stream's tables
+    (requested, estimated, prod; with quotas the used table) updated in
+    place and its effective ``thresholds``, its assignment, placed count,
+    rounds and fallback counts written into row ``index`` of the
+    outputs."""
+    fields = _with_quota(_SOLVE_FIELDS, quotas is not None)
+    pods = _only(pods_stacked, fields, lambda a: a.index_select(0, index)[0])
+    tables = bufs.tables
     cur = dataclasses.replace(
         nodes, requested=tables[0], estimated_used=tables[1], prod_used=tables[2]
     )
     assignment, rounds_used, fallbacks = _assign_(
-        pods, cur, params, thresholds=thresholds, **kw
+        pods, cur, params, thresholds=thresholds,
+        quota=None if quotas is None else (quotas.runtime, bufs.qused),
+        node_mask=node_mask, mask_base=None if node_mask is None else index, **kw,
     )
-    asg, placed, rounds, fb = outs
+    asg, placed, rounds, fb = bufs.outs
     asg.index_copy_(0, index, assignment[None])
     placed.index_copy_(0, index, (assignment >= 0).sum(dtype=torch.int32)[None])
     rounds.index_copy_(0, index, rounds_used[None])
@@ -631,14 +756,16 @@ def _stream_step(pods_stacked, nodes, params, thresholds, tables, outs, index, k
 
 
 class _StreamGraph:
-    """One batch of :func:`solve_stream` captured as a CUDA graph.
+    """One batch of a stream (:func:`solve_stream`, :func:`solve_stream_full`)
+    captured as a CUDA graph.
 
-    The graph reads and writes fixed addresses: the stacked pods, static
-    copies of the node tables (updated in place by every replay), the
-    effective thresholds (computed once a call, outside the graph), a
-    device batch index that each replay advances, and static [B, P] / [B]
-    / [B, 2] outputs. With the shortlist on, a batch's build, its words and
-    counts are inside the graph.
+    The graph reads and writes fixed addresses: the stacked pods (and the
+    stacked node mask), static copies of the node tables and of the quota
+    used table (updated in place by every replay), the effective
+    thresholds (computed once a call, outside the graph), a device batch
+    index that each replay advances, and static [B, P] / [B] / [B, 2]
+    outputs. With the shortlist on, a batch's build, its words and counts
+    are inside the graph; with quotas, the gate of its round 0.
 
     A graph is kept for the last input it ran, keyed by the shapes, the
     solver arguments and the input tensors' addresses: a replay reads the
@@ -656,20 +783,21 @@ class _StreamGraph:
     _last: "_StreamGraph | None" = None
     _retired: list = []
 
-    def __init__(self, key, pods_stacked, nodes, params, kw):
+    def __init__(self, key, pods_stacked, nodes, params, quotas, node_mask, kw):
         dev = nodes.allocatable.device
         b, p = pods_stacked.requests.shape[:2]
         self.key = key
         self.nodes = nodes
-        self.tables, self.outs = _stream_buffers(nodes, b, p, kw)
+        self.quotas = quotas
+        self.bufs = _StreamBuffers(nodes, quotas, b, p, kw)
         self.index = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.batches = b
         self.params = params
         self.thresholds = _effective_thresholds(nodes, params)
 
         def step():
-            _stream_step(pods_stacked, nodes, params, self.thresholds, self.tables,
-                         self.outs, self.index, kw)
+            _stream_step(pods_stacked, nodes, params, quotas, node_mask, self.thresholds,
+                         self.bufs, self.index, kw)
             self.index.add_(1)
 
         side = torch.cuda.Stream(device=dev)
@@ -686,11 +814,10 @@ class _StreamGraph:
         self.done = torch.cuda.Event()
 
     def replay(self):
-        """Every batch once, from the node tables and thresholds of the
-        call's inputs, into the static tables and outputs."""
-        for table, src in zip(self.tables, (self.nodes.requested,
-                                            self.nodes.estimated_used, self.nodes.prod_used)):
-            table.copy_(src)
+        """Every batch once, from the node (and quota) tables and the
+        thresholds of the call's inputs, into the static tables and
+        outputs."""
+        self.bufs.reset(self.nodes, self.quotas)
         for thr, src in zip(self.thresholds, _effective_thresholds(self.nodes, self.params)):
             thr.copy_(src)
         self.index.zero_()
@@ -698,11 +825,14 @@ class _StreamGraph:
         self.done.record()
 
     @classmethod
-    def run(cls, pods_stacked, nodes, params, kw):
-        tensors = [getattr(obj, f.name) for obj in (pods_stacked, nodes, params)
+    def run(cls, pods_stacked, nodes, params, quotas, node_mask, kw):
+        tensors = [getattr(obj, f.name) for obj in (pods_stacked, nodes, params, quotas)
+                   if obj is not None
                    for f in dataclasses.fields(obj) if getattr(obj, f.name) is not None]
+        if node_mask is not None:
+            tensors.append(node_mask)
         key = (
-            tuple(kw.items()),
+            tuple(kw.items()), quotas is not None, node_mask is not None,
             tuple((t.data_ptr(), t.dtype, tuple(t.shape), t.stride()) for t in tensors),
         )
         last = cls._last
@@ -710,20 +840,25 @@ class _StreamGraph:
             if last is not None:
                 cls._retired.append(last)
             cls._retired = [g for g in cls._retired if not g.done.query()]
-            last = cls._last = cls(key, pods_stacked, nodes, params, kw)
+            last = cls._last = cls(key, pods_stacked, nodes, params, quotas, node_mask, kw)
         last.replay()
-        return ([t.clone() for t in last.tables],
-                tuple(None if t is None else t.clone() for t in last.outs))
+        bufs = last.bufs
+        return ([t.clone() for t in bufs.tables],
+                tuple(None if t is None else t.clone() for t in bufs.outs),
+                None if bufs.qused is None else bufs.qused.clone())
 
 
 def enforce_gangs_plain(result: SolveResult, pods: PodBatch) -> SolveResult:
     """All-or-nothing gang rollback (Coscheduling Permit semantics,
-    ``solver.py:1858-1987``), node tables and gang counts only: gangs whose
-    placed-member count is below ``minMember`` lose all their placements
-    and their node charges, unless the gang is NonStrict. Refunds use the
-    unamplified ``pods.requests`` in original pod order, as the reference
-    does; the sums are ordered (:func:`.commit.segment_sum_plain`). The
-    plain version of ``csrc/gangs.cu``; returns a new result."""
+    ``solver.py:1858-1987``), node tables, gang counts and quotas: gangs
+    whose placed-member count is below ``minMember`` lose all their
+    placements, their node charges and their quota charges
+    (:func:`.quota.quota_refund_plain`; a [1, D] ``quota_used`` is the
+    disabled sentinel and stays), unless the gang is NonStrict. Refunds
+    use the unamplified ``pods.requests`` in original pod order, as the
+    reference does; the sums are ordered
+    (:func:`.commit.segment_sum_plain`). The plain version of
+    ``csrc/gangs.cu``; returns a new result."""
     p, d = pods.requests.shape
     n = result.node_requested.shape[0]
     assignment = result.assignment
@@ -746,12 +881,18 @@ def enforce_gangs_plain(result: SolveResult, pods: PodBatch) -> SolveResult:
         dim=1,
     )
     delta = commit_ops.segment_sum_plain(refunds, torch.where(rollback, node_of, n), n)
+    quota_used = result.quota_used
+    if quota_used is not None:
+        quota_used = quota_ops.quota_refund_plain(
+            rollback, pods.requests, pods.quota_chain, quota_used
+        )
     return dataclasses.replace(
         result,
         assignment=torch.where(keep, assignment, -1),
         node_requested=result.node_requested - delta[:, :d],
         node_estimated_used=result.node_estimated_used - delta[:, d : 2 * d],
         node_prod_used=result.node_prod_used - delta[:, 2 * d :],
+        quota_used=quota_used,
         pod_zone=(
             None
             if result.pod_zone is None
@@ -762,7 +903,7 @@ def enforce_gangs_plain(result: SolveResult, pods: PodBatch) -> SolveResult:
 
 _GANG_FIELDS = (
     "assignment", "node_requested", "node_estimated_used", "node_prod_used",
-    "pod_zone",
+    "pod_zone", "quota_used",
 )
 _I32, _F32, _BOOL = torch.int32, torch.float32, torch.bool
 #: dtypes of koord_enforce_gangs' tensors, in its argument order
@@ -770,10 +911,12 @@ _GANG_DTYPES = (_I32, _I32, _I32, _BOOL, _F32, _F32, _BOOL, _F32, _F32, _F32, _I
 
 
 def _enforce_gangs_(result: SolveResult, pods: PodBatch) -> None:
-    """Gang rollback in place on ``result``'s assignment, node tables and
-    ``pod_zone``: one ``koord_enforce_gangs`` launch (``csrc/gangs.cu``)
-    for CUDA tensors, :func:`enforce_gangs_plain` written into ``result``'s
-    tensors for CPU tensors."""
+    """Gang rollback in place on ``result``'s assignment, node tables,
+    ``pod_zone`` and ``quota_used``: one ``koord_enforce_gangs`` launch
+    (``csrc/gangs.cu``) for CUDA tensors, :func:`enforce_gangs_plain`
+    written into ``result``'s tensors for CPU tensors. The quota refund
+    runs when ``quota_used`` has Q > 1 rows (counted also as
+    ``quota_refund``)."""
     asg = result.assignment
     if asg.is_cpu:
         out = enforce_gangs_plain(result, pods)
@@ -791,17 +934,29 @@ def _enforce_gangs_(result: SolveResult, pods: PodBatch) -> None:
          result.node_estimated_used, result.node_prod_used, result.pod_zone),
         _GANG_DTYPES, (p, p, p, p, pd, pd, p, nd, nd, nd, p),
     )
+    q_cap = levels = 0
+    q_ptrs = [None, None]
+    refund = result.quota_used is not None and result.quota_used.shape[0] > 1
+    if refund:
+        q_cap, levels = result.quota_used.shape[0], pods.quota_chain.shape[1]
+        q_ptrs = kernels.checked_ptrs(
+            "enforce_gangs", (asg, pods.quota_chain, result.quota_used),
+            (_I32, _I32, _F32), (p, p * levels, q_cap * d),
+        )[1:]
     lib = kernels.library("gangs")
-    code = lib.koord_enforce_gangs(*ptrs, p, n, d, kernels.stream_of(asg))
+    code = lib.koord_enforce_gangs(*ptrs, p, n, d, *q_ptrs, q_cap, levels,
+                                   kernels.stream_of(asg))
     kernels.check(lib, code, "enforce_gangs")
     kernels.count("enforce_gangs")
+    if refund:
+        kernels.count("quota_refund")
 
 
 def enforce_gangs(result: SolveResult, pods: PodBatch) -> SolveResult:
     """All-or-nothing gang rollback (``solver.py:1858-1987``) on the
     tensors' device, functional as the reference is: the result's
-    assignment, node tables and ``pod_zone`` are cloned, then rolled back
-    in place (:func:`_enforce_gangs_`)."""
+    assignment, node tables, ``pod_zone`` and ``quota_used`` are cloned,
+    then rolled back in place (:func:`_enforce_gangs_`)."""
     out = dataclasses.replace(result, **{
         name: getattr(result, name).clone()
         for name in _GANG_FIELDS
@@ -825,20 +980,20 @@ def shortlist_plan(
 ):
     """The shortlist build as its own entry (``solver.py:1547-1657``),
     LoadAware only: the round-0 masked cost with every pod gate open and
-    each pod's top-(K+1). Returns ``(plan_cand [P, K] int32, candidates
-    ascending by node id in the solver's priority-sorted pod order,
-    plan_bound [P] float32, the (K+1)-th best build cost, +inf when the
-    shortlist holds every feasible node)``. One launch of
-    ``csrc/shortlist_build.cu`` on the card; :func:`assign` runs its own
-    build inside the solve."""
-    _reject_unported(numa=numa, devices=devices, node_mask=node_mask,
-                     numa_scoring=numa_scoring, device_scoring=device_scoring)
-    _, spods, bind, thr, pthr = _round_setup(pods, nodes, params)
+    each pod's top-(K+1), ``node_mask`` [P, N] bool holding the pods' node
+    constraints. Returns ``(plan_cand [P, K] int32, candidates ascending
+    by node id in the solver's priority-sorted pod order, plan_bound [P]
+    float32, the (K+1)-th best build cost, +inf when the shortlist holds
+    every feasible node)``. One launch of ``csrc/shortlist_build.cu`` on
+    the card; :func:`assign` runs its own build inside the solve."""
+    _reject_unported(numa=numa, devices=devices, numa_scoring=numa_scoring,
+                     device_scoring=device_scoring)
+    order, spods, bind, thr, pthr = _round_setup(pods, nodes, params)
     return shortlist_ops.shortlist_build(
         spods.requests, spods.estimate, spods.is_prod, bind, nodes.allocatable,
         nodes.requested, nodes.estimated_used, nodes.prod_used, nodes.metric_fresh,
         nodes.schedulable, nodes.cpu_amp, thr, pthr, params.score_weights,
-        shortlist_k, nomination_jitter,
+        shortlist_k, nomination_jitter, None if node_mask is None else (node_mask, order),
     )
 
 

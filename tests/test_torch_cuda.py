@@ -18,8 +18,13 @@ nodes, priced again each pass), the shortlist round at k = 1 to 8 with
 real, lowered and unbounded bounds and a set ``done``, the fallback firing
 on the contention fixture, the shortlist stream against the stream without
 it and the shortlist golden, and two cycles on resident rows replaying one
-graph. Tolerance: none — the kernels round as the plain versions do, so
-results must be bitwise equal.
+graph. With quotas and node masks: the round-0 gate, the round tail's
+quota commit on both of ``_quota_commit``'s branches (Q·D = 1,024 and
+1,026 among them) at rounds of 1 to 4,096 pods, a round whose quotas
+refuse every pod, the gang rollback's quota refund (Q == 1 skipped), the
+three pricing kernels with a node mask (rows all false), and
+``solve_stream_full`` against the quota golden. Tolerance: none — the
+kernels round as the plain versions do, so results must be bitwise equal.
 """
 
 import numpy as np
@@ -496,3 +501,185 @@ def test_two_cycles_replay_one_graph_on_resident_rows(cuda):
     out = chip_smoke.two_cycles(torch, cuda, 2000, 2)
     assert out["mismatches"] == [], out["mismatches"]
     assert out["replayed"] and out["same_ptrs"]
+
+
+# ------------------------------------------- quotas and the node mask (slice 5)
+
+from koordinator_tpu_torch.ops import quota as tquota  # noqa: E402
+
+
+def quota_inputs(seed, p, q, d, levels=4, fill=0.85):
+    """Chains over a [Q, D] tree (some levels open) whose runtime binds
+    with ``fill`` of it used: (chain [P, L], runtime, used) numpy."""
+    rng = np.random.default_rng(seed)
+    chain = rng.integers(0, q, (p, levels)).astype(np.int32)
+    chain[rng.random((p, levels)) < 0.15] = -1
+    runtime = rng.uniform(1e3, 1e4 * max(1, p // max(1, q)), (q, d)).astype(np.float32)
+    runtime[rng.random(q) < 0.05] = np.inf
+    used = (np.where(np.isinf(runtime), 1e4, runtime)
+            * rng.uniform(0.0, fill, (q, d))).astype(np.float32)
+    return chain, runtime, used
+
+
+@pytest.mark.parametrize("p", [1, 37, 512, 4096])
+@pytest.mark.parametrize("q, d", [(21, 2), (1057, 2), (5, 3), (8, 1)])
+def test_quota_gate_kernel_matches_plain(cuda, p, q, d):
+    rng = np.random.default_rng(p + q)
+    chain, runtime, used = quota_inputs(p * 7 + q, p, q, d)
+    arrays = [rng.random(p) > 0.1, rng.uniform(100, 5000, (p, d)).astype(np.float32), chain,
+              runtime, used]
+    outs = []
+    for device in (cuda, "cpu"):
+        args = [torch.from_numpy(a.copy()).to(device) for a in arrays]
+        gate = torch.zeros(p, dtype=torch.bool, device=device)
+        tquota.quota_gate(*args, gate)
+        outs.append(gate.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(*outs)
+
+
+def quota_round_both(cuda, arrays, quota):
+    """The round tail with quotas on the card and its plain version on
+    the CPU; returns both argument lists with (used, gate) appended."""
+    outs = []
+    for device in (cuda, "cpu"):
+        args = [torch.from_numpy(a.copy()).to(device) for a in arrays]
+        chain, runtime, used = (torch.from_numpy(a.copy()).to(device) for a in quota)
+        gate = torch.zeros(len(arrays[2]), dtype=torch.bool, device=device)
+        fn = tcommit.round_tail if device == cuda else tcommit.round_tail_plain
+        fn(*args, 0.35, quota=(chain, runtime, used, gate))
+        outs.append(args + [used, gate])
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize("p", [1, 16, 17, 300, 512, 1000, 4096])
+@pytest.mark.parametrize("q, d", [(21, 2), (512, 2), (513, 2), (1057, 2), (7, 3), (300, 1)])
+def test_round_tail_quota_commit_matches_plain(cuda, p, q, d):
+    """Both of ``_quota_commit``'s branches (Q·D <= 1,024 one-hot, above
+    sorted; 512 x 2 and 513 x 2 on either side) at rounds of 1 to 4,096
+    pods: one to three scan levels, one and four rows a thread."""
+    arrays = round_inputs(p * 11 + q, p, max(3, p // 8), d)
+    arrays[16] = np.array([0, 2], np.int32)
+    chain, runtime, used = quota_inputs(p + q * 3, p, q, d)
+    before = dict(kernels.launches)
+    dev, host = quota_round_both(cuda, arrays, (chain, runtime, used))
+    branch = "quota_commit_onehot" if q * d <= 1024 else "quota_commit_sorted"
+    assert kernels.launches[branch] == before.get(branch, 0) + 1
+    assert_round_equal(dev[11:], host[11:])
+
+
+def test_round_tail_quota_refuses_more_than_4096_pods(cuda):
+    """A quota round takes up to 4,096 pods (the JAX scheduler's batch
+    bucket); a larger one is refused with the CUDA error, not run."""
+    arrays = round_inputs(4, 4097, 100, 2)
+    chain, runtime, used = quota_inputs(4, 4097, 21, 2)
+    dev = [torch.from_numpy(a).to(cuda) for a in arrays]
+    quota = [torch.from_numpy(a).to(cuda) for a in (chain, runtime, used)]
+    gate = torch.zeros(4097, dtype=torch.bool, device=cuda)
+    with pytest.raises(RuntimeError, match="round_tail: CUDA error"):
+        tcommit.round_tail(*dev, 0.35, quota=(*quota, gate))
+
+
+def test_round_tail_quota_refusing_every_pod_ends_the_loop(cuda):
+    """Every node-accepted pod refused by its quota: nothing assigned, the
+    loop's done set after one round, the gate closed."""
+    arrays = round_inputs(3, 64, 20, 2)
+    arrays[15][:] = True
+    arrays[14][:] = -1
+    chain = np.zeros((64, 2), np.int32)
+    chain[:, 1] = -1
+    runtime = np.full((1, 2), 10.0, np.float32)
+    dev, host = quota_round_both(cuda, arrays, (chain, runtime, np.zeros((1, 2), np.float32)))
+    assert_round_equal(dev[11:], host[11:])
+    assert (host[14].numpy() == -1).all() and host[16].tolist() == [1, 4]
+    assert not host[-1].any()
+
+
+@pytest.mark.parametrize("q", [1, 21, 600])
+@pytest.mark.parametrize("p, d", [(17, 1), (512, 2), (1000, 3)])
+def test_enforce_gangs_quota_refund_matches_plain(cuda, p, d, q):
+    n = max(2, p // 4)
+    result, pods = gang_inputs(p * 13 + q, p, n, d, "all short")
+    chain, _, used = quota_inputs(p + q, p, q, d, fill=1.0)
+    pods["quota_chain"] = chain
+    outs = []
+    for device in (cuda, "cpu"):
+        got = solve_result(result, device)
+        got.quota_used = torch.from_numpy(np.where(np.isinf(used), 1e6, used).astype(np.float32)
+                                          ).to(device)
+        before = kernels.launches["quota_refund"]
+        T._enforce_gangs_(got, from_numpy(T.PodBatch, device=device, **pods))
+        if device == cuda:
+            assert kernels.launches["quota_refund"] == before + (q > 1)
+        outs.append(got)
+    torch.cuda.synchronize()
+    for f in ("assignment", "node_requested", "node_estimated_used", "node_prod_used",
+              "quota_used"):
+        np.testing.assert_array_equal(bits(getattr(outs[0], f).cpu().numpy()),
+                                      bits(getattr(outs[1], f).numpy()), err_msg=f)
+
+
+def masked_inputs(seed, p, n, d, rows=None):
+    """``nominate_inputs`` and a node mask (table [M, N], rows [P]): some
+    rows all false, a stacked table read through offset rows."""
+    arrays = nominate_inputs(seed, p, n, d)
+    rng = np.random.default_rng(seed + 1)
+    m = 3 * p
+    table = rng.random((m, n)) < 0.4
+    table[:: max(1, m // 7)] = False
+    order = rng.permutation(p) + (p if rows is None else rows * p)
+    return arrays, table, order.astype(np.int64)
+
+
+@pytest.mark.parametrize("p, n, d", [(1, 9, 1), (37, 300, 3), (512, 10_000, 2), (200, 5003, 2)])
+@pytest.mark.parametrize("approx", [False, True])
+def test_pricing_kernels_with_node_mask_match_plain(cuda, p, n, d, approx):
+    arrays, table, rows = masked_inputs(p * 3 + n, p, n, d)
+    outs = []
+    for device in (cuda, "cpu"):
+        args = [torch.from_numpy(a).to(device) for a in arrays]
+        mask = (torch.from_numpy(table).to(device), torch.from_numpy(rows).to(device))
+        nom = tnom.nominate(*args, min(4, n), 4.0, approx, mask=mask)
+        build_args = args[:4] + args[5:]
+        k = min(64, n - 1)
+        plan = tsl.shortlist_build(*build_args, k, 4.0, mask)
+        word = torch.zeros(tsl.WORD, dtype=torch.int32, device=device)
+        counts = torch.zeros(2, dtype=torch.int32, device=device)
+        state = torch.zeros(2, dtype=torch.int32, device=device)
+        top = tsl.shortlist_round(*args, *plan, min(4, k), 4.0, approx, word, counts, state, mask)
+        outs.append([t.cpu() for t in (*nom, *plan, *top, word[:3], counts)])
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(*outs)):
+        np.testing.assert_array_equal(bits(a.numpy()), bits(b.numpy()), err_msg=str(i))
+    empty = ~table[rows].any(axis=1)
+    assert np.isinf(outs[1][0].numpy()[empty]).all() and np.isinf(outs[1][3].numpy()[empty]).all()
+
+
+def test_quota_stream_full_on_card_matches_plain_and_golden(cuda):
+    """``solve_stream_full`` with quotas and the node mask, one graph replay
+    a chunk, equals the eager plain route and the quota golden, for both
+    trees, with the shortlist and without; no host sync on a replay."""
+    gold = np.load(chip_smoke.GOLDEN_QUOTA)
+    fixture = chip_smoke.rich_fixture(chip_smoke.GOLDEN_SEED, chip_smoke.GOLDEN_NODES,
+                                      chip_smoke.GOLDEN_PODS)
+    for tree in chip_smoke.QUOTA_TREES:
+        pods_t, nodes_t, params_t, quotas, mask = chip_smoke.quota_port_inputs(
+            torch, tree, fixture, cuda)
+        for k in (chip_smoke.SHORTLIST_K, None):
+            kw = dict(chip_smoke.SOLVE, quotas=quotas, node_mask=mask, shortlist_k=k)
+            first = T.solve_stream_full(pods_t, nodes_t, params_t, **kw)
+            kernels.reset_launches()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                again = T.solve_stream_full(pods_t, nodes_t, params_t, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert kernels.replays["solve_stream"] == 2 and kernels.launches["quota_gate"] == 2
+            with chip_smoke.plain_versions():
+                plain = T.solve_stream_full(pods_t, nodes_t, params_t, cuda_graph=False, **kw)
+            key = f"{tree}_k{k or 0}"
+            for out in (first, again, plain):
+                np.testing.assert_array_equal(out[0].cpu().numpy(), gold[f"{key}_assignments"])
+                np.testing.assert_array_equal(out[2].cpu().numpy(), gold[f"{key}_rounds"])
+                np.testing.assert_array_equal(out[3].cpu().numpy(), gold[f"{key}_fallbacks"])

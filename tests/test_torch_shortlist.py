@@ -266,7 +266,7 @@ def test_shortlist_gate_and_unported_options():
     for option in ("cost_transform", "device_scoring"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
             T.assign(pods, nodes, params, shortlist_k=4, **{option: object()})
-    for option in ("numa", "devices", "node_mask", "numa_scoring", "device_scoring"):
+    for option in ("numa", "devices", "numa_scoring", "device_scoring"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
             T.shortlist_plan(pods, nodes, params, shortlist_k=4, **{option: object()})
 

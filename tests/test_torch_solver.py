@@ -241,7 +241,7 @@ def test_from_jax_and_helpers_match_reference():
 
 @pytest.mark.parametrize(
     "option",
-    ["quotas", "numa", "devices", "node_mask", "cost_transform",
+    ["numa", "devices", "cost_transform",
      "dev_carry", "numa_carry", "numa_scoring", "device_scoring"],
 )
 def test_unported_options_raise(option):

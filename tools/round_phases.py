@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the round-tail kernel spends its cycles, phase by phase.
 
-    python3 tools/round_phases.py [--pods 512 4096]
+    python3 tools/round_phases.py [--pods 512 4096] [--quota none onehot sorted]
 
 Builds a copy of ``koordinator_tpu_torch/csrc/round.cu`` in which thread 0
 reads ``clock64()`` at the start of the kernel, before each numbered
@@ -12,8 +12,12 @@ batches as one round for P > 512, N = 10,000, D = 2). Each run's tables,
 assignments, active flags and state word must equal the built kernel's
 (``round_tail``); the script prints, for each P, the median over 15 runs of
 the SM cycles from the kernel's start to each mark, and the CUDA-event
-time of a call. Needs a CUDA device and ``nvcc``; the copy is built under
-``koordinator_tpu_torch/build/``.
+time of a call. ``--quota`` names the rounds to run: ``none`` (the
+default), or a tree of ``chip_smoke.QUOTA_TREES`` (its chains, and the
+tables and quota state after ``chip_smoke.QUOTA_LATER`` batches, where the
+quotas bind; phase 6 is then the quota commit, and its cycles are also given by sub-phase,
+summed over the chain's levels); one build serves them all. Needs a CUDA device and ``nvcc``; the copy is
+built under ``koordinator_tpu_torch/build/``.
 """
 
 from __future__ import annotations
@@ -32,33 +36,63 @@ sys.path.insert(0, str(ROOT))
 MARK = "if (threadIdx.x == 0) koord_phase_clock[{}] = clock64();"
 
 
-def instrumented(src: str) -> "tuple[str, list[str]]":
+QUOTA_MARK = ("if (threadIdx.x == 0) {{ const long long t_ = clock64(); "
+              "koord_quota_cycles[koord_quota_cur] += t_ - koord_quota_t; "
+              "koord_quota_t = t_; koord_quota_cur = {}; }}")
+
+
+def instrumented(src: str) -> "tuple[str, list[str], list[str]]":
     """The source with a clock read before each numbered phase comment of
-    the kernel and before the state word's write; and the marks' names."""
-    head = "__device__ long long koord_phase_clock[32];\n"
+    the kernel and before the state word's write, and, inside the quota
+    commit, cycles summed over its levels by each lettered sub-phase
+    comment ("// q1. ...": the cycles from there to the next mark); and
+    the marks' and the sub-phases' names."""
+    head = ("__device__ long long koord_phase_clock[32];\n"
+            "__device__ long long koord_quota_cycles[16];\n"
+            "__device__ long long koord_quota_t;\n"
+            "__device__ int koord_quota_cur;\n")
+    quota_at = src.index("__device__ void quota_commit(")
     body_at = src.index("round_tail_kernel(")
+    sub_names, out_q = ["outside"], []
+    for line in src[quota_at:body_at].splitlines(keepends=True):
+        m = re.match(r"(\s+)// (q\d+)\. (.*)", line)
+        if m:
+            out_q.append(m.group(1) + QUOTA_MARK.format(len(sub_names)) + "\n")
+            sub_names.append(f"{m.group(2)}. {re.split(r' \(|:|,', m.group(3))[0]}")
+        out_q.append(line)
     names, out, k = ["start"], [], 1
     for line in src[body_at:].splitlines(keepends=True):
         m = re.match(r"  // (\d+(?:-\d+)?)\. (.*)", line)
         if m:
             out.append("  " + MARK.format(k) + "\n")
+            out.append("  " + QUOTA_MARK.format(0) + "\n")
             names.append(f"{m.group(1)}. {re.split(r' \(|:|,', m.group(2))[0]}")
             k += 1
         if line.startswith("  if (state[0] != 0) return;"):
+            out.append(line)
             out.append("  " + MARK.format(0) + "\n")
+            out.append("  if (threadIdx.x == 0) { for (int i_ = 0; i_ < 16; ++i_) "
+                       "koord_quota_cycles[i_] = 0; koord_quota_t = clock64(); "
+                       "koord_quota_cur = 0; }\n")
+            continue
         if line.startswith("    state[1] = state[1] + 1;"):
             out.append("    " + MARK.format(k) + "\n")
             names.append("state written")
         out.append(line)
     read = ('\nextern "C" int koord_phase_read(long long* out) {\n'
-            "  return (int)cudaMemcpyFromSymbol(out, koord_phase_clock, sizeof(long long) * 32);\n}\n")
+            "  return (int)cudaMemcpyFromSymbol(out, koord_phase_clock, sizeof(long long) * 32);\n}\n"
+            'extern "C" int koord_quota_read(long long* out) {\n'
+            "  return (int)cudaMemcpyFromSymbol(out, koord_quota_cycles, sizeof(long long) * 16);\n}\n")
     first = src.index("namespace {")
-    return src[:first] + head + src[first:body_at] + "".join(out) + read, names
+    return (src[:first] + head + src[first:quota_at] + "".join(out_q) + "".join(out) + read,
+            names, sub_names)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pods", type=int, nargs="+", default=[512, 4096])
+    ap.add_argument("--quota", choices=["none", "onehot", "sorted"], nargs="+",
+                    default=["none"], help="the rounds to run: without quotas, or a tree")
     args = ap.parse_args()
 
     import numpy as np
@@ -73,12 +107,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: CUDA is not available", file=sys.stderr)
         return 1
-    src, names = instrumented((kernels.CSRC / "round.cu").read_text())
+    src, names, sub_names = instrumented((kernels.CSRC / "round.cu").read_text())
     kernels.BUILD.mkdir(parents=True, exist_ok=True)
     cu = kernels.BUILD / "round_phases.cu"
     so = kernels.BUILD / "libround_phases.so"
     cu.write_text(src)
-    build = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", str(so), str(cu)],
+    build = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
+                            "-o", str(so), str(cu)],
                            capture_output=True, text=True)
     if build.returncode != 0:
         print(build.stdout + build.stderr, file=sys.stderr)
@@ -87,58 +122,97 @@ def main() -> int:
     fn = lib.koord_round_tail
     fn.argtypes = kernels.SIGNATURES["round"]["koord_round_tail"]
     dev = torch.device("cuda")
-    nodes, pods, params = chip_smoke.rich_fixture(1, chip_smoke.N_NODES, 16 * chip_smoke.BATCH)
-    nodes_t, pods_t, params_t = chip_smoke.port_inputs(torch, nodes, pods, params, dev)
-    pods_s = solver.tree_map(lambda a: a.reshape((-1, chip_smoke.BATCH) + a.shape[1:]), pods_t)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=False).stdout.strip()
-    for p in args.pods:
-        batch = solver.tree_map(
-            lambda a: a[: max(1, p // chip_smoke.BATCH)].reshape((-1,) + a.shape[2:]), pods_s
-        )
-        spods, nom_args = chip_smoke.round_inputs(batch, nodes_t, params_t)
-        top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True)
-        rt = chip_smoke.round_tail_args(torch, spods, nom_args, top_cost, top_idx)
-        want = [t.clone() for t in rt]
-        commit_ops.round_tail(*want, 0.35)
-        n, d = nom_args[5].shape
+    fixture = chip_smoke.rich_fixture(1, chip_smoke.N_NODES, 16 * chip_smoke.BATCH)
+    for mode in args.quota:
+        tree = None if mode == "none" else mode
+        quota = None
+        if tree:
+            pods_s, nodes_t, params_t, quotas, mask = chip_smoke.quota_port_inputs(
+                torch, tree, fixture, dev)
+            _, nodes_t, _, later = solver.solve_stream(
+                solver.tree_map(lambda a: a[:chip_smoke.QUOTA_LATER], pods_s), nodes_t, params_t,
+                quotas=quotas, **chip_smoke.SOLVE)
+        else:
+            nodes_t, pods_t, params_t = chip_smoke.port_inputs(torch, *fixture, dev)
+            pods_s = solver.tree_map(lambda a: a.reshape((-1, chip_smoke.BATCH) + a.shape[1:]), pods_t)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=False).stdout.strip()
+        for p in args.pods:
+            batch = solver.tree_map(
+                lambda a: a[: max(1, p // chip_smoke.BATCH)].reshape((-1,) + a.shape[2:]), pods_s
+            )
+            if tree:
+                # the batch after the later state; above 512 pods, the first
+                # P / 512 batches as one round, as the smoke checks them
+                b = max(1, p // chip_smoke.BATCH)
+                at = chip_smoke.QUOTA_LATER if b == 1 else 0
+                batch = solver.tree_map(lambda a: a[at : at + b].reshape((-1,) + a.shape[2:]),
+                                        pods_s)
+                masks = mask[at : at + b]
+                spods, nom_args, smask, quota = chip_smoke.quota_round_case(
+                    torch, batch, nodes_t, params_t, later.used, masks.reshape(b * chip_smoke.BATCH, -1),
+                    quotas.runtime)
+                top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True, mask=smask)
+            else:
+                spods, nom_args = chip_smoke.round_inputs(batch, nodes_t, params_t)
+                top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True)
+            rt = chip_smoke.round_tail_args(torch, spods, nom_args, top_cost, top_idx)
+            if quota is not None:
+                rt += [quota[2], quota[3]]  # the used table and the gate, updated in place
+            want = [t.clone() for t in rt]
+            commit_ops.round_tail(*want[:17], 0.35,
+                                  quota=None if quota is None else (quota[0], quota[1], *want[17:]))
+            n, d = nom_args[5].shape
+            q_cap, levels = (0, 0) if quota is None else (quota[1].shape[0], quota[0].shape[1])
 
-        def call(work):
-            code = fn(*[t.data_ptr() for t in work], ctypes.c_float(0.35), p, n, d, 4,
-                      kernels.stream_of(work[0]))
-            if code != 0:
-                raise RuntimeError(f"round_phases: CUDA error {code}")
+            def call(work):
+                q_ptrs = ([None] * 4 if quota is None else
+                          [quota[0].data_ptr(), quota[1].data_ptr(), work[17].data_ptr(),
+                           work[18].data_ptr()])
+                code = fn(*[t.data_ptr() for t in work[:17]], ctypes.c_float(0.35), p, n, d, 4,
+                          *q_ptrs, q_cap, levels, kernels.stream_of(work[0]))
+                if code != 0:
+                    raise RuntimeError(f"round_phases: CUDA error {code}")
 
-        clocks = []
-        for _ in range(20):
-            work = [t.clone() for t in rt]
+            clocks, sub = [], []
+            for _ in range(20):
+                work = [t.clone() for t in rt]
+                torch.cuda.synchronize()
+                call(work)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(work, want)):
+                    print(f"FAIL: P={p}: the instrumented kernel differs from round_tail")
+                    return 1
+                buf = (ctypes.c_longlong * 32)()
+                if lib.koord_phase_read(buf) != 0:
+                    print("FAIL: could not read the phase clocks")
+                    return 1
+                clocks.append(list(buf)[: len(names)])
+                qbuf = (ctypes.c_longlong * 16)()
+                if lib.koord_quota_read(qbuf) != 0:
+                    print("FAIL: could not read the quota sub-phase cycles")
+                    return 1
+                sub.append(list(qbuf)[: len(sub_names)])
+            c = np.array(clocks[5:], dtype=np.int64)
+            cycles = np.median(c - c[:, :1], axis=0)
+            sub_cycles = np.median(np.array(sub[5:], dtype=np.int64), axis=0)
+            copies = [[t.clone() for t in rt] for _ in range(101)]
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            call(copies[0])
             torch.cuda.synchronize()
-            call(work)
+            start.record()
+            for work in copies[1:]:
+                call(work)
+            end.record()
             torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(work, want)):
-                print(f"FAIL: P={p}: the instrumented kernel differs from round_tail")
-                return 1
-            buf = (ctypes.c_longlong * 32)()
-            if lib.koord_phase_read(buf) != 0:
-                print("FAIL: could not read the phase clocks")
-                return 1
-            clocks.append(list(buf)[: len(names)])
-        c = np.array(clocks[5:], dtype=np.int64)
-        cycles = np.median(c - c[:, :1], axis=0)
-        copies = [[t.clone() for t in rt] for _ in range(101)]
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        call(copies[0])
-        torch.cuda.synchronize()
-        start.record()
-        for work in copies[1:]:
-            call(work)
-        end.record()
-        torch.cuda.synchronize()
-        print(json.dumps({
-            "pods": p, "card": smi,
-            "cycles_from_start": {name: int(v) for name, v in zip(names, cycles)},
-            "event_ms_per_call": start.elapsed_time(end) / 100,
-        }), flush=True)
+            print(json.dumps({
+                "pods": p, "quota": tree, "card": smi,
+                "cycles_from_start": {name: int(v) for name, v in zip(names, cycles)},
+                **({"quota_cycles_by_subphase": {name: int(v) for name, v in
+                                                 zip(sub_names[1:], sub_cycles[1:])}}
+                   if tree else {}),
+                "event_ms_per_call": start.elapsed_time(end) / 100,
+            }), flush=True)
     return 0
 
 

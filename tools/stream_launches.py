@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Count what one pass of the headline stream launches and syncs.
 
-    python3 tools/stream_launches.py [--tree DIR] [--shortlist-k K]
+    python3 tools/stream_launches.py [--tree DIR] [--shortlist-k K] [--passes N] [--gaps]
 
 Imports ``koordinator_tpu_torch`` from ``DIR`` (default: this checkout; an
 unpacked older commit of the repository compares two versions), builds its
@@ -15,7 +15,13 @@ one warm-up pass, then
   (``cudaLaunchKernel``, ``cuLaunchKernel``, ``cudaGraphLaunch``) as the
   profiler sees them;
 - one pass under ``torch.cuda.set_sync_debug_mode("warn")``: the host
-  syncs PyTorch reports inside ``solve_stream``, and the pass's wall time.
+  syncs PyTorch reports inside ``solve_stream``, and the pass's wall time;
+- with ``--passes N``, N more passes timed on the host clock (each ends
+  in the caller's read of the placed counts), to compare two trees in
+  turns inside one call;
+- with ``--gaps``, the profiled pass's idle time on the device between
+  consecutive kernels, summed by the pair of kernel names around each gap
+  (the ten largest sums): where a pass's wall time exceeds its busy time.
 
 Prints one JSON line with the card's name and power limit. Needs a CUDA
 device.
@@ -43,6 +49,9 @@ def main() -> int:
     ap.add_argument("--tree", default=str(ROOT), help="root of the tree whose port to run")
     ap.add_argument("--shortlist-k", type=int, default=None,
                     help="run the stream with the candidate shortlist of this size")
+    ap.add_argument("--passes", type=int, default=0, help="timed passes after the counts")
+    ap.add_argument("--gaps", action="store_true",
+                    help="sum the device's idle gaps by the kernels around them")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -83,9 +92,11 @@ def main() -> int:
         torch.cuda.synchronize()
     device_kernels = copies = host_launches = 0
     busy_us = 0.0
+    intervals = []
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
             busy_us += evt.time_range.elapsed_us()
+            intervals.append((evt.time_range.start, evt.time_range.end, evt.name.split("(")[0][-40:]))
             if evt.name.startswith(("Memcpy", "Memset")):
                 copies += 1
             else:
@@ -105,16 +116,31 @@ def main() -> int:
     placed_after = int(out[2].sum())
     seconds = time.perf_counter() - t0
     syncs = sum(smoke.is_sync_warning(w) for w in caught)
+    passes = []
+    for _ in range(args.passes):
+        t0 = time.perf_counter()
+        run()
+        passes.append(time.perf_counter() - t0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False,
     ).stdout.strip()
+    gaps, gap_ms = {}, 0.0
+    if args.gaps:
+        intervals.sort()
+        for (_, end, before), (start, _, after) in zip(intervals, intervals[1:]):
+            if start > end:
+                key = f"{before} -> {after}"
+                gaps[key] = gaps.get(key, 0.0) + (start - end) / 1e3
+        gap_ms = sum(gaps.values())
+        gaps = dict(sorted(gaps.items(), key=lambda kv: -kv[1])[:10])
     print(json.dumps(dict(
         tree=str(tree), card=smi, shortlist_k=args.shortlist_k, placed=placed,
         placed_again=placed_after,
         device_kernels=device_kernels, device_copies=copies,
         device_busy_ms=busy_us / 1e3, host_launch_calls=host_launches,
-        host_syncs=syncs, sync_pass_seconds=seconds,
+        host_syncs=syncs, sync_pass_seconds=seconds, pass_seconds=passes,
+        **({"gap_ms_by_kernels": gaps, "gap_ms": gap_ms} if args.gaps else {}),
     )), flush=True)
     return 0
 
