@@ -76,6 +76,29 @@ Phases (any failure exits non-zero and prints no result line):
    assignments' sha256, placed count, rounds and fallback counts equal to
    ``tests/data/torch_golden_quota.npz``; then one eager pass through the
    plain versions, equal.
+9. NUMA zones, kernels: on the kernel check's fixture with
+   ``zone_tables``' zones (two zones a node, four on a quarter, padded
+   zones, nodes without zones, all four policies, MostAllocated picks on
+   half the nodes, CPU ratios 1.3 and 1.5, a fifth of the pods required),
+   the three pricing kernels' NUMA instantiations with each aligned
+   scoring and none, the round tail's zone phase (``csrc/round_zone.cu``)
+   and ``enforce_gangs``' zone refund (a Strict gang of zoned pods rolled
+   back), bitwise equal to their plain versions at P=512 (the start and
+   after 3 batches) and 4,096; then their times;
+10. rounds above 4,096 pods: the big batch (``bigbatch_fixture``: D=4,
+    2,000 nodes, a Strict gang of 6,000 that rolls back) at P=8,192 and
+    16,384, without quotas and with the sorted tree: the round tail
+    (``csrc/round_big.cu``, its working set in device memory) and the
+    rollback against their plain versions, ``assign`` against the
+    big-batch golden (P=8,192) or the plain versions on the card; times;
+11. the NUMA streams: ``solve_stream_full(numa=...)`` at full size on the
+    headline fixture with ``binpack_numa``'s zones (``bench_suite.py``'s
+    ``bench_numa_20k`` recipe) for each of ``NUMA_SCORINGS``, with
+    ``shortlist_k=64`` and without: one graph replay a chunk, timed passes
+    with no host sync, every kernel of the path launched; placed count,
+    rounds, fallbacks and the sha256 of the assignments, zone picks and
+    final zone table equal to ``tests/data/torch_golden_numa.npz``; then
+    an eager pass through the plain versions, equal.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -139,6 +162,21 @@ QUOTA_EXPECTED = {"onehot": (58_826, 205), "sorted": (59_112, 252)}
 #: the kernel checks' later state: this many batches of the check fixture
 #: committed, after which both trees refuse pods their nodes accept
 QUOTA_LATER = 9
+
+GOLDEN_BIGBATCH = os.path.join(ROOT, "tests", "data", "torch_golden_bigbatch.npz")
+#: the big batch: one round of BIG_PODS pods at D = 4 over BIG_NODES nodes,
+#: with a Strict gang of BIG_GANG members that rolls back
+BIG_PODS = 8_192
+BIG_NODES = 2_000
+BIG_GANG = 6_000
+BIG_SEED = 5
+
+GOLDEN_NUMA = os.path.join(ROOT, "tests", "data", "torch_golden_numa.npz")
+#: the NUMA streams' aligned-score strategies, each run with K=64 and
+#: without the shortlist
+NUMA_SCORINGS = (None, "LeastAllocated")
+#: the NUMA kernel checks' zone-table draws (``zone_tables``)
+NUMA_SEED = 2
 
 
 def build_fixture(seed: int = 0, n_nodes: int = N_NODES, n_pods: int = N_PODS):
@@ -289,6 +327,108 @@ def quota_fixture(tree: str, nodes, pods, params):
     chain, constrained, zone = quota_draws(orgs, teams, pods["requests"].shape[0])
     pods = dict(pods, quota_chain=chain)
     return nodes, pods, params, quota_tree(orgs, teams, pods["requests"]), (constrained, zone)
+
+
+def zone_tables(seed: int, nodes: dict, n_pods: int):
+    """NUMA zone tables over a fixture's numpy node dict, drawn to reach
+    every branch of the zone arithmetic: two zones a node, four on a
+    quarter of the nodes (their capacity split evenly, the zones past a
+    node's count padded with zero capacity), nodes with no zones at all,
+    nodes that leave memory unregistered, exhausted nodes, policies over
+    all four, MostAllocated picks on half the nodes, and CPU
+    amplification of 1.3 and 1.5. Returns (nodes with ``cpu_amp``
+    replaced, numa dict of ``zone_free``/``zone_cap`` [N, 4, 2],
+    ``policy`` [N] int8 and ``zone_most`` [N] bool, ``numa_required``
+    [n_pods] bool)."""
+    rng = np.random.default_rng(seed + 5)
+    alloc = nodes["allocatable"]
+    n = alloc.shape[0]
+    count = np.where(rng.random(n) < 0.25, 4, 2)
+    real = np.arange(4)[None, :] < count[:, None]                       # [N, 4]
+    cap = np.where(real[:, :, None], alloc[:, None, :2] / count[:, None, None], 0.0)
+    cap[rng.random(n) < 0.05] = 0.0                                      # no zones
+    cap[rng.random(n) < 0.05, :, 1] = 0.0                                # memory unregistered
+    use = nodes["estimated_used"][:, None, :2] / count[:, None, None]
+    free = np.clip(cap - use * rng.uniform(0.5, 1.5, (n, 4, 1)), 0.0, None)
+    free[rng.random(n) < 0.03] = 0.0                                     # exhausted
+    numa = dict(
+        zone_free=free.astype(np.float32),
+        zone_cap=cap.astype(np.float32),
+        policy=rng.integers(0, 4, n).astype(np.int8),
+        zone_most=rng.random(n) < 0.5,
+    )
+    amp = rng.choice(np.asarray([1.0, 1.3, 1.5], np.float32), n, p=[0.5, 0.25, 0.25])
+    return dict(nodes, cpu_amp=amp), numa, rng.random(n_pods) < 0.2
+
+
+def binpack_numa(nodes: dict, pods: dict):
+    """The NUMA recipe of ``bench_suite.py:bench_numa_20k`` over a
+    fixture's numpy dicts: two zones a node of half its allocatable, free
+    ``clip(cap - est_used / 2, 0)``, SINGLE_NUMA_NODE on every node; LSR
+    QoS on pods whose CPU request is a whole core and ``numa_required`` on
+    half the pods (``default_rng(7)``). Returns (pods, numa dict)."""
+    alloc, est = nodes["allocatable"], nodes["estimated_used"]
+    zone_cap = np.repeat((alloc / 2.0)[:, None, :], 2, axis=1).astype(np.float32)
+    zone_free = np.clip(zone_cap - (est / 2.0)[:, None, :], 0.0, None).astype(np.float32)
+    n = alloc.shape[0]
+    p = pods["requests"].shape[0]
+    rng = np.random.default_rng(7)
+    pods = dict(
+        pods,
+        qos=np.where(pods["requests"][:, 0] % 1000.0 == 0, 3, 0).astype(np.int8),
+        numa_required=rng.random(p) < 0.5,
+    )
+    return pods, dict(zone_free=zone_free, zone_cap=zone_cap,
+                      policy=np.full(n, 3, np.int8))
+
+
+def bigbatch_fixture(n_pods: int, n_nodes: int = BIG_NODES, seed: int = BIG_SEED):
+    """One round of ``n_pods`` pods at D = 4 (cpu, memory and two more
+    dims a node and a pod carry: ``rich_fixture``'s first two, then 0.5
+    and 0.25 of its memory), the batch of a gang larger than the JAX
+    scheduler's bucket: its first ``BIG_GANG`` pods are one Strict gang
+    whose minMember equals its size, ten of them invalid (so it cannot be
+    placed whole and rolls back), the next 500 one NonStrict gang of
+    minMember 600 (kept as placed). Returns numpy dicts (nodes, pods,
+    params)."""
+    nodes, pods, params = rich_fixture(seed, n_nodes, n_pods, batch=n_pods)
+
+    def widen(a):
+        return np.concatenate([a, a[:, 1:2] * 0.5, a[:, 1:2] * 0.25], 1).astype(np.float32)
+
+    for k in ("allocatable", "estimated_used", "prod_used"):
+        nodes[k] = widen(nodes[k])
+    nodes["custom_thresholds"] = np.pad(nodes["custom_thresholds"], ((0, 0), (0, 2)))
+    nodes["custom_prod_thresholds"] = np.pad(nodes["custom_prod_thresholds"], ((0, 0), (0, 2)))
+    for k in ("requests", "estimate"):
+        pods[k] = widen(pods[k])
+    gang_id = np.full(n_pods, -1, np.int32)
+    gang_id[:BIG_GANG] = 0
+    gang_id[BIG_GANG : BIG_GANG + 500] = 1
+    gang_min = np.zeros(n_pods, np.int32)
+    gang_min[:2] = (BIG_GANG, 600)
+    nonstrict = np.zeros(n_pods, bool)
+    nonstrict[1] = True
+    valid = pods["valid"].copy()
+    valid[:BIG_GANG] = True
+    valid[BIG_GANG - 10 : BIG_GANG] = False
+    pods.update(gang_id=gang_id, gang_min=gang_min, gang_nonstrict=nonstrict, valid=valid)
+    params = dict(
+        usage_thresholds=np.asarray((65.0, 95.0, 0.0, 0.0), np.float32),
+        prod_thresholds=np.asarray((60.0, 0.0, 0.0, 0.0), np.float32),
+        score_weights=np.ones(4, np.float32),
+    )
+    return nodes, pods, params
+
+
+def bigbatch_quotas(pods: dict):
+    """The big batch's quota tree and chains: ``quota_draws``' chains
+    over the ``QUOTA_TREES["sorted"]`` tree (Q = 1,057, the sorted branch
+    at D = 4) of the batch's requests. Returns (pods with the chains,
+    (runtime, used))."""
+    orgs, teams = QUOTA_TREES["sorted"]
+    chain, _, _ = quota_draws(orgs, teams, pods["requests"].shape[0])
+    return dict(pods, quota_chain=chain), quota_tree(orgs, teams, pods["requests"])
 
 
 def fixture_digest(*dicts) -> str:
@@ -583,26 +723,36 @@ ROUND_MUTABLE = slice(11, 17)
 def ptxas_summary(kernels) -> dict:
     """Registers, shared memory and spills of the main path's kernels
     (nominate at D=2 with four list slots, K <= 4, with and without a node
-    mask; the round tail at D=2 without quotas and with them, one and four
-    rows a thread), from ``nvcc -Xptxas -v`` in the build logs, and the
-    most registers and spill bytes over every nominate instantiation."""
+    mask and with NUMA zones; the round tail at D=2 without quotas, with
+    them and with zones, one and four rows a thread, and at D=4 in device
+    memory; the shortlist kernels without and with zones), from ``nvcc
+    -Xptxas -v`` in the build logs, and the most registers and spill bytes
+    over every nominate instantiation."""
     import re
 
     wanted = {
-        "nominate_kernelILi2ELi4ELb0E": "nominate_kernel<2,4>",
-        "nominate_kernelILi2ELi4ELb1E": "nominate_kernel<2,4,masked>",
+        "nominate_kernelILi2ELi4ELb0ELb0E": "nominate_kernel<2,4>",
+        "nominate_kernelILi2ELi4ELb1ELb0E": "nominate_kernel<2,4,masked>",
+        "nominate_kernelILi2ELi4ELb1ELb1E": "nominate_kernel<2,4,numa>",
         "nominate_merge_kernelILi4E": "nominate_merge_kernel<4>",
-        "round_tail_kernelILi2ELi1ELb0E": "round_tail_kernel<2,1>",
-        "round_tail_kernelILi2ELi1ELb1E": "round_tail_kernel<2,1,quota>",
-        "round_tail_kernelILi2ELi4ELb1E": "round_tail_kernel<2,4,quota>",
+        "round_tail_kernelILi2ELi1ELb0ELb0ELb0E": "round_tail_kernel<2,1>",
+        "round_tail_kernelILi2ELi1ELb1ELb0ELb0E": "round_tail_kernel<2,1,quota>",
+        "round_tail_kernelILi2ELi4ELb1ELb0ELb0E": "round_tail_kernel<2,4,quota>",
+        "round_tail_kernelILi2ELi1ELb0ELb1ELb0E": "round_tail_kernel<2,1,zone>",
+        "round_tail_kernelILi2ELi4ELb0ELb1ELb0E": "round_tail_kernel<2,4,zone>",
+        "round_tail_kernelILi4ELi16ELb0ELb0ELb1E": "round_tail_kernel<4,16,device memory>",
+        "round_tail_kernelILi4ELi16ELb1ELb0ELb1E": "round_tail_kernel<4,16,quota,device memory>",
         "enforce_gangs_kernel": "enforce_gangs_kernel",
-        "shortlist_build_kernelILi2ELb1E": "shortlist_build_kernel<2,stored>",
-        "shortlist_round_kernelILi2ELi4E": "shortlist_round_kernel<2,4>",
+        "shortlist_build_kernelILi2ELb1ELb0E": "shortlist_build_kernel<2,stored>",
+        "shortlist_build_kernelILi2ELb1ELb1E": "shortlist_build_kernel<2,stored,numa>",
+        "shortlist_round_kernelILi2ELi4ELb0E": "shortlist_round_kernel<2,4>",
+        "shortlist_round_kernelILi2ELi4ELb1E": "shortlist_round_kernel<2,4,numa>",
         "quota_gate_kernel": "quota_gate_kernel",
     }
     out: dict = {}
     worst = {"registers": 0, "spill_bytes": 0}
-    for src in ("nominate", "round", "gangs", "shortlist_build", "shortlist_round", "quota"):
+    for src in ("nominate", "round", "round_zone", "round_big", "gangs", "shortlist_build",
+                "shortlist_round", "quota"):
         entry = None
         for line in kernels.build_log(src).splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -1799,6 +1949,572 @@ def phase_two_cycles(torch, dev, report):
 
 
 
+# ------------------------------------------------------- NUMA and large P
+
+
+def numa_port_inputs(torch, device, n_pods: int = 16 * BATCH):
+    """The NUMA kernel checks' inputs: ``rich_fixture(1, N_NODES,
+    n_pods)`` with ``zone_tables(NUMA_SEED)``' zones, as the port's tensors
+    on ``device``: (nodes, flat pods, params, NumaState)."""
+    from koordinator_tpu_torch.ops.numa import NumaState
+
+    nodes, pods, params = rich_fixture(1, N_NODES, n_pods)
+    nodes, numa, required = zone_tables(NUMA_SEED, nodes, n_pods)
+    nodes_t, pods_t, params_t = port_inputs(torch, nodes, dict(pods, numa_required=required),
+                                            params, device)
+    return nodes_t, pods_t, params_t, NumaState.create(**numa, device=device)
+
+
+def numa_round_case(torch, pods_b, state, zone_free, numa_t, params_t, scoring: int):
+    """Round 0 of batch ``pods_b`` with NUMA zones at node state ``state``
+    and zone table ``zone_free``: the sorted pods, the nomination kernel's
+    arguments, the pricing's ZoneTerms (a snapshot of the table) and the
+    round tail's zone tuple (a copy of the table, no picks yet)."""
+    from koordinator_tpu_torch.ops import solver
+    from koordinator_tpu_torch.ops.numa import ZoneTerms
+
+    _, spods, bind, thr, pthr = solver._round_setup(pods_b, state, params_t, numa=True)
+    nom_args = (
+        spods.requests, spods.estimate, spods.is_prod, bind, spods.valid, state.allocatable,
+        state.requested, state.estimated_used, state.prod_used, state.metric_fresh,
+        state.schedulable, state.cpu_amp, thr, pthr, params_t.score_weights,
+    )
+    terms = ZoneTerms(free=zone_free.clone(), cap=numa_t.zone_cap, policy=numa_t.policy,
+                      required=spods.numa_required, scoring=scoring)
+    p = spods.requests.shape[0]
+    zone = (zone_free.clone(), numa_t.zone_cap, numa_t.policy, numa_t.zone_most,
+            spods.numa_required, torch.full((p,), -1, dtype=torch.int32, device=zone_free.device))
+    return spods, nom_args, terms, zone
+
+
+def zone_pair_ops(terms, p: int, n: int) -> int:
+    """fp32 operations of the NUMA terms of ``p`` x ``n`` pairs (see
+    PERF.md): the fit, per zone and dim a sum, an add and a compare, per
+    dim the amplified request (4) and the total test (2); with the
+    aligned score, per zone and dim a test and per zone the key (4), then
+    per dim the score (8)."""
+    z, dn = terms.cap.shape[1:]
+    ops = p * n * (z * dn * 3 + dn * 6)
+    if terms.scoring:
+        ops += p * n * (z * (dn * 2 + 4) + dn * 8)
+    return ops
+
+
+def check_equal(what: str, pairs) -> float:
+    """Fails unless every (kernel, plain) pair of tensors is bitwise equal;
+    returns the largest absolute difference (0.0)."""
+    worst = 0.0
+    for name, got, want in pairs:
+        g, w = got.cpu().numpy(), want.cpu().numpy()
+        if not bits_equal(g, w):
+            fail(f"{what}: {name} differs from the plain version")
+        worst = max(worst, max_abs(g, w))
+    return worst
+
+
+def phase_numa_kernels(torch, dev, report):
+    """Phase 9, NUMA zones: the three pricing kernels with the NUMA terms
+    (both scorings and none), the round tail's zone phase and
+    ``enforce_gangs``' zone refund, each against its plain version on the
+    same inputs (the round tail and rollback on CPU copies), at P=512 and
+    4,096 over 10,000 nodes, at the start and after 3 batches; then their
+    times."""
+    from koordinator_tpu_torch import kernels
+    from koordinator_tpu_torch.ops import commit as commit_ops
+    from koordinator_tpu_torch.ops import nominate as nominate_ops
+    from koordinator_tpu_torch.ops import shortlist as sl
+    from koordinator_tpu_torch.ops import solver
+
+    nodes_t, pods_t, params_t, numa_t = numa_port_inputs(torch, dev)
+    checks = {k: 0.0 for k in ("nominate_numa", "shortlist_build_numa", "shortlist_round_numa",
+                               "round_tail_zone", "zone_refund")}
+    seen, timing = [], {}
+    pods_s = solver.tree_map(lambda a: a.reshape((-1, BATCH) + a.shape[1:]), pods_t)
+    # a later state: three batches committed, the zone table carried
+    later, zf_later = nodes_t, numa_t.zone_free
+    for b in range(3):
+        res = solver.assign(solver.tree_map(lambda a: a[b], pods_s), later, params_t,
+                            numa=numa_t, numa_carry=zf_later, **SOLVE)
+        later = dataclasses.replace(later, requested=res.node_requested,
+                                    estimated_used=res.node_estimated_used,
+                                    prod_used=res.node_prod_used)
+        zf_later = res.node_zone_free
+    cases = [("start, P=512", solver.tree_map(lambda a: a[3], pods_s), nodes_t,
+              numa_t.zone_free),
+             ("after 3 batches, P=512", solver.tree_map(lambda a: a[4], pods_s), later, zf_later),
+             ("after 3 batches, P=4096",
+              solver.tree_map(lambda a: a[8:16].reshape((-1,) + a.shape[2:]), pods_s), later,
+              zf_later)]
+    for label, pods_b, state, zone_free in cases:
+        for scoring in (0, 1, 2):
+            spods, nom_args, terms, zone = numa_round_case(torch, pods_b, state, zone_free,
+                                                           numa_t, params_t, scoring)
+            for approx in (False, True):
+                kc, ki = nominate_ops.nominate(*nom_args, 4, 4.0, approx, zones=terms)
+                pc, pi = nominate_ops.nominate_plain(*nom_args, 4, 4.0, approx, zones=terms)
+                torch.cuda.synchronize()
+                kc, ki, pc, pi = (t.cpu().numpy() for t in (kc, ki, pc, pi))
+                fin = np.isfinite(kc)
+                if not (np.array_equal(fin, np.isfinite(pc)) and bits_equal(kc[fin], pc[fin])
+                        and np.array_equal(ki[fin], pi[fin])):
+                    fail(f"nominate with zones ({label}, scoring {scoring}, approx={approx}): "
+                         "differs from nominate_plain")
+                checks["nominate_numa"] = max(checks["nominate_numa"], max_abs(kc[fin], pc[fin]))
+            b_args = nom_args[:4] + nom_args[5:]
+            plan = sl.shortlist_build(*b_args, SHORTLIST_K, 4.0, zones=terms)
+            want = sl.shortlist_build_plain(*b_args, SHORTLIST_K, 4.0, zones=terms)
+            fin = torch.isfinite(want[1])
+            checks["shortlist_build_numa"] = max(checks["shortlist_build_numa"], check_equal(
+                f"shortlist_build with zones ({label}, scoring {scoring})",
+                [("cand", plan[0], want[0]), ("bound", plan[1][fin], want[1][fin]),
+                 ("finite", torch.isfinite(plan[1]), fin)]))
+            outs = []
+            for fn in (sl.shortlist_round, sl.shortlist_round_plain):
+                word = torch.zeros(sl.WORD, dtype=torch.int32, device=dev)
+                counts = torch.zeros(2, dtype=torch.int32, device=dev)
+                st = torch.zeros(2, dtype=torch.int32, device=dev)
+                top = fn(*nom_args, *plan, 4, 4.0, True, word, counts, st, zones=terms)
+                outs.append((*top, word[:3], counts))
+            fin = torch.isfinite(outs[1][0])
+            checks["shortlist_round_numa"] = max(checks["shortlist_round_numa"], check_equal(
+                f"shortlist_round with zones ({label}, scoring {scoring})",
+                [("cost", outs[0][0][fin], outs[1][0][fin]), ("node", outs[0][1][fin],
+                                                              outs[1][1][fin]),
+                 ("word", outs[0][2], outs[1][2]), ("counts", outs[0][3], outs[1][3])]))
+            # the round tail with the zone phase, on the kernel's nomination
+            top = nominate_ops.nominate(*nom_args, 4, 4.0, True, zones=terms)
+            args = round_tail_args(torch, spods, nom_args, *top)
+            work = [t.clone() for t in args]
+            wz = (zone[0].clone(),) + zone[1:5] + (zone[5].clone(),)
+            commit_ops.round_tail(*work, 0.35, zone=wz)
+            host = [t.cpu().clone() for t in args]
+            hz = tuple(t.cpu().clone() for t in zone)
+            commit_ops.round_tail_plain(*host, 0.35, zone=hz)
+            plain_nz = [t.cpu().clone() for t in args]
+            commit_ops.round_tail_plain(*plain_nz, 0.35)
+            names = ("requested", "estimated_used", "prod_used", "assigned", "active", "state")
+            checks["round_tail_zone"] = max(checks["round_tail_zone"], check_equal(
+                f"round_tail with zones ({label}, scoring {scoring})",
+                [(nm, a, b) for nm, a, b in zip(names, work[ROUND_MUTABLE], host[ROUND_MUTABLE])]
+                + [("zone_free", wz[0], hz[0]), ("pod_zone", wz[5], hz[5])]))
+            picked = int((hz[5] >= 0).sum())
+            refused = int(((plain_nz[14] >= 0) & (host[14] < 0)).sum())
+            if picked == 0:
+                fail(f"round_tail with zones ({label}): the check needs zone picks")
+            seen.append(dict(at=label, scoring=scoring, zone_picks=picked,
+                             refused_by_zones=refused))
+            if scoring == 1 and label.startswith("after") and "512" in label:
+                timing["round"] = (spods, nom_args, terms, zone, args)
+        # the rollback's zone refund on the batch's solve result; a third
+        # of the pods that took a zone join gang 0, which falls short
+        free = dataclasses.replace(pods_b, gang_id=torch.full_like(pods_b.gang_id, -1))
+        pre = solver.assign(free, state, params_t, numa=numa_t, numa_carry=zone_free, **SOLVE)
+        p_b = pods_b.gang_id.shape[0]
+        third = (pre.pod_zone >= 0) & (torch.arange(p_b, device=dev) % 3 == 0)
+        gang_min = pods_b.gang_min.clone()
+        gang_min[0] = p_b + 1
+        nonstrict = pods_b.gang_nonstrict.clone()
+        nonstrict[0] = False
+        pods_b = dataclasses.replace(pods_b, gang_id=torch.where(third, 0, pods_b.gang_id),
+                                     gang_min=gang_min, gang_nonstrict=nonstrict)
+        got = solver.enforce_gangs(pre, pods_b)
+        want = solver.enforce_gangs_plain(solver.tree_map(lambda a: a.cpu(), pre),
+                                          solver.tree_map(lambda a: a.cpu(), pods_b))
+        checks["zone_refund"] = max(checks["zone_refund"], check_equal(
+            f"enforce_gangs with zones ({label})",
+            [(f, getattr(got, f), getattr(want, f)) for f in (
+                "assignment", "node_requested", "node_estimated_used", "node_prod_used",
+                "node_zone_free", "pod_zone")]))
+        rolled = (pre.assignment >= 0) & (got.assignment < 0)
+        zoned = int((rolled & (pre.pod_zone >= 0)).sum())
+        if zoned == 0:
+            fail(f"enforce_gangs with zones ({label}): the check needs rolled-back pods "
+                 "that hold a zone")
+        seen.append(dict(at=label, rolled_back=int(rolled.sum()), zone_refunds=zoned))
+        if label.startswith("after") and "512" in label:
+            timing["gangs"] = (pre, pods_b)
+    print(f"numa checks: bitwise equal to the plain versions {json.dumps(checks)}; "
+          f"{json.dumps(seen)}", flush=True)
+
+    # times, after 3 batches at P=512, LeastAllocated aligned scores
+    spods, nom_args, terms, zone, args = timing["round"]
+    p, d = spods.requests.shape
+    n = nom_args[5].shape[0]
+    z, dn = terms.cap.shape[1:]
+    zone_bytes = n * z * dn * 4 * 2 + n + p
+
+    def add_row(name, source, replaces, fn, plain, kname, nbytes, nops, iters, per_call=1):
+        b_ms, b_by = bound_of(nbytes, nops)
+        report["kernels"].append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=None,
+            kernels_per_launch=per_call, max_abs_err=checks[name],
+            ms=cuda_ms(torch, fn, iters), plain_ms=cuda_ms(torch, plain, 3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            device_ms=device_ms(torch, fn, min(50, iters // 4), kname),
+            library_device_ms=None, bytes=nbytes, operations=nops,
+        ))
+
+    feas = int(nominate_ops.feasible_mask(*nom_args[:14]).sum())
+    fresh_nodes = int(nom_args[9].sum())
+    bind_pods = int(nom_args[3].sum())
+    node_row = 6 * d * 4 + 2 + 4
+    nom_ops = pair_ops(d, p * n, bind_pods * n, (int(spods.valid.sum())
+                                                + int(spods.is_prod.sum())) * fresh_nodes, feas)
+    nom_bytes = n * node_row + p * (2 * d * 4 + 3) + d * 4 + p * 4 * 8 + zone_bytes
+    chunk = nominate_ops.chunk_of(kernels.library("nominate"), p, n, d, 4, dev.index or 0, 2)
+    add_row("nominate_numa", "koordinator_tpu_torch/csrc/nominate.cu",
+            "koordinator_tpu/ops/numa.py:77", lambda: nominate_ops.nominate(
+                *nom_args, 4, 4.0, True, zones=terms),
+            lambda: nominate_ops.nominate_plain(*nom_args, 4, 4.0, True, zones=terms),
+            "nominate", nom_bytes, nom_ops + zone_pair_ops(terms, p, n), 200,
+            1 if chunk >= n else 2)
+    b_args = nom_args[:4] + nom_args[5:]
+    plan = sl.shortlist_build(*b_args, SHORTLIST_K, 4.0, zones=terms)
+    build_bytes = n * node_row + p * (2 * d * 4 + 2) + d * 4 + p * (SHORTLIST_K + 1) * 4 + zone_bytes
+    add_row("shortlist_build_numa", "koordinator_tpu_torch/csrc/shortlist_build.cu",
+            "koordinator_tpu/ops/costs.py:212",
+            lambda: sl.shortlist_build(*b_args, SHORTLIST_K, 4.0, zones=terms),
+            lambda: sl.shortlist_build_plain(*b_args, SHORTLIST_K, 4.0, zones=terms),
+            "shortlist_build_kernel", build_bytes, nom_ops + zone_pair_ops(terms, p, n), 100)
+    word = torch.zeros(sl.WORD, dtype=torch.int32, device=dev)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    st = torch.zeros(2, dtype=torch.int32, device=dev)
+    cand = plan[0].long()
+    round_bytes = (p * (SHORTLIST_K + 1) * 4 + p * (2 * d * 4 + 3)
+                   + int(torch.unique(cand).numel()) * (node_row + z * dn * 8 + 1)
+                   + d * 4 + p * 4 * 8 + (sl.WORD + 4) * 4)
+    add_row("shortlist_round_numa", "koordinator_tpu_torch/csrc/shortlist_round.cu",
+            "koordinator_tpu/ops/solver.py:1001",
+            lambda: sl.shortlist_round(*nom_args, *plan, 4, 4.0, True, word, counts, st,
+                                       zones=terms),
+            lambda: sl.shortlist_round_plain(*nom_args, *plan, 4, 4.0, True, word, counts, st,
+                                             zones=terms),
+            "shortlist_round_kernel", round_bytes,
+            pair_ops(d, p * SHORTLIST_K, bind_pods * SHORTLIST_K, p * SHORTLIST_K, feas // 10)
+            + zone_pair_ops(terms, p, SHORTLIST_K), 200)
+    iters = 200
+    copies = iter([([t.clone() for t in args[ROUND_MUTABLE]], zone[0].clone(), zone[5].clone())
+                   for _ in range(2 * iters + 2)])
+    fixed = args[:ROUND_MUTABLE.start]
+
+    def t_round():
+        mut, zf, pz = next(copies)
+        commit_ops.round_tail(*fixed, *mut, 0.35, zone=(zf,) + zone[1:5] + (pz,))
+
+    def t_round_plain():
+        commit_ops.round_tail_plain(*fixed, *[t.clone() for t in args[ROUND_MUTABLE]], 0.35,
+                                    zone=(zone[0].clone(),) + zone[1:5] + (zone[5].clone(),))
+
+    _, node_key = commit_ops._choose(args[0], args[1], args[15], n)
+    touched = int(torch.unique(node_key[node_key < n]).numel())
+    zp_bytes = round_tail_bytes(torch, args, n) + touched * (z * dn * 4 * 3 + 2) + p * 5
+    zp_ops = round_tail_ops(args) + p * (z * (dn * 3 + 4) + dn * 2)
+    add_row("round_tail_zone", "koordinator_tpu_torch/csrc/round_zone.cu",
+            "koordinator_tpu/ops/solver.py:1306", t_round, t_round_plain, "round_tail_kernel",
+            zp_bytes, zp_ops, iters)
+    pre, pods_b = timing["gangs"]
+    gang_copies = iter([solver.tree_map(lambda a: a.clone(), pre) for _ in range(402)])
+    after = solver.enforce_gangs(pre, pods_b)
+    rolled = (pre.assignment >= 0) & (after.assignment < 0)
+    n_rolled = int(rolled.sum())
+    refunded = int(torch.unique(pre.assignment[rolled]).numel())
+    zr_bytes = (p * (4 * 4 + 2 * d * 4 + 2 + 4) + refunded * (3 * d * 4 + z * dn * 4) * 2
+                + n_rolled * dn * 4)
+    zr_ops = p * 4 + n_rolled * (3 * d + dn) + refunded * 3 * d
+    add_row("zone_refund", "koordinator_tpu_torch/csrc/gangs.cu",
+            "koordinator_tpu/ops/solver.py:1941",
+            lambda: solver._enforce_gangs_(next(gang_copies), pods_b),
+            lambda: solver.enforce_gangs_plain(pre, pods_b), "enforce_gangs_kernel",
+            zr_bytes, zr_ops, 200)
+    report["numa_checks"] = seen
+    kernels.reset_launches()
+
+
+def big_port_inputs(torch, n_pods: int, quota: bool, device):
+    """The big batch (``bigbatch_fixture``) as the port's tensors, with the
+    sorted-branch quota tree when ``quota``: (pods, nodes, params,
+    QuotaState or None)."""
+    from koordinator_tpu_torch.ops import solver
+
+    nodes, pods, params = bigbatch_fixture(n_pods)
+    quotas = None
+    if quota:
+        pods, (runtime, used) = bigbatch_quotas(pods)
+        quotas = solver.QuotaState(runtime=torch.from_numpy(runtime).to(device),
+                                   used=torch.from_numpy(used).to(device))
+    nodes_t, pods_t, params_t = port_inputs(torch, nodes, pods, params, device)
+    return pods_t, nodes_t, params_t, quotas
+
+
+def phase_bigbatch(torch, dev, report):
+    """Phase 10, rounds above 4,096 pods: at P=8,192 and 16,384 (D=4,
+    2,000 nodes, a Strict gang of 6,000 that rolls back), without quotas
+    and with the sorted-branch tree, the round tail (round 0) and the gang
+    rollback against their plain versions on CPU copies, the whole
+    ``assign`` against the big-batch golden (P=8,192) or against the plain
+    versions on the card (P=16,384); then their times."""
+    from koordinator_tpu_torch import kernels
+    from koordinator_tpu_torch.ops import commit as commit_ops
+    from koordinator_tpu_torch.ops import nominate as nominate_ops
+    from koordinator_tpu_torch.ops import solver
+    from koordinator_tpu_torch.ops.convert import to_numpy
+
+    gold = np.load(GOLDEN_BIGBATCH)
+    nodes, pods, params = bigbatch_fixture(BIG_PODS)
+    if str(gold["fixture_sha256"]) != fixture_digest(nodes, bigbatch_quotas(pods)[0], params):
+        fail("big batch: the fixture differs from the one the golden was made from")
+    checks = {"round_tail_big": 0.0, "enforce_gangs_big": 0.0}
+    lines, timing = [], {}
+    for n_pods in (BIG_PODS, 2 * BIG_PODS):
+        for quota in (False, True):
+            label = f"P={n_pods}, {'quotas' if quota else 'no quotas'}"
+            pods_t, nodes_t, params_t, quotas = big_port_inputs(torch, n_pods, quota, dev)
+            kernels.reset_launches()
+            res = solver.assign(pods_t, nodes_t, params_t, quotas=quotas, **SOLVE)
+            launches = dict(kernels.launches)
+            got = to_numpy(res)
+            if n_pods == BIG_PODS:
+                key = "quota" if quota else "plain"
+                fields = [("assignment", "assignment"), ("rounds_used", "rounds"),
+                          ("node_requested", "requested"),
+                          ("node_estimated_used", "estimated_used"),
+                          ("node_prod_used", "prod_used")]
+                if quota:
+                    fields.append(("quota_used", "quota_used"))
+                for f, g in fields:
+                    if not bits_equal(got[f], gold[f"{key}_{g}"]):
+                        fail(f"big batch ({label}): {f} differs from the JAX package's")
+            else:
+                with plain_versions():
+                    want = to_numpy(solver.assign(pods_t, nodes_t, params_t, quotas=quotas,
+                                                  **SOLVE))
+                for f in ("assignment", "rounds_used", "node_requested", "node_estimated_used",
+                          "node_prod_used", "quota_used"):
+                    if not bits_equal(got[f], want[f]):
+                        fail(f"big batch ({label}): {f} differs from the plain versions'")
+            if launches.get("round_tail_big", 0) == 0:
+                fail(f"big batch ({label}): no round ran in the device-memory round tail")
+            a = got["assignment"]
+            if (a[:BIG_GANG] >= 0).any():
+                fail(f"big batch ({label}): the Strict gang was not rolled back")
+            # round 0 against the plain version on CPU copies
+            _, spods, bind, thr, pthr = solver._round_setup(pods_t, nodes_t, params_t,
+                                                            quota=quota)
+            gate = spods.valid.clone()
+            nom_args = (spods.requests, spods.estimate, spods.is_prod, bind, gate,
+                        nodes_t.allocatable, nodes_t.requested, nodes_t.estimated_used,
+                        nodes_t.prod_used, nodes_t.metric_fresh, nodes_t.schedulable,
+                        nodes_t.cpu_amp, thr, pthr, params_t.score_weights)
+            q = None
+            if quota:
+                from koordinator_tpu_torch.ops import quota as quota_ops
+
+                quota_ops.quota_gate_plain(spods.valid, spods.requests, spods.quota_chain,
+                                           quotas.runtime, quotas.used, gate)
+                q = (spods.quota_chain, quotas.runtime, quotas.used.clone(), gate.clone())
+            top = nominate_ops.nominate(*nom_args, 4, 4.0, True)
+            args = round_tail_args(torch, spods, nom_args, *top)
+            work = [t.clone() for t in args]
+            wq = None if q is None else (q[0], q[1], q[2].clone(), q[3].clone())
+            commit_ops.round_tail(*work, 0.35, quota=wq)
+            host = [t.cpu().clone() for t in args]
+            hq = None if q is None else tuple(t.cpu().clone() for t in q)
+            commit_ops.round_tail_plain(*host, 0.35, quota=hq)
+            names = ("requested", "estimated_used", "prod_used", "assigned", "active", "state")
+            pairs = list(zip(names, work[ROUND_MUTABLE], host[ROUND_MUTABLE]))
+            if q is not None:
+                pairs += [("quota_used", wq[2], hq[2]), ("gate", wq[3], hq[3])]
+            checks["round_tail_big"] = max(checks["round_tail_big"], check_equal(
+                f"round_tail ({label})", pairs))
+            free = dataclasses.replace(pods_t, gang_id=torch.full_like(pods_t.gang_id, -1))
+            pre = solver.assign(free, nodes_t, params_t, quotas=quotas, **SOLVE)
+            kernels.reset_launches()
+            gk = solver.enforce_gangs(pre, pods_t)
+            big_gangs = kernels.launches.get("enforce_gangs_big", 0)
+            gp = solver.enforce_gangs_plain(solver.tree_map(lambda t: t.cpu(), pre),
+                                            solver.tree_map(lambda t: t.cpu(), pods_t))
+            checks["enforce_gangs_big"] = max(checks["enforce_gangs_big"], check_equal(
+                f"enforce_gangs ({label})", [(f, getattr(gk, f), getattr(gp, f)) for f in (
+                    "assignment", "node_requested", "node_estimated_used", "node_prod_used",
+                    "quota_used")]))
+            rolled = int(((pre.assignment >= 0) & (gk.assignment < 0)).sum())
+            lines.append(dict(at=label, placed=int((a >= 0).sum()), rounds=int(got["rounds_used"]),
+                              rolled_back=rolled, gangs_in_device_memory=bool(big_gangs),
+                              launches=launches))
+            timing[label] = (args, q, pre, pods_t)
+    print(f"big batch: bitwise equal to the JAX package's golden (P={BIG_PODS}) and to the "
+          f"plain versions {json.dumps(checks)}; {json.dumps(lines)}", flush=True)
+    for label in (f"P={BIG_PODS}, quotas", f"P={2 * BIG_PODS}, quotas"):
+        args, q, pre, pods_t = timing[label]
+        p, d = args[2].shape
+        n = args[7].shape[0]
+        iters = 30
+        copies = iter([([t.clone() for t in args[ROUND_MUTABLE]], q[2].clone(), q[3].clone())
+                       for _ in range(2 * iters + 2)])
+        fixed = args[:ROUND_MUTABLE.start]
+
+        def t_round():
+            mut, used, gate = next(copies)
+            commit_ops.round_tail(*fixed, *mut, 0.35, quota=(q[0], q[1], used, gate))
+
+        def t_round_plain():
+            commit_ops.round_tail_plain(*fixed, *[t.clone() for t in args[ROUND_MUTABLE]], 0.35,
+                                        quota=(q[0], q[1], q[2].clone(), q[3].clone()))
+
+        levels = q[0].shape[1]
+        nbytes = round_tail_bytes(torch, args, n, q) + p * levels * 4 * 2
+        sort_len = 1 << max(p - 1, 0).bit_length()
+        lg = sort_len.bit_length() - 1
+        nops = round_tail_ops(args) + levels * (p * d * 4 + (sort_len // 2) * lg * (lg + 1) // 2)
+        b_ms, b_by = bound_of(nbytes, nops)
+        report["kernels"].append(dict(
+            name=f"round_tail_big_p{p}", route="cuda",
+            source="koordinator_tpu_torch/csrc/round_big.cu",
+            replaces="koordinator_tpu/ops/solver.py:1204", launches=None, kernels_per_launch=1,
+            max_abs_err=checks["round_tail_big"], ms=cuda_ms(torch, t_round, iters),
+            plain_ms=cuda_ms(torch, t_round_plain, 2), bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, device_ms=device_ms(torch, t_round, 10, "round_tail_kernel"),
+            library_device_ms=None, bytes=nbytes, operations=nops))
+        gang_copies = iter([solver.tree_map(lambda a: a.clone(), pre) for _ in range(62)])
+        after = solver.enforce_gangs(pre, pods_t)
+        rolled = (pre.assignment >= 0) & (after.assignment < 0)
+        n_rolled = int(rolled.sum())
+        touched = int(torch.unique(pre.assignment[rolled]).numel())
+        g_bytes = (p * (4 * 4 + 2 * d * 4 + 2) + touched * 3 * d * 4 * 2
+                   + n_rolled * levels * 4 + int(q[1].shape[0]) * d * 4 * 2)
+        g_ops = p * 4 + (n_rolled + touched) * 3 * d + levels * n_rolled * d
+        b_ms, b_by = bound_of(g_bytes, g_ops)
+        report["kernels"].append(dict(
+            name=f"enforce_gangs_p{p}", route="cuda",
+            source="koordinator_tpu_torch/csrc/gangs.cu",
+            replaces="koordinator_tpu/ops/solver.py:1858", launches=None, kernels_per_launch=1,
+            max_abs_err=checks["enforce_gangs_big"],
+            ms=cuda_ms(torch, lambda: solver._enforce_gangs_(next(gang_copies), pods_t), 30),
+            plain_ms=cuda_ms(torch, lambda: solver.enforce_gangs_plain(pre, pods_t), 2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            device_ms=device_ms(torch, lambda: solver._enforce_gangs_(next(gang_copies), pods_t),
+                                10, "enforce_gangs_kernel"),
+            library_device_ms=None, bytes=g_bytes, operations=g_ops))
+        launches = next(ln["launches"] for ln in lines if ln["at"] == label)
+        report["kernels"][-2]["launches"] = launches.get("round_tail_big")
+        report["kernels"][-1]["launches"] = launches.get("enforce_gangs_big")
+    report["bigbatch"] = lines
+    kernels.reset_launches()
+
+
+def phase_numa_streams(torch, dev, report):
+    """Phase 11: the scheduler's stream with NUMA zones at full size —
+    ``solve_stream_full(numa=...)`` over the headline fixture (98,304 pods,
+    10,000 nodes, 192 x 512, bench's arguments) with ``binpack_numa``'s
+    zones (``bench_suite.py:bench_numa_20k``'s recipe) for each of
+    ``NUMA_SCORINGS`` with ``shortlist_k=64`` and without: one CUDA graph
+    replay a chunk, a first pass (the capture) then timed passes with no
+    host sync (counts zeroed just before the first and read just after it,
+    every kernel of the path launched); placed count, summed rounds,
+    fallback counts and the sha256 of the assignments, zone picks and final
+    zone table equal to the NUMA golden's; then one eager pass through the
+    plain versions, equal."""
+    from koordinator_tpu_torch import kernels
+    from koordinator_tpu_torch.ops import solver
+    from koordinator_tpu_torch.ops.numa import NumaState
+
+    gold = np.load(GOLDEN_NUMA)
+    nodes, pods, params = headline_inputs(build_fixture(0))
+    pods, numa = binpack_numa(nodes, pods)
+    if str(gold["full_fixture_sha256"]) != fixture_digest(nodes, pods, numa, params):
+        fail("numa streams: the fixture differs from the one the golden was made from")
+    nodes_t, pods_t, params_t = port_inputs(torch, nodes, stacked(pods), params, dev)
+    numa_t = NumaState.create(**numa, device=dev)
+    n_batches = N_PODS // BATCH
+    lines = {}
+    for scoring in NUMA_SCORINGS:
+        for k in (SHORTLIST_K, None):
+            kw = dict(SOLVE, numa=numa_t, numa_scoring=scoring, shortlist_k=k)
+            zone_free = torch.empty_like(numa_t.zone_free)
+
+            def run(sync_mode="error", **more):
+                t0 = time.perf_counter()
+                torch.cuda.set_sync_debug_mode(sync_mode)
+                try:
+                    out = solver.solve_stream_full(pods_t, nodes_t, params_t, **kw,
+                                                   zone_free_out=zone_free, **more)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                placed = int((out[0] >= 0).sum())  # the caller's read
+                return out, placed, time.perf_counter() - t0
+
+            import warnings
+
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                first_seconds = run("warn")[2]
+            first_syncs = sum(is_sync_warning(w) for w in caught)
+            kernels.reset_launches()
+            out, placed, seconds = run()
+            launches = dict(kernels.launches)
+            replays = dict(kernels.replays)
+            final_zones = zone_free.cpu().numpy()
+            times = [seconds] + [run()[2] for _ in range(PASSES - 1)]
+            need = ["nominate", "round_tail", "zone_phase", "enforce_gangs"]
+            if k:
+                need += ["shortlist_build", "shortlist_round"]
+            for name in need:
+                if launches.get(name, 0) <= 0:
+                    fail(f"numa stream ({scoring}, K={k}): launched no {name} kernel")
+            if replays.get("solve_stream") != n_batches:
+                fail(f"numa stream ({scoring}, K={k}): {replays} replays, not one a chunk")
+            asg, zones, rounds, fallbacks = (t.cpu().numpy() for t in out)
+            key = f"full_{(scoring or 'none').lower()}_k{k or 0}"
+            got = dict(placed=placed, rounds=int(rounds.sum()),
+                       fallbacks=fallbacks.sum(axis=0).tolist(), sha256=assignments_digest(asg),
+                       zones_sha256=assignments_digest(zones),
+                       zone_free_sha256=hashlib.sha256(
+                           np.ascontiguousarray(final_zones, dtype="<f4").tobytes()).hexdigest())
+            want = dict(placed=int(gold[f"{key}_placed"]), rounds=int(gold[f"{key}_rounds"]),
+                        fallbacks=gold[f"{key}_fallbacks"].tolist(),
+                        sha256=str(gold[f"{key}_sha256"]),
+                        zones_sha256=str(gold[f"{key}_zones_sha256"]),
+                        zone_free_sha256=str(gold[f"{key}_zone_free_sha256"]))
+            if got != want:
+                fail(f"numa stream ({scoring}, K={k}): {got} differs from the golden {want}")
+            plain_zone_free = torch.empty_like(zone_free)
+            t0 = time.perf_counter()
+            with plain_versions():
+                p_out = solver.solve_stream_full(pods_t, nodes_t, params_t, **kw,
+                                                 zone_free_out=plain_zone_free, cuda_graph=False)
+            torch.cuda.synchronize()
+            p_seconds = time.perf_counter() - t0
+            if not (all(bits_equal(a.cpu(), b) for a, b in zip(p_out, (asg, zones, rounds,
+                                                                       fallbacks)))
+                    and bits_equal(plain_zone_free.cpu(), final_zones)):
+                fail(f"numa stream ({scoring}, K={k}): the graph and the eager plain pass differ")
+            med = sorted(times)[len(times) // 2]
+            profile = stream_profile(torch, run, med)
+            name = f"{scoring or 'no scoring'}, K={k or 'off'}"
+            lines[name] = dict(
+                placed=placed, zoned=int((zones >= 0).sum()), pods_per_s=N_PODS / med,
+                pass_seconds=times, first_pass_seconds=first_seconds,
+                plain_pass_seconds=p_seconds, rounds_used=got["rounds"],
+                fallbacks=got["fallbacks"], graph_replays=replays.get("solve_stream", 0),
+                launches=launches, host_syncs_per_pass=0, host_syncs_first_pass=first_syncs,
+                sha256=got["sha256"], zones_sha256=got["zones_sha256"],
+                zone_free_sha256=got["zone_free_sha256"], **profile,
+            )
+            print(json.dumps({"numa_stream": {name: lines[name]}}), flush=True)
+            for row in report["kernels"]:
+                nm = row["name"]
+                if nm == "round_tail_zone":
+                    row["launches"] = row["launches"] or launches.get("zone_phase")
+                elif nm == "zone_refund":
+                    row["launches"] = row["launches"] or launches.get("zone_refund")
+                elif nm == "nominate_numa" and not k:
+                    row["launches"] = row["launches"] or launches.get("nominate")
+                elif nm.endswith("_numa") and k and nm[:-5] in launches:
+                    row["launches"] = row["launches"] or launches[nm[:-5]]
+            kernels.reset_launches()
+    report["numa_streams"] = lines
+
+
 def main() -> int:
     import torch
 
@@ -1841,6 +2557,9 @@ def main() -> int:
     phase_two_cycles(torch, dev, report)
     phase_quota_kernels(torch, dev, report)
     phase_quota_streams(torch, dev, report)
+    phase_numa_kernels(torch, dev, report)
+    phase_bigbatch(torch, dev, report)
+    phase_numa_streams(torch, dev, report)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(json.dumps({

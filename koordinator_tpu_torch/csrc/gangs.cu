@@ -3,10 +3,12 @@
 // Replaces the LoadAware and quota parts of
 // koordinator_tpu/ops/solver.py:enforce_gangs (:1858-1987, the counts and
 // decisions at :1883-1894, the node-table refunds at :1896-1912 and
-// :1973-1978, the quota refund at :1963-1973): count each gang's placed
-// members, roll back every pod of a Strict gang below its minMember, take
-// the rolled-back pods' request, estimate and prod estimate off the node
-// tables and, with a quota tree, their requests off every quota of their
+// :1973-1978, the zone refund at :1941-1960, the quota refund at
+// :1963-1973): count each gang's placed members, roll back every pod of a
+// Strict gang below its minMember, take the rolled-back pods' request,
+// estimate and prod estimate off the node tables, with NUMA zones give
+// each rolled-back pod's zone charge back to its zone and clear its pick,
+// and with a quota tree take their requests off every quota of their
 // chains.
 //
 // What bounds it on an H100: latency. A batch is a few hundred rows and a
@@ -27,7 +29,14 @@
 // per level, not folded by XLA): the rolled-back rows keyed (quota << 32 |
 // row) and sorted again, one thread a quota sums 0 + v0 + v1 + ... in row
 // order and subtracts the sum. Q == 1 (the disabled sentinel) passes no
-// chain and refunds nothing.
+// chain and refunds nothing. The zone refund, in the same node walk: the
+// node's rolled-back rows that hold a zone add their charge [DN] onto its
+// zone's row one after another in row order — the reference's
+// `node_zone_free + segment_sum(...)`, which XLA's CPU backend folds into
+// a scatter-add onto the table — and their picks are cleared after it.
+// A batch whose working set outgrows shared memory (above ~8,000 pods
+// with quotas) keeps it in a device-memory scratch buffer the caller
+// allocates once, through the same generic pointers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,6 +57,17 @@ __host__ __device__ inline int pow2_at_least(int x) {
 size_t gangs_smem_bytes(int P, bool quota) {
   return ((size_t)2 * P + 2) * sizeof(int) +
          (size_t)pow2_at_least(P) * sizeof(uint64_t) * (quota ? 2 : 1);
+}
+
+// The most shared memory a block may take on the current device.
+int max_smem() {
+  static int bytes = 0;
+  if (bytes == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return bytes;
 }
 
 // Sorts keys[0, L) ascending (L a power of two), the whole block.
@@ -84,12 +104,15 @@ enforce_gangs_kernel(int* __restrict__ assignment,
                      float* __restrict__ prod_used,
                      int* __restrict__ pod_zone, int P, int N, int D,
                      const int* __restrict__ chain, float* __restrict__ quota_used,
-                     int Q, int levels) {
+                     int Q, int levels, float* __restrict__ zone_free,
+                     const float* __restrict__ zone_charge, int Z, int DN,
+                     int* __restrict__ scratch) {
   extern __shared__ int smem[];
-  int* s_asg = smem;
+  // the working set: shared memory, or the device-memory scratch
+  int* s_asg = scratch != nullptr ? scratch : smem;
   int* s_count = s_asg + P;
   int* s_rb = s_count + P;
-  uint64_t* keys = (uint64_t*)(smem + 2 * P + 2);
+  uint64_t* keys = (uint64_t*)(s_asg + 2 * P + 2);
   const int tid = threadIdx.x;
 
   for (int i = tid; i < P; i += blockDim.x) {
@@ -113,7 +136,6 @@ enforce_gangs_kernel(int* __restrict__ assignment,
     const bool keep = placed && (g < 0 || gang_ok);
     assignment[i] = keep ? a : -1;
     if (placed && !keep) {
-      if (pod_zone != nullptr) pod_zone[i] = -1;
       const uint64_t node = (uint64_t)min(max(a, 0), N - 1);
       keys[atomicAdd(s_rb, 1)] = (node << 32) | (uint64_t)i;
     }
@@ -145,6 +167,20 @@ enforce_gangs_kernel(int* __restrict__ assignment,
       est_used[at] = est_used[at] - e;
       prod_used[at] = prod_used[at] - pr;
     }
+    if (zone_free == nullptr) continue;
+    // the zone refund: each row's charge onto its zone (clipped to Z - 1,
+    // as the reference's one-hot clips it), row by row
+    for (int j = s; j < R && (int)(keys[j] >> 32) == node; ++j) {
+      const int row = (int)(keys[j] & 0xFFFFFFFFu);
+      const int pz = pod_zone[row];
+      if (pz < 0) continue;
+      float* zrow = zone_free + ((size_t)node * Z + min(pz, Z - 1)) * DN;
+      for (int d = 0; d < DN; ++d) zrow[d] = zrow[d] + zone_charge[(size_t)row * DN + d];
+    }
+  }
+  if (pod_zone != nullptr) {
+    __syncthreads();  // the zone refund has read the picks
+    for (int s = tid; s < R; s += blockDim.x) pod_zone[(int)(keys[s] & 0xFFFFFFFFu)] = -1;
   }
   if (chain == nullptr) return;
 
@@ -189,13 +225,17 @@ extern "C" int koord_enforce_gangs(void* assignment, const void* gang_id,
                                    void* est_used, void* prod_used,
                                    void* pod_zone, int P, int N, int D,
                                    const void* chain, void* quota_used, int Q,
-                                   int levels, void* stream) {
+                                   int levels, void* zone_free, const void* zone_charge,
+                                   int Z, int DN, void* scratch, void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (D < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  if (zone_free != nullptr && (Z < 1 || DN < 1 || pod_zone == nullptr || zone_charge == nullptr))
+    return (int)cudaErrorInvalidValue;
   const bool quota = chain != nullptr && quota_used != nullptr && Q > 1;
-  // one block holds the whole batch; a batch too large for the card's
-  // shared memory is refused here (cudaFuncSetAttribute's error)
-  const size_t smem = gangs_smem_bytes(P, quota);
+  // one block holds the whole batch, in shared memory or, where it does
+  // not fit (koord_gangs_scratch), in the caller's scratch
+  const size_t smem = scratch != nullptr ? 0 : gangs_smem_bytes(P, quota);
+  if (scratch == nullptr && smem > (size_t)max_smem()) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         enforce_gangs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -210,8 +250,18 @@ extern "C" int koord_enforce_gangs(void* assignment, const void* gang_id,
       (const bool*)gang_nonstrict, (const float*)requests,
       (const float*)estimate, (const bool*)is_prod, (float*)requested,
       (float*)est_used, (float*)prod_used, (int*)pod_zone, P, N, D,
-      quota ? (const int*)chain : nullptr, quota ? (float*)quota_used : nullptr, Q, levels);
+      quota ? (const int*)chain : nullptr, quota ? (float*)quota_used : nullptr, Q, levels,
+      (float*)zone_free, (const float*)zone_charge, Z, DN, (int*)scratch);
   return (int)cudaGetLastError();
+}
+
+// The scratch a batch of P pods needs (with a quota refund when `quota`):
+// 0 while its working set fits in shared memory.
+extern "C" int koord_gangs_scratch(int P, int quota, long long* bytes) {
+  if (P < 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = gangs_smem_bytes(P, quota != 0);
+  *bytes = smem > (size_t)max_smem() ? (long long)smem : 0;
+  return (int)cudaSuccess;
 }
 
 extern "C" const char* koord_error_string(int code) {

@@ -7,7 +7,11 @@
 //
 // Port of _feasible (koordinator_tpu/ops/solver.py:625-657), masks.py:20-106
 // and their _cols forms (:109-170), costs.py:25-87 and the jitter
-// (add_jitter :732-742, add_jitter_cols :744-753). Every float operation is
+// (add_jitter :732-742, add_jitter_cols :744-753), and with NUMA zones the
+// fit under each node's topology policy (numa.py:numa_fit_mask :77-145,
+// ANDed in at solver.py:898-899) and the aligned score
+// (costs.py:numa_aligned_cost :212-263, added at solver.py:923-924), both
+// read from the zone table as the batch began. Every float operation is
 // written in the reference's order; the sources are compiled with
 // -fmad=false and IEEE division, so each gives the reference's bits.
 
@@ -144,12 +148,148 @@ __device__ __forceinline__ const bool* mask_row_of(const bool* mask, const long 
   return mask == nullptr ? nullptr : mask + rows[p] * (long long)N;
 }
 
+// The NUMA zones a pair is priced from: the zone table as the batch began
+// (a snapshot the round tail never writes) and the capacities, [N, Z, DN]
+// each, the nodes' topology policies [N] int8, the priority-sorted pods'
+// SingleNUMANode `required` flags [P], and the aligned score's strategy
+// (0 off, 1 LeastAllocated, 2 MostAllocated). Z <= kMaxZones, DN <=
+// kMaxZoneDims and DN <= D: the zone dims are the prefix of the resource
+// axis.
+constexpr int kMaxZones = 8;
+constexpr int kMaxZoneDims = 4;
+constexpr int kPolicySingleNuma = 3;  // numa.POLICY_SINGLE_NUMA_NODE
+
+struct Zones {
+  const float *free, *cap;
+  const int8_t* policy;
+  const bool* required;
+  int Z, DN, scoring;
+};
+
+// numa_fit_mask for one pair (numa.py:77-145): the request of a pod that
+// wants alignment (cpuset-bound or required) amplified as the reference
+// writes it, req * (1 + wants * (max(amp, 1) - 1)) on the CPU dim and
+// req * (1 + wants * (1 - 1)) on the others; a dim no zone of the node
+// reports is not checked; a strict pair (SINGLE_NUMA_NODE node, or a
+// required pod) needs one zone that holds the request, another pair that
+// wants alignment the sum of the zones (added in zone order); a node with
+// no zone capacity fits every pod.
+template <int D>
+__device__ __forceinline__ bool numa_fit(const float (&req)[D], bool bind, bool required,
+                                         float cpu_amp, int n, const Zones& z) {
+  const bool wants = bind || required;
+  const float wf = wants ? 1.0f : 0.0f;
+  const float amp = fmaxf(cpu_amp, 1.0f);
+  const float* fr = z.free + (size_t)n * z.Z * z.DN;
+  const float* cp = z.cap + (size_t)n * z.Z * z.DN;
+  float re[kMaxZoneDims], total[kMaxZoneDims];
+  bool on[kMaxZoneDims];
+  constexpr int DZ = D < kMaxZoneDims ? D : kMaxZoneDims;
+#pragma unroll
+  for (int d = 0; d < DZ; ++d) {
+    if (d >= z.DN) break;
+    const float scale = d == 0 ? amp : 1.0f;
+    re[d] = req[d] * (1.0f + wf * (scale - 1.0f));
+    float csum = cp[d], fsum = fr[d];
+    for (int q = 1; q < z.Z; ++q) {
+      csum = csum + cp[q * z.DN + d];
+      fsum = fsum + fr[q * z.DN + d];
+    }
+    on[d] = csum > 0.0f;
+    total[d] = fsum;
+  }
+  bool has_zones = false, any_zone = false;
+  for (int q = 0; q < z.Z; ++q) {
+    float csum = 0.0f;
+    bool fit = true;
+#pragma unroll
+    for (int d = 0; d < DZ; ++d) {
+      if (d >= z.DN) break;
+      const float c = cp[q * z.DN + d];
+      csum = d == 0 ? c : csum + c;
+      fit = fit && (re[d] <= fr[q * z.DN + d] + kEps || !on[d]);
+    }
+    has_zones = has_zones || csum > 0.0f;
+    any_zone = any_zone || fit;
+  }
+  if (!has_zones) return true;
+  if (z.policy[n] == kPolicySingleNuma || required) return any_zone;
+  bool total_fit = true;
+#pragma unroll
+  for (int d = 0; d < DZ; ++d) {
+    if (d >= z.DN) break;
+    total_fit = total_fit && (re[d] <= total[d] + kEps || !on[d]);
+  }
+  return total_fit || !wants;
+}
+
+// numa_aligned_cost for one pair (costs.py:212-263): the pod's request
+// (not amplified) goes into the fitting zone of least (used0 + 1) /
+// (cap0 + 1), the first on ties; the node scores on that zone with the
+// integer-floor per-dim score (Least- or MostAllocated), 0 where a dim is
+// over capacity or has none, weighted by the first DN weights (zwsum =
+// their sum + _SAFE). Returns the cost term -score, -0 where the pod does
+// not want alignment or no zone fits.
+template <int D>
+__device__ __forceinline__ float numa_score(const float (&req)[D], bool bind, bool required,
+                                            int n, const Zones& z, const float (&w)[D],
+                                            float zwsum) {
+  if (!(bind || required)) return -0.0f;
+  constexpr int DZ = D < kMaxZoneDims ? D : kMaxZoneDims;
+  const float* fr = z.free + (size_t)n * z.Z * z.DN;
+  const float* cp = z.cap + (size_t)n * z.Z * z.DN;
+  int best = -1;
+  float best_key = CUDART_INF_F;
+  for (int q = 0; q < z.Z; ++q) {
+    bool real = false, fit = true;
+#pragma unroll
+    for (int d = 0; d < DZ; ++d) {
+      if (d >= z.DN) break;
+      real = real || cp[q * z.DN + d] > 0.0f;
+      fit = fit && req[d] <= fr[q * z.DN + d] + 1e-6f;
+    }
+    if (!(fit && real)) continue;
+    const float used0 = cp[q * z.DN] - fr[q * z.DN];
+    const float util = (used0 + 1.0f) / (cp[q * z.DN] + 1.0f);
+    if (best < 0 || util < best_key) {
+      best = q;
+      best_key = util;
+    }
+  }
+  if (best < 0) return -0.0f;
+  float total = 0.0f;
+#pragma unroll
+  for (int d = 0; d < DZ; ++d) {
+    if (d >= z.DN) break;
+    const float cap = cp[best * z.DN + d];
+    const float after = (cap - fr[best * z.DN + d]) + req[d];
+    const float raw = z.scoring == 2 ? floorf(after * 100.0f / (cap + kSafe))
+                                     : floorf((cap - after) * 100.0f / (cap + kSafe));
+    const float per_dim = cap > 0.0f && after <= cap + 1e-6f ? raw : 0.0f;
+    const float term = per_dim * w[d];
+    total = d == 0 ? term : total + term;
+  }
+  return -floorf(total / zwsum);
+}
+
+// jnp.sum(weights[:DN]) + _SAFE, summed in d order: the aligned score's
+// denominator.
+template <int D>
+__device__ __forceinline__ float zone_weights_sum(const float (&w)[D], int DN) {
+  float s = 0.0f;
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+    if (d < DN) s = d == 0 ? w[d] : s + w[d];
+  return s + kSafe;
+}
+
 // A pod's columns: requests, estimate, prod flag, cpuset binding, its
-// half of the jitter hash and its node-mask row (nullptr: no mask).
+// half of the jitter hash and its node-mask row (nullptr: no mask); with
+// NUMA zones its `required` flag.
 template <int D>
 struct Pod {
   float req[D], est[D];
-  bool prod, bind;
+  bool prod, bind, required;
   uint32_t hash;
   const bool* mask;
 
@@ -162,6 +302,7 @@ struct Pod {
     }
     prod = is_prod[p];
     bind = cpu_bind[p];
+    required = false;
     hash = jitter_pod(p);
     mask = nullptr;
   }
@@ -173,11 +314,14 @@ struct Pod {
 // CPU fit for cpuset-bound pods, usage and prod thresholds on nodes with a
 // fresh metric, then the integer-floor score (0 on a stale node), negated,
 // plus the jitter keyed on the node's original id. The node mask
-// (:896-897, :1070-1071) is one more feasibility term.
-template <int D>
+// (:896-897, :1070-1071) is one more feasibility term, and with kNuma the
+// NUMA fit (:898-899, :1072-1073) another, the aligned score (zwsum its
+// denominator) added to the cost before the jitter (:923-924, :1076-1077).
+template <int D, bool kNuma = false>
 __device__ __forceinline__ float pair_cost(const Pod<D>& pod, bool gate, int n, const Nodes& t,
                                            const float (&w)[D], float wsum, float jitter_scale,
-                                           bool jitter_on) {
+                                           bool jitter_on, const Zones* zones = nullptr,
+                                           float zwsum = 0.0f) {
   const bool fresh = t.fresh[n];
   bool feas = gate && t.sched[n] && (pod.mask == nullptr || pod.mask[n]);
   float a[D], fe[D], after[D];
@@ -191,6 +335,10 @@ __device__ __forceinline__ float pair_cost(const Pod<D>& pod, bool gate, int n, 
   }
   feas = feas & (!pod.bind | (pod.req[0] * amp_of(t.cpu_amp[n]) <= fe[0]));
   if (!feas) return CUDART_INF_F;
+  if constexpr (kNuma) {
+    if (!numa_fit<D>(pod.req, pod.bind, pod.required, t.cpu_amp[n], n, *zones))
+      return CUDART_INF_F;
+  }
   float score = 0.0f;
   if (fresh) {
 #pragma unroll
@@ -215,7 +363,11 @@ __device__ __forceinline__ float pair_cost(const Pod<D>& pod, bool gate, int n, 
     }
     score = floorf(total / wsum);
   }
-  const float c = -score;
+  float c = -score;
+  if constexpr (kNuma) {
+    if (zones->scoring != 0)
+      c = c + numa_score<D>(pod.req, pod.bind, pod.required, n, *zones, w, zwsum);
+  }
   return jitter_on ? add_jitter(c, pod.hash, n, jitter_scale) : c;
 }
 

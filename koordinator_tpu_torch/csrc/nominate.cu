@@ -62,6 +62,13 @@
 //   offset by the chunk), one byte a pair, which L1 keeps for the node
 //   chunk a warp walks. The masked kernel is its own instantiation
 //   (kMasked), so the kernel without a mask keeps its registers.
+// - NUMA zones (numa.py:numa_fit_mask, costs.py:numa_aligned_cost; their
+//   per-pair arithmetic is loadaware.cuh's numa_fit and numa_score) are
+//   the NUMA instantiation (kNuma, which also takes a node mask): each
+//   pair reads the node's zone rows of the batch-start table and of the
+//   capacities, Z x DN floats each, which every lane of a warp reads at
+//   once and L1 keeps. It is instantiated for D <= 8, the widths the
+//   round tail takes.
 // - With the candidate shortlist on, this is the round's fallback: both
 //   kernels also take the trigger word the shortlist round sets
 //   (csrc/shortlist_round.cu) and return at once while it is clear — the
@@ -163,7 +170,7 @@ union Shared {
   } lists;  // each warp's top-K of each pod, after the last tile
 };
 
-template <int D, int C, bool kMasked>
+template <int D, int C, bool kMasked, bool kNuma>
 __global__ void __launch_bounds__(kThreads)
 nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
                 const bool* __restrict__ is_prod,
@@ -182,7 +189,8 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
                 float jitter_scale, int jitter_on, int approx,
                 float* __restrict__ out_cost, int* __restrict__ out_idx,
                 const int* __restrict__ state, const int* __restrict__ trigger,
-                const bool* __restrict__ mask, const long long* __restrict__ mask_row) {
+                const bool* __restrict__ mask, const long long* __restrict__ mask_row,
+                const Zones zones) {
   // the round loop reached its fixed point, or the shortlist round needs
   // no fallback: nothing to nominate
   if (state != nullptr && state[0] != 0) return;
@@ -198,17 +206,18 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
 
   float w[D];
   const float wsum = weights_sum<D>(weights, w);
+  const float zwsum = kNuma ? zone_weights_sum<D>(w, zones.DN) : 0.0f;
 
   float rq[Q][D], es[Q][D];
   TopK<C> top[Q];
-  bool pod_gate[Q], pod_bind[Q], pod_prod[Q];
+  bool pod_gate[Q], pod_bind[Q], pod_prod[Q], pod_required[Q];
   uint32_t hp[Q];
   // each pod's row of the node mask (kMasked only)
   const bool* pod_mask[Q];
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
     const int p = blockIdx.x * kPods + lane + 32 * q;
-    pod_gate[q] = pod_bind[q] = pod_prod[q] = false;
+    pod_gate[q] = pod_bind[q] = pod_prod[q] = pod_required[q] = false;
     pod_mask[q] = nullptr;
     if (p < P) {
       if constexpr (kMasked) pod_mask[q] = mask_row_of(mask, mask_row, p, N);
@@ -220,6 +229,7 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
       pod_gate[q] = gate[p];
       pod_bind[q] = cpu_bind[p];
       pod_prod[q] = is_prod[p];
+      if constexpr (kNuma) pod_required[q] = zones.required[p];
     } else {
 #pragma unroll
       for (int d = 0; d < D; ++d) rq[q][d] = es[q][d] = 0.0f;
@@ -271,6 +281,8 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
 #pragma unroll
         for (int d = 0; d < D; ++d) feas[q] = feas[q] & (rq[q][d] <= fe[d]);
         feas[q] = feas[q] & (!pod_bind[q] | (rq[q][0] * amp <= fe[0]));
+        if constexpr (kNuma)
+          feas[q] = feas[q] && numa_fit<D>(rq[q], pod_bind[q], pod_required[q], amp, n, zones);
         any = any | feas[q];
       }
       const bool node_fresh = (fl & kFresh) != 0;
@@ -329,6 +341,10 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
             score = floorf(total / wsum);
           }
           float c = -score;
+          if constexpr (kNuma) {
+            if (zones.scoring != 0 && feas[q])
+              c = c + numa_score<D>(rq[q], pod_bind[q], pod_required[q], n, zones, w, zwsum);
+          }
           if (jitter_on) c = add_jitter(c, hp[q], n, jitter_scale);
           if (feas[q]) cost[q] = c;
         }
@@ -456,21 +472,38 @@ struct Args {
   const int* trigger;
   const bool* mask;
   const long long* mask_row;
+  Zones zones;  // zones.free == nullptr: no NUMA
   cudaStream_t stream;
 };
+
+// The kernels by mode: 0 LoadAware only, 1 with a node mask, 2 with NUMA
+// zones (and a node mask or none); NUMA only up to D = 8.
+enum Mode { kPlainMode = 0, kMaskedMode = 1, kNumaMode = 2 };
+
+template <int D, int C>
+auto kernel_of(int mode) {
+  if constexpr (D <= 8) {
+    if (mode == kNumaMode) return nominate_kernel<D, C, true, true>;
+  }
+  return mode == kMaskedMode ? nominate_kernel<D, C, true, false>
+                             : nominate_kernel<D, C, false, false>;
+}
 
 template <int D, int C>
 cudaError_t launch(const Args& a) {
   const int chunks = (a.N + a.chunk - 1) / a.chunk;
   const dim3 grid((a.P + kPods - 1) / kPods, chunks);
   const bool split = chunks > 1;
-  auto kernel = a.mask != nullptr ? nominate_kernel<D, C, true> : nominate_kernel<D, C, false>;
+  const int mode = a.zones.free != nullptr ? kNumaMode : a.mask != nullptr ? kMaskedMode
+                                                                          : kPlainMode;
+  if (mode == kNumaMode && D > 8) return cudaErrorInvalidValue;
+  auto kernel = kernel_of<D, C>(mode);
   kernel<<<grid, kThreads, 0, a.stream>>>(
       a.req, a.est, a.is_prod, a.cpu_bind, a.gate, a.alloc, a.requested,
       a.est_used, a.prod_used, a.fresh, a.sched, a.cpu_amp, a.thr, a.pthr,
       a.weights, a.P, a.N, a.K, a.chunk, a.jitter_scale, a.jitter_on, a.approx,
       split ? a.part_cost : a.out_cost, split ? a.part_idx : a.out_idx, a.state, a.trigger,
-      a.mask, a.mask_row);
+      a.mask, a.mask_row, a.zones);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
   nominate_merge_kernel<C><<<(a.P + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0,
@@ -519,29 +552,30 @@ struct Launch {
 
 struct Resident {
   int* blocks;
-  bool masked;
+  int mode;
   template <int D, int C>
   cudaError_t run() const {
-    return masked ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                        blocks, nominate_kernel<D, C, true>, kThreads, 0)
-                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                        blocks, nominate_kernel<D, C, false>, kThreads, 0);
+    if (mode == kNumaMode && D > 8) return cudaErrorInvalidValue;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel_of<D, C>(mode),
+                                                         kThreads, 0);
   }
 };
 
 }  // namespace
 
 // Nodes each block walks, for P pods and N nodes at width D and fan-out K
-// (with a node mask when `masked`) on a card of `sms` SMs: as many chunks
+// (`mode`: 0 LoadAware only, 1 with a node mask, 2 with NUMA zones) on a
+// card of `sms` SMs: as many chunks
 // as fill one wave of resident blocks (the occupancy of this
 // instantiation), none shorter than kMinChunk nodes. The caller makes
 // room for partial lists of [P, ceil(N / chunk), kMaxK] pairs when there
 // is more than one chunk.
-extern "C" int koord_nominate_chunk(int P, int N, int D, int K, int sms, int masked,
+extern "C" int koord_nominate_chunk(int P, int N, int D, int K, int sms, int mode,
                                     int* chunk) {
-  if (P < 1 || N < 1 || sms < 1 || K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
+  if (P < 1 || N < 1 || sms < 1 || K < 1 || K > kMaxK || mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
   int per_sm = 0;
-  const cudaError_t err = with_dk(D, K, Resident{&per_sm, masked != 0});
+  const cudaError_t err = with_dk(D, K, Resident{&per_sm, mode});
   if (err != cudaSuccess) return (int)err;
   const int pod_blocks = (P + kPods - 1) / kPods;
   const int most = (N + kMinChunk - 1) / kMinChunk;
@@ -560,9 +594,13 @@ extern "C" int koord_nominate(
     int D, int K, int chunk, float jitter_scale, int jitter_on, int approx,
     void* part_cost, void* part_idx, void* out_cost, void* out_idx,
     const void* state, const void* trigger, const void* mask, const void* mask_row,
-    void* stream) {
+    const void* zone_free, const void* zone_cap, const void* policy, const void* required,
+    int Z, int DN, int scoring, void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (D < 1 || D > kMaxDims || N < 1 || K < 1 || K > kMaxK || chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  if (zone_free != nullptr &&
+      (Z < 1 || Z > kMaxZones || DN < 1 || DN > kMaxZoneDims || DN > D || D > 8))
     return (int)cudaErrorInvalidValue;
   const Args a{(const float*)req, (const float*)est, (const bool*)is_prod,
                (const bool*)cpu_bind, (const bool*)gate, (const float*)alloc,
@@ -572,7 +610,10 @@ extern "C" int koord_nominate(
                (const float*)weights, P, N, K, chunk, jitter_scale, jitter_on,
                approx, (float*)part_cost, (int*)part_idx, (float*)out_cost,
                (int*)out_idx, (const int*)state, (const int*)trigger, (const bool*)mask,
-               (const long long*)mask_row, (cudaStream_t)stream};
+               (const long long*)mask_row,
+               Zones{(const float*)zone_free, (const float*)zone_cap, (const int8_t*)policy,
+                     (const bool*)required, Z, DN, scoring},
+               (cudaStream_t)stream};
   return (int)with_dk(D, K, Launch{a});
 }
 

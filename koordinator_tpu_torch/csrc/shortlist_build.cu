@@ -34,6 +34,10 @@
 // - The K keys below it are collected (integer atomics for the slots: the
 //   order they land in does not matter) and put in ascending order by
 //   rank: each id's place is the number of ids below it.
+// - With NUMA zones the pair's fit and aligned score are loadaware.cuh's
+//   numa_fit and numa_score over the batch-start table (shortlist_plan's
+//   :1590-1600, the build's :898-899 and :923-924), in their own
+//   instantiation (kNuma).
 // - Its cost is the bound: +inf when fewer than K+1 pairs are feasible,
 //   and then the shortlist holds the lowest infeasible ids, as top_k's
 //   -inf ties do. A pod whose node-mask row is all false prices every
@@ -80,10 +84,11 @@ struct Args {
   float* out_bound;
   const bool* mask;
   const long long* mask_row;
+  Zones zones;  // zones.free == nullptr: no NUMA
   cudaStream_t stream;
 };
 
-template <int D, bool kStored>
+template <int D, bool kStored, bool kNuma>
 __global__ void __launch_bounds__(kThreads) shortlist_build_kernel(const Args a) {
   extern __shared__ uint32_t costs[];  // [N] ordered costs when kStored
   __shared__ int hist[256];
@@ -96,12 +101,14 @@ __global__ void __launch_bounds__(kThreads) shortlist_build_kernel(const Args a)
   Pod<D> pod;
   pod.load(p, a.req, a.est, a.is_prod, a.cpu_bind);
   pod.mask = mask_row_of(a.mask, a.mask_row, p, N);
+  if constexpr (kNuma) pod.required = a.zones.required[p];
   float w[D];
   const float wsum = weights_sum<D>(a.weights, w);
+  const float zwsum = kNuma ? zone_weights_sum<D>(w, a.zones.DN) : 0.0f;
   // every pod gate open: a pod that is not active now may be later
   auto price = [&](int n) {
-    return order_of(
-        pair_cost<D>(pod, true, n, a.nodes, w, wsum, a.jitter_scale, a.jitter_on != 0));
+    return order_of(pair_cost<D, kNuma>(pod, true, n, a.nodes, w, wsum, a.jitter_scale,
+                                        a.jitter_on != 0, &a.zones, zwsum));
   };
   auto key_at = [&](int n) { return key_of(kStored ? costs[n] : price(n), n); };
 
@@ -172,27 +179,33 @@ __global__ void __launch_bounds__(kThreads) shortlist_build_kernel(const Args a)
   if (tid == 0) a.out_bound[p] = cost_of(prefix);
 }
 
-template <int D, bool kStored>
+template <int D, bool kStored, bool kNuma>
 cudaError_t launch_stored(const Args& a) {
   const size_t smem = kStored ? (size_t)a.N * sizeof(uint32_t) : 0;
   static bool sized = false;
   if (kStored && !sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        shortlist_build_kernel<D, kStored>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        shortlist_build_kernel<D, kStored, kNuma>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kStoredBytes);
     if (err != cudaSuccess) return err;
     sized = true;
   }
-  shortlist_build_kernel<D, kStored><<<a.P, kThreads, smem, a.stream>>>(a);
+  shortlist_build_kernel<D, kStored, kNuma><<<a.P, kThreads, smem, a.stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int D, bool kNuma>
+cudaError_t launch_numa(const Args& a) {
+  return (size_t)a.N * sizeof(uint32_t) <= (size_t)kStoredBytes
+             ? launch_stored<D, true, kNuma>(a)
+             : launch_stored<D, false, kNuma>(a);
 }
 
 struct Launch {
   const Args& a;
   template <int D>
   cudaError_t run() const {
-    return (size_t)a.N * sizeof(uint32_t) <= (size_t)kStoredBytes ? launch_stored<D, true>(a)
-                                                                 : launch_stored<D, false>(a);
+    return a.zones.free != nullptr ? launch_numa<D, true>(a) : launch_numa<D, false>(a);
   }
 };
 
@@ -209,9 +222,14 @@ extern "C" int koord_shortlist_build(
     const void* prod_used, const void* fresh, const void* sched,
     const void* cpu_amp, const void* thr, const void* pthr, const void* weights,
     int P, int N, int D, int K, float jitter_scale, int jitter_on, void* cand,
-    void* bound, const void* mask, const void* mask_row, void* stream) {
+    void* bound, const void* mask, const void* mask_row, const void* zone_free,
+    const void* zone_cap, const void* policy, const void* required, int Z, int DN,
+    int scoring, void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (K < 1 || K > kMaxShortlist || K >= N) return (int)cudaErrorInvalidValue;
+  if (zone_free != nullptr &&
+      (Z < 1 || Z > kMaxZones || DN < 1 || DN > kMaxZoneDims || DN > D))
+    return (int)cudaErrorInvalidValue;
   int index_bits = 1;
   while ((1 << index_bits) < N) ++index_bits;
   const Args a{(const float*)req, (const float*)est, (const bool*)is_prod,
@@ -221,6 +239,8 @@ extern "C" int koord_shortlist_build(
                      (const float*)cpu_amp, (const float*)thr, (const float*)pthr},
                (const float*)weights, P, N, K, index_bits, jitter_scale, jitter_on,
                (int*)cand, (float*)bound, (const bool*)mask, (const long long*)mask_row,
+               Zones{(const float*)zone_free, (const float*)zone_cap, (const int8_t*)policy,
+                     (const bool*)required, Z, DN, scoring},
                (cudaStream_t)stream};
   return (int)with_d8(D, Launch{a});
 }

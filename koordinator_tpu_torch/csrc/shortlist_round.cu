@@ -30,7 +30,11 @@
 // finishes last (a ticket in the same word, after __threadfence) adds the
 // two flags to the [2] count: ordered by the stream, no host sync, no
 // float atomics. The kernel returns at once on the round loop's `done`, so
-// a trip after the fixed point counts nothing.
+// a trip after the fixed point counts nothing. With NUMA zones a candidate
+// prices its NUMA fit and aligned score from the batch-start table through
+// loadaware.cuh (the reference gathers them from the build's [P, N] terms,
+// :1001-1008, :1050-1051, :1076-1077: the same bits), in their own
+// instantiation (kNuma).
 
 #include "loadaware.cuh"
 
@@ -57,10 +61,11 @@ struct Args {
   const int* state;
   const bool* mask;
   const long long* mask_row;
+  Zones zones;  // zones.free == nullptr: no NUMA
   cudaStream_t stream;
 };
 
-template <int D, int C>
+template <int D, int C, bool kNuma>
 __global__ void __launch_bounds__(kWarps * 32) shortlist_round_kernel(const Args a) {
   // the round loop reached its fixed point: no round, nothing counted
   if (a.state[0] != 0) return;
@@ -74,17 +79,19 @@ __global__ void __launch_bounds__(kWarps * 32) shortlist_round_kernel(const Args
     Pod<D> pod;
     pod.load(p, a.req, a.est, a.is_prod, a.cpu_bind);
     pod.mask = mask_row_of(a.mask, a.mask_row, p, a.N);  // read at each candidate's id
+    if constexpr (kNuma) pod.required = a.zones.required[p];
     const bool gate = a.gate[p];
     float w[D];
     const float wsum = weights_sum<D>(a.weights, w);
+    const float zwsum = kNuma ? zone_weights_sum<D>(w, a.zones.DN) : 0.0f;
     TopK<C> top;
     top.clear(C);
     bool finite = false;
     const int* cand = a.cand + (size_t)p * a.K;
     for (int c = lane; c < a.K; c += 32) {
       const int n = cand[c];
-      const float cost =
-          pair_cost<D>(pod, gate, n, a.nodes, w, wsum, a.jitter_scale, a.jitter_on != 0);
+      const float cost = pair_cost<D, kNuma>(pod, gate, n, a.nodes, w, wsum, a.jitter_scale,
+                                             a.jitter_on != 0, &a.zones, zwsum);
       finite = finite | (cost < CUDART_INF_F);
       top.insert(cost, n);
     }
@@ -148,16 +155,21 @@ __global__ void __launch_bounds__(kWarps * 32) shortlist_round_kernel(const Args
   }
 }
 
+template <int D, bool kNuma>
+cudaError_t launch(const Args& a) {
+  const int blocks = (a.P + kWarps - 1) / kWarps;
+  if (a.k <= 4)
+    shortlist_round_kernel<D, 4, kNuma><<<blocks, kWarps * 32, 0, a.stream>>>(a);
+  else
+    shortlist_round_kernel<D, 8, kNuma><<<blocks, kWarps * 32, 0, a.stream>>>(a);
+  return cudaGetLastError();
+}
+
 struct Launch {
   const Args& a;
   template <int D>
   cudaError_t run() const {
-    const int blocks = (a.P + kWarps - 1) / kWarps;
-    if (a.k <= 4)
-      shortlist_round_kernel<D, 4><<<blocks, kWarps * 32, 0, a.stream>>>(a);
-    else
-      shortlist_round_kernel<D, 8><<<blocks, kWarps * 32, 0, a.stream>>>(a);
-    return cudaGetLastError();
+    return a.zones.free != nullptr ? launch<D, true>(a) : launch<D, false>(a);
   }
 };
 
@@ -179,9 +191,13 @@ extern "C" int koord_shortlist_round(
     const void* weights, const void* cand, const void* bound, int P, int N, int D,
     int K, int k, float jitter_scale, int jitter_on, int approx, void* out_cost,
     void* out_idx, void* word, void* counts, const void* state, const void* mask,
-    const void* mask_row, void* stream) {
+    const void* mask_row, const void* zone_free, const void* zone_cap, const void* policy,
+    const void* required, int Z, int DN, int scoring, void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (k < 1 || k > 8 || k > K) return (int)cudaErrorInvalidValue;
+  if (zone_free != nullptr &&
+      (Z < 1 || Z > kMaxZones || DN < 1 || DN > kMaxZoneDims || DN > D))
+    return (int)cudaErrorInvalidValue;
   const Args a{(const float*)req, (const float*)est, (const bool*)is_prod,
                (const bool*)cpu_bind, (const bool*)gate,
                Nodes{(const float*)alloc, (const float*)requested, (const float*)est_used,
@@ -190,7 +206,10 @@ extern "C" int koord_shortlist_round(
                (const float*)weights, (const int*)cand, (const float*)bound, P, N, K, k,
                jitter_scale, jitter_on, approx, (float*)out_cost, (int*)out_idx,
                (int*)word, (int*)counts, (const int*)state, (const bool*)mask,
-               (const long long*)mask_row, (cudaStream_t)stream};
+               (const long long*)mask_row,
+               Zones{(const float*)zone_free, (const float*)zone_cap, (const int8_t*)policy,
+                     (const bool*)required, Z, DN, scoring},
+               (cudaStream_t)stream};
   return (int)with_d8(D, Launch{a});
 }
 

@@ -46,20 +46,31 @@ _F = ctypes.c_float
 #: ints are ``c_int``, scalars ``c_float``.
 SIGNATURES: dict[str, dict[str, list]] = {
     "nominate": {
-        "koord_nominate": [_P] * 15 + [_I] * 5 + [_F, _I, _I] + [_P] * 9,
+        "koord_nominate": [_P] * 15 + [_I] * 5 + [_F, _I, _I] + [_P] * 12 + [_I] * 3 + [_P],
         "koord_nominate_chunk": [_I] * 6 + [ctypes.POINTER(_I)],
     },
     "round": {
         "koord_round_tail": [_P] * 17 + [_F, _I, _I, _I, _I] + [_P] * 4 + [_I, _I, _P],
     },
+    "round_zone": {
+        "koord_round_tail_zone": [_P] * 17 + [_F, _I, _I, _I, _I] + [_P] * 4 + [_I, _I]
+        + [_P] * 6 + [_I, _I, _P],
+    },
+    "round_big": {
+        "koord_round_tail_big": [_P] * 17 + [_F, _I, _I, _I, _I] + [_P] * 4 + [_I, _I]
+        + [_P] * 6 + [_I, _I, _P, _P],
+        "koord_round_route": [_I] * 7 + [ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_longlong)],
+    },
     "gangs": {
-        "koord_enforce_gangs": [_P] * 11 + [_I, _I, _I] + [_P] * 2 + [_I, _I, _P],
+        "koord_enforce_gangs": [_P] * 11 + [_I, _I, _I] + [_P] * 2 + [_I, _I] + [_P] * 2
+        + [_I, _I, _P, _P],
+        "koord_gangs_scratch": [_I, _I, ctypes.POINTER(ctypes.c_longlong)],
     },
     "shortlist_build": {
-        "koord_shortlist_build": [_P] * 14 + [_I] * 4 + [_F, _I] + [_P] * 5,
+        "koord_shortlist_build": [_P] * 14 + [_I] * 4 + [_F, _I] + [_P] * 8 + [_I] * 3 + [_P],
     },
     "shortlist_round": {
-        "koord_shortlist_round": [_P] * 17 + [_I] * 5 + [_F, _I, _I] + [_P] * 8,
+        "koord_shortlist_round": [_P] * 17 + [_I] * 5 + [_F, _I, _I] + [_P] * 11 + [_I] * 3 + [_P],
     },
     "quota": {
         "koord_quota_gate": [_P] * 6 + [_I] * 4 + [_P],
@@ -77,6 +88,21 @@ captured: collections.Counter = collections.Counter()
 replays: collections.Counter = collections.Counter()
 
 _libs: dict[str, ctypes.CDLL] = {}
+#: device-memory working sets of the kernels that outgrow shared memory,
+#: by (device index, bytes); kept for the process, so a CUDA graph that
+#: captured one always finds it
+_scratch: dict = {}
+
+
+def scratch(device: torch.device, nbytes: int) -> torch.Tensor:
+    """A uint8 buffer of ``nbytes`` on ``device`` that a kernel may use as
+    its working set, one per size and device, allocated at first use (a
+    stream's warm-up, before its graph is captured) and kept."""
+    key = (device.index, nbytes)
+    buf = _scratch.get(key)
+    if buf is None:
+        buf = _scratch[key] = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    return buf
 
 
 def reset_launches() -> None:

@@ -2,10 +2,13 @@
 the loop state — and ordered segment sums.
 
 Port of what a round of ``koordinator_tpu/ops/solver.py:assign`` does
-after nomination, LoadAware branch (:1204-1452). :func:`round_tail`
-launches the hand-written kernel of ``csrc/round.cu`` on CUDA tensors and
+after nomination, LoadAware branch (:1204-1452) with the quota commit and
+the NUMA zone selection (:1275-1332, :1417-1432). :func:`round_tail`
+launches the hand-written kernel of ``csrc/round.cuh`` (entries
+``round.cu``, ``round_zone.cu``, ``round_big.cu``) on CUDA tensors and
 runs :func:`round_tail_plain` (:func:`_choose`, :func:`_commit_inputs`,
-:func:`commit_plain` and the carry update) on CPU tensors.
+:func:`commit_plain`, :func:`zone_phase_plain`, :func:`zone_charge_plain`
+and the carry update) on CPU tensors.
 :func:`segment_sum_plain` is the ``jax.ops.segment_sum`` of the plain
 ``enforce_gangs`` (``ops/solver.py:enforce_gangs_plain``); its kernel
 counterpart is part of ``csrc/gangs.cu``.
@@ -24,12 +27,17 @@ bit-identical to the reference when it runs on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import kernels
 from . import quota as quota_ops
 from .masks import EPS, usage_percent
+from .numa import POLICY_SINGLE_NUMA_NODE, zone_pick
+
+#: zone-needing winners resolved a node a round (``solver.py:603-609``)
+ZONE_WINNERS_PER_ROUND = 4
 
 
 #: chunk length of XLA's CPU rewrite of a cumulative sum
@@ -133,9 +141,69 @@ def _commit_inputs(node_key, req, est, is_prod, cpu_bind, cpu_amp, n: int):
     )
 
 
+def zone_phase_plain(snode, is_start, sreq, accept, zone):
+    """The round's zone selection (``solver.py:1275-1332``) on the sorted
+    rows: a row is a zone candidate on a node with zones when its node is
+    SINGLE_NUMA_NODE, its pod cpuset-bound or required to align; the
+    candidates of a node past the first ``ZONE_WINNERS_PER_ROUND`` are
+    refused this round. Rank j = 0..3 then picks, one rank after another
+    (rank j sees the charges of the ranks before it, on a copy of the
+    table), the strategy-ordered zone of each rank-j candidate still
+    accepted; a candidate that must align and finds no zone is refused.
+    ``zone`` = (zone_free [N, Z, DN], zone_cap, policy [N] int8, zone_most
+    [N] bool, sorted cpu-bind flags, sorted required flags); ``sreq`` holds
+    the requests with CPU amplified for cpuset-bound pods, whose first DN
+    dims are the zone charge. Returns (accept, zone pick [P] int32, -1 for
+    none)."""
+    zone_free, zone_cap, policy, zone_most, s_bind, s_required = zone[:6]
+    n, _, dn = zone_cap.shape
+    gnode = torch.clamp(snode, max=n - 1).long()
+    node_single = policy == POLICY_SINGLE_NUMA_NODE
+    node_has_zones = torch.any(zone_cap.sum(dim=-1) > 0, dim=-1)
+    cand = (node_single[gnode] | s_bind | s_required) & node_has_zones[gnode]
+    cand_f = cand.to(torch.float32)
+    zrank = _segment_prefix_sums(cand_f[:, None], is_start)[:, 0] - cand_f
+    accept = accept & (~cand | (zrank < ZONE_WINNERS_PER_ROUND - 0.5))
+    req_eff = sreq[:, :dn]
+    strict = node_single[gnode] | s_required
+    zcap_g = zone_cap[gnode]
+    zmost_g = zone_most[gnode]
+    zf_t = zone_free.clone()
+    zsel = torch.full_like(snode, -1)
+    zone_ids = torch.arange(zone_cap.shape[1], device=snode.device)
+    for j in range(ZONE_WINNERS_PER_ROUND):
+        pick, fit = zone_pick(zf_t[gnode], zcap_g, req_eff, zmost_g)
+        sel = cand & (torch.abs(zrank - j) < 0.5) & accept
+        accept = accept & ~(sel & strict & ~fit)
+        win = sel & fit
+        zsel = torch.where(win, pick, zsel)
+        onehot = (zone_ids[None, :] == pick[:, None]) & win[:, None]
+        delta = onehot[:, :, None] * req_eff[:, None, :]
+        # one winner a node a rank: each node's sum is its one charge
+        zf_t = zf_t - segment_sum_plain(
+            delta, torch.where(win, gnode, n - 1), n)
+    return accept, zsel
+
+
+def zone_charge_plain(zone_free, snode, accept, zsel, sreq) -> None:
+    """The round's zone charges (``solver.py:1417-1432``): each final
+    winner's zone request (``sreq``'s first DN dims) off its picked zone,
+    ``zone_free - segment_sum(...)`` with each node's charges summed first
+    in sorted row order, then subtracted — the order XLA's CPU backend
+    gives the reference (``tests/test_torch_numa_solver.py``). In place on
+    ``zone_free`` [N, Z, DN]."""
+    n, nz, dn = zone_free.shape
+    zwin = torch.where(accept, zsel, -1)
+    onehot = (torch.arange(nz, device=zsel.device)[None, :]
+              == torch.clamp(zwin, 0, nz - 1)[:, None]) & (zwin >= 0)[:, None]
+    delta = onehot[:, :, None] * sreq[:, None, :dn]
+    seg_ids = torch.where(accept, snode, n - 1)
+    zone_free.copy_(zone_free - segment_sum_plain(delta, seg_ids, n))
+
+
 def commit_plain(
     snode, sreq, sest, sprod, alloc, fresh, thr, pthr,
-    requested, est_used, prod_used, round_quantum: float, admit=None,
+    requested, est_used, prod_used, round_quantum: float, admit=None, zone=None,
 ):
     """Plain PyTorch commit of one round. ``snode`` [P] int32 holds the
     nominated nodes stably sorted (N = none); ``sreq`` [P, D] the sorted
@@ -143,9 +211,13 @@ def commit_plain(
     cpu-bind pods; ``sest`` [P, D] and ``sprod`` [P] the sorted estimates
     and prod flags; ``thr``/``pthr`` the effective [N, D] thresholds.
     ``admit``, when given, maps the node acceptance (sorted order) to the
-    pods that also clear their quotas (``solver.py:1362-1370``). Returns
-    the final ``accept`` [P] bool in sorted order and adds the winners'
-    charges to ``requested``, ``est_used`` and ``prod_used`` in place."""
+    pods that also clear their quotas (``solver.py:1362-1370``). ``zone``,
+    when given, is :func:`zone_phase_plain`'s plus an [P] int32 buffer:
+    the zone selection runs on the fit acceptance, the winners' zone
+    charges land on its table and each sorted row's final zone (-1 for
+    none) is written into the buffer. Returns the final ``accept`` [P]
+    bool in sorted order and adds the winners' charges to ``requested``,
+    ``est_used`` and ``prod_used`` in place."""
     n = alloc.shape[0]
     gnode = torch.clamp(snode, max=n - 1).long()
     is_start = torch.ones_like(sprod)
@@ -159,6 +231,9 @@ def commit_plain(
     fresh_g = fresh[gnode]
     accept = snode < n
     accept &= torch.all(requested[gnode] + seg_req <= alloc_g + EPS, dim=-1)
+    zsel = None
+    if zone is not None:
+        accept, zsel = zone_phase_plain(snode, is_start, sreq, accept, zone)
     thr_g = thr[gnode]
     over = (thr_g > 0.0) & (usage_percent(est_used[gnode] + seg_est, alloc_g) > thr_g)
     accept &= ~(fresh_g & torch.any(over, dim=-1))
@@ -181,13 +256,16 @@ def commit_plain(
     _scatter_add_(
         (requested, est_used, prod_used), seg_ids, (sreq, sest, sprod_est)
     )
+    if zone is not None:
+        zone_charge_plain(zone[0], snode, accept, zsel, sreq)
+        zone[6].copy_(torch.where(accept, zsel, -1))
     return accept
 
 
 def round_tail_plain(
     top_cost, top_idx, req, est, is_prod, cpu_bind, cpu_amp,
     alloc, fresh, thr, pthr, requested, est_used, prod_used,
-    assigned, active, state, round_quantum: float, quota=None,
+    assigned, active, state, round_quantum: float, quota=None, zone=None,
 ) -> None:
     """Plain PyTorch round tail: everything a round of ``assign`` does
     after nomination (``solver.py:1204-1229``, the LoadAware commit
@@ -205,7 +283,13 @@ def round_tail_plain(
     clear their chains (:func:`.quota.quota_commit_plain`, ``used`` updated
     in place), only those are charged and assigned, the loop ends on a
     round that assigns nothing (``progress = any(final)``, :1446), and
-    ``gate`` becomes the next round's: active pods with quota headroom."""
+    ``gate`` becomes the next round's: active pods with quota headroom.
+
+    ``zone`` = (zone_free [N, Z, DN], zone_cap [N, Z, DN], policy [N]
+    int8, zone_most [N] bool, required [P] bool, pod_zone [P] int32) turns
+    on the zone selection (:func:`zone_phase_plain`): the winners' zone
+    charges come off ``zone_free`` in place and each winner's pick is
+    written into ``pod_zone`` (priority-sorted, -1 = none, :1432)."""
     if bool(state[0]):
         return
     n = alloc.shape[0]
@@ -214,6 +298,10 @@ def round_tail_plain(
         node_key, req, est, is_prod, cpu_bind, cpu_amp, n
     )
     admit = None
+    zone_s = None
+    if zone is not None:
+        zwin = torch.empty_like(assigned)
+        zone_s = zone[:4] + (cpu_bind[sortidx], zone[4][sortidx], zwin)
     if quota is not None:
         chain, runtime, used, gate = quota
 
@@ -226,10 +314,14 @@ def round_tail_plain(
 
     accept = commit_plain(
         snode, sreq, sest, sprod, alloc, fresh, thr, pthr,
-        requested, est_used, prod_used, round_quantum, admit,
+        requested, est_used, prod_used, round_quantum, admit, zone_s,
     )
     accepted = torch.zeros_like(accept)
     accepted[sortidx] = accept
+    if zone is not None:
+        upd = torch.empty_like(zwin)
+        upd[sortidx] = zwin
+        zone[5].copy_(torch.where(upd >= 0, upd, zone[5]))
     assigned.copy_(torch.where(accepted, choice, assigned))
     active &= assigned < 0
     state[1] += 1
@@ -244,25 +336,48 @@ _ROUND_DTYPES = (_F32, _I32, _F32, _F32, _BOOL, _BOOL, _F32, _F32, _BOOL, _F32,
                  _F32, _F32, _F32, _F32, _I32, _BOOL, _I32)
 
 
+@functools.lru_cache(maxsize=256)
+def route(index: int, p: int, d: int, q_cap: int, levels: int, dn: int) -> tuple:
+    """Which kernel takes a round of ``p`` pods at width ``d`` on device
+    ``index`` (``koord_round_route``; ``q_cap`` 0 without quotas, ``dn``
+    0 without zones): ("round" or "round_zone", 0) for the shared-memory
+    kernels, ("round_big", bytes of scratch) for the device-memory one,
+    ("round_big", 0) for a round none takes (more than 16,384 pods), which
+    that entry then refuses."""
+    lib = kernels.library("round_big")
+    where, nbytes = ctypes.c_int(0), ctypes.c_longlong(0)
+    with torch.cuda.device(index):
+        kernels.check(lib, lib.koord_round_route(p, d, int(q_cap > 0), q_cap, levels,
+                                                 int(dn > 0), dn, ctypes.byref(where),
+                                                 ctypes.byref(nbytes)), "round route")
+    if where.value != 0:
+        return "round_big", nbytes.value
+    return ("round_zone" if dn else "round"), 0
+
+
 def round_tail(
     top_cost, top_idx, req, est, is_prod, cpu_bind, cpu_amp,
     alloc, fresh, thr, pthr, requested, est_used, prod_used,
-    assigned, active, state, round_quantum: float, quota=None,
+    assigned, active, state, round_quantum: float, quota=None, zone=None,
 ) -> None:
-    """One round's tail on the tensors' device: one ``koord_round_tail``
-    launch (``csrc/round.cu``) for CUDA tensors, :func:`round_tail_plain`
-    for CPU tensors. Same arguments and in-place updates as
+    """One round's tail on the tensors' device: one launch of the round
+    tail kernel for CUDA tensors, :func:`round_tail_plain` for CPU
+    tensors. Same arguments and in-place updates as
     :func:`round_tail_plain`; on the card nothing is read back to the
     host. With ``quota`` the quota commit (the branch ``_quota_commit``
     takes for the table's shape) and the next round's gate are phases of
     the same launch, counted also as ``quota_commit_onehot`` or
-    ``quota_commit_sorted``; the kernel takes such a round up to 4,096
-    pods and refuses a larger one."""
+    ``quota_commit_sorted``; with ``zone`` the zone selection and charges,
+    counted also as ``zone_phase``. The kernel is ``csrc/round.cu``'s (or
+    with zones ``round_zone.cu``'s) while the round fits in shared memory,
+    else ``round_big.cu``'s, its working set in a device buffer
+    (:func:`route`, counted also as ``round_tail_big``); up to 16,384
+    pods."""
     args = (top_cost, top_idx, req, est, is_prod, cpu_bind, cpu_amp,
             alloc, fresh, thr, pthr, requested, est_used, prod_used,
             assigned, active, state)
     if top_cost.is_cpu:
-        return round_tail_plain(*args, round_quantum, quota)
+        return round_tail_plain(*args, round_quantum, quota, zone)
     p, k = top_cost.shape
     n, d = alloc.shape
     if not 1 <= d <= 8:
@@ -282,13 +397,35 @@ def round_tail(
             (_F32, _I32, _F32, _F32, _BOOL),
             (pk, p * levels, q_cap * d, q_cap * d, p),
         )[1:]
-    lib = kernels.library("round")
-    code = lib.koord_round_tail(
-        *ptrs, ctypes.c_float(round_quantum), p, n, d, k, *q_ptrs, q_cap, levels,
-        kernels.stream_of(top_cost),
-    )
+    z_args = []
+    dn = 0
+    if zone is not None:
+        zone_free, zone_cap, policy, zone_most, required, pod_zone = zone
+        _, nz, dn = zone_cap.shape
+        if not (1 <= nz <= 8 and 1 <= dn <= min(4, d)) or zone_free.shape != zone_cap.shape:
+            raise ValueError(f"round_tail: zones [N, Z={nz}, DN={dn}] need Z <= 8, DN <= min(4, D)")
+        z_args = kernels.checked_ptrs(
+            "round_tail", (top_cost, zone_free, zone_cap, policy, zone_most, required, pod_zone),
+            (_F32, _F32, _F32, torch.int8, _BOOL, _BOOL, _I32),
+            (pk, n * nz * dn, n * nz * dn, n, n, p, p),
+        )[1:] + [nz, dn]
+    name, nbytes = route(top_cost.get_device(), p, d, q_cap, levels, dn)
+    lib = kernels.library(name)
+    stream = kernels.stream_of(top_cost)
+    common = (*ptrs, ctypes.c_float(round_quantum), p, n, d, k, *q_ptrs, q_cap, levels)
+    if name == "round":
+        code = lib.koord_round_tail(*common, stream)
+    elif name == "round_zone":
+        code = lib.koord_round_tail_zone(*common, *z_args, stream)
+    else:
+        buf = kernels.scratch(top_cost.device, nbytes).data_ptr() if nbytes else None
+        code = lib.koord_round_tail_big(*common, *(z_args or [None] * 6 + [0, 0]), buf, stream)
     kernels.check(lib, code, "round_tail")
     kernels.count("round_tail")
+    if name == "round_big":
+        kernels.count("round_tail_big")
     if quota is not None:
         branch = "onehot" if quota_ops.onehot_branch(q_cap, d) else "sorted"
         kernels.count(f"quota_commit_{branch}")
+    if zone is not None:
+        kernels.count("zone_phase")

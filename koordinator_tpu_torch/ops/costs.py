@@ -61,3 +61,54 @@ def load_aware_cost_cols(
     if metric_fresh is not None:
         score = torch.where(metric_fresh, score, 0.0)
     return -score
+
+
+def numa_aligned_cost(
+    pod_req: torch.Tensor,
+    wants_numa: torch.Tensor,
+    zone_free: torch.Tensor,
+    zone_cap: torch.Tensor,
+    weights: torch.Tensor,
+    most_allocated: bool = False,
+) -> torch.Tensor:
+    """NUMA-aligned Least/MostAllocated score → cost [P, N]
+    (``costs.py:212-263``): each pod's request goes into the zone the host
+    allocator would pick — the fitting zone (request within 1e-6 of its
+    free room in every dim, some capacity) of least ``(used0 + 1) /
+    (cap0 + 1)``, the first on ties — and the node scores on that zone's
+    requested/allocatable with the integer-floor per-dim score, 0 where a
+    dim is over capacity or has none. Pods that do not want alignment, and
+    pairs with no fitting zone, score 0. ``zone_free``/``zone_cap``
+    [N, Z, DN]; the first DN of ``pod_req``'s dims and ``weights``' are
+    used. The per-dim and per-zone sums run in index order."""
+    dn = zone_cap.shape[-1]
+    req = pod_req[:, :dn]                                          # [P, DN]
+    real = torch.any(zone_cap > 0, dim=-1)                         # [N, Z]
+    fits = torch.all(req[:, None, None, :] <= zone_free[None] + 1e-6, dim=-1) & real[None]
+    used = zone_cap - zone_free                                    # [N, Z, DN]
+    util = (used[..., 0] + 1.0) / (zone_cap[..., 0] + 1.0)         # [N, Z]
+    key = torch.where(fits, util[None], torch.inf)                 # [P, N, Z]
+    best = key.min(dim=-1).values
+    zstar = (key == best[..., None]).to(torch.int8).argmax(dim=-1)  # first on ties
+    has_zone = torch.any(fits, dim=-1)
+    idx = zstar[..., None, None].expand(-1, -1, 1, dn)
+    used_z = torch.gather(used[None].expand(req.shape[0], -1, -1, -1), 2, idx)[:, :, 0]
+    cap_z = torch.gather(zone_cap[None].expand(req.shape[0], -1, -1, -1), 2, idx)[:, :, 0]
+    after = used_z + req[:, None, :]
+    if most_allocated:
+        raw = torch.floor(after * 100.0 / (cap_z + _SAFE))
+    else:
+        raw = torch.floor((cap_z - after) * 100.0 / (cap_z + _SAFE))
+    per_dim = torch.where((cap_z > 0) & (after <= cap_z + 1e-6), raw, 0.0)
+    w = weights[:dn]
+    wsum = w[0]
+    for d in range(1, dn):
+        wsum = wsum + w[d]
+    wsum = wsum + _SAFE
+    terms = per_dim * w
+    total = terms[..., 0]
+    for d in range(1, dn):
+        total = total + terms[..., d]
+    score = torch.floor(total / wsum)
+    score = torch.where(wants_numa[:, None] & has_zone, score, 0.0)
+    return -score

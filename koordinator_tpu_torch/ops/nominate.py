@@ -17,13 +17,15 @@ promise, so neither path uses it.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from .. import kernels
-from .costs import load_aware_cost
+from .costs import load_aware_cost, numa_aligned_cost
 from .masks import EPS, fit_mask, usage_ok
+from .numa import checked_zones, numa_fit_mask
 
 
 def _jitter_hash(pi: torch.Tensor, ni: torch.Tensor) -> torch.Tensor:
@@ -82,58 +84,130 @@ def nomination_vector(top_cost, top_idx, approx_topk: bool):
     )
 
 
-def add_jitter(cost, node_ids, nomination_jitter: float):
+def add_jitter(cost, node_ids, nomination_jitter: float, pods=None):
     """``cost`` [P, M] plus the 16-bit jitter of each (sorted pod position,
     original node id) pair, ``node_ids`` [P, M] or [1, M]
     (``solver.py:add_jitter`` :732-742 and ``add_jitter_cols`` :744-753):
-    a pair gets the same jitter on the full axis and in the shortlist."""
+    a pair gets the same jitter on the full axis and in the shortlist.
+    ``pods`` [P] holds the rows' pod positions (0..P-1 by default)."""
     if nomination_jitter <= 0.0:
         return cost
-    pi = torch.arange(cost.shape[0], device=cost.device)[:, None]
-    h = _jitter_hash(pi, node_ids)
+    if pods is None:
+        pods = torch.arange(cost.shape[0], device=cost.device)
+    h = _jitter_hash(pods[:, None], node_ids)
     return cost + h.to(torch.float32) * (nomination_jitter / 65536.0)
+
+
+def zone_terms(req, cpu_bind, cpu_amp, weights, zones):
+    """The NUMA terms of every (pod, node) pair from ``zones`` (a
+    :class:`.numa.ZoneTerms`: the batch-start table): the [P, N] fit
+    (``solver.py:793-801``) and, with ``zones.scoring``, the [P, N] aligned
+    score term (``:802-815``), else None."""
+    wants = cpu_bind | zones.required
+    fit = numa_fit_mask(req, wants, zones.state(), cpu_amp=cpu_amp,
+                        pod_required=zones.required)
+    score = None
+    if zones.scoring:
+        score = numa_aligned_cost(req, wants, zones.free, zones.cap, weights,
+                                  most_allocated=zones.scoring == 2)
+    return fit, score
+
+
+#: pods a block of the plain [P, N] cost: its [rows, N, D] temporaries stay
+#: a few MB
+_COST_ROWS = 256
 
 
 def masked_cost(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
-    weights, nomination_jitter: float, mask=None,
+    weights, nomination_jitter: float, mask=None, zones=None,
 ):
     """[P, N] masked, jittered LoadAware cost (``full_feas_cost``
-    :864-947), +inf where a pair is infeasible."""
-    feas = feasible_mask(
-        req, est, is_prod, cpu_bind, gate,
-        alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr, mask,
-    )
-    cost = load_aware_cost(est, est_used, alloc, weights, metric_fresh=fresh)
-    nodes = torch.arange(alloc.shape[0], device=req.device)[None, :]
-    cost = add_jitter(cost, nodes, nomination_jitter)
-    return torch.where(feas, cost, torch.inf)
+    :864-947), +inf where a pair is infeasible; with ``zones`` (a
+    :class:`.numa.ZoneTerms`) the NUMA fit is one more feasibility term and
+    the aligned score is added before the jitter. Computed for the gated
+    pods only (a pod whose gate is closed prices every node +inf), a block
+    of ``_COST_ROWS`` pods at a time: each pair's arithmetic is the same."""
+    out = torch.full((req.shape[0], alloc.shape[0]), torch.inf, dtype=torch.float32,
+                     device=req.device)
+    for r, cost in _cost_blocks(
+            req, est, is_prod, cpu_bind, gate, alloc, requested, est_used, prod_used, fresh,
+            sched, cpu_amp, thr, pthr, weights, nomination_jitter, mask, zones):
+        out[r] = cost
+    return out
+
+
+def _cost_blocks(
+    req, est, is_prod, cpu_bind, gate,
+    alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
+    weights, nomination_jitter: float, mask=None, zones=None,
+):
+    """:func:`masked_cost`'s rows, a block of gated pods at a time: yields
+    (pod positions [B], their [B, N] cost)."""
+    n = alloc.shape[0]
+    rows = torch.nonzero(gate)[:, 0]
+    nodes = torch.arange(n, device=req.device)[None, :]
+    for at in range(0, rows.numel(), _COST_ROWS):
+        r = rows[at : at + _COST_ROWS]
+        feas = feasible_mask(
+            req[r], est[r], is_prod[r], cpu_bind[r], gate[r],
+            alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
+            None if mask is None else (mask[0], mask[1][r]),
+        )
+        cost = load_aware_cost(est[r], est_used, alloc, weights, metric_fresh=fresh)
+        if zones is not None:
+            part = dataclasses.replace(zones, required=zones.required[r])
+            fit, score = zone_terms(req[r], cpu_bind[r], cpu_amp, weights, part)
+            feas &= fit
+            if score is not None:
+                cost = cost + score
+        cost = add_jitter(cost, nodes, nomination_jitter, pods=r)
+        yield r, torch.where(feas, cost, torch.inf)
+
+
+def ordered_topk(cost, k: int):
+    """The ``k`` lowest (cost, index) pairs of each row of ``cost`` [P, M],
+    in that order — what ``jax.lax.top_k`` of the negated cost gives,
+    +inf entries ranked by index — as (values [P, k] float32, indices
+    [P, k] int32): k passes of a row minimum and the first index holding
+    it."""
+    taken = torch.zeros_like(cost, dtype=torch.bool)
+    vals, idx = [], []
+    for _ in range(k):
+        live = torch.where(taken, torch.inf, cost)
+        best = live.min(dim=1).values
+        first = ((live == best[:, None]) & ~taken).to(torch.int8).argmax(dim=1)
+        taken.scatter_(1, first[:, None], True)
+        vals.append(best)
+        idx.append(first)
+    return torch.stack(vals, 1).contiguous(), torch.stack(idx, 1).to(torch.int32)
 
 
 def nominate_plain(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
     weights, k: int, nomination_jitter: float, approx_topk: bool,
-    trigger=None, out=None, mask=None,
+    trigger=None, out=None, mask=None, zones=None,
 ):
     """Plain PyTorch nomination: the reference's formulas on [P, N]
     tensors. Pod tensors ([P, D] / [P]) are priority-sorted; node tables
     are [N, D] / [N]; ``thr``/``pthr`` are the effective [N, D] usage and
     prod thresholds. Returns (cost [P, k] float32, node [P, k] int32).
-    ``trigger``, ``out`` and ``mask`` are :func:`nominate`'s: with
+    ``trigger``, ``out``, ``mask`` and ``zones`` are :func:`nominate`'s: with
     ``trigger[0]`` clear nothing is computed and ``out`` is returned as it
     is; otherwise the result is written into ``out``."""
     if trigger is not None and not bool(trigger[0]):
         return out
-    cost = masked_cost(
-        req, est, is_prod, cpu_bind, gate, alloc, requested, est_used,
-        prod_used, fresh, sched, cpu_amp, thr, pthr, weights, nomination_jitter, mask,
-    )
-    vals, idx = torch.sort(cost, dim=1, stable=True)
-    top = nomination_vector(
-        vals[:, :k].contiguous(), idx[:, :k].to(torch.int32), approx_topk
-    )
+    # a closed gate prices every node +inf: its top-k is the first k ids
+    p = req.shape[0]
+    vals = torch.full((p, k), torch.inf, dtype=torch.float32, device=req.device)
+    idx = torch.arange(k, dtype=torch.int32, device=req.device).repeat(p, 1)
+    for r, cost in _cost_blocks(
+            req, est, is_prod, cpu_bind, gate, alloc, requested, est_used, prod_used, fresh,
+            sched, cpu_amp, thr, pthr, weights, nomination_jitter, mask, zones):
+        vals[r], idx[r] = ordered_topk(cost, k)
+    top = nomination_vector(vals, idx, approx_topk)
     if out is None:
         return top
     for buf, val in zip(out, top):
@@ -151,12 +225,13 @@ _DTYPES = (_F32, _F32, _BOOL, _BOOL, _BOOL, _F32, _F32, _F32, _F32, _BOOL, _BOOL
 
 def launch(lib, ptrs, p: int, n: int, d: int, k: int, nomination_jitter: float,
            approx_topk: bool, chunk: int, device, state_ptr=None, trigger_ptr=None,
-           out=None, mask_ptrs=(None, None)):
+           out=None, mask_ptrs=(None, None), zone_args=(None,) * 4 + (0, 0, 0)):
     """One ``koord_nominate`` call of ``lib`` on checked pointers, each
     block walking ``chunk`` nodes; with ``state_ptr`` (a round loop's state
     word) the kernels return at once once its ``done`` is set, with
     ``trigger_ptr`` (a shortlist round's word) while its trigger is clear;
-    ``mask_ptrs`` are the node mask's table and rows (:func:`checked_mask`).
+    ``mask_ptrs`` are the node mask's table and rows (:func:`checked_mask`),
+    ``zone_args`` the NUMA terms' (:func:`.numa.checked_zones`).
     Writes into ``out`` (cost, node) when given, checked buffers of
     [P, k]. Returns (cost [P, k], node [P, k], the C entry's error code)."""
     chunks = -(-n // chunk)
@@ -174,7 +249,7 @@ def launch(lib, ptrs, p: int, n: int, d: int, k: int, nomination_jitter: float,
         int(nomination_jitter > 0.0), int(approx_topk),
         part_cost.data_ptr(), part_idx.data_ptr(),
         out_cost.data_ptr(), out_idx.data_ptr(), state_ptr, trigger_ptr, *mask_ptrs,
-        kernels.stream_of(out_cost),
+        *zone_args, kernels.stream_of(out_cost),
     )
     return out_cost, out_idx, code
 
@@ -210,13 +285,14 @@ def checked(args, k: int) -> list:
 
 
 @functools.lru_cache(maxsize=256)
-def chunk_of(lib, p: int, n: int, d: int, k: int, index: int, masked: bool = False) -> int:
-    """Nodes each block of ``lib``'s kernel (its node-mask instantiation
-    when ``masked``) walks at this shape on device ``index``
-    (``koord_nominate_chunk``: one wave of resident blocks)."""
+def chunk_of(lib, p: int, n: int, d: int, k: int, index: int, mode: int = 0) -> int:
+    """Nodes each block of ``lib``'s kernel walks at this shape on device
+    ``index`` (``koord_nominate_chunk``: one wave of resident blocks), for
+    its instantiation ``mode``: 0 LoadAware only, 1 with a node mask, 2
+    with NUMA zones."""
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     chunk = ctypes.c_int(0)
-    kernels.check(lib, lib.koord_nominate_chunk(p, n, d, k, sms, int(masked),
+    kernels.check(lib, lib.koord_nominate_chunk(p, n, d, k, sms, int(mode),
                                                 ctypes.byref(chunk)),
                   "nominate chunk")
     return chunk.value
@@ -226,7 +302,7 @@ def nominate(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
     weights, k: int, nomination_jitter: float, approx_topk: bool, state=None,
-    trigger=None, out=None, mask=None,
+    trigger=None, out=None, mask=None, zones=None,
 ):
     """Round nomination on the tensors' device: the CUDA kernel for CUDA
     tensors, :func:`nominate_plain` for CPU tensors. Same arguments and
@@ -245,12 +321,14 @@ def nominate(
 
     ``mask`` holds the pods' hard node constraints (nodeSelector, required
     nodeAffinity, ``spec.nodeName``): (table [M, N] bool, rows [P] int64),
-    sorted pod j may use node n only where ``table[rows[j], n]``."""
+    sorted pod j may use node n only where ``table[rows[j], n]``. ``zones``
+    (a :class:`.numa.ZoneTerms`) adds the NUMA fit and, with its scoring,
+    the aligned score (the kernel's NUMA instantiation, D <= 8)."""
     args = (req, est, is_prod, cpu_bind, gate, alloc, requested, est_used,
             prod_used, fresh, sched, cpu_amp, thr, pthr, weights)
     if req.is_cpu:
         return nominate_plain(*args, k, nomination_jitter, approx_topk,
-                              trigger=trigger, out=out, mask=mask)
+                              trigger=trigger, out=out, mask=mask, zones=zones)
     ptrs = checked(args, k)
     p, d = req.shape
     n = alloc.shape[0]
@@ -259,10 +337,14 @@ def nominate(
         (_F32, torch.int32, torch.int32, _F32, torch.int32), (p * d, 2, 4, p * k, p * k),
     )
     lib = kernels.library("nominate")
-    chunk = chunk_of(lib, p, n, d, k, req.get_device(), mask is not None)
+    mode = 2 if zones is not None else int(mask is not None)
+    if mode == 2 and d > 8:
+        raise ValueError(f"nominate: D={d} with NUMA zones must be in 1..8")
+    chunk = chunk_of(lib, p, n, d, k, req.get_device(), mode)
     out_cost, out_idx, code = launch(
         lib, ptrs, p, n, d, k, nomination_jitter, approx_topk, chunk, req.device,
         extra[1], extra[2], out, checked_mask("nominate", mask, p, n),
+        checked_zones("nominate", zones, p, n, d),
     )
     kernels.check(lib, code, "nominate")
     kernels.count("nominate")

@@ -3,8 +3,11 @@
 Port of ``koordinator_tpu/ops/solver.py``'s LoadAware round solver
 (:func:`assign`, :679-1535) and its streams (:func:`solve_stream`,
 :1671-1733, and the scheduler's :func:`solve_stream_full`, :1748-1855),
-with ElasticQuota admission (``quotas``: :mod:`.quota`) and the pods' hard
-node constraints (``node_mask``), :func:`enforce_gangs` (:1858-1987, the
+with ElasticQuota admission (``quotas``: :mod:`.quota`), the pods' hard
+node constraints (``node_mask``) and NUMA zones (``numa``: :mod:`.numa`,
+the zone fit and aligned score in every pricing kernel, the zone pick in
+the round tail, the zone refund in the rollback, the zone table carried
+through a stream), :func:`enforce_gangs` (:1858-1987, the
 CUDA kernel ``csrc/gangs.cu`` on the card, one launch a batch), the
 candidate shortlist (:func:`shortlist_plan`, :1547-1657) and the
 resident-row helpers :func:`scatter_rows` / :func:`gather_rows`
@@ -43,7 +46,9 @@ cloned first and never written).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -53,6 +58,7 @@ from . import commit as commit_ops
 from . import nominate as nominate_ops
 from . import quota as quota_ops
 from . import shortlist as shortlist_ops
+from .numa import SCORING, NumaState, ZoneTerms
 from .commit import _segment_prefix_sums  # noqa: F401  (reference name)
 from .masks import effective_thresholds
 from .nominate import _jitter_hash  # noqa: F401  (reference name)
@@ -255,8 +261,11 @@ class SolverParams:
 @dataclass
 class SolveResult:
     """One solve's assignments plus its POST-COMMIT capacity tables,
-    ``solver.py:438-486``. The device and NUMA fields carry the
-    reference's placeholders: their slices are not ported yet.
+    ``solver.py:438-486``. With NUMA, ``node_zone_free`` [N, Z, DN] is the
+    zone table, ``pod_zone`` [P] each pod's zone (-1 none) and
+    ``pod_zone_charge`` [P, DN] what it charged; without, the reference's
+    placeholders ([N, 1, 1] zeros, -1, [P, 1] zeros). The device fields
+    carry the reference's placeholders: their slice is not ported yet.
     ``shortlist_fallbacks`` [2] int32 counts the shortlist rounds that fell
     back to the full axis (bound, exhausted); zeros with the shortlist
     off."""
@@ -323,8 +332,10 @@ _ROUND_FIELDS = ("requests", "estimate", "is_prod", "valid", "qos")
 _SOLVE_FIELDS = _ROUND_FIELDS + ("priority", "gang_id", "gang_min", "gang_nonstrict")
 
 
-def _with_quota(fields, quota: bool):
-    return fields + ("quota_chain",) if quota else fields
+def _with_quota(fields, quota: bool, numa: bool = False):
+    """``fields`` and, with quotas, the chains; with NUMA, the pods'
+    ``numa_required`` flags."""
+    return fields + (("quota_chain",) if quota else ()) + (("numa_required",) if numa else ())
 
 
 def _only(pods: PodBatch, fields, fn) -> PodBatch:
@@ -337,14 +348,14 @@ def _only(pods: PodBatch, fields, fn) -> PodBatch:
 
 
 def _round_setup(pods: PodBatch, nodes: NodeState, params: SolverParams, thresholds=None,
-                 quota: bool = False):
+                 quota: bool = False, numa: bool = False):
     """What stays fixed over a batch's rounds: the priority order, the
     sorted pods (only the fields the rounds read, with ``quota`` the
-    chains too; the others are None), their cpu-bind flags and the
-    effective thresholds (``thresholds`` when the caller has them: they do
-    not change within a stream)."""
+    chains too, with ``numa`` the required flags; the others are None),
+    their cpu-bind flags and the effective thresholds (``thresholds`` when
+    the caller has them: they do not change within a stream)."""
     order = _priority_order(pods)
-    spods = _only(pods, _with_quota(_ROUND_FIELDS, quota), lambda a: a[order])
+    spods = _only(pods, _with_quota(_ROUND_FIELDS, quota, numa), lambda a: a[order])
     thr, pthr = thresholds or _effective_thresholds(nodes, params)
     return order, spods, _cpu_bind(spods), thr, pthr
 
@@ -355,14 +366,35 @@ def _priority_order(pods: PodBatch) -> torch.Tensor:
 
 
 _NOT_PORTED = {
-    "numa": "queue 1 item 9 (NUMA)",
-    "devices": "queue 1 item 10 (devices)",
-    "dev_carry": "queue 1 item 10 (devices)",
-    "numa_carry": "queue 1 item 9 (NUMA)",
-    "numa_scoring": "queue 1 item 9 (NUMA)",
-    "device_scoring": "queue 1 item 10 (devices)",
-    "cost_transform": "queue 1 item 13 (score terms and transformers)",
+    "devices": "queue 1 item 2 (devices)",
+    "dev_carry": "queue 1 item 2 (devices)",
+    "device_scoring": "queue 1 item 2 (devices)",
+    "cost_transform": "queue 1 item 5 (transformers and cost_transform)",
 }
+
+
+def _zone_most(numa: NumaState) -> torch.Tensor:
+    """The nodes' MostAllocated zone-pick flags: ``zone_most``, or False
+    everywhere when it is None (``solver.py:785-789``)."""
+    if numa.zone_most is not None:
+        return numa.zone_most
+    return torch.zeros(numa.policy.shape, dtype=torch.bool, device=numa.policy.device)
+
+
+def _scoring(numa_scoring) -> int:
+    """``ZoneTerms.scoring`` of a ``numa_scoring`` option; raises for one
+    the reference does not know."""
+    if numa_scoring not in SCORING:
+        raise ValueError(f"numa_scoring={numa_scoring!r}: expected one of {list(SCORING)}")
+    return SCORING[numa_scoring]
+
+
+def _zones_of(numa, zone_free, numa_scoring):
+    """``_assign_``'s ``zones`` for a NumaState whose carried table is
+    ``zone_free`` (updated in place), or None without NUMA."""
+    if numa is None:
+        return None
+    return (zone_free, numa.zone_cap, numa.policy, _zone_most(numa), _scoring(numa_scoring))
 
 
 def _reject_unported(**options) -> None:
@@ -411,11 +443,17 @@ def assign(
     ElasticQuota admission along each pod's ``quota_chain``
     (``SolveResult.quota_used`` is the post-commit table); ``node_mask``
     [P, N] bool holds the pods' hard node constraints (nodeSelector,
-    required nodeAffinity, ``spec.nodeName``). Options of other slices
-    raise ``NotImplementedError``."""
+    required nodeAffinity, ``spec.nodeName``). ``numa`` (a
+    :class:`.numa.NumaState`) turns on the NUMA zones: the fit under each
+    node's topology policy and, with ``numa_scoring`` ("LeastAllocated" or
+    "MostAllocated"), the aligned score, both from the table as the batch
+    began (``numa_carry`` [N, Z, DN] in place of ``numa.zone_free`` when
+    given), and the zone pick of each winner in the round tail;
+    ``SolveResult.node_zone_free``, ``pod_zone`` and ``pod_zone_charge``
+    then hold the post-commit table, the picks and their charges. Options
+    of other slices raise ``NotImplementedError``."""
     _reject_unported(
-        numa=numa, devices=devices, dev_carry=dev_carry, numa_carry=numa_carry,
-        numa_scoring=numa_scoring, device_scoring=device_scoring,
+        devices=devices, dev_carry=dev_carry, device_scoring=device_scoring,
         cost_transform=cost_transform,
     )
     p, d = pods.requests.shape
@@ -428,11 +466,20 @@ def assign(
         prod_used=nodes.prod_used.clone(),
     )
     quota = None if quotas is None else (quotas.runtime, quotas.used.clone())
-    assignment, rounds, fallbacks = _assign_(
+    zone_free = None
+    if numa is not None:
+        zone_free = (numa.zone_free if numa_carry is None else numa_carry).clone()
+    assignment, rounds, fallbacks, pod_zone, zone_charge = _assign_(
         pods, tables, params, max_rounds=max_rounds, round_quantum=round_quantum,
         topk=topk, nomination_jitter=nomination_jitter, approx_topk=approx_topk,
         shortlist_k=shortlist_k, quota=quota, node_mask=node_mask,
+        zones=_zones_of(numa, zone_free, numa_scoring),
     )
+    if numa is None:
+        # no zone is picked without NUMA, so no rollback writes one
+        zone_free = torch.zeros((n, 1, 1), dtype=torch.float32, device=dev)
+        pod_zone = torch.full((p,), -1, dtype=torch.int32, device=dev)
+        zone_charge = torch.zeros((p, 1), dtype=torch.float32, device=dev)
     return SolveResult(
         assignment=assignment,
         node_requested=tables.requested,
@@ -443,10 +490,9 @@ def assign(
         node_dev_slots=torch.zeros((n, 1), dtype=torch.float32, device=dev),
         node_rdma_free=torch.zeros((n,), dtype=torch.float32, device=dev),
         node_fpga_free=torch.zeros((n,), dtype=torch.float32, device=dev),
-        node_zone_free=torch.zeros((n, 1, 1), dtype=torch.float32, device=dev),
-        # no zone is picked without NUMA, so no rollback writes one
-        pod_zone=torch.full((p,), -1, dtype=torch.int32, device=dev),
-        pod_zone_charge=torch.zeros((p, 1), dtype=torch.float32, device=dev),
+        node_zone_free=zone_free,
+        pod_zone=pod_zone,
+        pod_zone_charge=zone_charge,
         shortlist_fallbacks=(
             torch.zeros((2,), dtype=torch.int32, device=dev)
             if fallbacks is None else fallbacks
@@ -468,12 +514,15 @@ def _assign_(
     quota=None,
     node_mask=None,
     mask_base=None,
+    zones=None,
 ):
     """:func:`assign`'s rounds and gang rollback with ``nodes``' tables
     (``requested``, ``estimated_used``, ``prod_used``) updated in place.
     Returns (assignment [P] int32, rounds_used [] int32, the shortlist's
-    fallback counts [2] int32 or None with the shortlist off). Reads
-    nothing back to the host on the card, so a CUDA graph can capture it.
+    fallback counts [2] int32 or None with the shortlist off, and with
+    ``zones`` the pods' zone picks [P] int32 and zone charges [P, DN], else
+    None and None). Reads nothing back to the host on the card, so a CUDA
+    graph can capture it.
 
     With the shortlist on, the build runs once, from the tables as they
     are before the first round; each trip then runs the shortlist round,
@@ -489,12 +538,19 @@ def _assign_(
     any [..., N]) holds the pods' node constraints: sorted pod j reads row
     ``order[j]``, plus ``mask_base * P`` when ``mask_base`` (a [1] int64
     tensor on the device: a stream's batch index into its stacked
-    [C, P, N] mask) is given. The mask is read in place, never copied."""
+    [C, P, N] mask) is given. The mask is read in place, never copied.
+
+    ``zones`` = (zone_free [N, Z, DN], zone_cap, policy, zone_most,
+    scoring) turns on the NUMA zones: the pricing reads a copy of
+    ``zone_free`` taken before the first round (the reference prices from
+    the batch-start table, ``solver.py:771-818``), the round tails pick
+    the winners' zones and charge ``zone_free`` in place, and the gang
+    rollback refunds the rolled-back pods' zone charges."""
     p = pods.requests.shape[0]
     n = nodes.allocatable.shape[0]
     dev = nodes.allocatable.device
     order, spods, bind_mask, thr, pthr = _round_setup(
-        pods, nodes, params, thresholds, quota is not None
+        pods, nodes, params, thresholds, quota is not None, zones is not None
     )
     k = min(topk, n)
     mask = None
@@ -516,11 +572,18 @@ def _assign_(
         gate = torch.empty_like(active)
         quota_ops.quota_gate(active, spods.requests, spods.quota_chain, runtime, used, gate)
         round_quota = (spods.quota_chain, runtime, used, gate)
+    terms = round_zone = None
+    if zones is not None:
+        zone_free, zone_cap, policy, zone_most, scoring = zones
+        terms = ZoneTerms(free=zone_free.clone(), cap=zone_cap, policy=policy,
+                          required=spods.numa_required, scoring=scoring)
+        azone = torch.full((p,), -1, dtype=torch.int32, device=dev)
+        round_zone = (zone_free, zone_cap, policy, zone_most, spods.numa_required, azone)
     fallbacks = None
     if _shortlist_on(shortlist_k, topk, n):
         plan = shortlist_ops.shortlist_build(
             spods.requests, spods.estimate, spods.is_prod, bind_mask, *node_args,
-            shortlist_k, nomination_jitter, mask,
+            shortlist_k, nomination_jitter, mask, zones=terms,
         )
         # one word a trip: trip t is round t while the loop runs
         words = torch.zeros((max_rounds, shortlist_ops.WORD), dtype=torch.int32, device=dev)
@@ -534,26 +597,31 @@ def _assign_(
         if fallbacks is None:
             top_cost, top_idx = nominate_ops.nominate(
                 *pod_args, *node_args, k, nomination_jitter, approx_topk, state=state,
-                mask=mask,
+                mask=mask, zones=terms,
             )
         else:
             top = shortlist_ops.shortlist_round(
                 *pod_args, *node_args, *plan, k, nomination_jitter, approx_topk,
-                words[t], fallbacks, state, mask,
+                words[t], fallbacks, state, mask, zones=terms,
             )
             top_cost, top_idx = nominate_ops.nominate(
                 *pod_args, *node_args, k, nomination_jitter, approx_topk, state=state,
-                trigger=words[t], out=top, mask=mask,
+                trigger=words[t], out=top, mask=mask, zones=terms,
             )
         commit_ops.round_tail(
             top_cost, top_idx, spods.requests, spods.estimate, spods.is_prod,
             bind_mask, nodes.cpu_amp, nodes.allocatable, nodes.metric_fresh,
             thr, pthr, requested, est_used, prod_used, assigned, active, state,
-            round_quantum, round_quota,
+            round_quantum, round_quota, round_zone,
         )
 
     # back to original pod order: assignment[order[j]] = assigned[j]
     assignment = torch.empty_like(assigned).scatter_(0, order, assigned)
+    pod_zone = zone_charge = None
+    if zones is not None:
+        pod_zone = torch.empty_like(azone).scatter_(0, order, azone)
+        zone_charge = _zone_charges(pods, nodes.cpu_amp, assignment, pod_zone,
+                                    zones[0].shape[-1])
     # the assignment is fresh and the tables are the caller's to update:
     # roll back in place
     _enforce_gangs_(
@@ -561,10 +629,23 @@ def _assign_(
             assignment=assignment, node_requested=requested,
             node_estimated_used=est_used, node_prod_used=prod_used,
             quota_used=None if quota is None else quota[1], rounds_used=None,
+            node_zone_free=None if zones is None else zones[0], pod_zone=pod_zone,
+            pod_zone_charge=zone_charge,
         ),
         pods,
     )
-    return assignment, state[1].clone(), fallbacks
+    return assignment, state[1].clone(), fallbacks, pod_zone, zone_charge
+
+
+def _zone_charges(pods: PodBatch, cpu_amp, assignment, pod_zone, dn: int) -> torch.Tensor:
+    """[P, DN] the zone charge each zoned pod applied (``solver.py:1500-1516``):
+    its zone-scoped request, CPU times ``max(cpu_amp, 1)`` of its node for
+    cpuset-bound pods, zero where it holds no zone."""
+    n = cpu_amp.shape[0]
+    amp = torch.clamp(cpu_amp, min=1.0)[torch.clamp(assignment, 0, n - 1).long()]
+    charge = pods.requests[:, :dn].clone()
+    charge[:, 0] = charge[:, 0] * torch.where(_cpu_bind(pods), amp, 1.0)
+    return torch.where((pod_zone >= 0)[:, None], charge, 0.0)
 
 
 def solve_stream(
@@ -607,8 +688,8 @@ def solve_stream(
     kw = dict(max_rounds=max_rounds, round_quantum=round_quantum, topk=topk,
               nomination_jitter=nomination_jitter, approx_topk=approx_topk,
               shortlist_k=shortlist_k)
-    tables, (asg, placed, rounds, fallbacks), qused = _run_stream(
-        pods_stacked, nodes, params, quotas, None, kw, cuda_graph
+    tables, (asg, placed, rounds, fallbacks, _), qused, _ = _run_stream(
+        pods_stacked, nodes, params, quotas, None, None, kw, cuda_graph
     )
     _copy_out(rounds, fallbacks, rounds_out, fallbacks_out)
     final = dataclasses.replace(
@@ -640,22 +721,26 @@ def solve_stream_full(
     node_mask=None,
     shortlist_k=None,
     cuda_graph: bool = True,
+    zone_free_out: "torch.Tensor | None" = None,
 ):
     """The scheduler's stream (``solver.py:1748-1855``): chunks of a
     [C, P, ...] stacked :class:`PodBatch` solved one after another,
-    threading node capacity and the quota table, with ``node_mask``
-    [C, P, N] bool the chunks' hard node constraints (None: none).
+    threading node capacity, the quota table and, with ``numa`` (a
+    :class:`.numa.NumaState`), the zone table, with ``node_mask``
+    [C, P, N] bool the chunks' hard node constraints (None: none) and
+    ``numa_scoring`` the aligned score (:func:`assign`'s).
 
     Returns ``(assignments [C, P], pod_zones [C, P], rounds [C],
     shortlist_fallbacks [C, 2])``, the fallback counts zeros with the
-    shortlist off. ``pod_zones`` is all -1: no zone is picked without NUMA
-    (ROADMAP queue 1 item 9, as ``numa``, ``devices`` and their scoring
-    are). On CUDA tensors each chunk is one CUDA graph replay, as in
-    :func:`solve_stream`; chunk c's pods read rows ``c * P + order`` of the
-    stacked mask through the graph's device index, so the mask is never
-    copied."""
-    _reject_unported(numa=numa, devices=devices, numa_scoring=numa_scoring,
-                     device_scoring=device_scoring)
+    shortlist off, ``pod_zones`` each pod's zone pick (-1 for none; all -1
+    without NUMA). On CUDA tensors each chunk is one CUDA graph replay, as
+    in :func:`solve_stream`; chunk c's pods read rows ``c * P + order`` of
+    the stacked mask through the graph's device index, so the mask is
+    never copied, and the zone table is one more static buffer of the
+    graph. ``zone_free_out``, an [N, Z, DN] float32 tensor, receives the
+    zone table after the last chunk (the reference keeps it in the scan's
+    carry)."""
+    _reject_unported(devices=devices, device_scoring=device_scoring)
     c, p = pods_stacked.requests.shape[:2]
     n = nodes.allocatable.shape[0]
     if node_mask is not None and tuple(node_mask.shape) != (c, p, n):
@@ -663,12 +748,19 @@ def solve_stream_full(
     kw = dict(max_rounds=max_rounds, round_quantum=round_quantum, topk=topk,
               nomination_jitter=nomination_jitter, approx_topk=approx_topk,
               shortlist_k=shortlist_k)
-    _, (asg, _, rounds, fallbacks), _ = _run_stream(
-        pods_stacked, nodes, params, quotas, node_mask, kw, cuda_graph
+    if numa is not None:
+        _scoring(numa_scoring)
+        kw["numa_scoring"] = numa_scoring
+    _, (asg, _, rounds, fallbacks, zones), _, zone_free = _run_stream(
+        pods_stacked, nodes, params, quotas, node_mask, numa, kw, cuda_graph
     )
+    if zone_free_out is not None:
+        zone_free_out.copy_(zone_free)
     if fallbacks is None:
         fallbacks = torch.zeros((c, 2), dtype=torch.int32, device=asg.device)
-    return asg, torch.full_like(asg, -1), rounds, fallbacks
+    if zones is None:
+        zones = torch.full_like(asg, -1)
+    return asg, zones, rounds, fallbacks
 
 
 def _copy_out(rounds, fallbacks, rounds_out, fallbacks_out) -> None:
@@ -681,78 +773,89 @@ def _copy_out(rounds, fallbacks, rounds_out, fallbacks_out) -> None:
             fallbacks_out.copy_(fallbacks)
 
 
-def _run_stream(pods_stacked, nodes, params, quotas, node_mask, kw, cuda_graph):
+def _run_stream(pods_stacked, nodes, params, quotas, node_mask, numa, kw, cuda_graph):
     """The batches of a stream on the tensors' device: one CUDA graph
     replay a batch on the card (:class:`_StreamGraph`), else eagerly.
-    Returns fresh (tables, outputs, quota used table or None)."""
+    Returns fresh (tables, outputs, quota used table or None, zone table
+    or None)."""
     dev = nodes.allocatable.device
     b, p = pods_stacked.requests.shape[:2]
     if dev.type == "cuda" and cuda_graph:
-        return _StreamGraph.run(pods_stacked, nodes, params, quotas, node_mask, kw)
-    bufs = _StreamBuffers(nodes, quotas, b, p, kw)
+        return _StreamGraph.run(pods_stacked, nodes, params, quotas, node_mask, numa, kw)
+    bufs = _StreamBuffers(nodes, quotas, numa, b, p, kw)
     index = torch.arange(b, device=dev)
     thresholds = _effective_thresholds(nodes, params)
     for i in range(b):
-        _stream_step(pods_stacked, nodes, params, quotas, node_mask, thresholds, bufs,
+        _stream_step(pods_stacked, nodes, params, quotas, node_mask, numa, thresholds, bufs,
                      index[i : i + 1], kw)
-    return bufs.tables, bufs.outs, bufs.qused
+    return bufs.tables, bufs.outs, bufs.qused, bufs.zone_free
 
 
 class _StreamBuffers:
-    """A stream's state: its node tables and, with quotas, its quota used
-    table (copies of the inputs', updated in place batch by batch), and its
-    outputs: assignments [B, P], placed [B], rounds [B] and, with the
-    shortlist on (``kw``, the solver's arguments), its fallback counts
-    [B, 2] (None with it off)."""
+    """A stream's state: its node tables, with quotas its quota used table
+    and with NUMA its zone table (copies of the inputs', updated in place
+    batch by batch), and its outputs: assignments [B, P], placed [B],
+    rounds [B], with the shortlist on (``kw``, the solver's arguments) its
+    fallback counts [B, 2] and with NUMA its zone picks [B, P] (each None
+    without)."""
 
-    def __init__(self, nodes: NodeState, quotas, b: int, p: int, kw: dict):
+    def __init__(self, nodes: NodeState, quotas, numa, b: int, p: int, kw: dict):
         n = nodes.allocatable.shape[0]
         shortlist = _shortlist_on(kw["shortlist_k"], kw["topk"], n)
         dev = nodes.allocatable.device
         self.tables = [nodes.requested.clone(), nodes.estimated_used.clone(),
                        nodes.prod_used.clone()]
         self.qused = None if quotas is None else quotas.used.clone()
+        self.zone_free = None if numa is None else numa.zone_free.clone()
         self.outs = (
             torch.empty((b, p), dtype=torch.int32, device=dev),
             torch.empty((b,), dtype=torch.int32, device=dev),
             torch.empty((b,), dtype=torch.int32, device=dev),
             torch.empty((b, 2), dtype=torch.int32, device=dev) if shortlist else None,
+            None if numa is None else torch.empty((b, p), dtype=torch.int32, device=dev),
         )
 
-    def reset(self, nodes: NodeState, quotas) -> None:
+    def reset(self, nodes: NodeState, quotas, numa) -> None:
         """Back to the inputs' tables, in place."""
         for table, src in zip(self.tables, (nodes.requested, nodes.estimated_used,
                                             nodes.prod_used)):
             table.copy_(src)
         if self.qused is not None:
             self.qused.copy_(quotas.used)
+        if self.zone_free is not None:
+            self.zone_free.copy_(numa.zone_free)
 
 
-def _stream_step(pods_stacked, nodes, params, quotas, node_mask, thresholds, bufs,
+def _stream_step(pods_stacked, nodes, params, quotas, node_mask, numa, thresholds, bufs,
                  index, kw) -> None:
     """Batch ``index`` ([1] int64 on the device) of a stream: its pods
     gathered from the stacked batch, solved with the stream's tables
-    (requested, estimated, prod; with quotas the used table) updated in
-    place and its effective ``thresholds``, its assignment, placed count,
-    rounds and fallback counts written into row ``index`` of the
-    outputs."""
-    fields = _with_quota(_SOLVE_FIELDS, quotas is not None)
+    (requested, estimated, prod; with quotas the used table; with NUMA the
+    zone table) updated in place and its effective ``thresholds``, its
+    assignment, placed count, rounds, fallback counts and zone picks
+    written into row ``index`` of the outputs."""
+    fields = _with_quota(_SOLVE_FIELDS, quotas is not None, numa is not None)
     pods = _only(pods_stacked, fields, lambda a: a.index_select(0, index)[0])
     tables = bufs.tables
     cur = dataclasses.replace(
         nodes, requested=tables[0], estimated_used=tables[1], prod_used=tables[2]
     )
-    assignment, rounds_used, fallbacks = _assign_(
+    kw = dict(kw)
+    zones = _zones_of(numa, bufs.zone_free, kw.pop("numa_scoring", None))
+    assignment, rounds_used, fallbacks, pod_zone, _ = _assign_(
         pods, cur, params, thresholds=thresholds,
         quota=None if quotas is None else (quotas.runtime, bufs.qused),
-        node_mask=node_mask, mask_base=None if node_mask is None else index, **kw,
+        node_mask=node_mask, mask_base=None if node_mask is None else index, zones=zones,
+        **kw,
     )
-    asg, placed, rounds, fb = bufs.outs
+    asg, placed, rounds, fb, zsel = bufs.outs
     asg.index_copy_(0, index, assignment[None])
     placed.index_copy_(0, index, (assignment >= 0).sum(dtype=torch.int32)[None])
     rounds.index_copy_(0, index, rounds_used[None])
     if fb is not None:
         fb.index_copy_(0, index, fallbacks[None])
+    if zsel is not None:
+        zsel.index_copy_(0, index, pod_zone[None])
 
 
 class _StreamGraph:
@@ -765,7 +868,9 @@ class _StreamGraph:
     thresholds (computed once a call, outside the graph), a device batch
     index that each replay advances, and static [B, P] / [B] / [B, 2]
     outputs. With the shortlist on, a batch's build, its words and counts
-    are inside the graph; with quotas, the gate of its round 0.
+    are inside the graph; with quotas, the gate of its round 0; with NUMA,
+    a static copy of the zone table (reset from the input's each call) and
+    [B, P] zone picks.
 
     A graph is kept for the last input it ran, keyed by the shapes, the
     solver arguments and the input tensors' addresses: a replay reads the
@@ -783,21 +888,22 @@ class _StreamGraph:
     _last: "_StreamGraph | None" = None
     _retired: list = []
 
-    def __init__(self, key, pods_stacked, nodes, params, quotas, node_mask, kw):
+    def __init__(self, key, pods_stacked, nodes, params, quotas, node_mask, numa, kw):
         dev = nodes.allocatable.device
         b, p = pods_stacked.requests.shape[:2]
         self.key = key
         self.nodes = nodes
         self.quotas = quotas
-        self.bufs = _StreamBuffers(nodes, quotas, b, p, kw)
+        self.numa = numa
+        self.bufs = _StreamBuffers(nodes, quotas, numa, b, p, kw)
         self.index = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.batches = b
         self.params = params
         self.thresholds = _effective_thresholds(nodes, params)
 
         def step():
-            _stream_step(pods_stacked, nodes, params, quotas, node_mask, self.thresholds,
-                         self.bufs, self.index, kw)
+            _stream_step(pods_stacked, nodes, params, quotas, node_mask, numa,
+                         self.thresholds, self.bufs, self.index, kw)
             self.index.add_(1)
 
         side = torch.cuda.Stream(device=dev)
@@ -817,7 +923,7 @@ class _StreamGraph:
         """Every batch once, from the node (and quota) tables and the
         thresholds of the call's inputs, into the static tables and
         outputs."""
-        self.bufs.reset(self.nodes, self.quotas)
+        self.bufs.reset(self.nodes, self.quotas, self.numa)
         for thr, src in zip(self.thresholds, _effective_thresholds(self.nodes, self.params)):
             thr.copy_(src)
         self.index.zero_()
@@ -825,14 +931,14 @@ class _StreamGraph:
         self.done.record()
 
     @classmethod
-    def run(cls, pods_stacked, nodes, params, quotas, node_mask, kw):
-        tensors = [getattr(obj, f.name) for obj in (pods_stacked, nodes, params, quotas)
+    def run(cls, pods_stacked, nodes, params, quotas, node_mask, numa, kw):
+        tensors = [getattr(obj, f.name) for obj in (pods_stacked, nodes, params, quotas, numa)
                    if obj is not None
                    for f in dataclasses.fields(obj) if getattr(obj, f.name) is not None]
         if node_mask is not None:
             tensors.append(node_mask)
         key = (
-            tuple(kw.items()), quotas is not None, node_mask is not None,
+            tuple(kw.items()), quotas is not None, node_mask is not None, numa is not None,
             tuple((t.data_ptr(), t.dtype, tuple(t.shape), t.stride()) for t in tensors),
         )
         last = cls._last
@@ -840,12 +946,14 @@ class _StreamGraph:
             if last is not None:
                 cls._retired.append(last)
             cls._retired = [g for g in cls._retired if not g.done.query()]
-            last = cls._last = cls(key, pods_stacked, nodes, params, quotas, node_mask, kw)
+            last = cls._last = cls(key, pods_stacked, nodes, params, quotas, node_mask, numa,
+                                   kw)
         last.replay()
         bufs = last.bufs
         return ([t.clone() for t in bufs.tables],
                 tuple(None if t is None else t.clone() for t in bufs.outs),
-                None if bufs.qused is None else bufs.qused.clone())
+                None if bufs.qused is None else bufs.qused.clone(),
+                None if bufs.zone_free is None else bufs.zone_free.clone())
 
 
 def enforce_gangs_plain(result: SolveResult, pods: PodBatch) -> SolveResult:
@@ -857,8 +965,13 @@ def enforce_gangs_plain(result: SolveResult, pods: PodBatch) -> SolveResult:
     disabled sentinel and stays), unless the gang is NonStrict. Refunds
     use the unamplified ``pods.requests`` in original pod order, as the
     reference does; the sums are ordered
-    (:func:`.commit.segment_sum_plain`). The plain version of
-    ``csrc/gangs.cu``; returns a new result."""
+    (:func:`.commit.segment_sum_plain`). With a zone table whose DN matches
+    ``pod_zone_charge``'s, the rolled-back pods that hold a zone give their
+    charge back to it, ``node_zone_free + segment_sum(...)`` added row by
+    row in pod order (:func:`.commit._scatter_add_`, the order XLA's CPU
+    backend gives the reference, :1941-1960), and lose their
+    ``pod_zone``. The plain version of ``csrc/gangs.cu``; returns a new
+    result."""
     p, d = pods.requests.shape
     n = result.node_requested.shape[0]
     assignment = result.assignment
@@ -886,6 +999,16 @@ def enforce_gangs_plain(result: SolveResult, pods: PodBatch) -> SolveResult:
         quota_used = quota_ops.quota_refund_plain(
             rollback, pods.requests, pods.quota_chain, quota_used
         )
+    zone_free = result.node_zone_free
+    if _zone_refund_on(result):
+        n_zones, dn = zone_free.shape[1:]
+        zref = rollback & (result.pod_zone >= 0)
+        onehot = (torch.arange(n_zones, device=zref.device)[None, :]
+                  == torch.clamp(result.pod_zone, 0, n_zones - 1)[:, None]) & zref[:, None]
+        delta_z = (onehot[:, :, None] * result.pod_zone_charge[:, None, :]).reshape(p, -1)
+        flat = zone_free.reshape(n, -1).clone()
+        commit_ops._scatter_add_((flat,), torch.where(zref, node_of, n - 1), (delta_z,))
+        zone_free = flat.reshape(zone_free.shape)
     return dataclasses.replace(
         result,
         assignment=torch.where(keep, assignment, -1),
@@ -893,6 +1016,7 @@ def enforce_gangs_plain(result: SolveResult, pods: PodBatch) -> SolveResult:
         node_estimated_used=result.node_estimated_used - delta[:, d : 2 * d],
         node_prod_used=result.node_prod_used - delta[:, 2 * d :],
         quota_used=quota_used,
+        node_zone_free=zone_free,
         pod_zone=(
             None
             if result.pod_zone is None
@@ -903,20 +1027,43 @@ def enforce_gangs_plain(result: SolveResult, pods: PodBatch) -> SolveResult:
 
 _GANG_FIELDS = (
     "assignment", "node_requested", "node_estimated_used", "node_prod_used",
-    "pod_zone", "quota_used",
+    "pod_zone", "quota_used", "node_zone_free",
 )
+
+
+def _zone_refund_on(result: SolveResult) -> bool:
+    """Whether the rollback refunds zone charges: a zone table, the picks
+    and charges of its DN (``solver.py:1941-1950``)."""
+    zf, charge = result.node_zone_free, result.pod_zone_charge
+    return (zf is not None and result.pod_zone is not None and charge is not None
+            and charge.shape[1] == zf.shape[2])
 _I32, _F32, _BOOL = torch.int32, torch.float32, torch.bool
 #: dtypes of koord_enforce_gangs' tensors, in its argument order
 _GANG_DTYPES = (_I32, _I32, _I32, _BOOL, _F32, _F32, _BOOL, _F32, _F32, _F32, _I32)
 
 
+@functools.lru_cache(maxsize=64)
+def _gangs_scratch_bytes(index: int, p: int, quota: bool) -> int:
+    """Bytes of device memory the rollback of ``p`` pods needs on device
+    ``index`` (0 while it fits in shared memory)."""
+    lib = kernels.library("gangs")
+    nbytes = ctypes.c_longlong(0)
+    with torch.cuda.device(index):
+        kernels.check(lib, lib.koord_gangs_scratch(p, int(quota), ctypes.byref(nbytes)),
+                      "enforce_gangs scratch")
+    return nbytes.value
+
+
 def _enforce_gangs_(result: SolveResult, pods: PodBatch) -> None:
     """Gang rollback in place on ``result``'s assignment, node tables,
-    ``pod_zone`` and ``quota_used``: one ``koord_enforce_gangs`` launch
-    (``csrc/gangs.cu``) for CUDA tensors, :func:`enforce_gangs_plain`
-    written into ``result``'s tensors for CPU tensors. The quota refund
-    runs when ``quota_used`` has Q > 1 rows (counted also as
-    ``quota_refund``)."""
+    ``pod_zone``, ``quota_used`` and ``node_zone_free``: one
+    ``koord_enforce_gangs`` launch (``csrc/gangs.cu``) for CUDA tensors,
+    :func:`enforce_gangs_plain` written into ``result``'s tensors for CPU
+    tensors. The quota refund runs when ``quota_used`` has Q > 1 rows
+    (counted also as ``quota_refund``), the zone refund when the result
+    holds a zone table and charges of its DN (counted also as
+    ``zone_refund``). A batch whose working set outgrows shared memory
+    runs with it in a device buffer."""
     asg = result.assignment
     if asg.is_cpu:
         out = enforce_gangs_plain(result, pods)
@@ -943,13 +1090,27 @@ def _enforce_gangs_(result: SolveResult, pods: PodBatch) -> None:
             "enforce_gangs", (asg, pods.quota_chain, result.quota_used),
             (_I32, _I32, _F32), (p, p * levels, q_cap * d),
         )[1:]
+    z_args = [None, None, 0, 0]
+    zones = _zone_refund_on(result)
+    if zones:
+        _, nz, dn = result.node_zone_free.shape
+        z_args = kernels.checked_ptrs(
+            "enforce_gangs", (asg, result.node_zone_free, result.pod_zone_charge),
+            (_I32, _F32, _F32), (p, n * nz * dn, p * dn),
+        )[1:] + [nz, dn]
     lib = kernels.library("gangs")
-    code = lib.koord_enforce_gangs(*ptrs, p, n, d, *q_ptrs, q_cap, levels,
+    nbytes = _gangs_scratch_bytes(asg.get_device(), p, refund)
+    buf = kernels.scratch(asg.device, nbytes).data_ptr() if nbytes else None
+    code = lib.koord_enforce_gangs(*ptrs, p, n, d, *q_ptrs, q_cap, levels, *z_args, buf,
                                    kernels.stream_of(asg))
     kernels.check(lib, code, "enforce_gangs")
     kernels.count("enforce_gangs")
+    if buf is not None:
+        kernels.count("enforce_gangs_big")
     if refund:
         kernels.count("quota_refund")
+    if zones:
+        kernels.count("zone_refund")
 
 
 def enforce_gangs(result: SolveResult, pods: PodBatch) -> SolveResult:
@@ -978,22 +1139,27 @@ def shortlist_plan(
     numa_scoring=None,
     device_scoring=None,
 ):
-    """The shortlist build as its own entry (``solver.py:1547-1657``),
-    LoadAware only: the round-0 masked cost with every pod gate open and
-    each pod's top-(K+1), ``node_mask`` [P, N] bool holding the pods' node
-    constraints. Returns ``(plan_cand [P, K] int32, candidates ascending
+    """The shortlist build as its own entry (``solver.py:1547-1657``): the
+    round-0 masked cost with every pod gate open and each pod's
+    top-(K+1), ``node_mask`` [P, N] bool holding the pods' node
+    constraints, ``numa`` (a :class:`.numa.NumaState`) the NUMA fit of its
+    ``zone_free`` and, with ``numa_scoring``, the aligned score. Returns ``(plan_cand [P, K] int32, candidates ascending
     by node id in the solver's priority-sorted pod order, plan_bound [P]
     float32, the (K+1)-th best build cost, +inf when the shortlist holds
     every feasible node)``. One launch of ``csrc/shortlist_build.cu`` on
     the card; :func:`assign` runs its own build inside the solve."""
-    _reject_unported(numa=numa, devices=devices, numa_scoring=numa_scoring,
-                     device_scoring=device_scoring)
-    order, spods, bind, thr, pthr = _round_setup(pods, nodes, params)
+    _reject_unported(devices=devices, device_scoring=device_scoring)
+    order, spods, bind, thr, pthr = _round_setup(pods, nodes, params, numa=numa is not None)
+    terms = None
+    if numa is not None:
+        terms = ZoneTerms(free=numa.zone_free, cap=numa.zone_cap, policy=numa.policy,
+                          required=spods.numa_required, scoring=_scoring(numa_scoring))
     return shortlist_ops.shortlist_build(
         spods.requests, spods.estimate, spods.is_prod, bind, nodes.allocatable,
         nodes.requested, nodes.estimated_used, nodes.prod_used, nodes.metric_fresh,
         nodes.schedulable, nodes.cpu_amp, thr, pthr, params.score_weights,
         shortlist_k, nomination_jitter, None if node_mask is None else (node_mask, order),
+        zones=terms,
     )
 
 

@@ -23,8 +23,15 @@ quota commit on both of ``_quota_commit``'s branches (Q·D = 1,024 and
 1,026 among them) at rounds of 1 to 4,096 pods, a round whose quotas
 refuse every pod, the gang rollback's quota refund (Q == 1 skipped), the
 three pricing kernels with a node mask (rows all false), and
-``solve_stream_full`` against the quota golden. Tolerance: none — the
-kernels round as the plain versions do, so results must be bitwise equal.
+``solve_stream_full`` against the quota golden. Above 4,096 pods: round
+tails of 4,097 to 16,384 pods at D = 1, 4 and 8 with the one-hot, sorted
+and 64-bit-key (Q = 300,000) trees, rollbacks of 8,192 to 20,000 pods in
+shared and device memory, and the big-batch golden. With NUMA zones: the
+three pricing kernels' NUMA instantiations at Z = 1, 2 and 4 under each
+scoring, the round tail's zone phase at 1 to 8,192 pods with and without
+quotas, the zone refund up to 16,384 pods, and ``solve_stream_full`` with
+the zone carry against the NUMA golden. Tolerance: none — the kernels
+round as the plain versions do, so results must be bitwise equal.
 """
 
 import numpy as np
@@ -275,9 +282,20 @@ def test_enforce_gangs_kernel_matches_plain(cuda, p, d, kind):
 
 
 def test_enforce_gangs_refuses_a_batch_too_large_for_one_block(cuda):
+    """A batch too large for one block's shared memory (20,000 pods) is no
+    longer refused: its working set goes to device memory, and the result
+    equals the plain version's."""
     result, pods = gang_inputs(1, 20_000, 100, 2, "all short")
-    with pytest.raises(RuntimeError, match="enforce_gangs: CUDA error"):
-        T._enforce_gangs_(solve_result(result, cuda), from_numpy(T.PodBatch, device=cuda, **pods))
+    got = solve_result(result, cuda)
+    before = kernels.launches["enforce_gangs_big"]
+    T._enforce_gangs_(got, from_numpy(T.PodBatch, device=cuda, **pods))
+    torch.cuda.synchronize()
+    assert kernels.launches["enforce_gangs_big"] == before + 1
+    want = T.enforce_gangs_plain(solve_result(result, "cpu"),
+                                 from_numpy(T.PodBatch, device="cpu", **pods))
+    for f in ("assignment", "pod_zone", "node_requested", "node_estimated_used", "node_prod_used"):
+        np.testing.assert_array_equal(bits(getattr(got, f).cpu().numpy()),
+                                      bits(getattr(want, f).numpy()), err_msg=f)
 
 
 @pytest.mark.parametrize("approx", [False, True])
@@ -570,15 +588,15 @@ def test_round_tail_quota_commit_matches_plain(cuda, p, q, d):
 
 
 def test_round_tail_quota_refuses_more_than_4096_pods(cuda):
-    """A quota round takes up to 4,096 pods (the JAX scheduler's batch
-    bucket); a larger one is refused with the CUDA error, not run."""
+    """A quota round of more than 4,096 pods (the JAX scheduler's batch
+    bucket) is no longer refused: it runs in the device-memory round tail
+    and equals the plain version."""
     arrays = round_inputs(4, 4097, 100, 2)
-    chain, runtime, used = quota_inputs(4, 4097, 21, 2)
-    dev = [torch.from_numpy(a).to(cuda) for a in arrays]
-    quota = [torch.from_numpy(a).to(cuda) for a in (chain, runtime, used)]
-    gate = torch.zeros(4097, dtype=torch.bool, device=cuda)
-    with pytest.raises(RuntimeError, match="round_tail: CUDA error"):
-        tcommit.round_tail(*dev, 0.35, quota=(*quota, gate))
+    arrays[16] = np.array([0, 2], np.int32)
+    before = kernels.launches["round_tail_big"]
+    dev, host = quota_round_both(cuda, arrays, quota_inputs(4, 4097, 21, 2))
+    assert kernels.launches["round_tail_big"] == before + 1
+    assert_round_equal(dev[11:], host[11:])
 
 
 def test_round_tail_quota_refusing_every_pod_ends_the_loop(cuda):
@@ -683,3 +701,204 @@ def test_quota_stream_full_on_card_matches_plain_and_golden(cuda):
                 np.testing.assert_array_equal(out[0].cpu().numpy(), gold[f"{key}_assignments"])
                 np.testing.assert_array_equal(out[2].cpu().numpy(), gold[f"{key}_rounds"])
                 np.testing.assert_array_equal(out[3].cpu().numpy(), gold[f"{key}_fallbacks"])
+
+
+# ---------------------------------------- rounds above 4,096 pods and NUMA zones
+
+from koordinator_tpu_torch.ops import numa as tnuma  # noqa: E402
+
+
+@pytest.mark.parametrize("p", [4097, 8192, 16_384])
+@pytest.mark.parametrize("d", [1, 4, 8])
+@pytest.mark.parametrize("q", [0, 21, 1057, 300_000])
+def test_round_tail_above_4096_pods_matches_plain(cuda, p, d, q):
+    """Rounds of up to 16,384 pods at D = 1, 4 and 8, without quotas and
+    with the one-hot, sorted and 64-bit-key trees (Q = 300,000 overflows a
+    32-bit level key at any P), in the device-memory round tail (or, at
+    D = 1 without quotas, shared memory's 16-row kernel)."""
+    arrays = round_inputs(p + d + q, p, max(3, p // 16), d)
+    arrays[16] = np.array([0, 2], np.int32)
+    if q == 0:
+        dev, host = round_tail_both(cuda, arrays)
+        assert_round_equal(dev, host)
+        return
+    before = kernels.launches["round_tail_big"]
+    dev, host = quota_round_both(cuda, arrays, quota_inputs(p * 5 + q, p, q, d))
+    assert kernels.launches["round_tail_big"] == before + 1
+    assert_round_equal(dev[11:], host[11:])
+
+
+@pytest.mark.parametrize("q", [1, 21, 1057])
+@pytest.mark.parametrize("p", [8192, 16_384])
+def test_enforce_gangs_above_4096_pods_matches_plain(cuda, p, q):
+    n = p // 8
+    result, pods = gang_inputs(p + q, p, n, 4, "all short")
+    pods["quota_chain"] = quota_inputs(p + q, p, q, 4, fill=1.0)[0]
+    outs = []
+    for device in (cuda, "cpu"):
+        got = solve_result(result, device)
+        got.quota_used = torch.full((q, 4), 1e6, device=device)
+        T._enforce_gangs_(got, from_numpy(T.PodBatch, device=device, **pods))
+        outs.append(got)
+    torch.cuda.synchronize()
+    for f in ("assignment", "node_requested", "node_estimated_used", "node_prod_used",
+              "quota_used"):
+        np.testing.assert_array_equal(bits(getattr(outs[0], f).cpu().numpy()),
+                                      bits(getattr(outs[1], f).numpy()), err_msg=f)
+
+
+@pytest.mark.parametrize("quota", [False, True])
+def test_bigbatch_golden_on_card(cuda, quota):
+    """``assign`` on the 8,192-pod batch (D = 4, a Strict gang of 6,000
+    that rolls back) equals the JAX package's golden bit for bit."""
+    gold = np.load(chip_smoke.GOLDEN_BIGBATCH)
+    pods_t, nodes_t, params_t, quotas = chip_smoke.big_port_inputs(
+        torch, chip_smoke.BIG_PODS, quota, cuda)
+    res = to_numpy(T.assign(pods_t, nodes_t, params_t, quotas=quotas, **chip_smoke.SOLVE))
+    key = "quota" if quota else "plain"
+    for f, g in (("assignment", "assignment"), ("rounds_used", "rounds"),
+                 ("node_requested", "requested"), ("node_estimated_used", "estimated_used"),
+                 ("node_prod_used", "prod_used")) + ((("quota_used", "quota_used"),) if quota
+                                                    else ()):
+        np.testing.assert_array_equal(bits(res[f]), bits(gold[f"{key}_{g}"]), err_msg=f)
+
+
+def zone_inputs(seed, p, n, d, zones):
+    """``nominate_inputs`` and zone tables over its nodes
+    (``chip_smoke.zone_tables`` cut to ``zones`` zones, DN = min(2, D)):
+    (arrays, numa dict, required [P])."""
+    arrays = nominate_inputs(seed, p, n, d)
+    nodes = dict(allocatable=np.pad(arrays[5], ((0, 0), (0, max(0, 2 - d)))),
+                 estimated_used=np.pad(arrays[7], ((0, 0), (0, max(0, 2 - d)))))
+    _, numa, required = chip_smoke.zone_tables(seed, nodes, p)
+    dn = min(2, d)
+    for k in ("zone_free", "zone_cap"):
+        numa[k] = np.ascontiguousarray(numa[k][:, :zones, :dn])
+    return arrays, numa, required
+
+
+@pytest.mark.parametrize("p, n, d", [(1, 9, 1), (37, 300, 3), (512, 10_000, 2), (200, 5003, 8)])
+@pytest.mark.parametrize("zones", [1, 2, 4])
+@pytest.mark.parametrize("scoring", [0, 1, 2])
+def test_pricing_kernels_with_zones_match_plain(cuda, p, n, d, zones, scoring):
+    """The NUMA instantiations of nomination, the shortlist build and the
+    shortlist round, against their plain versions."""
+    arrays, numa, required = zone_inputs(p * 3 + n + zones, p, n, d, zones)
+    outs = []
+    for device in (cuda, "cpu"):
+        args = [torch.from_numpy(a).to(device) for a in arrays]
+        z = tnuma.ZoneTerms(free=torch.from_numpy(numa["zone_free"]).to(device),
+                            cap=torch.from_numpy(numa["zone_cap"]).to(device),
+                            policy=torch.from_numpy(numa["policy"]).to(device),
+                            required=torch.from_numpy(required).to(device), scoring=scoring)
+        nom = tnom.nominate(*args, min(4, n), 4.0, True, zones=z)
+        k = min(64, n - 1)
+        plan = tsl.shortlist_build(*(args[:4] + args[5:]), k, 4.0, zones=z)
+        word = torch.zeros(tsl.WORD, dtype=torch.int32, device=device)
+        counts = torch.zeros(2, dtype=torch.int32, device=device)
+        state = torch.zeros(2, dtype=torch.int32, device=device)
+        top = tsl.shortlist_round(*args, *plan, min(4, k), 4.0, True, word, counts, state,
+                                  zones=z)
+        outs.append([t.cpu() for t in (*nom, *plan, *top, word[:3], counts)])
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(*outs)):
+        np.testing.assert_array_equal(bits(a.numpy()), bits(b.numpy()), err_msg=str(i))
+
+
+@pytest.mark.parametrize("p", [1, 17, 512, 4096, 8192])
+@pytest.mark.parametrize("d, zones", [(2, 2), (2, 4), (3, 1), (8, 4)])
+@pytest.mark.parametrize("quota", [False, True])
+def test_round_tail_zone_phase_matches_plain(cuda, p, d, zones, quota):
+    """The round tail's zone instantiation (shared memory up to 4,096
+    pods, device memory above), with and without quotas: tables, loop
+    state, the zone table and the picks. Hot nodes give a node more than
+    four zone candidates a round."""
+    n = max(3, p // 8)
+    arrays = round_inputs(p + d * 7 + zones, p, n, d)
+    arrays[16] = np.array([0, 2], np.int32)
+    nodes = dict(allocatable=np.pad(arrays[7], ((0, 0), (0, max(0, 2 - d)))),
+                 estimated_used=np.pad(arrays[12], ((0, 0), (0, max(0, 2 - d)))))
+    _, numa, required = chip_smoke.zone_tables(p + zones, nodes, p)
+    dn = min(2, d)
+    outs = []
+    for device in (cuda, "cpu"):
+        args = [torch.from_numpy(a.copy()).to(device) for a in arrays]
+        zone = (torch.from_numpy(np.ascontiguousarray(numa["zone_free"][:, :zones, :dn])).to(device),
+                torch.from_numpy(np.ascontiguousarray(numa["zone_cap"][:, :zones, :dn])).to(device),
+                torch.from_numpy(numa["policy"]).to(device),
+                torch.from_numpy(numa["zone_most"]).to(device),
+                torch.from_numpy(required).to(device),
+                torch.full((p,), -1, dtype=torch.int32, device=device))
+        q = None
+        if quota:
+            chain, runtime, used = (torch.from_numpy(a).to(device)
+                                    for a in quota_inputs(p + 3, p, 21, d))
+            q = (chain, runtime, used, torch.zeros(p, dtype=torch.bool, device=device))
+        fn = tcommit.round_tail if device == cuda else tcommit.round_tail_plain
+        fn(*args, 0.35, quota=q, zone=zone)
+        outs.append(args[11:] + [zone[0], zone[5]] + ([] if q is None else list(q[2:])))
+    torch.cuda.synchronize()
+    assert_round_equal(*outs)
+
+
+@pytest.mark.parametrize("p, d", [(17, 2), (512, 2), (1000, 3), (16_384, 4)])
+@pytest.mark.parametrize("zones", [1, 2, 4])
+def test_enforce_gangs_zone_refund_matches_plain(cuda, p, d, zones):
+    n = max(2, p // 4)
+    result, pods = gang_inputs(p * 3 + zones, p, n, d, "all short")
+    rng = np.random.default_rng(p + zones)
+    dn = min(2, d)
+    pod_zone = np.where((result["assignment"] >= 0) & (rng.random(p) < 0.6),
+                        rng.integers(0, zones, p), -1).astype(np.int32)
+    charge = np.where(pod_zone[:, None] >= 0, rng.uniform(100, 3000, (p, dn)), 0.0)
+    free = rng.uniform(1e4, 1e5, (n, zones, dn)).astype(np.float32)
+    outs = []
+    for device in (cuda, "cpu"):
+        got = solve_result(result, device)
+        got.pod_zone = torch.from_numpy(pod_zone.copy()).to(device)
+        got.pod_zone_charge = torch.from_numpy(charge.astype(np.float32)).to(device)
+        got.node_zone_free = torch.from_numpy(free.copy()).to(device)
+        before = kernels.launches["zone_refund"]
+        T._enforce_gangs_(got, from_numpy(T.PodBatch, device=device, **pods))
+        if device == cuda:
+            assert kernels.launches["zone_refund"] == before + 1
+        outs.append(got)
+    torch.cuda.synchronize()
+    for f in ("assignment", "pod_zone", "node_requested", "node_zone_free"):
+        np.testing.assert_array_equal(bits(getattr(outs[0], f).cpu().numpy()),
+                                      bits(getattr(outs[1], f).numpy()), err_msg=f)
+
+
+def test_numa_stream_full_on_card_matches_plain_and_golden(cuda):
+    """``solve_stream_full(numa=...)``, one graph replay a chunk with the
+    zone table a static buffer, equals the eager plain route and the NUMA
+    golden's small streams: assignments, zone picks, rounds, fallback
+    counts and the final zone table; no host sync on a replay."""
+    from tools import make_torch_golden
+
+    gold = np.load(chip_smoke.GOLDEN_NUMA)
+    nodes, pods, numa, params = make_torch_golden.numa_fixture_small()
+    nodes_t, pods_t, params_t = chip_smoke.port_inputs(torch, nodes, chip_smoke.stacked(pods),
+                                                       params, cuda)
+    numa_t = tnuma.NumaState.create(**numa, device=cuda)
+    for scoring in chip_smoke.NUMA_SCORINGS:
+        for k in (chip_smoke.SHORTLIST_K, None):
+            kw = dict(chip_smoke.SOLVE, numa=numa_t, numa_scoring=scoring, shortlist_k=k)
+            zf = [torch.empty_like(numa_t.zone_free) for _ in range(3)]
+            first = T.solve_stream_full(pods_t, nodes_t, params_t, zone_free_out=zf[0], **kw)
+            kernels.reset_launches()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                again = T.solve_stream_full(pods_t, nodes_t, params_t, zone_free_out=zf[1], **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert kernels.replays["solve_stream"] == 2 and kernels.launches["zone_phase"] > 0
+            with chip_smoke.plain_versions():
+                plain = T.solve_stream_full(pods_t, nodes_t, params_t, cuda_graph=False,
+                                            zone_free_out=zf[2], **kw)
+            key = f"{(scoring or 'none').lower()}_k{k or 0}"
+            for out, z in zip((first, again, plain), zf):
+                for name, o in zip(("assignments", "pod_zones", "rounds", "fallbacks"), out):
+                    np.testing.assert_array_equal(o.cpu().numpy(), gold[f"{key}_{name}"])
+                np.testing.assert_array_equal(bits(z.cpu().numpy()),
+                                              bits(gold[f"{key}_zone_free"]))

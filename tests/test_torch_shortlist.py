@@ -24,6 +24,7 @@ from koordinator_tpu.ops import solver as J
 from koordinator_tpu_torch.ops import costs as TC
 from koordinator_tpu_torch.ops import masks as TM
 from koordinator_tpu_torch.ops import nominate as TN
+from koordinator_tpu_torch.ops import numa as TZ
 from koordinator_tpu_torch.ops import shortlist as TS
 from koordinator_tpu_torch.ops import solver as T
 from koordinator_tpu_torch.ops.convert import from_jax, from_numpy
@@ -266,9 +267,17 @@ def test_shortlist_gate_and_unported_options():
     for option in ("cost_transform", "device_scoring"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
             T.assign(pods, nodes, params, shortlist_k=4, **{option: object()})
-    for option in ("numa", "devices", "numa_scoring", "device_scoring"):
+    for option in ("devices", "device_scoring"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
             T.shortlist_plan(pods, nodes, params, shortlist_k=4, **{option: object()})
+    # NUMA, ported: a zone table and its aligned score are taken
+    zone = np.full((6, 2, 2), 4000.0, np.float32)
+    numa = TZ.NumaState.create(zone_free=zone, zone_cap=zone, policy=np.full(6, 3, np.int8),
+                               device="cpu")
+    for scoring in (None, "LeastAllocated"):
+        cand, _ = T.shortlist_plan(pods, nodes, params, shortlist_k=4, numa=numa,
+                                   numa_scoring=scoring)
+        assert tuple(cand.shape) == (8, 4)
 
 
 # ------------------------------------------------------------ the round parts

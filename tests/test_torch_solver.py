@@ -17,6 +17,7 @@ import torch
 
 import chip_smoke
 from koordinator_tpu.ops import solver as J
+from koordinator_tpu_torch.ops import numa as TN
 from koordinator_tpu_torch.ops import solver as T
 from koordinator_tpu_torch.ops.convert import from_jax, from_numpy, to_numpy
 from tools import make_torch_golden
@@ -247,5 +248,15 @@ def test_from_jax_and_helpers_match_reference():
 def test_unported_options_raise(option):
     nodes, pods, params = contended(0, p=8, n=4, gangs=False)
     _, (tp, tn, tpar) = both_inputs(nodes, pods, params)
+    if option in ("numa", "numa_carry", "numa_scoring"):
+        # ported with the NUMA slice: taken, and the zone table comes back
+        zone = np.full((4, 2, 2), 4000.0, np.float32)
+        numa = TN.NumaState.create(zone_free=zone, zone_cap=zone, policy=np.full(4, 3, np.int8),
+                                   device="cpu")
+        value = {"numa": numa, "numa_carry": numa.zone_free.clone(),
+                 "numa_scoring": "LeastAllocated"}[option]
+        res = T.assign(tp, tn, tpar, **{"numa": numa, option: value})
+        assert tuple(res.node_zone_free.shape) == (4, 2, 2)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
         T.assign(tp, tn, tpar, **{option: object()})

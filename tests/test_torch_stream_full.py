@@ -20,6 +20,7 @@ import torch
 
 import chip_smoke
 from koordinator_tpu.ops import solver as J
+from koordinator_tpu_torch.ops import numa as TN
 from koordinator_tpu_torch.ops import solver as T
 from koordinator_tpu_torch.ops.convert import from_jax
 from tools import make_torch_golden
@@ -166,9 +167,19 @@ def test_solve_stream_full_checks_its_options():
     _, (tp, tn, tpar) = both(nodes, pods, params, BATCH)
     with pytest.raises(ValueError, match="node_mask"):
         T.solve_stream_full(tp, tn, tpar, node_mask=torch.from_numpy(mask[0]))
-    for option in ("numa", "devices", "numa_scoring", "device_scoring"):
+    for option in ("devices", "device_scoring"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
             T.solve_stream_full(tp, tn, tpar, **{option: object()})
+    # NUMA, ported: the zone table is taken, a strategy it does not know is
+    # refused
+    n = tn.allocatable.shape[0]
+    zone = np.full((n, 2, 2), 4000.0, np.float32)
+    numa = TN.NumaState.create(zone_free=zone, zone_cap=zone, policy=np.full(n, 3, np.int8),
+                               device="cpu")
+    with pytest.raises(ValueError, match="numa_scoring"):
+        T.solve_stream_full(tp, tn, tpar, numa=numa, numa_scoring="Balanced")
+    zones = T.solve_stream_full(tp, tn, tpar, numa=numa, numa_scoring="LeastAllocated")[1]
+    assert tuple(zones.shape) == tuple(tp.requests.shape[:2])
 
 
 # -------------------------------------------------------------- the golden

@@ -16,10 +16,31 @@
   (``chip_smoke.build_fixture(0)``, 98,304 pods, 10,000 nodes, the
   stacked [192, 512, 10,000] mask) each tree's ``solve_stream_full``,
   with and without the shortlist, kept as the sha256 of its assignments,
-  its placed count, its summed rounds and its summed fallback counts.
+  its placed count, its summed rounds and its summed fallback counts;
+- ``tests/data/torch_golden_bigbatch.npz``: ``assign`` on
+  ``chip_smoke.bigbatch_fixture(8192)`` (one round of 8,192 pods at D = 4
+  over 2,000 nodes, a Strict gang of 6,000 members that rolls back and a
+  NonStrict one), without quotas and with ``chip_smoke.bigbatch_quotas``'
+  tree (Q = 1,057): assignments, rounds and the final node and quota
+  tables;
+- ``tests/data/torch_golden_numa.npz``: the NUMA streams. On
+  ``rich_fixture(7, 2000, 1024)`` with ``chip_smoke.zone_tables``' zones,
+  ``solve_stream_full(numa=...)`` for each of ``chip_smoke.NUMA_SCORINGS``
+  with ``shortlist_k=64`` and without (assignments, zone picks, rounds,
+  fallback counts and the final zone table); and on the full-size stream
+  (``chip_smoke.build_fixture(0)`` with ``chip_smoke.binpack_numa``'s
+  zones, the recipe of ``bench_suite.py:bench_numa_20k``) the same four
+  runs, kept as their placed counts, summed rounds and fallback counts and
+  the sha256 of their assignments, zone picks and final zone tables.
 
-    python tools/make_torch_golden.py            # every file
-    python tools/make_torch_golden.py --quota    # the quota file only
+    python tools/make_torch_golden.py              # every file
+    python tools/make_torch_golden.py --quota      # the quota file only
+    python tools/make_torch_golden.py --bigbatch   # the big-batch file only
+    python tools/make_torch_golden.py --numa       # the NUMA file only
+
+The NUMA file's final zone tables come from a copy of
+``solve_stream_full``'s scan that also returns its zone carry
+(:func:`numa_stream_full`), checked against ``solve_stream_full`` itself.
 
 The full-size streams run the JAX package on the CPU (about a minute and
 a few GB of memory). ``tests/test_torch_solver.py``,
@@ -219,15 +240,165 @@ def quota_full_arrays() -> dict:
     return out
 
 
+BIGBATCH_PATH = chip_smoke.GOLDEN_BIGBATCH
+
+
+def bigbatch_arrays() -> dict:
+    """The JAX package's ``assign`` on the big batch (P = 8,192, D = 4,
+    N = 2,000, bench's solver arguments) without quotas and with the
+    sorted-branch tree."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.ops.solver import NodeState, PodBatch, QuotaState, SolverParams, assign
+
+    nodes, pods, params = chip_smoke.bigbatch_fixture(chip_smoke.BIG_PODS)
+    q_pods, (runtime, used) = chip_smoke.bigbatch_quotas(pods)
+    out = dict(fixture_sha256=np.array(chip_smoke.fixture_digest(nodes, q_pods, params)))
+    for key, batch, quotas in (
+        ("plain", pods, None),
+        ("quota", q_pods, QuotaState(runtime=jnp.asarray(runtime), used=jnp.asarray(used))),
+    ):
+        res = assign(PodBatch.create(**batch), NodeState.create(**nodes),
+                     SolverParams(**{k: jnp.asarray(v) for k, v in params.items()}),
+                     quotas=quotas, **chip_smoke.SOLVE)
+        out.update({
+            f"{key}_assignment": np.asarray(res.assignment),
+            f"{key}_rounds": np.asarray(res.rounds_used),
+            f"{key}_requested": np.asarray(res.node_requested),
+            f"{key}_estimated_used": np.asarray(res.node_estimated_used),
+            f"{key}_prod_used": np.asarray(res.node_prod_used),
+        })
+        if quotas is not None:
+            out[f"{key}_quota_used"] = np.asarray(res.quota_used)
+    return out
+
+
+NUMA_PATH = chip_smoke.GOLDEN_NUMA
+
+
+def numa_stream_full(stacked, nodes, params, numa, numa_scoring, shortlist_k):
+    """``solve_stream_full(numa=...)``'s scan (``ops/solver.py:1748-1855``,
+    no quotas, devices or mask), returning also the final zone carry:
+    (assignments [C, P], pod_zones [C, P], rounds [C], fallbacks [C, 2],
+    zone_free [N, Z, DN])."""
+    import functools
+
+    import jax
+
+    from koordinator_tpu.ops.solver import assign
+
+    @functools.partial(jax.jit, static_argnames=("numa_scoring", "shortlist_k"))
+    def run(stacked, nodes, params, numa, numa_scoring, shortlist_k):
+        def step(carry, pb):
+            cur, zone_free = carry
+            res = assign(pb, cur, params, numa=numa, numa_carry=zone_free,
+                         numa_scoring=numa_scoring, shortlist_k=shortlist_k,
+                         **chip_smoke.SOLVE)
+            nxt = cur.replace(requested=res.node_requested,
+                              estimated_used=res.node_estimated_used,
+                              prod_used=res.node_prod_used)
+            return (nxt, res.node_zone_free), (res.assignment, res.pod_zone, res.rounds_used,
+                                               res.shortlist_fallbacks)
+
+        (_, zone_free), outs = jax.lax.scan(step, (nodes, numa.zone_free), stacked)
+        return outs + (zone_free,)
+
+    return tuple(np.asarray(a) for a in run(stacked, nodes, params, numa, numa_scoring,
+                                            shortlist_k))
+
+
+def numa_streams(nodes, pods, numa, params, batch: int):
+    """Each NUMA stream of ``chip_smoke.NUMA_SCORINGS`` x (K=64, off) on a
+    fixture's numpy dicts, checked against ``solve_stream_full``: key →
+    (assignments, zones, rounds, fallbacks, zone_free)."""
+    import jax
+    import jax.numpy as jnp
+
+    from koordinator_tpu.ops.numa import NumaState
+    from koordinator_tpu.ops.solver import NodeState, PodBatch, SolverParams, solve_stream_full
+
+    stacked = jax.tree.map(lambda a: a.reshape((-1, batch) + a.shape[1:]),
+                           PodBatch.create(**pods))
+    jn = NodeState.create(**nodes)
+    jpar = SolverParams(**{k: jnp.asarray(v) for k, v in params.items()})
+    jnuma = NumaState(**{k: jnp.asarray(v) for k, v in numa.items()})
+    out = {}
+    for scoring in chip_smoke.NUMA_SCORINGS:
+        for k in (chip_smoke.SHORTLIST_K, None):
+            got = numa_stream_full(stacked, jn, jpar, jnuma, scoring, k)
+            ref = solve_stream_full(stacked, jn, jpar, numa=jnuma, numa_scoring=scoring,
+                                    shortlist_k=k, **chip_smoke.SOLVE)
+            for a, b in zip(got, ref):
+                assert np.array_equal(a, np.asarray(b)), "numa_stream_full differs"
+            out[f"{(scoring or 'none').lower()}_k{k or 0}"] = got
+            print(f"numa stream {scoring} K={k}: placed {int((got[0] >= 0).sum())}, "
+                  f"zoned {int((got[1] >= 0).sum())}, rounds {int(got[2].sum())}", flush=True)
+    return out
+
+
+def numa_fixture_small():
+    """The small NUMA stream's numpy dicts: ``rich_fixture(7, 2000, 1024)``
+    with ``zone_tables``' zones (nodes, pods, numa, params)."""
+    nodes, pods, params = chip_smoke.rich_fixture(
+        chip_smoke.GOLDEN_SEED, chip_smoke.GOLDEN_NODES, chip_smoke.GOLDEN_PODS
+    )
+    nodes, numa, required = chip_smoke.zone_tables(chip_smoke.GOLDEN_SEED, nodes,
+                                                   chip_smoke.GOLDEN_PODS)
+    return nodes, dict(pods, numa_required=required), numa, params
+
+
+def numa_fixture_full():
+    """The full-size NUMA stream's numpy dicts: the headline fixture with
+    ``binpack_numa``'s zones (nodes, pods, numa, params)."""
+    nodes, pods, params = chip_smoke.headline_inputs(chip_smoke.build_fixture(0))
+    pods, numa = chip_smoke.binpack_numa(nodes, pods)
+    return nodes, pods, numa, params
+
+
+def digest(a) -> str:
+    """sha256 of an array's little-endian bytes (int32 or float32)."""
+    import hashlib
+
+    a = np.asarray(a)
+    return hashlib.sha256(np.ascontiguousarray(a, dtype=a.dtype.newbyteorder("<")).tobytes()
+                          ).hexdigest()
+
+
+def numa_arrays() -> dict:
+    small = numa_fixture_small()
+    out = dict(fixture_sha256=np.array(chip_smoke.fixture_digest(*small)))
+    for key, (asg, zones, rounds, fb, zone_free) in numa_streams(
+            *small, chip_smoke.BATCH).items():
+        out.update({f"{key}_assignments": asg, f"{key}_pod_zones": zones,
+                    f"{key}_rounds": rounds, f"{key}_fallbacks": fb,
+                    f"{key}_zone_free": zone_free})
+    full = numa_fixture_full()
+    out["full_fixture_sha256"] = np.array(chip_smoke.fixture_digest(*full))
+    for key, (asg, zones, rounds, fb, zone_free) in numa_streams(
+            *full, chip_smoke.BATCH).items():
+        out.update({
+            f"full_{key}_placed": np.array(int((asg >= 0).sum())),
+            f"full_{key}_rounds": np.array(int(rounds.sum())),
+            f"full_{key}_fallbacks": fb.sum(axis=0),
+            f"full_{key}_sha256": np.array(digest(asg)),
+            f"full_{key}_zones_sha256": np.array(digest(zones)),
+            f"full_{key}_zone_free_sha256": np.array(digest(zone_free)),
+        })
+    return out
+
+
 def main() -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(os.path.dirname(PATH), exist_ok=True)
     files = [(PATH, golden_arrays), (SHORTLIST_PATH, shortlist_golden_arrays),
-             (QUOTA_PATH, lambda: {**quota_small_arrays(), **quota_full_arrays()})]
-    if "--quota" in sys.argv[1:]:
-        files = files[2:]
+             (QUOTA_PATH, lambda: {**quota_small_arrays(), **quota_full_arrays()}),
+             (BIGBATCH_PATH, bigbatch_arrays), (NUMA_PATH, numa_arrays)]
+    only = {"--quota": QUOTA_PATH, "--bigbatch": BIGBATCH_PATH, "--numa": NUMA_PATH}
+    picked = [only[a] for a in sys.argv[1:] if a in only]
+    if picked:
+        files = [f for f in files if f[0] in picked]
     for path, arrays in files:
         np.savez_compressed(path, **arrays())
         print(f"wrote {path} ({os.path.getsize(path)} bytes)")

@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
 """Where the round-tail kernel spends its cycles, phase by phase.
 
-    python3 tools/round_phases.py [--pods 512 4096] [--quota none onehot sorted]
+    python3 tools/round_phases.py [--pods 512 4096] [--quota none onehot sorted] [--zones]
 
-Builds a copy of ``koordinator_tpu_torch/csrc/round.cu`` in which thread 0
-reads ``clock64()`` at the start of the kernel, before each numbered
-phase comment of ``round_tail_kernel`` ("// 1. ...", "// 2. ...", ...) and
-before the state word is written, then runs it on the card on round 0 of
-``chip_smoke.py``'s kernel-check fixture (batch 0, and the first P / 512
-batches as one round for P > 512, N = 10,000, D = 2). Each run's tables,
-assignments, active flags and state word must equal the built kernel's
-(``round_tail``); the script prints, for each P, the median over 15 runs of
-the SM cycles from the kernel's start to each mark, and the CUDA-event
-time of a call. ``--quota`` names the rounds to run: ``none`` (the
-default), or a tree of ``chip_smoke.QUOTA_TREES`` (its chains, and the
-tables and quota state after ``chip_smoke.QUOTA_LATER`` batches, where the
-quotas bind; phase 6 is then the quota commit, and its cycles are also given by sub-phase,
-summed over the chain's levels); one build serves them all. Needs a CUDA device and ``nvcc``; the copy is
-built under ``koordinator_tpu_torch/build/``.
+Builds a copy of the round tail (``koordinator_tpu_torch/csrc/round.cuh``
+with the entry of ``round.cu``, or with ``--zones`` of ``round_zone.cu``)
+in which thread 0 reads ``clock64()`` at the start of the kernel, before
+each numbered phase comment of ``round_tail_kernel`` ("// 1. ...",
+"// 2. ...", ...) and before the state word is written, then runs it on
+the card on round 0 of ``chip_smoke.py``'s kernel-check fixture (batch 0,
+and the first P / 512 batches as one round for P > 512, N = 10,000,
+D = 2). Each run's tables, assignments, active flags and state word (and
+quota and zone tables) must equal the built kernel's (``round_tail``); the
+script prints, for each P, the median over 15 runs of the SM cycles from
+the kernel's start to each mark, and the CUDA-event time of a call.
+``--quota`` names the rounds to run: ``none`` (the default), or a tree of
+``chip_smoke.QUOTA_TREES`` (its chains, and the tables and quota state
+after ``chip_smoke.QUOTA_LATER`` batches, where the quotas bind; phase 6
+is then the quota commit). ``--zones`` runs the rounds with NUMA zones
+(``chip_smoke.numa_port_inputs``, LeastAllocated pricing, after 3
+batches). The quota commit's and the zone phase's cycles are also given by
+sub-phase ("// q1. ...", "// z1. ...": the cycles from there to the next
+mark, summed over the chain's levels). Needs a CUDA device and ``nvcc``;
+the copy is built under ``koordinator_tpu_torch/build/``.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ def instrumented(src: str) -> "tuple[str, list[str], list[str]]":
     body_at = src.index("round_tail_kernel(")
     sub_names, out_q = ["outside"], []
     for line in src[quota_at:body_at].splitlines(keepends=True):
-        m = re.match(r"(\s+)// (q\d+)\. (.*)", line)
+        m = re.match(r"(\s+)// ([qz]\d+)\. (.*)", line)
         if m:
             out_q.append(m.group(1) + QUOTA_MARK.format(len(sub_names)) + "\n")
             sub_names.append(f"{m.group(2)}. {re.split(r' \(|:|,', m.group(3))[0]}")
@@ -93,6 +98,7 @@ def main() -> int:
     ap.add_argument("--pods", type=int, nargs="+", default=[512, 4096])
     ap.add_argument("--quota", choices=["none", "onehot", "sorted"], nargs="+",
                     default=["none"], help="the rounds to run: without quotas, or a tree")
+    ap.add_argument("--zones", action="store_true", help="the rounds with NUMA zones")
     args = ap.parse_args()
 
     import numpy as np
@@ -107,7 +113,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: CUDA is not available", file=sys.stderr)
         return 1
-    src, names, sub_names = instrumented((kernels.CSRC / "round.cu").read_text())
+    entry = "round_zone" if args.zones else "round"
+    header = (kernels.CSRC / "round.cuh").read_text()
+    src, names, sub_names = instrumented(
+        (kernels.CSRC / f"{entry}.cu").read_text().replace('#include "round.cuh"', header))
     kernels.BUILD.mkdir(parents=True, exist_ok=True)
     cu = kernels.BUILD / "round_phases.cu"
     so = kernels.BUILD / "libround_phases.so"
@@ -119,13 +128,32 @@ def main() -> int:
         print(build.stdout + build.stderr, file=sys.stderr)
         return 1
     lib = ctypes.CDLL(str(so))
-    fn = lib.koord_round_tail
-    fn.argtypes = kernels.SIGNATURES["round"]["koord_round_tail"]
+    fn = getattr(lib, f"koord_{entry.replace('round', 'round_tail')}")
+    fn.argtypes = kernels.SIGNATURES[entry][fn.__name__]
     dev = torch.device("cuda")
     fixture = chip_smoke.rich_fixture(1, chip_smoke.N_NODES, 16 * chip_smoke.BATCH)
+    zone_case = None
+    if args.zones:
+        # the NUMA kernel check's state: three batches committed
+        nodes_z, pods_z, params_z, numa_z = chip_smoke.numa_port_inputs(torch, dev)
+        pods_zs = solver.tree_map(lambda a: a.reshape((-1, chip_smoke.BATCH) + a.shape[1:]),
+                                  pods_z)
+        zf = numa_z.zone_free
+        for b in range(3):
+            res = solver.assign(solver.tree_map(lambda a: a[b], pods_zs), nodes_z, params_z,
+                                numa=numa_z, numa_carry=zf, **chip_smoke.SOLVE)
+            nodes_z = chip_smoke.dataclasses.replace(
+                nodes_z, requested=res.node_requested, estimated_used=res.node_estimated_used,
+                prod_used=res.node_prod_used)
+            zf = res.node_zone_free
+        zone_case = (nodes_z, pods_zs, params_z, numa_z, zf)
     for mode in args.quota:
         tree = None if mode == "none" else mode
         quota = None
+        zone = None
+        if tree and zone_case:
+            print("FAIL: --zones runs without quotas", file=sys.stderr)
+            return 1
         if tree:
             pods_s, nodes_t, params_t, quotas, mask = chip_smoke.quota_port_inputs(
                 torch, tree, fixture, dev)
@@ -153,15 +181,26 @@ def main() -> int:
                     torch, batch, nodes_t, params_t, later.used, masks.reshape(b * chip_smoke.BATCH, -1),
                     quotas.runtime)
                 top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True, mask=smask)
+            elif zone_case:
+                nodes_z, pods_zs, params_z, numa_z, zf = zone_case
+                b = max(1, p // chip_smoke.BATCH)
+                batch = solver.tree_map(lambda a: a[3 : 3 + b].reshape((-1,) + a.shape[2:]),
+                                        pods_zs)
+                spods, nom_args, terms, zone = chip_smoke.numa_round_case(
+                    torch, batch, nodes_z, zf, numa_z, params_z, 1)
+                top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True, zones=terms)
             else:
                 spods, nom_args = chip_smoke.round_inputs(batch, nodes_t, params_t)
                 top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True)
             rt = chip_smoke.round_tail_args(torch, spods, nom_args, top_cost, top_idx)
             if quota is not None:
                 rt += [quota[2], quota[3]]  # the used table and the gate, updated in place
+            if zone is not None:
+                rt += [zone[0], zone[5]]  # the zone table and the picks, updated in place
             want = [t.clone() for t in rt]
-            commit_ops.round_tail(*want[:17], 0.35,
-                                  quota=None if quota is None else (quota[0], quota[1], *want[17:]))
+            commit_ops.round_tail(
+                *want[:17], 0.35, quota=None if quota is None else (quota[0], quota[1], *want[17:]),
+                zone=None if zone is None else (want[17],) + zone[1:5] + (want[18],))
             n, d = nom_args[5].shape
             q_cap, levels = (0, 0) if quota is None else (quota[1].shape[0], quota[0].shape[1])
 
@@ -169,8 +208,12 @@ def main() -> int:
                 q_ptrs = ([None] * 4 if quota is None else
                           [quota[0].data_ptr(), quota[1].data_ptr(), work[17].data_ptr(),
                            work[18].data_ptr()])
+                z_args = [] if zone is None else [
+                    work[17].data_ptr(), zone[1].data_ptr(), zone[2].data_ptr(),
+                    zone[3].data_ptr(), zone[4].data_ptr(), work[18].data_ptr(),
+                    zone[1].shape[1], zone[1].shape[2]]
                 code = fn(*[t.data_ptr() for t in work[:17]], ctypes.c_float(0.35), p, n, d, 4,
-                          *q_ptrs, q_cap, levels, kernels.stream_of(work[0]))
+                          *q_ptrs, q_cap, levels, *z_args, kernels.stream_of(work[0]))
                 if code != 0:
                     raise RuntimeError(f"round_phases: CUDA error {code}")
 
@@ -206,11 +249,16 @@ def main() -> int:
             end.record()
             torch.cuda.synchronize()
             print(json.dumps({
-                "pods": p, "quota": tree, "card": smi,
+                "pods": p, "quota": tree, "zones": zone is not None, "card": smi,
                 "cycles_from_start": {name: int(v) for name, v in zip(names, cycles)},
                 **({"quota_cycles_by_subphase": {name: int(v) for name, v in
-                                                 zip(sub_names[1:], sub_cycles[1:])}}
+                                                 zip(sub_names[1:], sub_cycles[1:])
+                                                 if name.startswith("q")}}
                    if tree else {}),
+                **({"zone_cycles_by_subphase": {name: int(v) for name, v in
+                                                zip(sub_names[1:], sub_cycles[1:])
+                                                if name.startswith("z")}}
+                   if zone is not None else {}),
                 "event_ms_per_call": start.elapsed_time(end) / 100,
             }), flush=True)
     return 0
