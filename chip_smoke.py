@@ -1979,25 +1979,36 @@ def numa_round_case(torch, pods_b, state, zone_free, numa_t, params_t, scoring: 
         state.requested, state.estimated_used, state.prod_used, state.metric_fresh,
         state.schedulable, state.cpu_amp, thr, pthr, params_t.score_weights,
     )
-    terms = ZoneTerms(free=zone_free.clone(), cap=numa_t.zone_cap, policy=numa_t.policy,
-                      required=spods.numa_required, scoring=scoring)
+    terms = ZoneTerms.batch_start(zone_free, numa_t.zone_cap, numa_t.policy,
+                                  spods.numa_required, scoring)
     p = spods.requests.shape[0]
     zone = (zone_free.clone(), numa_t.zone_cap, numa_t.policy, numa_t.zone_most,
             spods.numa_required, torch.full((p,), -1, dtype=torch.int32, device=zone_free.device))
     return spods, nom_args, terms, zone
 
 
-def zone_pair_ops(terms, p: int, n: int) -> int:
-    """fp32 operations of the NUMA terms of ``p`` x ``n`` pairs (see
-    PERF.md): the fit, per zone and dim a sum, an add and a compare, per
-    dim the amplified request (4) and the total test (2); with the
-    aligned score, per zone and dim a test and per zone the key (4), then
-    per dim the score (8)."""
+def zone_pair_ops(terms, pairs: int) -> int:
+    """fp32 operations of the NUMA terms of ``pairs`` (pod, node) pairs
+    given each node's side row (see PERF.md): the amplified request (4 a
+    dim), each zone's fit (an add and a compare a zone and dim), the
+    total's test (2 a dim); with the aligned score each zone's fit (2 a
+    zone and dim) and key compare (1 a zone), the picked zone's score (10
+    a dim) and the weighted floor (3)."""
     z, dn = terms.cap.shape[1:]
-    ops = p * n * (z * dn * 3 + dn * 6)
+    ops = pairs * (dn * 4 + z * dn * 2 + dn * 2)
     if terms.scoring:
-        ops += p * n * (z * (dn * 2 + 4) + dn * 8)
+        ops += pairs * (z * dn * 2 + z + dn * 10 + 3)
     return ops
+
+
+def zone_node_ops(terms, nodes: int) -> int:
+    """fp32 operations of the side table of ``nodes`` nodes
+    (``csrc/zone_prep.cu``): the zone sums behind dim_on and total_free
+    (2 (Z-1) adds and a compare a dim), has_zones (Z (DN-1) adds and Z
+    compares), each zone's capacity test (DN a zone) and key (4 a
+    zone)."""
+    z, dn = terms.cap.shape[1:]
+    return nodes * (2 * (z - 1) * dn + dn + z * (dn - 1) + z + z * dn + z * 4)
 
 
 def check_equal(what: str, pairs) -> float:
@@ -2022,12 +2033,13 @@ def phase_numa_kernels(torch, dev, report):
     from koordinator_tpu_torch import kernels
     from koordinator_tpu_torch.ops import commit as commit_ops
     from koordinator_tpu_torch.ops import nominate as nominate_ops
+    from koordinator_tpu_torch.ops import numa as numa_ops
     from koordinator_tpu_torch.ops import shortlist as sl
     from koordinator_tpu_torch.ops import solver
 
     nodes_t, pods_t, params_t, numa_t = numa_port_inputs(torch, dev)
     checks = {k: 0.0 for k in ("nominate_numa", "shortlist_build_numa", "shortlist_round_numa",
-                               "round_tail_zone", "zone_refund")}
+                               "round_tail_zone", "zone_refund", "zone_prep")}
     seen, timing = [], {}
     pods_s = solver.tree_map(lambda a: a.reshape((-1, BATCH) + a.shape[1:]), pods_t)
     # a later state: three batches committed, the zone table carried
@@ -2049,6 +2061,10 @@ def phase_numa_kernels(torch, dev, report):
         for scoring in (0, 1, 2):
             spods, nom_args, terms, zone = numa_round_case(torch, pods_b, state, zone_free,
                                                            numa_t, params_t, scoring)
+            want = numa_ops.zone_prep_plain(zone_free, numa_t.zone_cap, numa_t.policy)
+            checks["zone_prep"] = max(checks["zone_prep"], check_equal(
+                f"zone_prep ({label})", [("snapshot", terms.free, want[0]),
+                                         ("side", terms.side, want[1])]))
             for approx in (False, True):
                 kc, ki = nominate_ops.nominate(*nom_args, 4, 4.0, approx, zones=terms)
                 pc, pi = nominate_ops.nominate_plain(*nom_args, 4, 4.0, approx, zones=terms)
@@ -2141,7 +2157,7 @@ def phase_numa_kernels(torch, dev, report):
     p, d = spods.requests.shape
     n = nom_args[5].shape[0]
     z, dn = terms.cap.shape[1:]
-    zone_bytes = n * z * dn * 4 * 2 + n + p
+    zone_bytes = n * z * dn * 4 * 2 + n * (1 + dn + z) * 4 + p
 
     def add_row(name, source, replaces, fn, plain, kname, nbytes, nops, iters, per_call=1):
         b_ms, b_by = bound_of(nbytes, nops)
@@ -2166,7 +2182,7 @@ def phase_numa_kernels(torch, dev, report):
             "koordinator_tpu/ops/numa.py:77", lambda: nominate_ops.nominate(
                 *nom_args, 4, 4.0, True, zones=terms),
             lambda: nominate_ops.nominate_plain(*nom_args, 4, 4.0, True, zones=terms),
-            "nominate", nom_bytes, nom_ops + zone_pair_ops(terms, p, n), 200,
+            "nominate", nom_bytes, nom_ops + zone_pair_ops(terms, p * n), 200,
             1 if chunk >= n else 2)
     b_args = nom_args[:4] + nom_args[5:]
     plan = sl.shortlist_build(*b_args, SHORTLIST_K, 4.0, zones=terms)
@@ -2175,7 +2191,7 @@ def phase_numa_kernels(torch, dev, report):
             "koordinator_tpu/ops/costs.py:212",
             lambda: sl.shortlist_build(*b_args, SHORTLIST_K, 4.0, zones=terms),
             lambda: sl.shortlist_build_plain(*b_args, SHORTLIST_K, 4.0, zones=terms),
-            "shortlist_build_kernel", build_bytes, nom_ops + zone_pair_ops(terms, p, n), 100)
+            "shortlist_build_kernel", build_bytes, nom_ops + zone_pair_ops(terms, p * n), 100)
     word = torch.zeros(sl.WORD, dtype=torch.int32, device=dev)
     counts = torch.zeros(2, dtype=torch.int32, device=dev)
     st = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -2191,7 +2207,13 @@ def phase_numa_kernels(torch, dev, report):
                                              zones=terms),
             "shortlist_round_kernel", round_bytes,
             pair_ops(d, p * SHORTLIST_K, bind_pods * SHORTLIST_K, p * SHORTLIST_K, feas // 10)
-            + zone_pair_ops(terms, p, SHORTLIST_K), 200)
+            + zone_pair_ops(terms, p * SHORTLIST_K), 200)
+    prep_in = (zone[0], numa_t.zone_cap, numa_t.policy)
+    add_row("zone_prep", "koordinator_tpu_torch/csrc/zone_prep.cu",
+            "koordinator_tpu/ops/numa.py:77",
+            lambda: numa_ops.zone_prep(*prep_in), lambda: numa_ops.zone_prep_plain(*prep_in),
+            "zone_prep_kernel", n * z * dn * 4 * 3 + n + n * (1 + dn + z) * 4,
+            zone_node_ops(terms, n), 200)
     iters = 200
     copies = iter([([t.clone() for t in args[ROUND_MUTABLE]], zone[0].clone(), zone[5].clone())
                    for _ in range(2 * iters + 2)])
@@ -2397,7 +2419,9 @@ def phase_bigbatch(torch, dev, report):
             library_device_ms=None, bytes=g_bytes, operations=g_ops))
         launches = next(ln["launches"] for ln in lines if ln["at"] == label)
         report["kernels"][-2]["launches"] = launches.get("round_tail_big")
-        report["kernels"][-1]["launches"] = launches.get("enforce_gangs_big")
+        # the rollback of 8,192 pods runs in shared memory, of 16,384 in
+        # device memory: either is the batch's one enforce_gangs launch
+        report["kernels"][-1]["launches"] = launches.get("enforce_gangs")
     report["bigbatch"] = lines
     kernels.reset_launches()
 
@@ -2455,7 +2479,7 @@ def phase_numa_streams(torch, dev, report):
             replays = dict(kernels.replays)
             final_zones = zone_free.cpu().numpy()
             times = [seconds] + [run()[2] for _ in range(PASSES - 1)]
-            need = ["nominate", "round_tail", "zone_phase", "enforce_gangs"]
+            need = ["zone_prep", "nominate", "round_tail", "zone_phase", "enforce_gangs"]
             if k:
                 need += ["shortlist_build", "shortlist_round"]
             for name in need:
@@ -2505,8 +2529,8 @@ def phase_numa_streams(torch, dev, report):
                 nm = row["name"]
                 if nm == "round_tail_zone":
                     row["launches"] = row["launches"] or launches.get("zone_phase")
-                elif nm == "zone_refund":
-                    row["launches"] = row["launches"] or launches.get("zone_refund")
+                elif nm in ("zone_refund", "zone_prep"):
+                    row["launches"] = row["launches"] or launches.get(nm)
                 elif nm == "nominate_numa" and not k:
                     row["launches"] = row["launches"] or launches.get("nominate")
                 elif nm.endswith("_numa") and k and nm[:-5] in launches:

@@ -150,7 +150,7 @@ __device__ __forceinline__ const bool* mask_row_of(const bool* mask, const long 
 
 // The NUMA zones a pair is priced from: the zone table as the batch began
 // (a snapshot the round tail never writes) and the capacities, [N, Z, DN]
-// each, the nodes' topology policies [N] int8, the priority-sorted pods'
+// each, the nodes' side table (below), the priority-sorted pods'
 // SingleNUMANode `required` flags [P], and the aligned score's strategy
 // (0 off, 1 LeastAllocated, 2 MostAllocated). Z <= kMaxZones, DN <=
 // kMaxZoneDims and DN <= D: the zone dims are the prefix of the resource
@@ -159,9 +159,21 @@ constexpr int kMaxZones = 8;
 constexpr int kMaxZoneDims = 4;
 constexpr int kPolicySingleNuma = 3;  // numa.POLICY_SINGLE_NUMA_NODE
 
+// What the pairs of one node share, worked out once a batch from the
+// snapshot (zone_prep.cu): a row of 1 + DN + Z words a node — the bits
+// below, then the zones' free totals [DN] (added in zone order, as
+// jnp.sum lowers on the CPU) and each zone's (cap0 - free0 + 1) /
+// (cap0 + 1) [Z] (the aligned score's key), as float bits.
+constexpr uint32_t kSideDimOn = 1u;         // bit d < DN: some zone reports dim d
+constexpr uint32_t kSideHasZones = 1u << 4; // a zone whose capacities sum > 0
+constexpr uint32_t kSideSingle = 1u << 5;   // SINGLE_NUMA_NODE policy
+constexpr int kSideReal = 8;                // bit 8 + z: zone z has some capacity
+
+__host__ __device__ inline int side_words(int Z, int DN) { return 1 + DN + Z; }
+
 struct Zones {
   const float *free, *cap;
-  const int8_t* policy;
+  const uint32_t* side;
   const bool* required;
   int Z, DN, scoring;
 };
@@ -172,85 +184,78 @@ struct Zones {
 // req * (1 + wants * (1 - 1)) on the others; a dim no zone of the node
 // reports is not checked; a strict pair (SINGLE_NUMA_NODE node, or a
 // required pod) needs one zone that holds the request, another pair that
-// wants alignment the sum of the zones (added in zone order); a node with
-// no zone capacity fits every pod.
+// wants alignment the sum of the zones; a node with no zone capacity fits
+// every pod. The node's terms come from its side row.
 template <int D>
 __device__ __forceinline__ bool numa_fit(const float (&req)[D], bool bind, bool required,
                                          float cpu_amp, int n, const Zones& z) {
+  const uint32_t* sd = z.side + (size_t)n * side_words(z.Z, z.DN);
+  const uint32_t info = sd[0];
+  if (!(info & kSideHasZones)) return true;
   const bool wants = bind || required;
   const float wf = wants ? 1.0f : 0.0f;
   const float amp = fmaxf(cpu_amp, 1.0f);
   const float* fr = z.free + (size_t)n * z.Z * z.DN;
-  const float* cp = z.cap + (size_t)n * z.Z * z.DN;
-  float re[kMaxZoneDims], total[kMaxZoneDims];
-  bool on[kMaxZoneDims];
+  float re[kMaxZoneDims];
   constexpr int DZ = D < kMaxZoneDims ? D : kMaxZoneDims;
 #pragma unroll
   for (int d = 0; d < DZ; ++d) {
     if (d >= z.DN) break;
     const float scale = d == 0 ? amp : 1.0f;
     re[d] = req[d] * (1.0f + wf * (scale - 1.0f));
-    float csum = cp[d], fsum = fr[d];
-    for (int q = 1; q < z.Z; ++q) {
-      csum = csum + cp[q * z.DN + d];
-      fsum = fsum + fr[q * z.DN + d];
-    }
-    on[d] = csum > 0.0f;
-    total[d] = fsum;
   }
-  bool has_zones = false, any_zone = false;
-  for (int q = 0; q < z.Z; ++q) {
-    float csum = 0.0f;
-    bool fit = true;
+  if ((info & kSideSingle) || required) {
+    for (int q = 0; q < z.Z; ++q) {
+      bool fit = true;
 #pragma unroll
-    for (int d = 0; d < DZ; ++d) {
-      if (d >= z.DN) break;
-      const float c = cp[q * z.DN + d];
-      csum = d == 0 ? c : csum + c;
-      fit = fit && (re[d] <= fr[q * z.DN + d] + kEps || !on[d]);
+      for (int d = 0; d < DZ; ++d) {
+        if (d >= z.DN) break;
+        fit = fit && (re[d] <= fr[q * z.DN + d] + kEps || !((info >> d) & kSideDimOn));
+      }
+      if (fit) return true;
     }
-    has_zones = has_zones || csum > 0.0f;
-    any_zone = any_zone || fit;
+    return false;
   }
-  if (!has_zones) return true;
-  if (z.policy[n] == kPolicySingleNuma || required) return any_zone;
+  if (!wants) return true;
   bool total_fit = true;
 #pragma unroll
   for (int d = 0; d < DZ; ++d) {
     if (d >= z.DN) break;
-    total_fit = total_fit && (re[d] <= total[d] + kEps || !on[d]);
+    total_fit = total_fit &&
+                (re[d] <= __uint_as_float(sd[1 + d]) + kEps || !((info >> d) & kSideDimOn));
   }
-  return total_fit || !wants;
+  return total_fit;
 }
 
 // numa_aligned_cost for one pair (costs.py:212-263): the pod's request
 // (not amplified) goes into the fitting zone of least (used0 + 1) /
-// (cap0 + 1), the first on ties; the node scores on that zone with the
-// integer-floor per-dim score (Least- or MostAllocated), 0 where a dim is
-// over capacity or has none, weighted by the first DN weights (zwsum =
-// their sum + _SAFE). Returns the cost term -score, -0 where the pod does
-// not want alignment or no zone fits.
+// (cap0 + 1) (the side row's key), the first on ties; the node scores on
+// that zone with the integer-floor per-dim score (Least- or
+// MostAllocated), 0 where a dim is over capacity or has none, weighted by
+// the first DN weights (zwsum = their sum + _SAFE). Returns the cost term
+// -score, -0 where the pod does not want alignment or no zone fits.
 template <int D>
 __device__ __forceinline__ float numa_score(const float (&req)[D], bool bind, bool required,
                                             int n, const Zones& z, const float (&w)[D],
                                             float zwsum) {
   if (!(bind || required)) return -0.0f;
   constexpr int DZ = D < kMaxZoneDims ? D : kMaxZoneDims;
+  const uint32_t* sd = z.side + (size_t)n * side_words(z.Z, z.DN);
+  const uint32_t info = sd[0];
   const float* fr = z.free + (size_t)n * z.Z * z.DN;
   const float* cp = z.cap + (size_t)n * z.Z * z.DN;
   int best = -1;
   float best_key = CUDART_INF_F;
   for (int q = 0; q < z.Z; ++q) {
-    bool real = false, fit = true;
+    if (!((info >> (kSideReal + q)) & 1u)) continue;
+    bool fit = true;
 #pragma unroll
     for (int d = 0; d < DZ; ++d) {
       if (d >= z.DN) break;
-      real = real || cp[q * z.DN + d] > 0.0f;
       fit = fit && req[d] <= fr[q * z.DN + d] + 1e-6f;
     }
-    if (!(fit && real)) continue;
-    const float used0 = cp[q * z.DN] - fr[q * z.DN];
-    const float util = (used0 + 1.0f) / (cp[q * z.DN] + 1.0f);
+    if (!fit) continue;
+    const float util = __uint_as_float(sd[1 + z.DN + q]);
     if (best < 0 || util < best_key) {
       best = q;
       best_key = util;

@@ -594,7 +594,7 @@ extern "C" int koord_nominate(
     int D, int K, int chunk, float jitter_scale, int jitter_on, int approx,
     void* part_cost, void* part_idx, void* out_cost, void* out_idx,
     const void* state, const void* trigger, const void* mask, const void* mask_row,
-    const void* zone_free, const void* zone_cap, const void* policy, const void* required,
+    const void* zone_free, const void* zone_cap, const void* side, const void* required,
     int Z, int DN, int scoring, void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (D < 1 || D > kMaxDims || N < 1 || K < 1 || K > kMaxK || chunk < 1)
@@ -611,7 +611,7 @@ extern "C" int koord_nominate(
                approx, (float*)part_cost, (int*)part_idx, (float*)out_cost,
                (int*)out_idx, (const int*)state, (const int*)trigger, (const bool*)mask,
                (const long long*)mask_row,
-               Zones{(const float*)zone_free, (const float*)zone_cap, (const int8_t*)policy,
+               Zones{(const float*)zone_free, (const float*)zone_cap, (const uint32_t*)side,
                      (const bool*)required, Z, DN, scoring},
                (cudaStream_t)stream};
   return (int)with_dk(D, K, Launch{a});

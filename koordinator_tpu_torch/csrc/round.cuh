@@ -99,7 +99,9 @@
 //   The code is the same: the working set is reached through generic
 //   pointers, and barriers order device memory within the block as they
 //   order shared memory. There the quota levels' sort keys are 64 bits and
-//   the chunk totals' scan keeps any number of levels (ChunkScanDeep).
+//   the chunk totals' scan keeps any number of levels (ChunkScanDeep), and
+//   the quota commit and the zone phase run in frames of their own (see
+//   quota_commit_apart).
 
 #pragma once
 
@@ -1155,6 +1157,42 @@ __device__ void zone_charge(const bool (&ok)[R], const int (&zsel)[R], const uin
   __syncthreads();
 }
 
+// The device-memory round (16 rows a thread) keeps its rows' arrays in
+// local memory, and so do its phases. Each phase with local objects of its
+// own runs there in a frame of its own (not inlined), so that none of its
+// objects can take the local-memory slot of a kernel array that is live
+// across the phase: NVVM's -O3 gave the quota commit's ChunkScanDeep state
+// the slot of a bool[16] the charges read after the commit
+// (tools/round_miscompile.py). The rounds of up to 4 rows a thread keep
+// these arrays in registers and the phases inlined.
+template <int D, int R>
+__device__ __noinline__ void quota_commit_apart(bool (&ok)[R], const uint64_t (&key)[R], int P,
+                                                char* qarea, const ScanLevels& lv, int* warp_sums,
+                                                const float* __restrict__ req,
+                                                const int* __restrict__ chain,
+                                                const float* __restrict__ runtime, float* qused,
+                                                int Q, int L) {
+  quota_commit<D, R>(ok, key, P, qarea, lv, warp_sums, req, chain, runtime, qused, Q, L);
+}
+
+template <int D, int R>
+__device__ __noinline__ void zone_select_apart(bool (&ok)[R], int (&zsel)[R],
+                                               const uint64_t (&key)[R], const int (&start)[R],
+                                               const float (&rq)[R][D], const bool (&bound)[R],
+                                               int P, int N, const uint64_t* keys, int* z_bits,
+                                               int* z_res, int* z_end, float* z_req,
+                                               const RoundZones& zn) {
+  zone_select<D, R>(ok, zsel, key, start, rq, bound, P, N, keys, z_bits, z_res, z_end, z_req, zn);
+}
+
+template <int D, int R>
+__device__ __noinline__ void zone_charge_apart(const bool (&ok)[R], const int (&zsel)[R],
+                                               const uint64_t (&key)[R], const int (&start)[R],
+                                               int P, int N, int* z_res, const int* z_end,
+                                               const float* z_req, const RoundZones& zn) {
+  zone_charge<D, R>(ok, zsel, key, start, P, N, z_res, z_end, z_req, zn);
+}
+
 // R rows a thread: row i = tid + r * blockDim.x. A row's values stay in
 // registers from its load to its last use; only what other rows read
 // (keys, cumsums, flags, the values the charge walk adds) goes through
@@ -1425,8 +1463,12 @@ round_tail_kernel(const float* __restrict__ top_cost,
   // Z. With zones, the zone selection on the fit acceptance (:1275-1332)
   int zsel[R];
   if constexpr (kZone) {
-    zone_select<D, R>(ok, zsel, key, start, rq, bound, P, N, keys, z_bits, z_res, z_end, z_req,
-                      zn);
+    if constexpr (kGlobal)
+      zone_select_apart<D, R>(ok, zsel, key, start, rq, bound, P, N, keys, z_bits, z_res, z_end,
+                              z_req, zn);
+    else
+      zone_select<D, R>(ok, zsel, key, start, rq, bound, P, N, keys, z_bits, z_res, z_end, z_req,
+                        zn);
 #pragma unroll (R <= 4 ? R : 1)
     for (int r = 0; r < R; ++r) ok[r] = ok[r] && qok[r];
   }
@@ -1438,7 +1480,8 @@ round_tail_kernel(const float* __restrict__ top_cost,
   // 6. With quotas, the quota commit: each row first notes in its flags
   // whether it ends its node's segment (the charges below need it; the
   // quota phase then takes the keys' room), and only the pods that also
-  // clear their chains stay accepted (:1362-1370)
+  // clear their chains stay accepted (:1362-1370). The note goes to the
+  // working set, which the charges read anyway.
   if constexpr (kQuota) {
 #pragma unroll (R <= 4 ? R : 1)
     for (int r = 0; r < R; ++r) {
@@ -1446,8 +1489,12 @@ round_tail_kernel(const float* __restrict__ top_cost,
       if (i < P)
         s_flags[i] = i == P - 1 || (keys[i + 1] >> 32) != (key[r] >> 32) ? kLast : 0;
     }
-    quota_commit<D, R>(ok, key, P, (char*)keys, lv, warp_sums, req, chain, runtime, qused, Q,
-                       levels);
+    if constexpr (kGlobal)
+      quota_commit_apart<D, R>(ok, key, P, (char*)keys, lv, warp_sums, req, chain, runtime,
+                               qused, Q, levels);
+    else
+      quota_commit<D, R>(ok, key, P, (char*)keys, lv, warp_sums, req, chain, runtime, qused, Q,
+                         levels);
   }
 #pragma unroll (R <= 4 ? R : 1)
   for (int r = 0; r < R; ++r) {
@@ -1528,7 +1575,10 @@ round_tail_kernel(const float* __restrict__ top_cost,
   }
 
   // 7z. With zones, the final winners' zone charges (:1417-1432)
-  if constexpr (kZone) zone_charge<D, R>(ok, zsel, key, start, P, N, z_res, z_end, z_req, zn);
+  if constexpr (kZone && kGlobal)
+    zone_charge_apart<D, R>(ok, zsel, key, start, P, N, z_res, z_end, z_req, zn);
+  else if constexpr (kZone)
+    zone_charge<D, R>(ok, zsel, key, start, P, N, z_res, z_end, z_req, zn);
 
   // 8. The loop state (:1433-1452): un-sort the accepts onto `assigned`
   // (an accepted row's node key is its choice), active &= assigned < 0,

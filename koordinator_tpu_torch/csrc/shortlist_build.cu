@@ -223,7 +223,7 @@ extern "C" int koord_shortlist_build(
     const void* cpu_amp, const void* thr, const void* pthr, const void* weights,
     int P, int N, int D, int K, float jitter_scale, int jitter_on, void* cand,
     void* bound, const void* mask, const void* mask_row, const void* zone_free,
-    const void* zone_cap, const void* policy, const void* required, int Z, int DN,
+    const void* zone_cap, const void* side, const void* required, int Z, int DN,
     int scoring, void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (K < 1 || K > kMaxShortlist || K >= N) return (int)cudaErrorInvalidValue;
@@ -239,7 +239,7 @@ extern "C" int koord_shortlist_build(
                      (const float*)cpu_amp, (const float*)thr, (const float*)pthr},
                (const float*)weights, P, N, K, index_bits, jitter_scale, jitter_on,
                (int*)cand, (float*)bound, (const bool*)mask, (const long long*)mask_row,
-               Zones{(const float*)zone_free, (const float*)zone_cap, (const int8_t*)policy,
+               Zones{(const float*)zone_free, (const float*)zone_cap, (const uint32_t*)side,
                      (const bool*)required, Z, DN, scoring},
                (cudaStream_t)stream};
   return (int)with_d8(D, Launch{a});

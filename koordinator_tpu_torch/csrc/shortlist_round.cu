@@ -191,7 +191,7 @@ extern "C" int koord_shortlist_round(
     const void* weights, const void* cand, const void* bound, int P, int N, int D,
     int K, int k, float jitter_scale, int jitter_on, int approx, void* out_cost,
     void* out_idx, void* word, void* counts, const void* state, const void* mask,
-    const void* mask_row, const void* zone_free, const void* zone_cap, const void* policy,
+    const void* mask_row, const void* zone_free, const void* zone_cap, const void* side,
     const void* required, int Z, int DN, int scoring, void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (k < 1 || k > 8 || k > K) return (int)cudaErrorInvalidValue;
@@ -207,7 +207,7 @@ extern "C" int koord_shortlist_round(
                jitter_scale, jitter_on, approx, (float*)out_cost, (int*)out_idx,
                (int*)word, (int*)counts, (const int*)state, (const bool*)mask,
                (const long long*)mask_row,
-               Zones{(const float*)zone_free, (const float*)zone_cap, (const int8_t*)policy,
+               Zones{(const float*)zone_free, (const float*)zone_cap, (const uint32_t*)side,
                      (const bool*)required, Z, DN, scoring},
                (cudaStream_t)stream};
   return (int)with_d8(D, Launch{a});

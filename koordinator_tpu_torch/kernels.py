@@ -75,6 +75,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "quota": {
         "koord_quota_gate": [_P] * 6 + [_I] * 4 + [_P],
     },
+    "zone_prep": {
+        "koord_zone_prep": [_P] * 5 + [_I] * 3 + [_P],
+    },
 }
 
 #: Kernel launches by wrapper name, eager or replayed from a CUDA graph.
@@ -88,21 +91,6 @@ captured: collections.Counter = collections.Counter()
 replays: collections.Counter = collections.Counter()
 
 _libs: dict[str, ctypes.CDLL] = {}
-#: device-memory working sets of the kernels that outgrow shared memory,
-#: by (device index, bytes); kept for the process, so a CUDA graph that
-#: captured one always finds it
-_scratch: dict = {}
-
-
-def scratch(device: torch.device, nbytes: int) -> torch.Tensor:
-    """A uint8 buffer of ``nbytes`` on ``device`` that a kernel may use as
-    its working set, one per size and device, allocated at first use (a
-    stream's warm-up, before its graph is captured) and kept."""
-    key = (device.index, nbytes)
-    buf = _scratch.get(key)
-    if buf is None:
-        buf = _scratch[key] = torch.empty(nbytes, dtype=torch.uint8, device=device)
-    return buf
 
 
 def reset_launches() -> None:

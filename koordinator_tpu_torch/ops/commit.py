@@ -370,9 +370,9 @@ def round_tail(
     ``quota_commit_sorted``; with ``zone`` the zone selection and charges,
     counted also as ``zone_phase``. The kernel is ``csrc/round.cu``'s (or
     with zones ``round_zone.cu``'s) while the round fits in shared memory,
-    else ``round_big.cu``'s, its working set in a device buffer
-    (:func:`route`, counted also as ``round_tail_big``); up to 16,384
-    pods."""
+    else ``round_big.cu``'s, its working set in a device buffer of this
+    launch's own (:func:`route`; counted also as ``round_tail_big``); up
+    to 16,384 pods."""
     args = (top_cost, top_idx, req, est, is_prod, cpu_bind, cpu_amp,
             alloc, fresh, thr, pthr, requested, est_used, prod_used,
             assigned, active, state)
@@ -418,8 +418,12 @@ def round_tail(
     elif name == "round_zone":
         code = lib.koord_round_tail_zone(*common, *z_args, stream)
     else:
-        buf = kernels.scratch(top_cost.device, nbytes).data_ptr() if nbytes else None
-        code = lib.koord_round_tail_big(*common, *(z_args or [None] * 6 + [0, 0]), buf, stream)
+        # the launch's own working set, from the caching allocator on its
+        # stream: inside a capture it comes from that graph's pool, so no
+        # two graphs or streams share one
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=top_cost.device) if nbytes else None
+        code = lib.koord_round_tail_big(*common, *(z_args or [None] * 6 + [0, 0]),
+                                        None if buf is None else buf.data_ptr(), stream)
     kernels.check(lib, code, "round_tail")
     kernels.count("round_tail")
     if name == "round_big":

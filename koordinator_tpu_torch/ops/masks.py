@@ -71,14 +71,10 @@ def usage_threshold_mask(
 
 def usage_ok(pod_estimate, node_used, node_allocatable, thr, metric_fresh):
     """:func:`usage_threshold_mask` on effective thresholds ``thr`` ([N, D]
-    or [1, D], as :func:`effective_thresholds` returns them). A dim whose
-    threshold is 0 on every node can exceed none, so only the other dims
-    are computed: the same mask, with less [P, N] work."""
-    dims = torch.nonzero((thr > 0.0).reshape(-1, thr.shape[-1]).any(dim=0))[:, 0]
-    after = node_used[None, :, dims] + pod_estimate[:, None, dims]
-    pct = usage_percent(after, node_allocatable[None, :, dims])
-    t = thr[None, :, dims]
-    over = (t > 0.0) & (pct > t)
+    or [1, D], as :func:`effective_thresholds` returns them)."""
+    after = node_used[None, :, :] + pod_estimate[:, None, :]
+    pct = usage_percent(after, node_allocatable[None, :, :])
+    over = (thr[None, :, :] > 0.0) & (pct > thr[None, :, :])
     ok = ~torch.any(over, dim=-1)
     return ok | ~metric_fresh[None, :]
 

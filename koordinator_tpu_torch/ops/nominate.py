@@ -17,7 +17,6 @@ promise, so neither path uses it.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 
 import torch
@@ -84,17 +83,15 @@ def nomination_vector(top_cost, top_idx, approx_topk: bool):
     )
 
 
-def add_jitter(cost, node_ids, nomination_jitter: float, pods=None):
+def add_jitter(cost, node_ids, nomination_jitter: float):
     """``cost`` [P, M] plus the 16-bit jitter of each (sorted pod position,
     original node id) pair, ``node_ids`` [P, M] or [1, M]
     (``solver.py:add_jitter`` :732-742 and ``add_jitter_cols`` :744-753):
-    a pair gets the same jitter on the full axis and in the shortlist.
-    ``pods`` [P] holds the rows' pod positions (0..P-1 by default)."""
+    a pair gets the same jitter on the full axis and in the shortlist."""
     if nomination_jitter <= 0.0:
         return cost
-    if pods is None:
-        pods = torch.arange(cost.shape[0], device=cost.device)
-    h = _jitter_hash(pods[:, None], node_ids)
+    pi = torch.arange(cost.shape[0], device=cost.device)[:, None]
+    h = _jitter_hash(pi, node_ids)
     return cost + h.to(torch.float32) * (nomination_jitter / 65536.0)
 
 
@@ -113,11 +110,6 @@ def zone_terms(req, cpu_bind, cpu_amp, weights, zones):
     return fit, score
 
 
-#: pods a block of the plain [P, N] cost: its [rows, N, D] temporaries stay
-#: a few MB
-_COST_ROWS = 256
-
-
 def masked_cost(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
@@ -126,62 +118,20 @@ def masked_cost(
     """[P, N] masked, jittered LoadAware cost (``full_feas_cost``
     :864-947), +inf where a pair is infeasible; with ``zones`` (a
     :class:`.numa.ZoneTerms`) the NUMA fit is one more feasibility term and
-    the aligned score is added before the jitter. Computed for the gated
-    pods only (a pod whose gate is closed prices every node +inf), a block
-    of ``_COST_ROWS`` pods at a time: each pair's arithmetic is the same."""
-    out = torch.full((req.shape[0], alloc.shape[0]), torch.inf, dtype=torch.float32,
-                     device=req.device)
-    for r, cost in _cost_blocks(
-            req, est, is_prod, cpu_bind, gate, alloc, requested, est_used, prod_used, fresh,
-            sched, cpu_amp, thr, pthr, weights, nomination_jitter, mask, zones):
-        out[r] = cost
-    return out
-
-
-def _cost_blocks(
-    req, est, is_prod, cpu_bind, gate,
-    alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
-    weights, nomination_jitter: float, mask=None, zones=None,
-):
-    """:func:`masked_cost`'s rows, a block of gated pods at a time: yields
-    (pod positions [B], their [B, N] cost)."""
-    n = alloc.shape[0]
-    rows = torch.nonzero(gate)[:, 0]
-    nodes = torch.arange(n, device=req.device)[None, :]
-    for at in range(0, rows.numel(), _COST_ROWS):
-        r = rows[at : at + _COST_ROWS]
-        feas = feasible_mask(
-            req[r], est[r], is_prod[r], cpu_bind[r], gate[r],
-            alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
-            None if mask is None else (mask[0], mask[1][r]),
-        )
-        cost = load_aware_cost(est[r], est_used, alloc, weights, metric_fresh=fresh)
-        if zones is not None:
-            part = dataclasses.replace(zones, required=zones.required[r])
-            fit, score = zone_terms(req[r], cpu_bind[r], cpu_amp, weights, part)
-            feas &= fit
-            if score is not None:
-                cost = cost + score
-        cost = add_jitter(cost, nodes, nomination_jitter, pods=r)
-        yield r, torch.where(feas, cost, torch.inf)
-
-
-def ordered_topk(cost, k: int):
-    """The ``k`` lowest (cost, index) pairs of each row of ``cost`` [P, M],
-    in that order — what ``jax.lax.top_k`` of the negated cost gives,
-    +inf entries ranked by index — as (values [P, k] float32, indices
-    [P, k] int32): k passes of a row minimum and the first index holding
-    it."""
-    taken = torch.zeros_like(cost, dtype=torch.bool)
-    vals, idx = [], []
-    for _ in range(k):
-        live = torch.where(taken, torch.inf, cost)
-        best = live.min(dim=1).values
-        first = ((live == best[:, None]) & ~taken).to(torch.int8).argmax(dim=1)
-        taken.scatter_(1, first[:, None], True)
-        vals.append(best)
-        idx.append(first)
-    return torch.stack(vals, 1).contiguous(), torch.stack(idx, 1).to(torch.int32)
+    the aligned score is added before the jitter."""
+    feas = feasible_mask(
+        req, est, is_prod, cpu_bind, gate,
+        alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr, mask,
+    )
+    cost = load_aware_cost(est, est_used, alloc, weights, metric_fresh=fresh)
+    if zones is not None:
+        fit, score = zone_terms(req, cpu_bind, cpu_amp, weights, zones)
+        feas &= fit
+        if score is not None:
+            cost = cost + score
+    nodes = torch.arange(alloc.shape[0], device=req.device)[None, :]
+    cost = add_jitter(cost, nodes, nomination_jitter)
+    return torch.where(feas, cost, torch.inf)
 
 
 def nominate_plain(
@@ -199,15 +149,14 @@ def nominate_plain(
     is; otherwise the result is written into ``out``."""
     if trigger is not None and not bool(trigger[0]):
         return out
-    # a closed gate prices every node +inf: its top-k is the first k ids
-    p = req.shape[0]
-    vals = torch.full((p, k), torch.inf, dtype=torch.float32, device=req.device)
-    idx = torch.arange(k, dtype=torch.int32, device=req.device).repeat(p, 1)
-    for r, cost in _cost_blocks(
-            req, est, is_prod, cpu_bind, gate, alloc, requested, est_used, prod_used, fresh,
-            sched, cpu_amp, thr, pthr, weights, nomination_jitter, mask, zones):
-        vals[r], idx[r] = ordered_topk(cost, k)
-    top = nomination_vector(vals, idx, approx_topk)
+    cost = masked_cost(
+        req, est, is_prod, cpu_bind, gate, alloc, requested, est_used,
+        prod_used, fresh, sched, cpu_amp, thr, pthr, weights, nomination_jitter, mask, zones,
+    )
+    vals, idx = torch.sort(cost, dim=1, stable=True)
+    top = nomination_vector(
+        vals[:, :k].contiguous(), idx[:, :k].to(torch.int32), approx_topk
+    )
     if out is None:
         return top
     for buf, val in zip(out, top):

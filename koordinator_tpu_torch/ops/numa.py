@@ -135,19 +135,87 @@ class ZoneTerms:
     """What the pricing of a batch reads of the zones: the zone table as
     the batch began (``free``: a snapshot, never the table the rounds
     write, ``solver.py:771-818``), the capacities and policies, the
-    priority-sorted pods' ``required`` flags [P] bool and the aligned
-    score's strategy (``scoring``: 0 off, 1 LeastAllocated, 2
-    MostAllocated). A pod wants alignment when it is cpuset-bound or
-    required (``solver.py:755-770``)."""
+    priority-sorted pods' ``required`` flags [P] bool, the aligned score's
+    strategy (``scoring``: 0 off, 1 LeastAllocated, 2 MostAllocated) and,
+    for the kernels, the nodes' side table (``side`` [N, 1 + DN + Z]
+    int32, :func:`zone_prep`). A pod wants alignment when it is
+    cpuset-bound or required (``solver.py:755-770``)."""
 
     free: torch.Tensor        # [N, Z, DN]
     cap: torch.Tensor         # [N, Z, DN]
     policy: torch.Tensor      # [N] int8
     required: torch.Tensor    # [P] bool, sorted pods
     scoring: int = 0
+    side: torch.Tensor = None
+
+    @classmethod
+    def batch_start(cls, zone_free, zone_cap, policy, required, scoring: int = 0) -> "ZoneTerms":
+        """The terms of a batch that begins with ``zone_free``: its
+        snapshot and side table (:func:`zone_prep`, one launch on the
+        card)."""
+        free, side = zone_prep(zone_free, zone_cap, policy)
+        return cls(free=free, cap=zone_cap, policy=policy, required=required, scoring=scoring,
+                   side=side)
 
     def state(self) -> NumaState:
         return NumaState(zone_free=self.free, zone_cap=self.cap, policy=self.policy)
+
+
+#: bits of a side row's first word (``csrc/loadaware.cuh``)
+SIDE_DIM_ON, SIDE_HAS_ZONES, SIDE_SINGLE, SIDE_REAL = 1, 1 << 4, 1 << 5, 8
+
+
+def zone_prep_plain(zone_free, zone_cap, policy):
+    """The plain version of ``csrc/zone_prep.cu``: (a copy of
+    ``zone_free``, the side table [N, 1 + DN + Z] int32). A node's row is
+    its bits — dim d on (bit d: the zones' capacities of d, added in zone
+    order, > 0), has zones (bit 4: a zone whose capacities, added in dim
+    order, sum > 0), SINGLE_NUMA_NODE (bit 5), zone z with some capacity
+    (bit 8 + z) — then the zones' free totals [DN] (:func:`zone_sum`) and
+    each zone's (cap0 - free0 + 1) / (cap0 + 1) [Z], as float bits: the
+    terms :func:`numa_fit_mask` and ``costs.numa_aligned_cost`` work out
+    per node."""
+    n, z, dn = zone_cap.shape
+    info = torch.where(policy == POLICY_SINGLE_NUMA_NODE, SIDE_SINGLE, 0).to(torch.int32)
+    dim_on = zone_sum(zone_cap) > 0                                        # [N, DN]
+    for d in range(dn):
+        info |= torch.where(dim_on[:, d], SIDE_DIM_ON << d, 0).to(torch.int32)
+    csum = zone_cap[:, :, 0]
+    for d in range(1, dn):
+        csum = csum + zone_cap[:, :, d]
+    info |= torch.where((csum > 0).any(dim=1), SIDE_HAS_ZONES, 0).to(torch.int32)
+    real = (zone_cap > 0).any(dim=-1)                                      # [N, Z]
+    for q in range(z):
+        info |= torch.where(real[:, q], 1 << (SIDE_REAL + q), 0).to(torch.int32)
+    used0 = zone_cap[:, :, 0] - zone_free[:, :, 0]
+    util = (used0 + 1.0) / (zone_cap[:, :, 0] + 1.0)
+    side = torch.cat([info[:, None], zone_sum(zone_free).view(torch.int32),
+                      util.contiguous().view(torch.int32)], dim=1)
+    return zone_free.clone(), side.contiguous()
+
+
+def zone_prep(zone_free, zone_cap, policy):
+    """A batch's zone snapshot and side table (:func:`zone_prep_plain`)
+    on the tensors' device: one launch of ``csrc/zone_prep.cu`` for CUDA
+    tensors, the plain version for CPU tensors."""
+    if zone_free.is_cpu:
+        return zone_prep_plain(zone_free, zone_cap, policy)
+    n, z, dn = zone_cap.shape
+    if not (1 <= z <= MAX_ZONES and 1 <= dn <= MAX_ZONE_DIMS):
+        raise ValueError(f"zone_prep: Z={z} must be in 1..{MAX_ZONES} and DN={dn} in "
+                         f"1..{MAX_ZONE_DIMS}")
+    snapshot = torch.empty_like(zone_free)
+    side = torch.empty((n, 1 + dn + z), dtype=torch.int32, device=zone_free.device)
+    ptrs = kernels.checked_ptrs(
+        "zone_prep", (zone_free, zone_cap, policy, snapshot, side),
+        (torch.float32, torch.float32, torch.int8, torch.float32, torch.int32),
+        (n * z * dn, n * z * dn, n, n * z * dn, n * (1 + dn + z)),
+    )
+    lib = kernels.library("zone_prep")
+    kernels.check(lib, lib.koord_zone_prep(*ptrs, n, z, dn, kernels.stream_of(zone_free)),
+                  "zone_prep")
+    kernels.count("zone_prep")
+    return snapshot, side
 
 
 #: ``numa_scoring`` → ``ZoneTerms.scoring``
@@ -162,9 +230,9 @@ MAX_ZONE_DIMS = 4
 
 def checked_zones(what: str, zones: "ZoneTerms | None", p: int, n: int, d: int) -> list:
     """A pricing kernel's NUMA arguments after the checks: the pointers of
-    the snapshot, the capacities, the policies and the required flags, then
-    Z, DN and the scoring strategy; null pointers and zeros without
-    ``zones``."""
+    the snapshot, the capacities, the side table and the required flags,
+    then Z, DN and the scoring strategy; null pointers and zeros without
+    ``zones``. The terms must come from :meth:`ZoneTerms.batch_start`."""
     if zones is None:
         return [None] * 4 + [0, 0, 0]
     _, nz, dn = zones.cap.shape
@@ -173,8 +241,11 @@ def checked_zones(what: str, zones: "ZoneTerms | None", p: int, n: int, d: int) 
     if not (1 <= nz <= MAX_ZONES and 1 <= dn <= min(MAX_ZONE_DIMS, d)):
         raise ValueError(f"{what}: Z={nz} must be in 1..{MAX_ZONES} and DN={dn} in "
                          f"1..min({MAX_ZONE_DIMS}, D={d})")
+    if zones.side is None:
+        raise ValueError(f"{what}: the zone terms have no side table (ZoneTerms.batch_start)")
     ptrs = kernels.checked_ptrs(
-        what, (zones.free, zones.cap, zones.policy, zones.required),
-        (torch.float32, torch.float32, torch.int8, torch.bool), (n * nz * dn, n * nz * dn, n, p),
+        what, (zones.free, zones.cap, zones.side, zones.required),
+        (torch.float32, torch.float32, torch.int32, torch.bool),
+        (n * nz * dn, n * nz * dn, n * (1 + dn + nz), p),
     )
     return ptrs + [nz, dn, zones.scoring]

@@ -575,8 +575,7 @@ def _assign_(
     terms = round_zone = None
     if zones is not None:
         zone_free, zone_cap, policy, zone_most, scoring = zones
-        terms = ZoneTerms(free=zone_free.clone(), cap=zone_cap, policy=policy,
-                          required=spods.numa_required, scoring=scoring)
+        terms = ZoneTerms.batch_start(zone_free, zone_cap, policy, spods.numa_required, scoring)
         azone = torch.full((p,), -1, dtype=torch.int32, device=dev)
         round_zone = (zone_free, zone_cap, policy, zone_most, spods.numa_required, azone)
     fallbacks = None
@@ -1063,7 +1062,7 @@ def _enforce_gangs_(result: SolveResult, pods: PodBatch) -> None:
     (counted also as ``quota_refund``), the zone refund when the result
     holds a zone table and charges of its DN (counted also as
     ``zone_refund``). A batch whose working set outgrows shared memory
-    runs with it in a device buffer."""
+    runs with it in a device buffer of the launch's own."""
     asg = result.assignment
     if asg.is_cpu:
         out = enforce_gangs_plain(result, pods)
@@ -1100,8 +1099,10 @@ def _enforce_gangs_(result: SolveResult, pods: PodBatch) -> None:
         )[1:] + [nz, dn]
     lib = kernels.library("gangs")
     nbytes = _gangs_scratch_bytes(asg.get_device(), p, refund)
-    buf = kernels.scratch(asg.device, nbytes).data_ptr() if nbytes else None
-    code = lib.koord_enforce_gangs(*ptrs, p, n, d, *q_ptrs, q_cap, levels, *z_args, buf,
+    # the launch's own working set, as the round tail's (ops/commit.py)
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=asg.device) if nbytes else None
+    code = lib.koord_enforce_gangs(*ptrs, p, n, d, *q_ptrs, q_cap, levels, *z_args,
+                                   None if buf is None else buf.data_ptr(),
                                    kernels.stream_of(asg))
     kernels.check(lib, code, "enforce_gangs")
     kernels.count("enforce_gangs")
@@ -1152,8 +1153,8 @@ def shortlist_plan(
     order, spods, bind, thr, pthr = _round_setup(pods, nodes, params, numa=numa is not None)
     terms = None
     if numa is not None:
-        terms = ZoneTerms(free=numa.zone_free, cap=numa.zone_cap, policy=numa.policy,
-                          required=spods.numa_required, scoring=_scoring(numa_scoring))
+        terms = ZoneTerms.batch_start(numa.zone_free, numa.zone_cap, numa.policy,
+                                      spods.numa_required, _scoring(numa_scoring))
     return shortlist_ops.shortlist_build(
         spods.requests, spods.estimate, spods.is_prod, bind, nodes.allocatable,
         nodes.requested, nodes.estimated_used, nodes.prod_used, nodes.metric_fresh,

@@ -30,8 +30,9 @@ shared and device memory, and the big-batch golden. With NUMA zones: the
 three pricing kernels' NUMA instantiations at Z = 1, 2 and 4 under each
 scoring, the round tail's zone phase at 1 to 8,192 pods with and without
 quotas, the zone refund up to 16,384 pods, and ``solve_stream_full`` with
-the zone carry against the NUMA golden. Tolerance: none — the kernels
-round as the plain versions do, so results must be bitwise equal.
+the zone carry against the NUMA golden; the batch-start zone snapshot and
+side table at 1 to 10,000 nodes and Z = 1 to 8. Tolerance: none — the
+kernels round as the plain versions do, so results must be bitwise equal.
 """
 
 import numpy as np
@@ -777,6 +778,29 @@ def zone_inputs(seed, p, n, d, zones):
     return arrays, numa, required
 
 
+@pytest.mark.parametrize("n", [1, 9, 257, 10_000])
+@pytest.mark.parametrize("zones, dn", [(1, 1), (2, 2), (4, 2), (8, 4)])
+def test_zone_prep_kernel_matches_plain(cuda, n, zones, dn):
+    """The batch-start snapshot and side table (``csrc/zone_prep.cu``)
+    against ``zone_prep_plain``: zone tables with padded zones, nodes
+    without zones and every policy."""
+    rng = np.random.default_rng(n + zones * 10 + dn)
+    cap = rng.choice([0.0, 16_000.0, 32_000.0], (n, zones, dn), p=[0.2, 0.4, 0.4])
+    free = (cap * rng.uniform(0.0, 1.0, cap.shape)).astype(np.float32)
+    policy = rng.integers(0, 4, n).astype(np.int8)
+    outs = []
+    for device in (cuda, "cpu"):
+        args = [torch.from_numpy(a.astype(dt)).to(device)
+                for a, dt in ((free, np.float32), (cap, np.float32), (policy, np.int8))]
+        before = kernels.launches["zone_prep"]
+        outs.append(tnuma.zone_prep(*args))
+        if device == cuda:
+            assert kernels.launches["zone_prep"] == before + 1
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(bits(a.cpu().numpy()), bits(b.numpy()))
+
+
 @pytest.mark.parametrize("p, n, d", [(1, 9, 1), (37, 300, 3), (512, 10_000, 2), (200, 5003, 8)])
 @pytest.mark.parametrize("zones", [1, 2, 4])
 @pytest.mark.parametrize("scoring", [0, 1, 2])
@@ -787,10 +811,10 @@ def test_pricing_kernels_with_zones_match_plain(cuda, p, n, d, zones, scoring):
     outs = []
     for device in (cuda, "cpu"):
         args = [torch.from_numpy(a).to(device) for a in arrays]
-        z = tnuma.ZoneTerms(free=torch.from_numpy(numa["zone_free"]).to(device),
-                            cap=torch.from_numpy(numa["zone_cap"]).to(device),
-                            policy=torch.from_numpy(numa["policy"]).to(device),
-                            required=torch.from_numpy(required).to(device), scoring=scoring)
+        z = tnuma.ZoneTerms.batch_start(torch.from_numpy(numa["zone_free"]).to(device),
+                                        torch.from_numpy(numa["zone_cap"]).to(device),
+                                        torch.from_numpy(numa["policy"]).to(device),
+                                        torch.from_numpy(required).to(device), scoring)
         nom = tnom.nominate(*args, min(4, n), 4.0, True, zones=z)
         k = min(64, n - 1)
         plan = tsl.shortlist_build(*(args[:4] + args[5:]), k, 4.0, zones=z)
@@ -806,13 +830,16 @@ def test_pricing_kernels_with_zones_match_plain(cuda, p, n, d, zones, scoring):
 
 
 @pytest.mark.parametrize("p", [1, 17, 512, 4096, 8192])
-@pytest.mark.parametrize("d, zones", [(2, 2), (2, 4), (3, 1), (8, 4)])
+@pytest.mark.parametrize("d, zones", [(2, 2), (2, 4), (3, 1), (4, 2), (8, 4)])
 @pytest.mark.parametrize("quota", [False, True])
 def test_round_tail_zone_phase_matches_plain(cuda, p, d, zones, quota):
     """The round tail's zone instantiation (shared memory up to 4,096
     pods, device memory above), with and without quotas: tables, loop
     state, the zone table and the picks. Hot nodes give a node more than
-    four zone candidates a round."""
+    four zone candidates a round. With quotas at 4,096 pods and more the
+    round runs in device memory, 16 rows a thread: the case where a
+    segment-end flag kept in a local array across the quota commit was
+    overwritten (wrong tables at D = 2, an illegal address at D = 4)."""
     n = max(3, p // 8)
     arrays = round_inputs(p + d * 7 + zones, p, n, d)
     arrays[16] = np.array([0, 2], np.int32)

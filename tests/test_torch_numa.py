@@ -123,6 +123,41 @@ def test_zone_total_sums_in_zone_order():
     np.testing.assert_array_equal(TN.zone_sum(torch.from_numpy(free)).numpy(), seq)
 
 
+@pytest.mark.parametrize("zones", [2, 4])
+def test_zone_side_table_holds_the_reference_node_terms(zones):
+    """``zone_prep_plain`` (the plain version of ``csrc/zone_prep.cu``):
+    the snapshot is the table; each node's side row holds the terms
+    ``numa_fit_mask`` and ``numa_aligned_cost`` work out per node in the
+    reference — dim_on, has_zones, the SINGLE_NUMA_NODE policy, each
+    zone's "some capacity", the zones' free total and each zone's
+    (cap0 - free0 + 1) / (cap0 + 1) — bit for bit with the JAX package's
+    expressions (``numa.py:116, :126, :133, :62-65``, ``costs.py:240-246``)
+    on padded zones, nodes without zones and unregistered memory."""
+    numa = zone_case(zones + 40, n=96, zones=zones)[0]
+    free, cap = jnp.asarray(numa["zone_free"]), jnp.asarray(numa["zone_cap"])
+    snap, side = TN.zone_prep_plain(torch.from_numpy(numa["zone_free"]),
+                                    torch.from_numpy(numa["zone_cap"]),
+                                    torch.from_numpy(numa["policy"]))
+    assert_bits_equal(numa["zone_free"], snap.numpy())
+    side = side.numpy()
+    dn = numa["zone_cap"].shape[-1]
+    info = side[:, 0]
+    dim_on = np.asarray(jnp.sum(cap, axis=1) > 0)
+    has_zones = np.asarray(jnp.any(jnp.sum(cap, axis=-1) > 0, axis=-1))
+    real = np.asarray(jnp.any(cap > 0, axis=-1))
+    util = np.asarray((cap[:, :, 0] - free[:, :, 0] + 1.0) / (cap[:, :, 0] + 1.0))
+    for d in range(dn):
+        np.testing.assert_array_equal((info >> d) & 1 == 1, dim_on[:, d])
+    np.testing.assert_array_equal((info & TN.SIDE_HAS_ZONES) != 0, has_zones)
+    np.testing.assert_array_equal((info & TN.SIDE_SINGLE) != 0,
+                                  numa["policy"] == TN.POLICY_SINGLE_NUMA_NODE)
+    for q in range(zones):
+        np.testing.assert_array_equal((info >> (TN.SIDE_REAL + q)) & 1 == 1, real[:, q])
+    assert_bits_equal(np.asarray(jnp.sum(free, axis=1)), side[:, 1:1 + dn].view(np.float32))
+    assert_bits_equal(util, side[:, 1 + dn:].view(np.float32))
+    assert (~has_zones).any() and (~real).any() and (~dim_on).any()
+
+
 # ----------------------------------------------------------------- zone_pick
 
 
