@@ -86,11 +86,12 @@ Phases (any failure exits non-zero and prints no result line):
    back), bitwise equal to their plain versions at P=512 (the start and
    after 3 batches) and 4,096; then their times;
 10. rounds above 4,096 pods: the big batch (``bigbatch_fixture``: D=4,
-    2,000 nodes, a Strict gang of 6,000 that rolls back) at P=8,192 and
-    16,384, without quotas and with the sorted tree: the round tail
-    (``csrc/round_big.cu``, its working set in device memory) and the
+    2,000 nodes, a Strict gang of 6,000 that rolls back) at P=8,192,
+    16,384 and 32,768, without quotas and with the sorted tree: the round
+    tail (``csrc/round_big.cu``, its working set in device memory) and the
     rollback against their plain versions, ``assign`` against the
-    big-batch golden (P=8,192) or the plain versions on the card; times;
+    big-batch goldens (P=8,192 and 32,768) and the plain versions on the
+    card (16,384 and 32,768); times;
 11. the NUMA streams: ``solve_stream_full(numa=...)`` at full size on the
     headline fixture with ``binpack_numa``'s zones (``bench_suite.py``'s
     ``bench_numa_20k`` recipe) for each of ``NUMA_SCORINGS``, with
@@ -98,7 +99,29 @@ Phases (any failure exits non-zero and prints no result line):
     with no host sync, every kernel of the path launched; placed count,
     rounds, fallbacks and the sha256 of the assignments, zone picks and
     final zone table equal to ``tests/data/torch_golden_numa.npz``; then
-    an eager pass through the plain versions, equal.
+    an eager pass through the plain versions, equal;
+12. devices, kernels: on the kernel check's fixture with
+    ``device_tables``' devices (8-GPU nodes, 4-GPU nodes padded, nodes
+    without GPUs, a few 16-GPU nodes: G = 16; RDMA on half the nodes, FPGA
+    on a tenth; and a G = 8 table with RDMA not tracked; pods asking for
+    whole GPUs, shares, both, RDMA and FPGA; 2-member gangs that roll
+    back), ``csrc/device_prep.cu``, the three pricing kernels' device
+    instantiations under each ``device_scoring`` and none, the round
+    tail's device phase (alone, with quotas, with zones, with both) and
+    ``enforce_gangs``' device refunds, bitwise equal to their plain
+    versions at P=512 (the start and after 3 batches) and 4,096; then
+    their times;
+13. the device streams: ``solve_stream_full(devices=...)`` at full size
+    on the headline fixture with ``gpu_fleet``'s devices (after
+    ``bench_suite.py``'s ``bench_device_gang_20k`` and
+    ``_build_device_stream``) for each cell of ``DEVICE_CELLS`` (no
+    scoring and LeastAllocated, K=64 and off; MostAllocated at K=64, which
+    the reference's gate turns into the full-axis solve): one graph replay
+    a chunk, timed passes with no host sync, every kernel of the path
+    launched; placed count, rounds, fallbacks and the sha256 of the
+    assignments and the final slot table, RDMA and FPGA counts equal to
+    ``tests/data/torch_golden_device.npz``; then an eager pass through the
+    plain versions, equal.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -164,6 +187,8 @@ QUOTA_EXPECTED = {"onehot": (58_826, 205), "sorted": (59_112, 252)}
 QUOTA_LATER = 9
 
 GOLDEN_BIGBATCH = os.path.join(ROOT, "tests", "data", "torch_golden_bigbatch.npz")
+#: the same at 32,768 pods (a gang past the bucket, padded)
+GOLDEN_BIGBATCH_32K = os.path.join(ROOT, "tests", "data", "torch_golden_bigbatch_32768.npz")
 #: the big batch: one round of BIG_PODS pods at D = 4 over BIG_NODES nodes,
 #: with a Strict gang of BIG_GANG members that rolls back
 BIG_PODS = 8_192
@@ -177,6 +202,21 @@ GOLDEN_NUMA = os.path.join(ROOT, "tests", "data", "torch_golden_numa.npz")
 NUMA_SCORINGS = (None, "LeastAllocated")
 #: the NUMA kernel checks' zone-table draws (``zone_tables``)
 NUMA_SEED = 2
+GOLDEN_DEVICE = os.path.join(ROOT, "tests", "data", "torch_golden_device.npz")
+#: the device kernel checks' table draws (``device_tables``)
+DEVICE_SEED = 4
+#: the full-size device streams (phase 13): (device_scoring, shortlist_k);
+#: MostAllocated turns the shortlist off (the reference's gate)
+DEVICE_CELLS = ((None, SHORTLIST_K), (None, None), ("LeastAllocated", SHORTLIST_K),
+                ("LeastAllocated", None), ("MostAllocated", SHORTLIST_K))
+#: what a device stream returns, in order (``device_stream_full``)
+DEVICE_OUTPUTS = ("assignments", "pod_zones", "rounds", "fallbacks", "slot_free",
+                  "rdma_free", "fpga_free")
+
+
+def device_key(scoring, k) -> str:
+    """A device stream's key in the golden: its scoring and K (0: off)."""
+    return f"{(scoring or 'none').lower()}_k{k or 0}"
 
 
 def build_fixture(seed: int = 0, n_nodes: int = N_NODES, n_pods: int = N_PODS):
@@ -380,6 +420,115 @@ def binpack_numa(nodes: dict, pods: dict):
     )
     return pods, dict(zone_free=zone_free, zone_cap=zone_cap,
                       policy=np.full(n, 3, np.int8))
+
+
+def device_tables(seed: int, nodes: dict, pods: dict, g16: bool = True, rdma: bool = True,
+                  batch: int = BATCH):
+    """DeviceShare tables over a fixture's numpy dicts, drawn to reach
+    every branch of the device arithmetic: 8-GPU nodes, 4-GPU nodes padded
+    to the table's width (``cap_total`` 400), nodes without GPUs and (with
+    ``g16``) a few 16-GPU nodes, so G = 16 (else 8); slots fully free,
+    fully used, or partly used with whole and non-integer remainders; RDMA
+    NICs on half the nodes (``rdma`` False: not tracked, None) and FPGAs on
+    a tenth. Pods ask for nothing, whole 1/2/4 GPUs, shares of
+    30, 50 and non-integer shares, whole+share, RDMA and FPGA; and each
+    batch gets four 2-member gangs of one GPU pod and one that can never
+    fit, which roll back and refund. Returns (pods with ``gpu_whole``,
+    ``gpu_share``, ``rdma``, ``fpga`` and the gangs, devices dict of
+    ``slot_free`` [N, G], ``rdma_free``, ``fpga_free``, ``cap_total``)."""
+    rng = np.random.default_rng(seed + 9)
+    n = nodes["allocatable"].shape[0]
+    p = pods["requests"].shape[0]
+    g = 16 if g16 else 8
+    kind = rng.choice(4, n, p=[0.45, 0.25, 0.25, 0.05])
+    count = np.array([8, 4, 0, 16 if g16 else 8])[kind]
+    real = np.arange(g)[None, :] < count[:, None]
+    u = rng.random((n, g))
+    rest = np.asarray([70.0, 50.0, 66.7, 12.5, 33.3, 87.5, 20.0], np.float32)
+    slots = np.where(real, 100.0, 0.0).astype(np.float32)
+    slots = np.where(real & (u < 0.15), 0.0, slots)
+    slots = np.where(real & (u >= 0.15) & (u < 0.45), rest[rng.integers(0, 7, (n, g))], slots)
+    devices = dict(
+        slot_free=slots.astype(np.float32),
+        rdma_free=(np.where(rng.random(n) < 0.5, rng.integers(1, 5, n), 0).astype(np.float32)
+                   if rdma else None),
+        fpga_free=np.where(rng.random(n) < 0.1, rng.integers(1, 3, n), 0).astype(np.float32),
+        cap_total=(count * 100.0).astype(np.float32),
+    )
+    r = rng.random(p)
+    whole = np.where((r >= 0.35) & (r < 0.60), rng.choice([1, 2, 4], p, p=[0.5, 0.3, 0.2]), 0)
+    shares = np.asarray([30.0, 50.0, 33.3, 12.5, 70.5], np.float32)
+    share = np.where((r >= 0.60) & (r < 0.80), shares[rng.integers(0, 5, p)], 0.0)
+    both = (r >= 0.80) & (r < 0.88)
+    whole = np.where(both, rng.integers(1, 3, p), whole)
+    share = np.where(both, shares[rng.integers(0, 3, p)], share)
+    gpu = (whole > 0) | (share > 0)
+    rdma_req = np.where((gpu & (rng.random(p) < 0.3)) | ((r >= 0.88) & (r < 0.94)),
+                        rng.integers(1, 3, p), 0)
+    fpga_req = np.where((gpu & (rng.random(p) < 0.05)) | (r >= 0.94), 1, 0)
+    pods = dict(pods, gpu_whole=whole.astype(np.int32), gpu_share=share.astype(np.float32),
+                rdma=rdma_req.astype(np.int32), fpga=fpga_req.astype(np.int32))
+    # four 2-member gangs a batch (ids 8..11, past rich_fixture's): a
+    # one-GPU pod and a pod of 64 GPUs, which no node holds
+    gang_id = pods.get("gang_id", np.full(p, -1, np.int32)).copy()
+    gang_min = pods.get("gang_min", np.zeros(p, np.int32)).copy().reshape(-1, batch)
+    for b in range(p // batch if batch >= 12 else 0):
+        rows = b * batch + rng.choice(batch, 8, replace=False)
+        for j in range(4):
+            gang_id[rows[2 * j : 2 * j + 2]] = 8 + j
+            whole[rows[2 * j]], share[rows[2 * j]] = 1, 0.0
+            whole[rows[2 * j + 1]] = 64
+        gang_min[b, 8:12] = 2
+    pods.update(gang_id=gang_id.astype(np.int32), gang_min=gang_min.reshape(-1),
+                gpu_whole=whole.astype(np.int32), gpu_share=share.astype(np.float32))
+    return pods, devices
+
+
+def gpu_fleet(nodes: dict, pods: dict, batch: int = BATCH, rdma: bool = True):
+    """The full-size device recipe over a fixture's numpy dicts, after
+    ``bench_suite.py``: ``bench_device_gang_20k``'s nodes (8 GPU slots of
+    100 a node, ``cap_total`` 800) and two-member gangs whose members ask
+    for the same 1, 2 or 4 whole GPUs (the first quarter of each batch,
+    gang ids 0..63 of the batch, minMember 2), ``_build_device_stream``'s
+    mix (whole 1/2/4, shares of 50 and 30, ``default_rng(11)``) on the next
+    three eighths, no GPU on the rest. RDMA: two NICs on every other node
+    (``rdma`` False: not tracked), one asked for by the 4-GPU gang members;
+    FPGA: one on every tenth node, asked for by 1% of the stream pods. The
+    batches ask for about 600 GPUs each, so the fleet's 80,000 run out
+    about two thirds of the way through the backlog, and gangs then roll
+    back with refunds. Returns (pods with the gangs and device requests,
+    devices dict)."""
+    n = nodes["allocatable"].shape[0]
+    p = pods["requests"].shape[0]
+    rng = np.random.default_rng(11)
+    pos = np.arange(p) % batch
+    gang = pos < batch // 4
+    stream = ~gang & (pos < batch // 4 + 3 * batch // 8)
+    gang_id = np.where(gang, pos // 2, -1).astype(np.int32)
+    gang_size = np.asarray([1, 2, 4])[rng.integers(0, 3, (p // batch, batch // 8))]
+    sizes = gang_size[np.arange(p) // batch, np.minimum(pos, batch // 4 - 1) // 2]
+    whole = np.where(gang, sizes, 0)
+    kind = rng.integers(0, 5, p)
+    whole = np.where(stream, np.asarray([4, 2, 1, 0, 0])[kind], whole)
+    share = np.where(stream, np.asarray([0.0, 0.0, 0.0, 50.0, 30.0])[kind], 0.0)
+    gang_min = np.zeros((p // batch, batch), np.int32)
+    gang_min[:, : batch // 8] = 2
+    pods = dict(
+        pods,
+        gang_id=gang_id,
+        gang_min=gang_min.reshape(-1),
+        gpu_whole=whole.astype(np.int32),
+        gpu_share=share.astype(np.float32),
+        rdma=np.where(gang & (whole == 4), 1, 0).astype(np.int32),
+        fpga=np.where(stream & (rng.random(p) < 0.01), 1, 0).astype(np.int32),
+    )
+    devices = dict(
+        slot_free=np.full((n, 8), 100.0, np.float32),
+        rdma_free=np.where(np.arange(n) % 2 == 0, 2.0, 0.0).astype(np.float32) if rdma else None,
+        fpga_free=np.where(np.arange(n) % 10 == 0, 1.0, 0.0).astype(np.float32),
+        cap_total=np.full(n, 800.0, np.float32),
+    )
+    return pods, devices
 
 
 def bigbatch_fixture(n_pods: int, n_nodes: int = BIG_NODES, seed: int = BIG_SEED):
@@ -589,6 +738,7 @@ def plain_versions():
     """Route the solver through the kernels' plain versions for a run on
     the card (the wrappers launch the kernels for every CUDA tensor)."""
     from koordinator_tpu_torch.ops import commit as commit_ops
+    from koordinator_tpu_torch.ops import device as device_ops
     from koordinator_tpu_torch.ops import nominate as nominate_ops
     from koordinator_tpu_torch.ops import quota as quota_ops
     from koordinator_tpu_torch.ops import shortlist as shortlist_ops
@@ -597,13 +747,14 @@ def plain_versions():
     def nominate_plain(*args, state=None, **kw):
         return nominate_ops.nominate_plain(*args, **kw)
 
-    def enforce_gangs_plain_(result, pods):
-        out = solver.enforce_gangs_plain(result, pods)
+    def enforce_gangs_plain_(result, pods, slot_exists=None):
+        out = solver.enforce_gangs_plain(result, pods, slot_exists)
         for name in solver._GANG_FIELDS:
             if getattr(result, name) is not None:
                 getattr(result, name).copy_(getattr(out, name))
 
     swaps = (
+        (device_ops, "device_prep", device_ops.device_prep_plain),
         (nominate_ops, "nominate", nominate_plain),
         (commit_ops, "round_tail", commit_ops.round_tail_plain),
         (solver, "_enforce_gangs_", enforce_gangs_plain_),
@@ -723,36 +874,44 @@ ROUND_MUTABLE = slice(11, 17)
 def ptxas_summary(kernels) -> dict:
     """Registers, shared memory and spills of the main path's kernels
     (nominate at D=2 with four list slots, K <= 4, with and without a node
-    mask and with NUMA zones; the round tail at D=2 without quotas, with
-    them and with zones, one and four rows a thread, and at D=4 in device
-    memory; the shortlist kernels without and with zones), from ``nvcc
-    -Xptxas -v`` in the build logs, and the most registers and spill bytes
-    over every nominate instantiation."""
+    mask, with NUMA zones and with devices; the round tail at D=2 without
+    quotas, with them and with zones, one and four rows a thread, and at
+    D=4 in device memory; the shortlist kernels without and with zones and
+    with devices; the device side table), from ``nvcc -Xptxas -v`` in the
+    build logs, and the most registers and spill bytes over every nominate
+    instantiation."""
     import re
 
     wanted = {
-        "nominate_kernelILi2ELi4ELb0ELb0E": "nominate_kernel<2,4>",
-        "nominate_kernelILi2ELi4ELb1ELb0E": "nominate_kernel<2,4,masked>",
-        "nominate_kernelILi2ELi4ELb1ELb1E": "nominate_kernel<2,4,numa>",
+        "nominate_kernelILi2ELi4ELb0ELb0ELb0E": "nominate_kernel<2,4>",
+        "nominate_kernelILi2ELi4ELb1ELb0ELb0E": "nominate_kernel<2,4,masked>",
+        "nominate_kernelILi2ELi4ELb1ELb1ELb0E": "nominate_kernel<2,4,numa>",
+        "nominate_kernelILi2ELi4ELb1ELb0ELb1E": "nominate_kernel<2,4,devices>",
+        "nominate_kernelILi2ELi4ELb1ELb1ELb1E": "nominate_kernel<2,4,numa,devices>",
         "nominate_merge_kernelILi4E": "nominate_merge_kernel<4>",
         "round_tail_kernelILi2ELi1ELb0ELb0ELb0E": "round_tail_kernel<2,1>",
         "round_tail_kernelILi2ELi1ELb1ELb0ELb0E": "round_tail_kernel<2,1,quota>",
         "round_tail_kernelILi2ELi4ELb1ELb0ELb0E": "round_tail_kernel<2,4,quota>",
         "round_tail_kernelILi2ELi1ELb0ELb1ELb0E": "round_tail_kernel<2,1,zone>",
         "round_tail_kernelILi2ELi4ELb0ELb1ELb0E": "round_tail_kernel<2,4,zone>",
-        "round_tail_kernelILi4ELi16ELb0ELb0ELb1E": "round_tail_kernel<4,16,device memory>",
-        "round_tail_kernelILi4ELi16ELb1ELb0ELb1E": "round_tail_kernel<4,16,quota,device memory>",
+        "round_tail_kernelILi4ELi32ELb0ELb0ELb1E": "round_tail_kernel<4,32,device memory>",
+        "round_tail_kernelILi4ELi32ELb1ELb0ELb1E": "round_tail_kernel<4,32,quota,device memory>",
+        "round_tail_kernelILi4ELi32ELb1ELb1ELb1E":
+            "round_tail_kernel<4,32,quota,zone,device memory>",
         "enforce_gangs_kernel": "enforce_gangs_kernel",
-        "shortlist_build_kernelILi2ELb1ELb0E": "shortlist_build_kernel<2,stored>",
-        "shortlist_build_kernelILi2ELb1ELb1E": "shortlist_build_kernel<2,stored,numa>",
-        "shortlist_round_kernelILi2ELi4ELb0E": "shortlist_round_kernel<2,4>",
-        "shortlist_round_kernelILi2ELi4ELb1E": "shortlist_round_kernel<2,4,numa>",
+        "shortlist_build_kernelILi2ELb1ELb0ELb0E": "shortlist_build_kernel<2,stored>",
+        "shortlist_build_kernelILi2ELb1ELb1ELb0E": "shortlist_build_kernel<2,stored,numa>",
+        "shortlist_build_kernelILi2ELb1ELb0ELb1E": "shortlist_build_kernel<2,stored,devices>",
+        "shortlist_round_kernelILi2ELi4ELb0ELb0E": "shortlist_round_kernel<2,4>",
+        "shortlist_round_kernelILi2ELi4ELb1ELb0E": "shortlist_round_kernel<2,4,numa>",
+        "shortlist_round_kernelILi2ELi4ELb0ELb1E": "shortlist_round_kernel<2,4,devices>",
         "quota_gate_kernel": "quota_gate_kernel",
+        "device_prep_kernel": "device_prep_kernel",
     }
     out: dict = {}
     worst = {"registers": 0, "spill_bytes": 0}
     for src in ("nominate", "round", "round_zone", "round_big", "gangs", "shortlist_build",
-                "shortlist_round", "quota"):
+                "shortlist_round", "quota", "device_prep"):
         entry = None
         for line in kernels.build_log(src).splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -2269,25 +2428,29 @@ def big_port_inputs(torch, n_pods: int, quota: bool, device):
 
 
 def phase_bigbatch(torch, dev, report):
-    """Phase 10, rounds above 4,096 pods: at P=8,192 and 16,384 (D=4,
-    2,000 nodes, a Strict gang of 6,000 that rolls back), without quotas
-    and with the sorted-branch tree, the round tail (round 0) and the gang
-    rollback against their plain versions on CPU copies, the whole
-    ``assign`` against the big-batch golden (P=8,192) or against the plain
-    versions on the card (P=16,384); then their times."""
+    """Phase 10, rounds above 4,096 pods: at P=8,192, 16,384 and 32,768
+    (D=4, 2,000 nodes, a Strict gang of 6,000 that rolls back), without
+    quotas and with the sorted-branch tree, the round tail (round 0) and
+    the gang rollback against their plain versions on CPU copies, the whole
+    ``assign`` against the big-batch golden (P=8,192 and, where the golden
+    holds it, 32,768) or against the plain versions on the card; then
+    their times."""
     from koordinator_tpu_torch import kernels
     from koordinator_tpu_torch.ops import commit as commit_ops
     from koordinator_tpu_torch.ops import nominate as nominate_ops
     from koordinator_tpu_torch.ops import solver
     from koordinator_tpu_torch.ops.convert import to_numpy
 
-    gold = np.load(GOLDEN_BIGBATCH)
-    nodes, pods, params = bigbatch_fixture(BIG_PODS)
-    if str(gold["fixture_sha256"]) != fixture_digest(nodes, bigbatch_quotas(pods)[0], params):
-        fail("big batch: the fixture differs from the one the golden was made from")
+    golds = {BIG_PODS: np.load(GOLDEN_BIGBATCH), 4 * BIG_PODS: np.load(GOLDEN_BIGBATCH_32K)}
+    for n_pods, gold in golds.items():
+        nodes, pods, params = bigbatch_fixture(n_pods)
+        if str(gold["fixture_sha256"]) != fixture_digest(nodes, bigbatch_quotas(pods)[0],
+                                                          params):
+            fail(f"big batch: the P={n_pods} fixture differs from the one its golden was "
+                 "made from")
     checks = {"round_tail_big": 0.0, "enforce_gangs_big": 0.0}
     lines, timing = [], {}
-    for n_pods in (BIG_PODS, 2 * BIG_PODS):
+    for n_pods in (BIG_PODS, 2 * BIG_PODS, 4 * BIG_PODS):
         for quota in (False, True):
             label = f"P={n_pods}, {'quotas' if quota else 'no quotas'}"
             pods_t, nodes_t, params_t, quotas = big_port_inputs(torch, n_pods, quota, dev)
@@ -2295,8 +2458,9 @@ def phase_bigbatch(torch, dev, report):
             res = solver.assign(pods_t, nodes_t, params_t, quotas=quotas, **SOLVE)
             launches = dict(kernels.launches)
             got = to_numpy(res)
-            if n_pods == BIG_PODS:
-                key = "quota" if quota else "plain"
+            key = "quota" if quota else "plain"
+            gold = golds.get(n_pods)
+            if gold is not None:
                 fields = [("assignment", "assignment"), ("rounds_used", "rounds"),
                           ("node_requested", "requested"),
                           ("node_estimated_used", "estimated_used"),
@@ -2306,7 +2470,7 @@ def phase_bigbatch(torch, dev, report):
                 for f, g in fields:
                     if not bits_equal(got[f], gold[f"{key}_{g}"]):
                         fail(f"big batch ({label}): {f} differs from the JAX package's")
-            else:
+            if n_pods != BIG_PODS:
                 with plain_versions():
                     want = to_numpy(solver.assign(pods_t, nodes_t, params_t, quotas=quotas,
                                                   **SOLVE))
@@ -2364,9 +2528,11 @@ def phase_bigbatch(torch, dev, report):
                               rolled_back=rolled, gangs_in_device_memory=bool(big_gangs),
                               launches=launches))
             timing[label] = (args, q, pre, pods_t)
-    print(f"big batch: bitwise equal to the JAX package's golden (P={BIG_PODS}) and to the "
+    print(f"big batch: bitwise equal to the JAX package's goldens (P={BIG_PODS} and "
+          f"{4 * BIG_PODS}) and to the "
           f"plain versions {json.dumps(checks)}; {json.dumps(lines)}", flush=True)
-    for label in (f"P={BIG_PODS}, quotas", f"P={2 * BIG_PODS}, quotas"):
+    for label in (f"P={BIG_PODS}, quotas", f"P={2 * BIG_PODS}, quotas",
+                  f"P={4 * BIG_PODS}, quotas"):
         args, q, pre, pods_t = timing[label]
         p, d = args[2].shape
         n = args[7].shape[0]
@@ -2539,6 +2705,477 @@ def phase_numa_streams(torch, dev, report):
     report["numa_streams"] = lines
 
 
+def device_port_inputs(torch, device, n_pods: int = 16 * BATCH, rdma: bool = True):
+    """The device kernel checks' inputs: ``rich_fixture(1, N_NODES,
+    n_pods)`` with ``device_tables(DEVICE_SEED)``' devices (G = 16 with
+    RDMA and FPGA tracked; with ``rdma`` False G = 8 and RDMA not tracked)
+    as the port's tensors on ``device``: (nodes, flat pods, params,
+    DeviceState)."""
+    from koordinator_tpu_torch.ops.device import DeviceState
+
+    nodes, pods, params = rich_fixture(1, N_NODES, n_pods)
+    pods, devices = device_tables(DEVICE_SEED, nodes, pods, g16=rdma, rdma=rdma)
+    nodes_t, pods_t, params_t = port_inputs(torch, nodes, pods, params, device)
+    return nodes_t, pods_t, params_t, DeviceState.create(**devices, device=device)
+
+
+def device_round_case(torch, pods_b, state, dev_tables, dev_t, params_t, scoring: int):
+    """Round 0 of batch ``pods_b`` with devices at node state ``state`` and
+    dev carry ``dev_tables`` (slots, rdma, fpga): the sorted pods, the
+    nomination kernel's arguments and the batch's DeviceTerms (its stats
+    table from ``csrc/device_prep.cu``, tables cloned)."""
+    from koordinator_tpu_torch.ops import solver
+    from koordinator_tpu_torch.ops.device import DeviceTerms
+
+    _, spods, bind, thr, pthr = solver._round_setup(pods_b, state, params_t, devices=True)
+    nom_args = (
+        spods.requests, spods.estimate, spods.is_prod, bind, spods.valid, state.allocatable,
+        state.requested, state.estimated_used, state.prod_used, state.metric_fresh,
+        state.schedulable, state.cpu_amp, thr, pthr, params_t.score_weights,
+    )
+    slots, rdma, fpga = (None if t is None else t.clone() for t in dev_tables)
+    terms = DeviceTerms.batch_start(slots, rdma if dev_t.rdma_free is not None else None,
+                                    fpga if dev_t.fpga_free is not None else None,
+                                    dev_t.cap_total, spods, scoring)
+    return spods, nom_args, terms
+
+
+def device_terms_copy(terms, to=None):
+    """A copy of DeviceTerms (on device ``to``, or where they are) whose
+    tables a round tail may charge."""
+    import dataclasses as dc
+
+    def cp(t):
+        return None if t is None else (t.to(to) if to is not None else t).clone()
+
+    return dc.replace(terms, **{f.name: cp(getattr(terms, f.name))
+                                for f in dc.fields(terms) if f.name != "scoring"})
+
+
+def device_pair_ops(terms, pairs: int) -> int:
+    """fp32 operations of the device terms of ``pairs`` (pod, node) pairs
+    (see PERF.md): the fit's compares and adds (10), RDMA and FPGA (2 each
+    tracked), with a score its subtractions, product, division, floor and
+    tests (8)."""
+    ops = pairs * (10 + (2 if terms.rdma is not None else 0) + (2 if terms.fpga is not None
+                                                                 else 0))
+    return ops + (pairs * 8 if terms.scoring else 0)
+
+
+def phase_device_kernels(torch, dev, report):
+    """Phase 12, devices: ``csrc/device_prep.cu``, the three pricing
+    kernels with the device terms under each ``device_scoring`` (and none),
+    the round tail's device phase (alone, with the one-hot quota tree, with
+    NUMA zones, with both) and ``enforce_gangs``' device refunds, each
+    against its plain version on the same inputs (the round tail and the
+    rollback on CPU copies), at P=512 and 4,096 over 10,000 nodes with
+    ``device_tables``' devices (G = 16, RDMA and FPGA tracked; and G = 8
+    with RDMA not tracked), at the start and after 3 batches; then their
+    times."""
+    from koordinator_tpu_torch import kernels
+    from koordinator_tpu_torch.ops import commit as commit_ops
+    from koordinator_tpu_torch.ops import device as device_ops
+    from koordinator_tpu_torch.ops import nominate as nominate_ops
+    from koordinator_tpu_torch.ops import quota as quota_ops
+    from koordinator_tpu_torch.ops import shortlist as sl
+    from koordinator_tpu_torch.ops import solver
+    from koordinator_tpu_torch.ops.numa import NumaState
+
+    checks = {k: 0.0 for k in ("device_prep", "nominate_device", "shortlist_build_device",
+                               "shortlist_round_device", "round_tail_device", "device_refund")}
+    seen, timing = [], {}
+    for rdma in (True, False):
+        nodes_t, pods_t, params_t, dev_t = device_port_inputs(torch, dev, rdma=rdma)
+        n = nodes_t.allocatable.shape[0]
+        pods_s = solver.tree_map(lambda a: a.reshape((-1, BATCH) + a.shape[1:]), pods_t)
+        carry0 = solver._dev_carry0(dev_t, n)
+        later, carry = nodes_t, carry0
+        for b in range(3):
+            res = solver.assign(solver.tree_map(lambda a: a[b], pods_s), later, params_t,
+                                devices=dev_t, dev_carry=carry, device_scoring="LeastAllocated",
+                                **SOLVE)
+            later = dataclasses.replace(later, requested=res.node_requested,
+                                        estimated_used=res.node_estimated_used,
+                                        prod_used=res.node_prod_used)
+            carry = (res.node_dev_slots, res.node_rdma_free, res.node_fpga_free)
+        tag = "G=16" if rdma else "G=8, RDMA not tracked"
+        cases = [(f"start, P=512, {tag}", solver.tree_map(lambda a: a[3], pods_s), nodes_t,
+                  carry0),
+                 (f"after 3 batches, P=512, {tag}", solver.tree_map(lambda a: a[4], pods_s),
+                  later, carry),
+                 (f"after 3 batches, P=4096, {tag}",
+                  solver.tree_map(lambda a: a[8:16].reshape((-1,) + a.shape[2:]), pods_s), later,
+                  carry)]
+        quota_t = None
+        for label, pods_b, state, tables in cases:
+            p_b = pods_b.requests.shape[0]
+            for scoring in (0, 1, 2):
+                spods, nom_args, terms = device_round_case(torch, pods_b, state, tables, dev_t,
+                                                           params_t, scoring)
+                checks["device_prep"] = max(checks["device_prep"], check_equal(
+                    f"device_prep ({label})",
+                    [("stats", terms.stats, device_ops.device_prep_plain(terms.slots))]))
+                for approx in (False, True):
+                    kc, ki = nominate_ops.nominate(*nom_args, 4, 4.0, approx, devices=terms)
+                    pc, pi = nominate_ops.nominate_plain(*nom_args, 4, 4.0, approx,
+                                                         devices=terms)
+                    torch.cuda.synchronize()
+                    kc, ki, pc, pi = (t.cpu().numpy() for t in (kc, ki, pc, pi))
+                    fin = np.isfinite(kc)
+                    if not (np.array_equal(fin, np.isfinite(pc)) and bits_equal(kc[fin], pc[fin])
+                            and np.array_equal(ki[fin], pi[fin])):
+                        fail(f"nominate with devices ({label}, scoring {scoring}, "
+                             f"approx={approx}): differs from nominate_plain")
+                    checks["nominate_device"] = max(checks["nominate_device"],
+                                                    max_abs(kc[fin], pc[fin]))
+                b_args = nom_args[:4] + nom_args[5:]
+                plan = sl.shortlist_build(*b_args, SHORTLIST_K, 4.0, devices=terms)
+                want = sl.shortlist_build_plain(*b_args, SHORTLIST_K, 4.0, devices=terms)
+                fin = torch.isfinite(want[1])
+                checks["shortlist_build_device"] = max(checks["shortlist_build_device"],
+                                                       check_equal(
+                    f"shortlist_build with devices ({label}, scoring {scoring})",
+                    [("cand", plan[0], want[0]), ("bound", plan[1][fin], want[1][fin]),
+                     ("finite", torch.isfinite(plan[1]), fin)]))
+                outs = []
+                for fn in (sl.shortlist_round, sl.shortlist_round_plain):
+                    word = torch.zeros(sl.WORD, dtype=torch.int32, device=dev)
+                    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+                    st = torch.zeros(2, dtype=torch.int32, device=dev)
+                    top = fn(*nom_args, *plan, 4, 4.0, True, word, counts, st, devices=terms)
+                    outs.append((*top, word[:3], counts))
+                fin = torch.isfinite(outs[1][0])
+                checks["shortlist_round_device"] = max(checks["shortlist_round_device"],
+                                                       check_equal(
+                    f"shortlist_round with devices ({label}, scoring {scoring})",
+                    [("cost", outs[0][0][fin], outs[1][0][fin]),
+                     ("node", outs[0][1][fin], outs[1][1][fin]),
+                     ("word", outs[0][2], outs[1][2]), ("counts", outs[0][3], outs[1][3])]))
+                if scoring != 1:
+                    continue
+                # the round tail's device phase on the kernel's nomination:
+                # alone, with quotas, with zones, with both
+                top = nominate_ops.nominate(*nom_args, 4, 4.0, True, devices=terms)
+                args = round_tail_args(torch, spods, nom_args, *top)
+                if quota_t is None:
+                    runtime, used = quota_tree(*QUOTA_TREES["onehot"],
+                                               pods_t.requests.cpu().numpy())
+                    chain, _, _ = quota_draws(*QUOTA_TREES["onehot"], pods_t.requests.shape[0])
+                    quota_t = (torch.from_numpy(chain).to(dev),
+                               torch.from_numpy(runtime * np.float32(0.3)).to(dev),
+                               torch.from_numpy(used).to(dev))
+                    _, numa, required = zone_tables(
+                        NUMA_SEED, dict(allocatable=nodes_t.allocatable.cpu().numpy(),
+                                        estimated_used=nodes_t.estimated_used.cpu().numpy()),
+                        pods_t.requests.shape[0])
+                    numa_t = NumaState.create(**numa, device=dev)
+                for mode in ("alone", "quotas", "zones", "quotas and zones"):
+                    q = z = None
+                    order = solver._priority_order(pods_b)
+                    if "quotas" in mode:
+                        chain = quota_t[0][:p_b][order]
+                        gate = torch.empty_like(spods.valid)
+                        quota_ops.quota_gate_plain(spods.valid, spods.requests, chain,
+                                                   quota_t[1], quota_t[2], gate)
+                        q = (chain, quota_t[1], quota_t[2].clone(), gate)
+                    if "zones" in mode:
+                        z = (numa_t.zone_free.clone(), numa_t.zone_cap, numa_t.policy,
+                             numa_t.zone_most, torch.from_numpy(required[:p_b]).to(dev)[order],
+                             torch.full((p_b,), -1, dtype=torch.int32, device=dev))
+                    work = [t.clone() for t in args]
+                    wd = device_terms_copy(terms)
+                    wq = None if q is None else (q[0], q[1], q[2].clone(), q[3].clone())
+                    wz = None if z is None else (z[0].clone(),) + z[1:5] + (z[5].clone(),)
+                    kernels.reset_launches()
+                    commit_ops.round_tail(*work, 0.35, quota=wq, zone=wz, dev=wd)
+                    if kernels.launches.get("device_phase", 0) != 1:
+                        fail(f"round_tail with devices ({label}, {mode}): no device phase ran")
+                    host = [t.cpu().clone() for t in args]
+                    hd = device_terms_copy(terms, "cpu")
+                    hq = None if q is None else tuple(t.cpu().clone() for t in q)
+                    hz = None if z is None else tuple(t.cpu().clone() for t in z)
+                    commit_ops.round_tail_plain(*host, 0.35, quota=hq, zone=hz, dev=hd)
+                    names = ("requested", "estimated_used", "prod_used", "assigned", "active",
+                             "state")
+                    pairs = [(nm, a, b) for nm, a, b in zip(names, work[ROUND_MUTABLE],
+                                                             host[ROUND_MUTABLE])]
+                    pairs += [("slots", wd.slots, hd.slots), ("stats", wd.stats, hd.stats)]
+                    pairs += [(nm, getattr(wd, nm), getattr(hd, nm)) for nm in ("rdma", "fpga")
+                              if getattr(wd, nm) is not None]
+                    if q is not None:
+                        pairs += [("quota_used", wq[2], hq[2]), ("gate", wq[3], hq[3])]
+                    if z is not None:
+                        pairs += [("zone_free", wz[0], hz[0]), ("pod_zone", wz[5], hz[5])]
+                    checks["round_tail_device"] = max(checks["round_tail_device"], check_equal(
+                        f"round_tail with devices ({label}, {mode})", pairs))
+                    # the same round without devices: which pods the devices refused
+                    plain_nd = [t.cpu().clone() for t in args]
+                    commit_ops.round_tail_plain(
+                        *plain_nd, 0.35,
+                        quota=None if q is None else tuple(t.cpu().clone() for t in q),
+                        zone=None if z is None else tuple(t.cpu().clone() for t in z))
+                    changed = int((hd.slots != terms.slots.cpu()).any(dim=1).sum())
+                    refused = int(((plain_nd[14] >= 0) & (host[14] < 0)).sum())
+                    if mode == "alone" and (changed == 0 or refused == 0):
+                        fail(f"round_tail with devices ({label}): the check needs slot "
+                             "commits and device refusals")
+                    seen.append(dict(at=label, mode=mode, nodes_charged=changed,
+                                     refused_by_devices=refused))
+                    if mode == "alone" and rdma and label.startswith("after") and "512" in label:
+                        timing["round"] = (spods, nom_args, terms, args)
+            # the rollback's device refunds on the batch's solve result; a
+            # third of the GPU pods placed join gang 0, which falls short
+            free = dataclasses.replace(pods_b, gang_id=torch.full_like(pods_b.gang_id, -1))
+            pre = solver.assign(free, state, params_t, devices=dev_t, dev_carry=tables,
+                                device_scoring="LeastAllocated", **SOLVE)
+            gpu = (pods_b.gpu_whole > 0) | (pods_b.gpu_share > 0)
+            third = gpu & (pre.assignment >= 0) & (torch.arange(p_b, device=dev) % 3 == 0)
+            gang_min = pods_b.gang_min.clone()
+            gang_min[0] = p_b + 1
+            nonstrict = pods_b.gang_nonstrict.clone()
+            nonstrict[0] = False
+            pods_g = dataclasses.replace(pods_b, gang_id=torch.where(third, 0, pods_b.gang_id),
+                                         gang_min=gang_min, gang_nonstrict=nonstrict)
+            exists = device_ops.slot_exists_of(dev_t.cap_total, dev_t.slot_free.shape[1])
+            kernels.reset_launches()
+            got = solver.enforce_gangs(pre, pods_g, exists)
+            if kernels.launches.get("device_refund", 0) != 1:
+                fail(f"enforce_gangs with devices ({label}): no device refund ran")
+            want = solver.enforce_gangs_plain(solver.tree_map(lambda a: a.cpu(), pre),
+                                              solver.tree_map(lambda a: a.cpu(), pods_g),
+                                              exists.cpu())
+            checks["device_refund"] = max(checks["device_refund"], check_equal(
+                f"enforce_gangs with devices ({label})",
+                [(f, getattr(got, f), getattr(want, f)) for f in (
+                    "assignment", "node_requested", "node_estimated_used", "node_prod_used",
+                    "node_dev_slots", "node_rdma_free", "node_fpga_free")]))
+            rolled = (pre.assignment >= 0) & (got.assignment < 0)
+            refunded = int((rolled & gpu).sum())
+            if refunded == 0:
+                fail(f"enforce_gangs with devices ({label}): the check needs rolled-back GPU "
+                     "pods")
+            seen.append(dict(at=label, rolled_back=int(rolled.sum()), gpu_refunds=refunded))
+            if rdma and label.startswith("after") and "512" in label:
+                timing["gangs"] = (pre, pods_g, exists)
+    print(f"device checks: bitwise equal to the plain versions {json.dumps(checks)}; "
+          f"{json.dumps(seen)}", flush=True)
+
+    # times, after 3 batches at P=512, G=16, LeastAllocated device scores
+    spods, nom_args, terms, args = timing["round"]
+    p, d = spods.requests.shape
+    n, g = terms.slots.shape
+    dev_node = n * (4 * 4 + 3 * 4)
+    dev_pod = p * (4 * 4 + 4)
+
+    def add_row(name, source, replaces, fn, plain, kname, nbytes, nops, iters, per_call=1):
+        b_ms, b_by = bound_of(nbytes, nops)
+        report["kernels"].append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=None,
+            kernels_per_launch=per_call, max_abs_err=checks.get(name, 0.0),
+            ms=cuda_ms(torch, fn, iters), plain_ms=cuda_ms(torch, plain, 3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            device_ms=device_ms(torch, fn, min(50, iters // 4), kname),
+            library_device_ms=None, bytes=nbytes, operations=nops,
+        ))
+
+    add_row("device_prep", "koordinator_tpu_torch/csrc/device_prep.cu",
+            "koordinator_tpu/ops/device.py:58", lambda: device_ops.device_prep(terms.slots),
+            lambda: device_ops.device_prep_plain(terms.slots), "device_prep_kernel",
+            n * g * 4 + n * 4 * 4, n * g * 5, 200)
+    feas = int(nominate_ops.feasible_mask(*nom_args[:14]).sum())
+    fresh_nodes = int(nom_args[9].sum())
+    bind_pods = int(nom_args[3].sum())
+    node_row = 6 * d * 4 + 2 + 4
+    nom_ops = pair_ops(d, p * n, bind_pods * n, (int(spods.valid.sum())
+                                                + int(spods.is_prod.sum())) * fresh_nodes, feas)
+    nom_bytes = n * node_row + p * (2 * d * 4 + 3) + d * 4 + p * 4 * 8 + dev_node + dev_pod
+    chunk = nominate_ops.chunk_of(kernels.library("nominate"), p, n, d, 4, dev.index or 0, 3)
+    add_row("nominate_device", "koordinator_tpu_torch/csrc/nominate.cu",
+            "koordinator_tpu/ops/device.py:73", lambda: nominate_ops.nominate(
+                *nom_args, 4, 4.0, True, devices=terms),
+            lambda: nominate_ops.nominate_plain(*nom_args, 4, 4.0, True, devices=terms),
+            "nominate", nom_bytes, nom_ops + device_pair_ops(terms, p * n), 200,
+            1 if chunk >= n else 2)
+    b_args = nom_args[:4] + nom_args[5:]
+    plan = sl.shortlist_build(*b_args, SHORTLIST_K, 4.0, devices=terms)
+    build_bytes = (n * node_row + p * (2 * d * 4 + 2) + d * 4 + p * (SHORTLIST_K + 1) * 4
+                   + dev_node + dev_pod)
+    add_row("shortlist_build_device", "koordinator_tpu_torch/csrc/shortlist_build.cu",
+            "koordinator_tpu/ops/costs.py:162",
+            lambda: sl.shortlist_build(*b_args, SHORTLIST_K, 4.0, devices=terms),
+            lambda: sl.shortlist_build_plain(*b_args, SHORTLIST_K, 4.0, devices=terms),
+            "shortlist_build_kernel", build_bytes, nom_ops + device_pair_ops(terms, p * n), 100)
+    word = torch.zeros(sl.WORD, dtype=torch.int32, device=dev)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    st = torch.zeros(2, dtype=torch.int32, device=dev)
+    cand = plan[0].long()
+    round_bytes = (p * (SHORTLIST_K + 1) * 4 + p * (2 * d * 4 + 3)
+                   + int(torch.unique(cand).numel()) * (node_row + 7 * 4)
+                   + d * 4 + p * 4 * 8 + (sl.WORD + 4) * 4 + dev_pod)
+    add_row("shortlist_round_device", "koordinator_tpu_torch/csrc/shortlist_round.cu",
+            "koordinator_tpu/ops/device.py:117",
+            lambda: sl.shortlist_round(*nom_args, *plan, 4, 4.0, True, word, counts, st,
+                                       devices=terms),
+            lambda: sl.shortlist_round_plain(*nom_args, *plan, 4, 4.0, True, word, counts, st,
+                                             devices=terms),
+            "shortlist_round_kernel", round_bytes,
+            pair_ops(d, p * SHORTLIST_K, bind_pods * SHORTLIST_K, p * SHORTLIST_K, feas // 10)
+            + device_pair_ops(terms, p * SHORTLIST_K), 200)
+    iters = 200
+    copies = iter([([t.clone() for t in args[ROUND_MUTABLE]], device_terms_copy(terms))
+                   for _ in range(2 * iters + 2)])
+    fixed = args[:ROUND_MUTABLE.start]
+
+    def t_round():
+        mut, dt = next(copies)
+        commit_ops.round_tail(*fixed, *mut, 0.35, dev=dt)
+
+    def t_round_plain():
+        commit_ops.round_tail_plain(*fixed, *[t.clone() for t in args[ROUND_MUTABLE]], 0.35,
+                                    dev=device_terms_copy(terms))
+
+    _, node_key = commit_ops._choose(args[0], args[1], args[15], n)
+    touched = int(torch.unique(node_key[node_key < n]).numel())
+    rt_bytes = (round_tail_bytes(torch, args, n) + touched * (g * 4 * 2 + 4 * 4 * 2 + 4 * 4)
+                + p * 16)
+    rt_ops = round_tail_ops(args) + p * 12 + touched * g * 8
+    add_row("round_tail_device", "koordinator_tpu_torch/csrc/round.cu",
+            "koordinator_tpu/ops/solver.py:1246", t_round, t_round_plain, "round_tail_kernel",
+            rt_bytes, rt_ops, iters)
+    pre, pods_g, exists = timing["gangs"]
+    gang_copies = iter([solver.tree_map(lambda a: a.clone(), pre) for _ in range(402)])
+    after = solver.enforce_gangs(pre, pods_g, exists)
+    rolled = (pre.assignment >= 0) & (after.assignment < 0)
+    n_rolled = int(rolled.sum())
+    refunded = int(torch.unique(pre.assignment[rolled]).numel())
+    dr_bytes = (p * (4 * 4 + 2 * d * 4 + 2 + 16) + refunded * (3 * d * 4 + g * 4 + 8) * 2
+                + n * 4)
+    dr_ops = p * 4 + n_rolled * (3 * d + 4) + refunded * (3 * d + g * (g + 8))
+    add_row("device_refund", "koordinator_tpu_torch/csrc/gangs.cu",
+            "koordinator_tpu/ops/device.py:209",
+            lambda: solver._enforce_gangs_(next(gang_copies), pods_g, exists),
+            lambda: solver.enforce_gangs_plain(pre, pods_g, exists), "enforce_gangs_kernel",
+            dr_bytes, dr_ops, 200)
+    report["device_checks"] = seen
+    kernels.reset_launches()
+
+
+def phase_device_streams(torch, dev, report):
+    """Phase 13: the scheduler's stream with devices at full size —
+    ``solve_stream_full(devices=...)`` over the headline fixture (98,304
+    pods, 10,000 nodes, 192 x 512, bench's arguments) with ``gpu_fleet``'s
+    devices for each cell of ``DEVICE_CELLS`` (no scoring and
+    LeastAllocated with ``shortlist_k=64`` and without; MostAllocated with
+    ``shortlist_k=64``, which the reference's gate turns into the full-axis
+    solve): one CUDA graph replay a chunk, a first pass (the capture) then
+    timed passes with no host sync (counts zeroed just before the first and
+    read just after it, every kernel of the path launched); placed count,
+    summed rounds, fallback counts and the sha256 of the assignments and
+    the final slot table, RDMA and FPGA counts equal to the device golden's;
+    then one eager pass through the plain versions, equal."""
+    import warnings
+
+    from koordinator_tpu_torch import kernels
+    from koordinator_tpu_torch.ops import solver
+    from koordinator_tpu_torch.ops.device import DeviceState
+
+    gold = np.load(GOLDEN_DEVICE)
+    nodes, pods, params = headline_inputs(build_fixture(0))
+    pods, devices = gpu_fleet(nodes, pods)
+    if str(gold["full_fixture_sha256"]) != fixture_digest(
+            nodes, pods, params, {k: v for k, v in devices.items() if v is not None}):
+        fail("device streams: the fixture differs from the one the golden was made from")
+    nodes_t, pods_t, params_t = port_inputs(torch, nodes, stacked(pods), params, dev)
+    dev_t = DeviceState.create(**devices, device=dev)
+    n_batches = N_PODS // BATCH
+    lines = {}
+    for scoring, k in DEVICE_CELLS:
+        kw = dict(SOLVE, devices=dev_t, device_scoring=scoring, shortlist_k=k)
+        outs = (torch.empty_like(dev_t.slot_free), torch.empty_like(dev_t.rdma_free),
+                torch.empty_like(dev_t.fpga_free))
+
+        def run(sync_mode="error", **more):
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode(sync_mode)
+            try:
+                out = solver.solve_stream_full(pods_t, nodes_t, params_t, **kw, dev_out=outs,
+                                               **more)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            placed = int((out[0] >= 0).sum())  # the caller's read
+            return out, placed, time.perf_counter() - t0
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            first_seconds = run("warn")[2]
+        first_syncs = sum(is_sync_warning(w) for w in caught)
+        kernels.reset_launches()
+        out, placed, seconds = run()
+        launches = dict(kernels.launches)
+        replays = dict(kernels.replays)
+        final = [t.cpu().numpy() for t in outs]
+        times = [seconds] + [run()[2] for _ in range(PASSES - 1)]
+        shortlist = solver._shortlist_on(k, SOLVE.get("topk", 4), N_NODES, scoring)
+        need = ["device_prep", "nominate", "round_tail", "device_phase", "enforce_gangs",
+                "device_refund"] + (["shortlist_build", "shortlist_round"] if shortlist else [])
+        for name in need:
+            if launches.get(name, 0) <= 0:
+                fail(f"device stream ({scoring}, K={k}): launched no {name} kernel")
+        if not shortlist and launches.get("shortlist_build", 0):
+            fail(f"device stream ({scoring}, K={k}): the shortlist ran past the reference's gate")
+        if replays.get("solve_stream") != n_batches:
+            fail(f"device stream ({scoring}, K={k}): {replays} replays, not one a chunk")
+        asg, _, rounds, fallbacks = (t.cpu().numpy() for t in out)
+        key = f"full_{device_key(scoring, k)}"
+        got = dict(placed=placed, rounds=int(rounds.sum()),
+                   fallbacks=fallbacks.sum(axis=0).tolist(), sha256=assignments_digest(asg))
+        for nm, a in zip(("slot_free", "rdma_free", "fpga_free"), final):
+            got[f"{nm}_sha256"] = hashlib.sha256(
+                np.ascontiguousarray(a, dtype="<f4").tobytes()).hexdigest()
+        want = dict(placed=int(gold[f"{key}_placed"]), rounds=int(gold[f"{key}_rounds"]),
+                    fallbacks=gold[f"{key}_fallbacks"].tolist(),
+                    sha256=str(gold[f"{key}_sha256"]))
+        for nm in ("slot_free", "rdma_free", "fpga_free"):
+            want[f"{nm}_sha256"] = str(gold[f"{key}_{nm}_sha256"])
+        if got != want:
+            fail(f"device stream ({scoring}, K={k}): {got} differs from the golden {want}")
+        plain_outs = tuple(torch.empty_like(t) for t in outs)
+        t0 = time.perf_counter()
+        with plain_versions():
+            p_out = solver.solve_stream_full(pods_t, nodes_t, params_t, **kw,
+                                             dev_out=plain_outs, cuda_graph=False)
+        torch.cuda.synchronize()
+        p_seconds = time.perf_counter() - t0
+        if not (all(bits_equal(a.cpu(), b) for a, b in zip(p_out, (asg, None, rounds, fallbacks))
+                    if b is not None)
+                and all(bits_equal(a.cpu(), b) for a, b in zip(plain_outs, final))):
+            fail(f"device stream ({scoring}, K={k}): the graph and the eager plain pass differ")
+        med = sorted(times)[len(times) // 2]
+        profile = stream_profile(torch, run, med)
+        name = f"{scoring or 'no scoring'}, K={k or 'off'}"
+        lines[name] = dict(
+            placed=placed, pods_per_s=N_PODS / med, pass_seconds=times,
+            first_pass_seconds=first_seconds, plain_pass_seconds=p_seconds,
+            rounds_used=got["rounds"], fallbacks=got["fallbacks"], shortlist=shortlist,
+            graph_replays=replays.get("solve_stream", 0), launches=launches,
+            host_syncs_per_pass=0, host_syncs_first_pass=first_syncs, sha256=got["sha256"],
+            slot_free_sha256=got["slot_free_sha256"], **profile,
+        )
+        print(json.dumps({"device_stream": {name: lines[name]}}), flush=True)
+        for row in report["kernels"]:
+            nm = row["name"]
+            if nm == "round_tail_device":
+                row["launches"] = row["launches"] or launches.get("device_phase")
+            elif nm in ("device_refund", "device_prep"):
+                row["launches"] = row["launches"] or launches.get(nm)
+            elif nm == "nominate_device" and not shortlist:
+                row["launches"] = row["launches"] or launches.get("nominate")
+            elif nm.endswith("_device") and shortlist and nm[:-7] in launches:
+                row["launches"] = row["launches"] or launches[nm[:-7]]
+        kernels.reset_launches()
+    report["device_streams"] = lines
+
+
 def main() -> int:
     import torch
 
@@ -2584,6 +3221,8 @@ def main() -> int:
     phase_numa_kernels(torch, dev, report)
     phase_bigbatch(torch, dev, report)
     phase_numa_streams(torch, dev, report)
+    phase_device_kernels(torch, dev, report)
+    phase_device_streams(torch, dev, report)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(json.dumps({

@@ -34,12 +34,21 @@
 // zone's row one after another in row order — the reference's
 // `node_zone_free + segment_sum(...)`, which XLA's CPU backend folds into
 // a scatter-add onto the table — and their picks are cleared after it.
+// The device refunds, in the same node walk (solver.py:1913-1940): the
+// node's rolled-back whole GPUs and shares, whole * 100 + share summed
+// 0 + v0 + v1 + ... in row order (a segment_sum onto zeros), are
+// water-filled back onto its slot row (device.cuh: slot_refund_row, the
+// emptiest slot first by a stable order, the headroom's running sum in
+// XLA's chunked order, padding slots past cap_total / 100 given none), and
+// their RDMA and FPGA added back to the free counts that are tracked.
 // A batch whose working set outgrows shared memory (above ~8,000 pods
 // with quotas) keeps it in a device-memory scratch buffer the caller
 // allocates once, through the same generic pointers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "device.cuh"
 
 namespace {
 
@@ -106,7 +115,7 @@ enforce_gangs_kernel(int* __restrict__ assignment,
                      const int* __restrict__ chain, float* __restrict__ quota_used,
                      int Q, int levels, float* __restrict__ zone_free,
                      const float* __restrict__ zone_charge, int Z, int DN,
-                     int* __restrict__ scratch) {
+                     const koord_device::Refund dv, int* __restrict__ scratch) {
   extern __shared__ int smem[];
   // the working set: shared memory, or the device-memory scratch
   int* s_asg = scratch != nullptr ? scratch : smem;
@@ -167,6 +176,21 @@ enforce_gangs_kernel(int* __restrict__ assignment,
       est_used[at] = est_used[at] - e;
       prod_used[at] = prod_used[at] - pr;
     }
+    if (dv.slots != nullptr) {
+      // the device refunds: the shares summed in row order, then
+      // water-filled; RDMA and FPGA added back
+      float refund = 0.0f, rdma = 0.0f, fpga = 0.0f;
+      for (int j = s; j < R && (int)(keys[j] >> 32) == node; ++j) {
+        const int row = (int)(keys[j] & 0xFFFFFFFFu);
+        refund = refund + ((float)dv.whole[row] * 100.0f + dv.share[row]);
+        rdma = rdma + (float)dv.rdma_req[row];
+        fpga = fpga + (float)dv.fpga_req[row];
+      }
+      koord_device::slot_refund_row(dv.slots + (size_t)node * dv.G, dv.G, refund,
+                                    dv.cap != nullptr, dv.cap != nullptr ? dv.cap[node] : 0.0f);
+      if (dv.rdma != nullptr) dv.rdma[node] = dv.rdma[node] + rdma;
+      if (dv.fpga != nullptr) dv.fpga[node] = dv.fpga[node] + fpga;
+    }
     if (zone_free == nullptr) continue;
     // the zone refund: each row's charge onto its zone (clipped to Z - 1,
     // as the reference's one-hot clips it), row by row
@@ -226,9 +250,14 @@ extern "C" int koord_enforce_gangs(void* assignment, const void* gang_id,
                                    void* pod_zone, int P, int N, int D,
                                    const void* chain, void* quota_used, int Q,
                                    int levels, void* zone_free, const void* zone_charge,
-                                   int Z, int DN, void* scratch, void* stream) {
+                                   int Z, int DN, void* dev_slots, const void* cap_total,
+                                   void* rdma_free, void* fpga_free, const void* gpu_whole,
+                                   const void* gpu_share, const void* rdma_req,
+                                   const void* fpga_req, int G, void* scratch, void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (D < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  if (dev_slots != nullptr && (G < 1 || G > koord_device::kMaxSlots))
+    return (int)cudaErrorInvalidValue;
   if (zone_free != nullptr && (Z < 1 || DN < 1 || pod_zone == nullptr || zone_charge == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool quota = chain != nullptr && quota_used != nullptr && Q > 1;
@@ -251,7 +280,11 @@ extern "C" int koord_enforce_gangs(void* assignment, const void* gang_id,
       (const float*)estimate, (const bool*)is_prod, (float*)requested,
       (float*)est_used, (float*)prod_used, (int*)pod_zone, P, N, D,
       quota ? (const int*)chain : nullptr, quota ? (float*)quota_used : nullptr, Q, levels,
-      (float*)zone_free, (const float*)zone_charge, Z, DN, (int*)scratch);
+      (float*)zone_free, (const float*)zone_charge, Z, DN,
+      koord_device::Refund{(float*)dev_slots, (const float*)cap_total, (float*)rdma_free,
+                           (float*)fpga_free, (const int*)gpu_whole, (const float*)gpu_share,
+                           (const int*)rdma_req, (const int*)fpga_req, G},
+      (int*)scratch);
   return (int)cudaGetLastError();
 }
 

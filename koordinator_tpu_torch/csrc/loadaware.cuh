@@ -11,9 +11,14 @@
 // fit under each node's topology policy (numa.py:numa_fit_mask :77-145,
 // ANDed in at solver.py:898-899) and the aligned score
 // (costs.py:numa_aligned_cost :212-263, added at solver.py:923-924), both
-// read from the zone table as the batch began. Every float operation is
-// written in the reference's order; the sources are compiled with
-// -fmad=false and IEEE division, so each gives the reference's bits.
+// read from the zone table as the batch began, and with DeviceShare the
+// GPU, RDMA and FPGA fit (device.py:device_fit_mask :73-116 and the
+// untracked rules, ANDed in at solver.py:900-919) and the device score
+// (costs.py:device_cost :162-211, added at :929-940), both read from the
+// round-start stats table (device_prep.cu) and the carried RDMA and FPGA
+// counts. Every float operation is written in the reference's order; the
+// sources are compiled with -fmad=false and IEEE division, so each gives
+// the reference's bits.
 
 #pragma once
 
@@ -288,15 +293,84 @@ __device__ __forceinline__ float zone_weights_sum(const float (&w)[D], int DN) {
   return s + kSafe;
 }
 
+// The devices a pair is priced from: the round-start stats table [N, 4]
+// (full count, best partial, largest slot, free total: device_prep.cu,
+// refreshed by the round tail), the free RDMA and FPGA counts [N] (nullptr:
+// not tracked, and a pod asking for one is refused), the capacities
+// cap_total [N] (the score's), the priority-sorted pods' whole GPUs,
+// share, RDMA, FPGA and units (whole * 100 + share) [P], the score's
+// strategy (0 off, 1 LeastAllocated, 2 MostAllocated) and `clamp`, the
+// build's min(term, 0) (solver.py:939-940).
+struct Devices {
+  const float* stats;
+  const float *rdma, *fpga, *cap;
+  const int* whole;
+  const float* share;
+  const int *rdma_req, *fpga_req;
+  const float* units;
+  int scoring, clamp;
+};
+
+// One pod's device demand, in registers.
+struct DevPod {
+  int whole, rdma, fpga;
+  float share, units;
+
+  __device__ __forceinline__ void load(int p, const Devices& v) {
+    whole = v.whole[p];
+    share = v.share[p];
+    rdma = v.rdma_req[p];
+    fpga = v.fpga_req[p];
+    units = v.units[p];
+  }
+};
+
+// device_fit_mask for one pair (device.py:73-116, with the slot maximum
+// given): the whole GPUs against the full slots; a share against the
+// largest slot; whole+share one more full slot or a partial slot that
+// holds the share; RDMA and FPGA against the free counts where tracked,
+// and refused where a pod asks for an untracked kind (solver.py:916-919).
+__device__ __forceinline__ bool device_fit(const DevPod& q, int n, const Devices& v) {
+  const float* st = v.stats + (size_t)n * 4;
+  const float full = st[0], partial = st[1], smax = st[2];
+  const float wf = (float)q.whole;
+  const bool whole_ok = wf <= full + kEps;
+  const bool frac_ok = q.share <= smax + kEps || q.share <= kEps;
+  const bool both = q.whole > 0 && q.share > kEps;
+  const bool both_ok = wf + 1.0f <= full + kEps || q.share <= partial + kEps;
+  bool ok = whole_ok && (both ? both_ok : frac_ok);
+  ok = ok && (v.rdma != nullptr ? (float)q.rdma <= v.rdma[n] + kEps : q.rdma == 0);
+  ok = ok && (v.fpga != nullptr ? (float)q.fpga <= v.fpga[n] + kEps : q.fpga == 0);
+  return ok;
+}
+
+// device_cost for one pair (costs.py:162-211): the integer-floor score of
+// the GPU capacity used after the pod (MostAllocated) or left
+// (LeastAllocated), 0 where the node has no GPU, the pod would overflow it
+// or asks for none; returns -score, with `clamp` min(-score, 0) as
+// jnp.minimum gives it (the first operand on equal zeros).
+__device__ __forceinline__ float device_score(const DevPod& q, int n, const Devices& v) {
+  const float free = v.stats[(size_t)n * 4 + 3];
+  const float cap = v.cap[n];
+  const float used_after = (cap - free) + q.units;
+  const float raw = v.scoring == 2 ? floorf(used_after * 100.0f / (cap + kSafe))
+                                   : floorf((cap - used_after) * 100.0f / (cap + kSafe));
+  float score = cap > 0.0f && used_after <= cap + 1e-6f ? raw : 0.0f;
+  score = q.units > 0.0f ? score : 0.0f;
+  const float term = -score;
+  return v.clamp && term > 0.0f ? 0.0f : term;
+}
+
 // A pod's columns: requests, estimate, prod flag, cpuset binding, its
 // half of the jitter hash and its node-mask row (nullptr: no mask); with
-// NUMA zones its `required` flag.
+// NUMA zones its `required` flag; with devices its demand.
 template <int D>
 struct Pod {
   float req[D], est[D];
   bool prod, bind, required;
   uint32_t hash;
   const bool* mask;
+  DevPod dev;
 
   __device__ __forceinline__ void load(int p, const float* req_, const float* est_,
                                        const bool* is_prod, const bool* cpu_bind) {
@@ -321,12 +395,14 @@ struct Pod {
 // plus the jitter keyed on the node's original id. The node mask
 // (:896-897, :1070-1071) is one more feasibility term, and with kNuma the
 // NUMA fit (:898-899, :1072-1073) another, the aligned score (zwsum its
-// denominator) added to the cost before the jitter (:923-924, :1076-1077).
-template <int D, bool kNuma = false>
+// denominator) added to the cost before the jitter (:923-924, :1076-1077);
+// with kDev the device fit another (:900-919, :1052-1068), its score added
+// after the NUMA one (:929-940, :1078-1084).
+template <int D, bool kNuma = false, bool kDev = false>
 __device__ __forceinline__ float pair_cost(const Pod<D>& pod, bool gate, int n, const Nodes& t,
                                            const float (&w)[D], float wsum, float jitter_scale,
                                            bool jitter_on, const Zones* zones = nullptr,
-                                           float zwsum = 0.0f) {
+                                           float zwsum = 0.0f, const Devices* dev = nullptr) {
   const bool fresh = t.fresh[n];
   bool feas = gate && t.sched[n] && (pod.mask == nullptr || pod.mask[n]);
   float a[D], fe[D], after[D];
@@ -343,6 +419,9 @@ __device__ __forceinline__ float pair_cost(const Pod<D>& pod, bool gate, int n, 
   if constexpr (kNuma) {
     if (!numa_fit<D>(pod.req, pod.bind, pod.required, t.cpu_amp[n], n, *zones))
       return CUDART_INF_F;
+  }
+  if constexpr (kDev) {
+    if (!device_fit(pod.dev, n, *dev)) return CUDART_INF_F;
   }
   float score = 0.0f;
   if (fresh) {
@@ -372,6 +451,9 @@ __device__ __forceinline__ float pair_cost(const Pod<D>& pod, bool gate, int n, 
   if constexpr (kNuma) {
     if (zones->scoring != 0)
       c = c + numa_score<D>(pod.req, pod.bind, pod.required, n, *zones, w, zwsum);
+  }
+  if constexpr (kDev) {
+    if (dev->scoring != 0) c = c + device_score(pod.dev, n, *dev);
   }
   return jitter_on ? add_jitter(c, pod.hash, n, jitter_scale) : c;
 }

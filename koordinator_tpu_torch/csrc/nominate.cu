@@ -69,6 +69,13 @@
 //   capacities, Z x DN floats each, which every lane of a warp reads at
 //   once and L1 keeps. It is instantiated for D <= 8, the widths the
 //   round tail takes.
+// - DeviceShare (device.py:device_fit_mask, costs.py:device_cost; their
+//   per-pair arithmetic is loadaware.cuh's device_fit and device_score)
+//   is the device instantiations (kDev, with a node mask or none, with
+//   NUMA zones or without): each pair reads its node's row of the
+//   round-start stats table (device_prep.cu) and the free RDMA and FPGA
+//   counts, five words a node that every lane of a warp reads at once;
+//   the pod's demand stays in registers. D <= 8.
 // - With the candidate shortlist on, this is the round's fallback: both
 //   kernels also take the trigger word the shortlist round sets
 //   (csrc/shortlist_round.cu) and return at once while it is clear — the
@@ -170,7 +177,7 @@ union Shared {
   } lists;  // each warp's top-K of each pod, after the last tile
 };
 
-template <int D, int C, bool kMasked, bool kNuma>
+template <int D, int C, bool kMasked, bool kNuma, bool kDev>
 __global__ void __launch_bounds__(kThreads)
 nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
                 const bool* __restrict__ is_prod,
@@ -190,7 +197,7 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
                 float* __restrict__ out_cost, int* __restrict__ out_idx,
                 const int* __restrict__ state, const int* __restrict__ trigger,
                 const bool* __restrict__ mask, const long long* __restrict__ mask_row,
-                const Zones zones) {
+                const Zones zones, const Devices devs) {
   // the round loop reached its fixed point, or the shortlist round needs
   // no fallback: nothing to nominate
   if (state != nullptr && state[0] != 0) return;
@@ -211,6 +218,7 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
   float rq[Q][D], es[Q][D];
   TopK<C> top[Q];
   bool pod_gate[Q], pod_bind[Q], pod_prod[Q], pod_required[Q];
+  DevPod pod_dev[Q];  // kDev only
   uint32_t hp[Q];
   // each pod's row of the node mask (kMasked only)
   const bool* pod_mask[Q];
@@ -230,6 +238,7 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
       pod_bind[q] = cpu_bind[p];
       pod_prod[q] = is_prod[p];
       if constexpr (kNuma) pod_required[q] = zones.required[p];
+      if constexpr (kDev) pod_dev[q].load(p, devs);
     } else {
 #pragma unroll
       for (int d = 0; d < D; ++d) rq[q][d] = es[q][d] = 0.0f;
@@ -283,6 +292,7 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
         feas[q] = feas[q] & (!pod_bind[q] | (rq[q][0] * amp <= fe[0]));
         if constexpr (kNuma)
           feas[q] = feas[q] && numa_fit<D>(rq[q], pod_bind[q], pod_required[q], amp, n, zones);
+        if constexpr (kDev) feas[q] = feas[q] && device_fit(pod_dev[q], n, devs);
         any = any | feas[q];
       }
       const bool node_fresh = (fl & kFresh) != 0;
@@ -344,6 +354,9 @@ nominate_kernel(const float* __restrict__ req, const float* __restrict__ est,
           if constexpr (kNuma) {
             if (zones.scoring != 0 && feas[q])
               c = c + numa_score<D>(rq[q], pod_bind[q], pod_required[q], n, zones, w, zwsum);
+          }
+          if constexpr (kDev) {
+            if (devs.scoring != 0 && feas[q]) c = c + device_score(pod_dev[q], n, devs);
           }
           if (jitter_on) c = add_jitter(c, hp[q], n, jitter_scale);
           if (feas[q]) cost[q] = c;
@@ -472,21 +485,30 @@ struct Args {
   const int* trigger;
   const bool* mask;
   const long long* mask_row;
-  Zones zones;  // zones.free == nullptr: no NUMA
+  Zones zones;   // zones.free == nullptr: no NUMA
+  Devices devs;  // devs.stats == nullptr: no devices
   cudaStream_t stream;
 };
 
 // The kernels by mode: 0 LoadAware only, 1 with a node mask, 2 with NUMA
-// zones (and a node mask or none); NUMA only up to D = 8.
-enum Mode { kPlainMode = 0, kMaskedMode = 1, kNumaMode = 2 };
+// zones, 3 with devices, 4 with devices and NUMA zones (2-4 with a node
+// mask or none); 2-4 only up to D = 8.
+enum Mode { kPlainMode = 0, kMaskedMode = 1, kNumaMode = 2, kDevMode = 3, kDevNumaMode = 4 };
 
 template <int D, int C>
 auto kernel_of(int mode) {
   if constexpr (D <= 8) {
-    if (mode == kNumaMode) return nominate_kernel<D, C, true, true>;
+    if (mode == kNumaMode) return nominate_kernel<D, C, true, true, false>;
+    if (mode == kDevMode) return nominate_kernel<D, C, true, false, true>;
+    if (mode == kDevNumaMode) return nominate_kernel<D, C, true, true, true>;
   }
-  return mode == kMaskedMode ? nominate_kernel<D, C, true, false>
-                             : nominate_kernel<D, C, false, false>;
+  return mode == kMaskedMode ? nominate_kernel<D, C, true, false, false>
+                             : nominate_kernel<D, C, false, false, false>;
+}
+
+__host__ __device__ inline int mode_of(bool zones, bool devs, bool mask) {
+  if (devs) return zones ? kDevNumaMode : kDevMode;
+  return zones ? kNumaMode : mask ? kMaskedMode : kPlainMode;
 }
 
 template <int D, int C>
@@ -494,16 +516,15 @@ cudaError_t launch(const Args& a) {
   const int chunks = (a.N + a.chunk - 1) / a.chunk;
   const dim3 grid((a.P + kPods - 1) / kPods, chunks);
   const bool split = chunks > 1;
-  const int mode = a.zones.free != nullptr ? kNumaMode : a.mask != nullptr ? kMaskedMode
-                                                                          : kPlainMode;
-  if (mode == kNumaMode && D > 8) return cudaErrorInvalidValue;
+  const int mode = mode_of(a.zones.free != nullptr, a.devs.stats != nullptr, a.mask != nullptr);
+  if (mode >= kNumaMode && D > 8) return cudaErrorInvalidValue;
   auto kernel = kernel_of<D, C>(mode);
   kernel<<<grid, kThreads, 0, a.stream>>>(
       a.req, a.est, a.is_prod, a.cpu_bind, a.gate, a.alloc, a.requested,
       a.est_used, a.prod_used, a.fresh, a.sched, a.cpu_amp, a.thr, a.pthr,
       a.weights, a.P, a.N, a.K, a.chunk, a.jitter_scale, a.jitter_on, a.approx,
       split ? a.part_cost : a.out_cost, split ? a.part_idx : a.out_idx, a.state, a.trigger,
-      a.mask, a.mask_row, a.zones);
+      a.mask, a.mask_row, a.zones, a.devs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
   nominate_merge_kernel<C><<<(a.P + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0,
@@ -555,7 +576,7 @@ struct Resident {
   int mode;
   template <int D, int C>
   cudaError_t run() const {
-    if (mode == kNumaMode && D > 8) return cudaErrorInvalidValue;
+    if (mode >= kNumaMode && D > 8) return cudaErrorInvalidValue;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel_of<D, C>(mode),
                                                          kThreads, 0);
   }
@@ -564,15 +585,16 @@ struct Resident {
 }  // namespace
 
 // Nodes each block walks, for P pods and N nodes at width D and fan-out K
-// (`mode`: 0 LoadAware only, 1 with a node mask, 2 with NUMA zones) on a
-// card of `sms` SMs: as many chunks
+// (`mode`: 0 LoadAware only, 1 with a node mask, 2 with NUMA zones, 3 with
+// devices, 4 with devices and NUMA zones) on a card of `sms` SMs: as many
+// chunks
 // as fill one wave of resident blocks (the occupancy of this
 // instantiation), none shorter than kMinChunk nodes. The caller makes
 // room for partial lists of [P, ceil(N / chunk), kMaxK] pairs when there
 // is more than one chunk.
 extern "C" int koord_nominate_chunk(int P, int N, int D, int K, int sms, int mode,
                                     int* chunk) {
-  if (P < 1 || N < 1 || sms < 1 || K < 1 || K > kMaxK || mode < 0 || mode > 2)
+  if (P < 1 || N < 1 || sms < 1 || K < 1 || K > kMaxK || mode < 0 || mode > kDevNumaMode)
     return (int)cudaErrorInvalidValue;
   int per_sm = 0;
   const cudaError_t err = with_dk(D, K, Resident{&per_sm, mode});
@@ -595,12 +617,17 @@ extern "C" int koord_nominate(
     void* part_cost, void* part_idx, void* out_cost, void* out_idx,
     const void* state, const void* trigger, const void* mask, const void* mask_row,
     const void* zone_free, const void* zone_cap, const void* side, const void* required,
-    int Z, int DN, int scoring, void* stream) {
+    int Z, int DN, int scoring, const void* dev_stats, const void* rdma_free,
+    const void* fpga_free, const void* cap_total, const void* gpu_whole, const void* gpu_share,
+    const void* rdma_req, const void* fpga_req, const void* units, int dev_scoring,
+    int dev_clamp, void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (D < 1 || D > kMaxDims || N < 1 || K < 1 || K > kMaxK || chunk < 1)
     return (int)cudaErrorInvalidValue;
   if (zone_free != nullptr &&
       (Z < 1 || Z > kMaxZones || DN < 1 || DN > kMaxZoneDims || DN > D || D > 8))
+    return (int)cudaErrorInvalidValue;
+  if (dev_stats != nullptr && (D > 8 || (dev_scoring != 0 && cap_total == nullptr)))
     return (int)cudaErrorInvalidValue;
   const Args a{(const float*)req, (const float*)est, (const bool*)is_prod,
                (const bool*)cpu_bind, (const bool*)gate, (const float*)alloc,
@@ -613,6 +640,10 @@ extern "C" int koord_nominate(
                (const long long*)mask_row,
                Zones{(const float*)zone_free, (const float*)zone_cap, (const uint32_t*)side,
                      (const bool*)required, Z, DN, scoring},
+               Devices{(const float*)dev_stats, (const float*)rdma_free, (const float*)fpga_free,
+                       (const float*)cap_total, (const int*)gpu_whole, (const float*)gpu_share,
+                       (const int*)rdma_req, (const int*)fpga_req, (const float*)units,
+                       dev_scoring, dev_clamp},
                (cudaStream_t)stream};
   return (int)with_dk(D, K, Launch{a});
 }

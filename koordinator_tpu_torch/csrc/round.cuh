@@ -1,10 +1,11 @@
 // The tail of one solver round, in one launch: choice, stable node sort,
 // segmented commit, with ElasticQuota the quota commit, with NUMA zones the
-// zone selection and charges, and the round loop's state. The kernel and
-// its launch; the entries are round.cu (LoadAware and quotas, up to 4,096
-// pods, and 16,384 at D <= 3), round_zone.cu (the zone instantiations) and
-// round_big.cu (any round up to 16,384 pods, its working set in device
-// memory, and the route that picks among the three).
+// zone selection and charges, with DeviceShare the device acceptance and
+// charges, and the round loop's state. The kernel and its launch; the
+// entries are round.cu (LoadAware and quotas, up to 4,096 pods, and 16,384
+// at D <= 3), round_zone.cu (the zone instantiations) and round_big.cu (any
+// round up to 32,768 pods, its working set in device memory, and the route
+// that picks among the three).
 //
 // The kernel replaces, for the LoadAware branch of
 // koordinator_tpu/ops/solver.py:assign, everything a round does between
@@ -92,16 +93,36 @@
 //   the phase's per-row flags, picks, ends and requests take P (3 + DN)
 //   words after the flags.
 // - Above 4,096 pods, or where shared memory is short, or with quotas
-//   whose 32-bit level keys would overflow, the round runs with 16 rows a
+//   whose 32-bit level keys would overflow, the round runs with 32 rows a
 //   thread and its whole working set (the keys, the cumsum series, the
-//   quota and zone areas) in a device-memory scratch buffer the caller
-//   allocates once (kGlobal; a few MB at 16,384 pods, which stays in L2).
+//   quota, zone and device areas) in a device-memory scratch buffer of the
+//   launch's own (kGlobal; a few MB at 32,768 pods, which stays in L2).
 //   The code is the same: the working set is reached through generic
 //   pointers, and barriers order device memory within the block as they
 //   order shared memory. There the quota levels' sort keys are 64 bits and
 //   the chunk totals' scan keeps any number of levels (ChunkScanDeep), and
 //   the quota commit and the zone phase run in frames of their own (see
-//   quota_commit_apart).
+//   quota_commit_apart). Its rounds reach 32,768 pods (a gang larger than
+//   the JAX scheduler's bucket, padded); the row loops with a barrier run
+//   over the rows present only, so a smaller round pays no barrier for
+//   rows it does not have.
+// - The device phase (DeviceShare, solver.py:1246-1274 and :1386-1416) is
+//   a run-time branch of every instantiation (devices.slots != nullptr),
+//   each half in a frame of its own that takes only the working set and
+//   the tables (device_accept, device_charge): after the fit tests, one
+//   thread a node segment walks its rows in sorted order with the whole
+//   GPUs asked for so far (plus one for each share pod that opens a full
+//   slot: its share above the node's round-start best partial slot), the
+//   share pods so far and the RDMA and FPGA so far — small whole numbers,
+//   exact in any order — against the node's round-start stats and free
+//   counts, and refuses the rows past them and every share pod but the
+//   segment's first; it runs before the zone selection, as the
+//   reference's acceptance does. After the node charges the same thread
+//   applies slot_commit to the node's slot row (device.cuh) from its final
+//   winners, takes their RDMA and FPGA off the free counts, and refreshes
+//   the node's row of the stats table, which the next round's pricing
+//   reads (device_prep.cu works it out once a batch). The rows hand their
+//   flags to the phase through two words a row of the working set.
 
 #pragma once
 
@@ -112,6 +133,7 @@
 #include <initializer_list>
 #include <type_traits>
 
+#include "device.cuh"
 #include "quota.cuh"
 
 namespace {
@@ -128,8 +150,10 @@ constexpr int kAcc = 1;   // accepted
 constexpr int kProd = 2;  // a prod pod
 constexpr int kLast = 4;  // the last row of its node's segment (with quotas)
 
-// rows a thread of the device-memory round (up to 16,384 pods)
+// rows a thread of the shared-memory round at D <= 3 (up to 16,384 pods)
 constexpr int kBigRows = 16;
+// rows a thread of the device-memory round (up to 32,768 pods)
+constexpr int kGlobalRows = 32;
 
 // NUMA zones (ops/numa.py): at most this many a node and dims a zone
 constexpr int kMaxZones = 8;
@@ -600,7 +624,7 @@ struct ChunkScan {
   }
 };
 
-// ChunkScan for any number of levels (the device-memory round: 16,384
+// ChunkScan for any number of levels (the device-memory round: 32,768
 // pods have three levels above the base). Level k of 1..n (n = lv.n) is
 // cut into chunks of 16 below the top, level n, a plain running sum. Each
 // level keeps its open chunk's sum; when an element of a later chunk
@@ -1157,7 +1181,120 @@ __device__ void zone_charge(const bool (&ok)[R], const int (&zsel)[R], const uin
   __syncthreads();
 }
 
-// The device-memory round (16 rows a thread) keeps its rows' arrays in
+// --------------------------------------------------------------- devices
+//
+// The device phase (DeviceShare): a round's tables — the carried slot
+// table [N, G] and free RDMA / FPGA counts [N] (nullptr: not tracked),
+// charged in place, and the stats table [N, 4] (full count, best partial,
+// largest slot, total) the round's pricing read, refreshed for the nodes
+// charged — and the priority-sorted pods' whole GPUs, share, RDMA and
+// FPGA [P]. slots == nullptr: no devices.
+struct RoundDevices {
+  float* slots;
+  float* stats;
+  float* rdma;
+  float* fpga;
+  const int* whole;
+  const float* share;
+  const int* rdma_req;
+  const int* fpga_req;
+  int G;
+};
+
+// A sorted row's device word: its pod row (low 16 bits: P <= 32,768) and
+// flags. The segment word of a segment's first row is its node, of any
+// other row -1.
+constexpr int kDevRowMask = 0xFFFF;
+constexpr int kDevOk = 1 << 16;     // accepted (in: by the fit tests; out: and the devices)
+constexpr int kDevOpens = 1 << 17;  // a share pod that opens a full slot
+constexpr int kDevFinal = 1 << 18;  // a final winner
+
+// Two words a row: the device word and the segment word.
+__host__ __device__ inline size_t dev_bytes(int P) { return (size_t)P * 2 * sizeof(int); }
+
+// The device acceptance (solver.py:1246-1274) on the rows' fit acceptance
+// (kDevOk in d_info, written by each row): one thread a node segment, its
+// rows in sorted order. The whole block calls it; every loop is a walk of
+// the working set and the tables, so it keeps no array.
+__device__ __noinline__ void device_accept(const uint64_t* keys, int P, int N, int* d_info,
+                                           int* d_seg, const RoundDevices dv) {
+  __syncthreads();  // every row's fit acceptance is in
+  for (int i = threadIdx.x; i < P; i += blockDim.x) {
+    const int node = (int)(keys[i] >> 32);
+    if (i > 0 && (int)(keys[i - 1] >> 32) == node) {
+      d_seg[i] = -1;
+      continue;
+    }
+    d_seg[i] = node;
+    const bool real = node < N;
+    const float* st = dv.stats + (size_t)min(node, N - 1) * koord_device::kStats;
+    const float full = st[0], partial = st[1];
+    const float rfree = dv.rdma != nullptr && real ? dv.rdma[node] : 0.0f;
+    const float ffree = dv.fpga != nullptr && real ? dv.fpga[node] : 0.0f;
+    float seg_full = 0.0f, seg_frac = 0.0f, seg_rdma = 0.0f, seg_fpga = 0.0f;
+    for (int j = i; j < P && (int)(keys[j] >> 32) == node; ++j) {
+      const int row = (int)(keys[j] & 0xFFFFFFFFu);
+      const float whole = (float)dv.whole[row], share = dv.share[row];
+      const bool frac = share > kEps;
+      const bool opens = frac && share > partial + kEps;
+      seg_full = seg_full + (whole + (opens ? 1.0f : 0.0f));
+      seg_frac = seg_frac + (frac ? 1.0f : 0.0f);
+      bool ok = (d_info[j] & kDevOk) != 0 && real;
+      ok = ok && seg_full <= full + kEps;
+      ok = ok && (!frac || seg_frac - 1.0f < 0.5f);
+      if (dv.rdma != nullptr) {
+        seg_rdma = seg_rdma + (float)dv.rdma_req[row];
+        ok = ok && seg_rdma <= rfree + kEps;
+      }
+      if (dv.fpga != nullptr) {
+        seg_fpga = seg_fpga + (float)dv.fpga_req[row];
+        ok = ok && seg_fpga <= ffree + kEps;
+      }
+      d_info[j] = row | (ok ? kDevOk : 0) | (opens ? kDevOpens : 0);
+    }
+  }
+  __syncthreads();
+}
+
+// The device charges (solver.py:1386-1416) of the final winners (kDevFinal
+// in d_info): one thread a node segment sums its winners' whole GPUs,
+// RDMA and FPGA (whole numbers, exact in any order), takes its one share
+// winner, applies slot_commit to the node's slot row, subtracts the sums
+// from the free counts and refreshes the node's stats row. Nodes without
+// a winner are not touched (slot_commit and `free - 0` leave them as they
+// are). The whole block calls it.
+__device__ __noinline__ void device_charge(int P, int N, const int* d_info, const int* d_seg,
+                                           const RoundDevices dv) {
+  for (int i = threadIdx.x; i < P; i += blockDim.x) {
+    const int node = d_seg[i];
+    if (node < 0 || node >= N) continue;
+    float whole = 0.0f, frac = 0.0f, rdma = 0.0f, fpga = 0.0f;
+    bool opens = false, any = false;
+    for (int j = i; j < P && (j == i || d_seg[j] < 0); ++j) {
+      const int info = d_info[j];
+      if (!(info & kDevFinal)) continue;
+      const int row = info & kDevRowMask;
+      any = true;
+      whole = whole + (float)dv.whole[row];
+      const float share = dv.share[row];
+      if (share > kEps) {
+        frac = share;
+        opens = (info & kDevOpens) != 0;
+      }
+      rdma = rdma + (float)dv.rdma_req[row];
+      fpga = fpga + (float)dv.fpga_req[row];
+    }
+    if (!any) continue;
+    float* row = dv.slots + (size_t)node * dv.G;
+    koord_device::slot_commit_row(row, dv.G, whole, frac, opens);
+    if (dv.rdma != nullptr) dv.rdma[node] = dv.rdma[node] - rdma;
+    if (dv.fpga != nullptr) dv.fpga[node] = dv.fpga[node] - fpga;
+    koord_device::slot_stats_row(row, dv.G, dv.stats + (size_t)node * koord_device::kStats);
+  }
+  __syncthreads();
+}
+
+// The device-memory round (32 rows a thread) keeps its rows' arrays in
 // local memory, and so do its phases. Each phase with local objects of its
 // own runs there in a frame of its own (not inlined), so that none of its
 // objects can take the local-memory slot of a kernel array that is live
@@ -1220,7 +1357,7 @@ round_tail_kernel(const float* __restrict__ top_cost,
                   float round_quantum, int P, int N, int K, int G, int staged,
                   const int* __restrict__ chain, const float* __restrict__ runtime,
                   float* qused, bool* __restrict__ gate, int Q, int levels, int qbytes,
-                  const RoundZones zn, char* scratch) {
+                  const RoundZones zn, const RoundDevices dv, char* scratch) {
   // A trip after the fixed point returns at once (state[0] is `done`; only
   // thread 0 writes the word, at the very end of a launch).
   if (state[0] != 0) return;
@@ -1245,7 +1382,15 @@ round_tail_kernel(const float* __restrict__ top_cost,
   int* z_res = z_bits + P;
   int* z_end = z_res + P;
   float* z_req = (float*)(z_end + P);
+  // the device phase's words (devices): each sorted row's device word and
+  // segment word [P] each, after the zone phase's
+  int* d_info = (int*)((char*)z_bits + (kZone ? zone_bytes(P, zn.DN) : 0));
+  int* d_seg = d_info + P;
+  const bool devices = dv.slots != nullptr;
   const int tid = threadIdx.x, T = blockDim.x;
+  // the rows present: the loops with a barrier run over these only (above
+  // 4 rows a thread; up to 4 they unroll over R)
+  const int RN = R > 4 ? min(R, (P + T - 1) / T) : R;
   if (tid == 0) s_lv = scan_levels(P);
 
   // 1. The rank-modular choice (:1204-1213): rank is the inclusive count of
@@ -1254,7 +1399,9 @@ round_tail_kernel(const float* __restrict__ top_cost,
   uint64_t key[R];
   int carry = 0;
 #pragma unroll (R <= 4 ? R : 1)
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < R; ++r) key[r] = UINT64_MAX;
+#pragma unroll (R <= 4 ? R : 1)
+  for (int r = 0; r < RN; ++r) {
     const int i = tid + r * T;
     const Nomination m = load_nomination(i, P, K, active, top_cost, top_idx);
     // the pod's columns, loaded now and stored after the scan, so their
@@ -1342,7 +1489,7 @@ round_tail_kernel(const float* __restrict__ top_cost,
   bool prod[R], act[R], bound[R];
   carry = 0;
 #pragma unroll (R <= 4 ? R : 1)
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < RN; ++r) {
     const int i = tid + r * T;
     int node = -1, prev = -1;
     prod[r] = act[r] = false;
@@ -1459,6 +1606,21 @@ round_tail_kernel(const float* __restrict__ top_cost,
       }
     }
     __syncthreads();
+  }
+  // D. With devices, the device acceptance on the fit acceptance
+  // (:1246-1274), before the zone selection as in the reference
+  if (devices) {
+#pragma unroll (R <= 4 ? R : 1)
+    for (int r = 0; r < R; ++r) {
+      const int i = tid + r * T;
+      if (i < P) d_info[i] = ok[r] ? kDevOk : 0;
+    }
+    device_accept(keys, P, N, d_info, d_seg, dv);
+#pragma unroll (R <= 4 ? R : 1)
+    for (int r = 0; r < R; ++r) {
+      const int i = tid + r * T;
+      if (i < P) ok[r] = ok[r] && (d_info[i] & kDevOk) != 0;
+    }
   }
   // Z. With zones, the zone selection on the fit acceptance (:1275-1332)
   int zsel[R];
@@ -1580,6 +1742,18 @@ round_tail_kernel(const float* __restrict__ top_cost,
   else if constexpr (kZone)
     zone_charge<D, R>(ok, zsel, key, start, P, N, z_res, z_end, z_req, zn);
 
+  // 7d. With devices, the final winners' device charges (:1386-1416) and
+  // the charged nodes' stats
+  if (devices) {
+#pragma unroll (R <= 4 ? R : 1)
+    for (int r = 0; r < R; ++r) {
+      const int i = tid + r * T;
+      if (i < P && ok[r]) d_info[i] |= kDevFinal;
+    }
+    __syncthreads();
+    device_charge(P, N, d_info, d_seg, dv);
+  }
+
   // 8. The loop state (:1433-1452): un-sort the accepts onto `assigned`
   // (an accepted row's node key is its choice), active &= assigned < 0,
   // rounds += 1, done = !any(accepted) || !any(active); with quotas the
@@ -1635,8 +1809,9 @@ struct Args {
   float* qused;
   bool* gate;
   int Q, L;
-  RoundZones zones;  // zones.free == nullptr: no NUMA
-  char* scratch;     // the device-memory working set (kGlobal)
+  RoundZones zones;      // zones.free == nullptr: no NUMA
+  RoundDevices devices;  // devices.slots == nullptr: no devices
+  char* scratch;         // the device-memory working set (kGlobal)
   cudaStream_t stream;
 };
 
@@ -1659,10 +1834,11 @@ struct Config {
   size_t qbytes, smem;
 };
 
-inline Config smem_config(int P, int D, int R, bool quota, int Q, int L, bool zone, int DN) {
+inline Config smem_config(int P, int D, int R, bool quota, int Q, int L, bool zone, int DN,
+                          bool dev) {
   const size_t most = (size_t)max_smem() - sizeof(ScanLevels) - kWarps * sizeof(int);
   const size_t qbytes = quota ? quota_layout(P, D, Q, L, R).total : 0;
-  const size_t zbytes = zone ? zone_bytes(P, DN) : 0;
+  const size_t zbytes = (zone ? zone_bytes(P, DN) : 0) + (dev ? dev_bytes(P) : 0);
   for (int staged = 1; staged >= 0; --staged)
     for (int g = D; g >= 1; --g) {
       const size_t smem = round_smem_bytes(P, D, g, staged, qbytes, zbytes);
@@ -1672,10 +1848,11 @@ inline Config smem_config(int P, int D, int R, bool quota, int Q, int L, bool zo
 }
 
 // Bytes of the device-memory working set of a round (kGlobal): every dim
-// in one pass, pods staged, kBigRows rows a thread.
-inline size_t big_bytes(int P, int D, bool quota, int Q, int L, bool zone, int DN) {
-  const size_t qbytes = quota ? quota_layout(P, D, Q, L, kBigRows).total : 0;
-  return round_smem_bytes(P, D, D, 1, qbytes, zone ? zone_bytes(P, DN) : 0);
+// in one pass, pods staged, kGlobalRows rows a thread.
+inline size_t big_bytes(int P, int D, bool quota, int Q, int L, bool zone, int DN, bool dev) {
+  const size_t qbytes = quota ? quota_layout(P, D, Q, L, kGlobalRows).total : 0;
+  return round_smem_bytes(P, D, D, 1, qbytes,
+                          (zone ? zone_bytes(P, DN) : 0) + (dev ? dev_bytes(P) : 0));
 }
 
 template <int D, int R, bool kQuota, bool kZone, bool kGlobal>
@@ -1690,7 +1867,8 @@ cudaError_t launch(const Args& a, int threads) {
     if (a.scratch == nullptr) return cudaErrorInvalidValue;
     qbytes = kQuota ? quota_layout(a.P, D, a.Q, a.L, R).total : 0;
   } else {
-    const Config c = smem_config(a.P, D, R, kQuota, a.Q, a.L, kZone, a.zones.DN);
+    const Config c = smem_config(a.P, D, R, kQuota, a.Q, a.L, kZone, a.zones.DN,
+                                 a.devices.slots != nullptr);
     if (c.G == 0) return cudaErrorInvalidValue;
     G = c.G, staged = c.staged, smem = c.smem, qbytes = c.qbytes;
     static size_t configured = 48 * 1024 - sizeof(ScanLevels) - kWarps * sizeof(int);
@@ -1709,7 +1887,7 @@ cudaError_t launch(const Args& a, int threads) {
       a.top_cost, a.top_idx, a.req, a.est, a.is_prod, a.cpu_bind, a.cpu_amp,
       a.alloc, a.fresh, a.thr, a.pthr, a.requested, a.est_used, a.prod_used,
       a.assigned, a.active, a.state, a.round_quantum, a.P, a.N, a.K, G, staged, a.chain,
-      a.runtime, a.qused, a.gate, a.Q, a.L, (int)qbytes, a.zones, a.scratch);
+      a.runtime, a.qused, a.gate, a.Q, a.L, (int)qbytes, a.zones, a.devices, a.scratch);
   return cudaGetLastError();
 }
 
@@ -1729,17 +1907,17 @@ inline int threads_of(int P, int R) { return R == 1 ? max(32, (P + 31) / 32 * 32
 
 // Which kernel takes a round: 0 the shared-memory kernels (round.cu, or
 // round_zone.cu with zones), 1 the device-memory kernel (round_big.cu,
-// with `bytes` of scratch), -1 none (above kBigRows * kThreads pods).
+// with `bytes` of scratch), -1 none (above kGlobalRows * kThreads pods).
 // Shared memory takes a round when it fits and, with quotas, when each
 // level's 32-bit sort key (quota << position bits | position) does.
-inline int round_route(int P, int D, bool quota, int Q, int L, bool zone, int DN,
+inline int round_route(int P, int D, bool quota, int Q, int L, bool zone, int DN, bool dev,
                        size_t* bytes) {
   *bytes = 0;
   const int R = smem_rows(P, D, quota, zone);
   const bool key32 = !quota || (((unsigned long long)Q + 1) << pos_bits(P)) < (1ull << 32);
-  if (R > 0 && key32 && smem_config(P, D, R, quota, Q, L, zone, DN).G > 0) return 0;
-  if (P > kBigRows * kThreads) return -1;
-  *bytes = big_bytes(P, D, quota, Q, L, zone, DN);
+  if (R > 0 && key32 && smem_config(P, D, R, quota, Q, L, zone, DN, dev).G > 0) return 0;
+  if (P > kGlobalRows * kThreads) return -1;
+  *bytes = big_bytes(P, D, quota, Q, L, zone, DN, dev);
   return 1;
 }
 
@@ -1768,6 +1946,10 @@ inline cudaError_t check_args(const Args& a) {
       (a.zones.Z < 1 || a.zones.Z > kMaxZones || a.zones.DN < 1 || a.zones.DN > kMaxZoneDims ||
        a.zones.DN > a.D))
     return cudaErrorInvalidValue;
+  if (a.devices.slots != nullptr &&
+      (a.devices.G < 1 || a.devices.G > koord_device::kMaxSlots || a.P > kDevRowMask + 1 ||
+       a.devices.stats == nullptr))
+    return cudaErrorInvalidValue;
   const uintptr_t align = a.D % 4 == 0 ? 16 : a.D % 2 == 0 ? 8 : 4;
   for (const void* p : {(const void*)a.req, (const void*)a.est, (const void*)a.alloc,
                         (const void*)a.thr, (const void*)a.pthr, (const void*)a.requested,
@@ -1783,14 +1965,14 @@ inline Args make_args(const void* top_cost, const void* top_idx, const void* req
                       void* prod_used, void* assigned, void* active, void* state,
                       float round_quantum, int P, int N, int D, int K, const void* chain,
                       const void* runtime, void* qused, void* gate, int Q, int L,
-                      RoundZones zones, void* scratch, void* stream) {
+                      RoundZones zones, RoundDevices devices, void* scratch, void* stream) {
   return Args{(const float*)top_cost, (const int*)top_idx, (const float*)req,
               (const float*)est, (const bool*)is_prod, (const bool*)cpu_bind,
               (const float*)cpu_amp, (const float*)alloc, (const bool*)fresh,
               (const float*)thr, (const float*)pthr, (float*)requested,
               (float*)est_used, (float*)prod_used, (int*)assigned,
               (bool*)active, (int*)state, round_quantum, P, N, D, K, (const int*)chain,
-              (const float*)runtime, (float*)qused, (bool*)gate, Q, L, zones,
+              (const float*)runtime, (float*)qused, (bool*)gate, Q, L, zones, devices,
               (char*)scratch, (cudaStream_t)stream};
 }
 
@@ -1799,6 +1981,14 @@ inline RoundZones make_zones(void* zone_free, const void* zone_cap, const void* 
                              int DN) {
   return RoundZones{(float*)zone_free, (const float*)zone_cap, (const int8_t*)policy,
                     (const bool*)most, (const bool*)required, (int*)pod_zone, Z, DN};
+}
+
+inline RoundDevices make_devices(void* slots, void* stats, void* rdma, void* fpga,
+                                 const void* whole, const void* share, const void* rdma_req,
+                                 const void* fpga_req, int G) {
+  return RoundDevices{(float*)slots, (float*)stats, (float*)rdma, (float*)fpga,
+                      (const int*)whole, (const float*)share, (const int*)rdma_req,
+                      (const int*)fpga_req, G};
 }
 
 }  // namespace

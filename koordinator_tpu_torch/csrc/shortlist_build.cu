@@ -38,6 +38,10 @@
 //   numa_fit and numa_score over the batch-start table (shortlist_plan's
 //   :1590-1600, the build's :898-899 and :923-924), in their own
 //   instantiation (kNuma).
+// - With devices the pair's device fit and score are loadaware.cuh's
+//   device_fit and device_score over the batch-start stats table, the
+//   score clamped at <= 0 (clamp_device, solver.py:939-940, :1645), in
+//   the device instantiations (kDev, with kNuma or without).
 // - Its cost is the bound: +inf when fewer than K+1 pairs are feasible,
 //   and then the shortlist holds the lowest infeasible ids, as top_k's
 //   -inf ties do. A pod whose node-mask row is all false prices every
@@ -84,11 +88,12 @@ struct Args {
   float* out_bound;
   const bool* mask;
   const long long* mask_row;
-  Zones zones;  // zones.free == nullptr: no NUMA
+  Zones zones;   // zones.free == nullptr: no NUMA
+  Devices devs;  // devs.stats == nullptr: no devices
   cudaStream_t stream;
 };
 
-template <int D, bool kStored, bool kNuma>
+template <int D, bool kStored, bool kNuma, bool kDev>
 __global__ void __launch_bounds__(kThreads) shortlist_build_kernel(const Args a) {
   extern __shared__ uint32_t costs[];  // [N] ordered costs when kStored
   __shared__ int hist[256];
@@ -102,13 +107,14 @@ __global__ void __launch_bounds__(kThreads) shortlist_build_kernel(const Args a)
   pod.load(p, a.req, a.est, a.is_prod, a.cpu_bind);
   pod.mask = mask_row_of(a.mask, a.mask_row, p, N);
   if constexpr (kNuma) pod.required = a.zones.required[p];
+  if constexpr (kDev) pod.dev.load(p, a.devs);
   float w[D];
   const float wsum = weights_sum<D>(a.weights, w);
   const float zwsum = kNuma ? zone_weights_sum<D>(w, a.zones.DN) : 0.0f;
   // every pod gate open: a pod that is not active now may be later
   auto price = [&](int n) {
-    return order_of(pair_cost<D, kNuma>(pod, true, n, a.nodes, w, wsum, a.jitter_scale,
-                                        a.jitter_on != 0, &a.zones, zwsum));
+    return order_of(pair_cost<D, kNuma, kDev>(pod, true, n, a.nodes, w, wsum, a.jitter_scale,
+                                              a.jitter_on != 0, &a.zones, zwsum, &a.devs));
   };
   auto key_at = [&](int n) { return key_of(kStored ? costs[n] : price(n), n); };
 
@@ -179,33 +185,36 @@ __global__ void __launch_bounds__(kThreads) shortlist_build_kernel(const Args a)
   if (tid == 0) a.out_bound[p] = cost_of(prefix);
 }
 
-template <int D, bool kStored, bool kNuma>
+template <int D, bool kStored, bool kNuma, bool kDev>
 cudaError_t launch_stored(const Args& a) {
   const size_t smem = kStored ? (size_t)a.N * sizeof(uint32_t) : 0;
   static bool sized = false;
   if (kStored && !sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        shortlist_build_kernel<D, kStored, kNuma>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kStoredBytes);
+        shortlist_build_kernel<D, kStored, kNuma, kDev>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kStoredBytes);
     if (err != cudaSuccess) return err;
     sized = true;
   }
-  shortlist_build_kernel<D, kStored, kNuma><<<a.P, kThreads, smem, a.stream>>>(a);
+  shortlist_build_kernel<D, kStored, kNuma, kDev><<<a.P, kThreads, smem, a.stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D, bool kNuma>
-cudaError_t launch_numa(const Args& a) {
+template <int D, bool kNuma, bool kDev>
+cudaError_t launch_terms(const Args& a) {
   return (size_t)a.N * sizeof(uint32_t) <= (size_t)kStoredBytes
-             ? launch_stored<D, true, kNuma>(a)
-             : launch_stored<D, false, kNuma>(a);
+             ? launch_stored<D, true, kNuma, kDev>(a)
+             : launch_stored<D, false, kNuma, kDev>(a);
 }
 
 struct Launch {
   const Args& a;
   template <int D>
   cudaError_t run() const {
-    return a.zones.free != nullptr ? launch_numa<D, true>(a) : launch_numa<D, false>(a);
+    const bool numa = a.zones.free != nullptr;
+    if (a.devs.stats != nullptr)
+      return numa ? launch_terms<D, true, true>(a) : launch_terms<D, false, true>(a);
+    return numa ? launch_terms<D, true, false>(a) : launch_terms<D, false, false>(a);
   }
 };
 
@@ -213,9 +222,11 @@ struct Launch {
 
 // Pods are priority-sorted [P, D] / [P]; node tables [N, D] / [N]; thr and
 // pthr the effective [N, D] thresholds; mask [M, N] bool and mask_row [P]
-// int64 the pods' node constraints (both null: none). Writes cand [P, K]
-// int32 (ids ascending) and bound [P] float32. Needs 1 <= K <= 1024,
-// K < N, D <= 8.
+// int64 the pods' node constraints (both null: none); the zone terms
+// (zone_free null: none) and the device terms (dev_stats null: none,
+// rdma_free / fpga_free null: not tracked; dev_clamp the build's clamp).
+// Writes cand [P, K] int32 (ids ascending) and bound [P] float32. Needs
+// 1 <= K <= 1024, K < N, D <= 8.
 extern "C" int koord_shortlist_build(
     const void* req, const void* est, const void* is_prod, const void* cpu_bind,
     const void* alloc, const void* requested, const void* est_used,
@@ -224,11 +235,15 @@ extern "C" int koord_shortlist_build(
     int P, int N, int D, int K, float jitter_scale, int jitter_on, void* cand,
     void* bound, const void* mask, const void* mask_row, const void* zone_free,
     const void* zone_cap, const void* side, const void* required, int Z, int DN,
-    int scoring, void* stream) {
+    int scoring, const void* dev_stats, const void* rdma_free, const void* fpga_free,
+    const void* cap_total, const void* gpu_whole, const void* gpu_share, const void* rdma_req,
+    const void* fpga_req, const void* units, int dev_scoring, int dev_clamp, void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (K < 1 || K > kMaxShortlist || K >= N) return (int)cudaErrorInvalidValue;
   if (zone_free != nullptr &&
       (Z < 1 || Z > kMaxZones || DN < 1 || DN > kMaxZoneDims || DN > D))
+    return (int)cudaErrorInvalidValue;
+  if (dev_stats != nullptr && dev_scoring != 0 && cap_total == nullptr)
     return (int)cudaErrorInvalidValue;
   int index_bits = 1;
   while ((1 << index_bits) < N) ++index_bits;
@@ -241,6 +256,10 @@ extern "C" int koord_shortlist_build(
                (int*)cand, (float*)bound, (const bool*)mask, (const long long*)mask_row,
                Zones{(const float*)zone_free, (const float*)zone_cap, (const uint32_t*)side,
                      (const bool*)required, Z, DN, scoring},
+               Devices{(const float*)dev_stats, (const float*)rdma_free, (const float*)fpga_free,
+                       (const float*)cap_total, (const int*)gpu_whole, (const float*)gpu_share,
+                       (const int*)rdma_req, (const int*)fpga_req, (const float*)units,
+                       dev_scoring, dev_clamp},
                (cudaStream_t)stream};
   return (int)with_d8(D, Launch{a});
 }

@@ -34,7 +34,10 @@
 // prices its NUMA fit and aligned score from the batch-start table through
 // loadaware.cuh (the reference gathers them from the build's [P, N] terms,
 // :1001-1008, :1050-1051, :1076-1077: the same bits), in their own
-// instantiation (kNuma).
+// instantiation (kNuma); with devices its device fit and score from the
+// round-start stats table and the carried RDMA and FPGA counts at its id
+// (device_fit_mask_cols, device_cost_cols, :1052-1068, :1078-1084), in the
+// device instantiations (kDev).
 
 #include "loadaware.cuh"
 
@@ -61,11 +64,12 @@ struct Args {
   const int* state;
   const bool* mask;
   const long long* mask_row;
-  Zones zones;  // zones.free == nullptr: no NUMA
+  Zones zones;   // zones.free == nullptr: no NUMA
+  Devices devs;  // devs.stats == nullptr: no devices
   cudaStream_t stream;
 };
 
-template <int D, int C, bool kNuma>
+template <int D, int C, bool kNuma, bool kDev>
 __global__ void __launch_bounds__(kWarps * 32) shortlist_round_kernel(const Args a) {
   // the round loop reached its fixed point: no round, nothing counted
   if (a.state[0] != 0) return;
@@ -80,6 +84,7 @@ __global__ void __launch_bounds__(kWarps * 32) shortlist_round_kernel(const Args
     pod.load(p, a.req, a.est, a.is_prod, a.cpu_bind);
     pod.mask = mask_row_of(a.mask, a.mask_row, p, a.N);  // read at each candidate's id
     if constexpr (kNuma) pod.required = a.zones.required[p];
+    if constexpr (kDev) pod.dev.load(p, a.devs);
     const bool gate = a.gate[p];
     float w[D];
     const float wsum = weights_sum<D>(a.weights, w);
@@ -90,8 +95,9 @@ __global__ void __launch_bounds__(kWarps * 32) shortlist_round_kernel(const Args
     const int* cand = a.cand + (size_t)p * a.K;
     for (int c = lane; c < a.K; c += 32) {
       const int n = cand[c];
-      const float cost = pair_cost<D, kNuma>(pod, gate, n, a.nodes, w, wsum, a.jitter_scale,
-                                             a.jitter_on != 0, &a.zones, zwsum);
+      const float cost = pair_cost<D, kNuma, kDev>(pod, gate, n, a.nodes, w, wsum,
+                                                   a.jitter_scale, a.jitter_on != 0, &a.zones,
+                                                   zwsum, &a.devs);
       finite = finite | (cost < CUDART_INF_F);
       top.insert(cost, n);
     }
@@ -155,13 +161,13 @@ __global__ void __launch_bounds__(kWarps * 32) shortlist_round_kernel(const Args
   }
 }
 
-template <int D, bool kNuma>
+template <int D, bool kNuma, bool kDev>
 cudaError_t launch(const Args& a) {
   const int blocks = (a.P + kWarps - 1) / kWarps;
   if (a.k <= 4)
-    shortlist_round_kernel<D, 4, kNuma><<<blocks, kWarps * 32, 0, a.stream>>>(a);
+    shortlist_round_kernel<D, 4, kNuma, kDev><<<blocks, kWarps * 32, 0, a.stream>>>(a);
   else
-    shortlist_round_kernel<D, 8, kNuma><<<blocks, kWarps * 32, 0, a.stream>>>(a);
+    shortlist_round_kernel<D, 8, kNuma, kDev><<<blocks, kWarps * 32, 0, a.stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -169,7 +175,10 @@ struct Launch {
   const Args& a;
   template <int D>
   cudaError_t run() const {
-    return a.zones.free != nullptr ? launch<D, true>(a) : launch<D, false>(a);
+    const bool numa = a.zones.free != nullptr;
+    if (a.devs.stats != nullptr)
+      return numa ? launch<D, true, true>(a) : launch<D, false, true>(a);
+    return numa ? launch<D, true, false>(a) : launch<D, false, false>(a);
   }
 };
 
@@ -179,7 +188,8 @@ struct Launch {
 // flags, with quotas those with headroom); node tables [N, D] / [N] with
 // the effective thresholds; cand [P, K] int32 ascending and bound [P] from
 // the build; mask [M, N] bool and mask_row [P] int64 the pods' node
-// constraints (both null: none). Writes the nomination [P, k] into
+// constraints (both null: none); the zone and device terms as
+// koord_shortlist_build takes them (no clamp). Writes the nomination [P, k] into
 // out_cost / out_idx, ORs the round's flags into word [4] (zero before the
 // round) and adds them to counts [2]. Needs 1 <= k <= min(8, K), D <= 8;
 // `state` is the round loop's state word.
@@ -192,11 +202,16 @@ extern "C" int koord_shortlist_round(
     int K, int k, float jitter_scale, int jitter_on, int approx, void* out_cost,
     void* out_idx, void* word, void* counts, const void* state, const void* mask,
     const void* mask_row, const void* zone_free, const void* zone_cap, const void* side,
-    const void* required, int Z, int DN, int scoring, void* stream) {
+    const void* required, int Z, int DN, int scoring, const void* dev_stats,
+    const void* rdma_free, const void* fpga_free, const void* cap_total, const void* gpu_whole,
+    const void* gpu_share, const void* rdma_req, const void* fpga_req, const void* units,
+    int dev_scoring, void* stream) {
   if (P <= 0) return (int)cudaSuccess;
   if (k < 1 || k > 8 || k > K) return (int)cudaErrorInvalidValue;
   if (zone_free != nullptr &&
       (Z < 1 || Z > kMaxZones || DN < 1 || DN > kMaxZoneDims || DN > D))
+    return (int)cudaErrorInvalidValue;
+  if (dev_stats != nullptr && dev_scoring != 0 && cap_total == nullptr)
     return (int)cudaErrorInvalidValue;
   const Args a{(const float*)req, (const float*)est, (const bool*)is_prod,
                (const bool*)cpu_bind, (const bool*)gate,
@@ -209,6 +224,10 @@ extern "C" int koord_shortlist_round(
                (const long long*)mask_row,
                Zones{(const float*)zone_free, (const float*)zone_cap, (const uint32_t*)side,
                      (const bool*)required, Z, DN, scoring},
+               Devices{(const float*)dev_stats, (const float*)rdma_free, (const float*)fpga_free,
+                       (const float*)cap_total, (const int*)gpu_whole, (const float*)gpu_share,
+                       (const int*)rdma_req, (const int*)fpga_req, (const float*)units,
+                       dev_scoring, 0},
                (cudaStream_t)stream};
   return (int)with_d8(D, Launch{a});
 }

@@ -46,37 +46,44 @@ _F = ctypes.c_float
 #: ints are ``c_int``, scalars ``c_float``.
 SIGNATURES: dict[str, dict[str, list]] = {
     "nominate": {
-        "koord_nominate": [_P] * 15 + [_I] * 5 + [_F, _I, _I] + [_P] * 12 + [_I] * 3 + [_P],
+        "koord_nominate": [_P] * 15 + [_I] * 5 + [_F, _I, _I] + [_P] * 12 + [_I] * 3
+        + [_P] * 9 + [_I, _I, _P],
         "koord_nominate_chunk": [_I] * 6 + [ctypes.POINTER(_I)],
     },
     "round": {
-        "koord_round_tail": [_P] * 17 + [_F, _I, _I, _I, _I] + [_P] * 4 + [_I, _I, _P],
+        "koord_round_tail": [_P] * 17 + [_F, _I, _I, _I, _I] + [_P] * 4 + [_I, _I]
+        + [_P] * 8 + [_I, _P],
     },
     "round_zone": {
         "koord_round_tail_zone": [_P] * 17 + [_F, _I, _I, _I, _I] + [_P] * 4 + [_I, _I]
-        + [_P] * 6 + [_I, _I, _P],
+        + [_P] * 6 + [_I, _I] + [_P] * 8 + [_I, _P],
     },
     "round_big": {
         "koord_round_tail_big": [_P] * 17 + [_F, _I, _I, _I, _I] + [_P] * 4 + [_I, _I]
-        + [_P] * 6 + [_I, _I, _P, _P],
-        "koord_round_route": [_I] * 7 + [ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_longlong)],
+        + [_P] * 6 + [_I, _I] + [_P] * 8 + [_I, _P, _P],
+        "koord_round_route": [_I] * 8 + [ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_longlong)],
     },
     "gangs": {
         "koord_enforce_gangs": [_P] * 11 + [_I, _I, _I] + [_P] * 2 + [_I, _I] + [_P] * 2
-        + [_I, _I, _P, _P],
+        + [_I, _I] + [_P] * 8 + [_I, _P, _P],
         "koord_gangs_scratch": [_I, _I, ctypes.POINTER(ctypes.c_longlong)],
     },
     "shortlist_build": {
-        "koord_shortlist_build": [_P] * 14 + [_I] * 4 + [_F, _I] + [_P] * 8 + [_I] * 3 + [_P],
+        "koord_shortlist_build": [_P] * 14 + [_I] * 4 + [_F, _I] + [_P] * 8 + [_I] * 3
+        + [_P] * 9 + [_I, _I, _P],
     },
     "shortlist_round": {
-        "koord_shortlist_round": [_P] * 17 + [_I] * 5 + [_F, _I, _I] + [_P] * 11 + [_I] * 3 + [_P],
+        "koord_shortlist_round": [_P] * 17 + [_I] * 5 + [_F, _I, _I] + [_P] * 11 + [_I] * 3
+        + [_P] * 9 + [_I, _P],
     },
     "quota": {
         "koord_quota_gate": [_P] * 6 + [_I] * 4 + [_P],
     },
     "zone_prep": {
         "koord_zone_prep": [_P] * 5 + [_I] * 3 + [_P],
+    },
+    "device_prep": {
+        "koord_device_prep": [_P] * 2 + [_I] * 2 + [_P],
     },
 }
 

@@ -201,9 +201,62 @@ def zone_charge_plain(zone_free, snode, accept, zsel, sreq) -> None:
     zone_free.copy_(zone_free - segment_sum_plain(delta, seg_ids, n))
 
 
+def device_accept_plain(snode, is_start, accept, dev, n: int):
+    """The round's device acceptance (``solver.py:1246-1274``) on the
+    sorted rows: within each node's segment, the whole GPUs asked for so
+    far plus one for each share pod that opens a full slot (its share above
+    the node's best partial slot) must stay within the node's full slots,
+    only the segment's first share pod may commit, and the RDMA and FPGA
+    asked for so far within the free counts where tracked. ``dev`` =
+    (stats [N, 4], rdma [N] or None, fpga [N] or None, and the sorted rows'
+    whole [P] float32, share, RDMA and FPGA [P] float32). Returns (accept,
+    opens_full [P] bool)."""
+    stats, rdma, fpga, swhole, sshare, srdma, sfpga = dev
+    gnode = torch.clamp(snode, max=n - 1).long()
+    full, partial = stats[:, 0], stats[:, 1]
+    is_frac = sshare > EPS
+    opens = is_frac & (sshare > partial[gnode] + EPS)
+    seg_full = _segment_prefix_sums((swhole + opens.to(torch.float32))[:, None], is_start)[:, 0]
+    frac_f = is_frac.to(torch.float32)
+    seg_frac = _segment_prefix_sums(frac_f[:, None], is_start)[:, 0]
+    accept = accept & (seg_full <= full[gnode] + EPS)
+    accept = accept & (~is_frac | (seg_frac - frac_f < 0.5))
+    for free, sreq in ((rdma, srdma), (fpga, sfpga)):
+        if free is not None:
+            seg = _segment_prefix_sums(sreq[:, None], is_start)[:, 0]
+            accept = accept & (seg <= free[gnode] + EPS)
+    return accept, opens
+
+
+def device_charge_plain(snode, accept, opens, dev, slots, n: int) -> None:
+    """The round's device charges (``solver.py:1386-1416``): each node's
+    final winners' whole GPUs and its one share winner onto its slot row
+    (:func:`.device.slot_commit`), their RDMA and FPGA off the free counts
+    (``free - segment_sum``), then the charged nodes' stats refreshed
+    (every row recomputed: an untouched row's stats do not change). In
+    place on ``slots`` [N, G] and ``dev``'s stats and counts."""
+    from .device import device_prep_plain, slot_commit
+
+    stats, rdma, fpga, swhole, sshare, srdma, sfpga = dev
+    seg_ids = torch.where(accept, snode, n - 1)
+    is_frac = sshare > EPS
+    whole_taken = segment_sum_plain(torch.where(accept, swhole, 0.0)[:, None], seg_ids, n)[:, 0]
+    frac_share = segment_sum_plain(
+        torch.where(accept & is_frac, sshare, 0.0)[:, None], seg_ids, n)[:, 0]
+    frac_opens = segment_sum_plain(
+        torch.where(accept & opens, 1.0, 0.0)[:, None], seg_ids, n)[:, 0] > 0.5
+    slots.copy_(slot_commit(slots, whole_taken, frac_share, frac_opens))
+    for free, sreq in ((rdma, srdma), (fpga, sfpga)):
+        if free is not None:
+            free.copy_(free - segment_sum_plain(
+                torch.where(accept, sreq, 0.0)[:, None], seg_ids, n)[:, 0])
+    stats.copy_(device_prep_plain(slots))
+
+
 def commit_plain(
     snode, sreq, sest, sprod, alloc, fresh, thr, pthr,
     requested, est_used, prod_used, round_quantum: float, admit=None, zone=None,
+    dev=None, slots=None,
 ):
     """Plain PyTorch commit of one round. ``snode`` [P] int32 holds the
     nominated nodes stably sorted (N = none); ``sreq`` [P, D] the sorted
@@ -215,7 +268,11 @@ def commit_plain(
     when given, is :func:`zone_phase_plain`'s plus an [P] int32 buffer:
     the zone selection runs on the fit acceptance, the winners' zone
     charges land on its table and each sorted row's final zone (-1 for
-    none) is written into the buffer. Returns the final ``accept`` [P]
+    none) is written into the buffer. ``dev``, when given, is
+    :func:`device_accept_plain`'s, with ``slots`` [N, G] the carried slot
+    table: the device acceptance runs after the fit, before the zone
+    selection, and the winners' device charges land after the node
+    charges (:func:`device_charge_plain`). Returns the final ``accept`` [P]
     bool in sorted order and adds the winners' charges to ``requested``,
     ``est_used`` and ``prod_used`` in place."""
     n = alloc.shape[0]
@@ -231,6 +288,9 @@ def commit_plain(
     fresh_g = fresh[gnode]
     accept = snode < n
     accept &= torch.all(requested[gnode] + seg_req <= alloc_g + EPS, dim=-1)
+    opens = None
+    if dev is not None:
+        accept, opens = device_accept_plain(snode, is_start, accept, dev, n)
     zsel = None
     if zone is not None:
         accept, zsel = zone_phase_plain(snode, is_start, sreq, accept, zone)
@@ -256,6 +316,8 @@ def commit_plain(
     _scatter_add_(
         (requested, est_used, prod_used), seg_ids, (sreq, sest, sprod_est)
     )
+    if dev is not None:
+        device_charge_plain(snode, accept, opens, dev, slots, n)
     if zone is not None:
         zone_charge_plain(zone[0], snode, accept, zsel, sreq)
         zone[6].copy_(torch.where(accept, zsel, -1))
@@ -265,7 +327,7 @@ def commit_plain(
 def round_tail_plain(
     top_cost, top_idx, req, est, is_prod, cpu_bind, cpu_amp,
     alloc, fresh, thr, pthr, requested, est_used, prod_used,
-    assigned, active, state, round_quantum: float, quota=None, zone=None,
+    assigned, active, state, round_quantum: float, quota=None, zone=None, dev=None,
 ) -> None:
     """Plain PyTorch round tail: everything a round of ``assign`` does
     after nomination (``solver.py:1204-1229``, the LoadAware commit
@@ -289,7 +351,12 @@ def round_tail_plain(
     int8, zone_most [N] bool, required [P] bool, pod_zone [P] int32) turns
     on the zone selection (:func:`zone_phase_plain`): the winners' zone
     charges come off ``zone_free`` in place and each winner's pick is
-    written into ``pod_zone`` (priority-sorted, -1 = none, :1432)."""
+    written into ``pod_zone`` (priority-sorted, -1 = none, :1432).
+
+    ``dev`` (a :class:`.device.DeviceTerms` of the batch) turns on the
+    device acceptance and charges (:func:`device_accept_plain`,
+    :func:`device_charge_plain`): its slot table, stats and RDMA / FPGA
+    counts are updated in place."""
     if bool(state[0]):
         return
     n = alloc.shape[0]
@@ -312,9 +379,15 @@ def round_tail_plain(
             used.copy_(new_used)
             return final[sortidx]
 
+    dev_s = None
+    if dev is not None:
+        dev_s = (dev.stats, dev.rdma, dev.fpga, dev.whole[sortidx].to(torch.float32),
+                 dev.share[sortidx], dev.rdma_req[sortidx].to(torch.float32),
+                 dev.fpga_req[sortidx].to(torch.float32))
     accept = commit_plain(
         snode, sreq, sest, sprod, alloc, fresh, thr, pthr,
-        requested, est_used, prod_used, round_quantum, admit, zone_s,
+        requested, est_used, prod_used, round_quantum, admit, zone_s, dev_s,
+        None if dev is None else dev.slots,
     )
     accepted = torch.zeros_like(accept)
     accepted[sortidx] = accept
@@ -336,29 +409,57 @@ _ROUND_DTYPES = (_F32, _I32, _F32, _F32, _BOOL, _BOOL, _F32, _F32, _BOOL, _F32,
                  _F32, _F32, _F32, _F32, _I32, _BOOL, _I32)
 
 
+#: the most pods a round takes (``kGlobalRows * kThreads`` in ``csrc/round.cuh``)
+MAX_ROUND_PODS = 32_768
+
+
 @functools.lru_cache(maxsize=256)
-def route(index: int, p: int, d: int, q_cap: int, levels: int, dn: int) -> tuple:
+def route(index: int, p: int, d: int, q_cap: int, levels: int, dn: int, dev: bool = False
+          ) -> tuple:
     """Which kernel takes a round of ``p`` pods at width ``d`` on device
     ``index`` (``koord_round_route``; ``q_cap`` 0 without quotas, ``dn``
-    0 without zones): ("round" or "round_zone", 0) for the shared-memory
-    kernels, ("round_big", bytes of scratch) for the device-memory one,
-    ("round_big", 0) for a round none takes (more than 16,384 pods), which
-    that entry then refuses."""
+    0 without zones, ``dev`` with devices): ("round" or "round_zone", 0)
+    for the shared-memory kernels, ("round_big", bytes of scratch) for the
+    device-memory one, ("round_big", 0) for a round none takes (more than
+    :data:`MAX_ROUND_PODS`), which that entry then refuses."""
     lib = kernels.library("round_big")
     where, nbytes = ctypes.c_int(0), ctypes.c_longlong(0)
     with torch.cuda.device(index):
         kernels.check(lib, lib.koord_round_route(p, d, int(q_cap > 0), q_cap, levels,
-                                                 int(dn > 0), dn, ctypes.byref(where),
+                                                 int(dn > 0), dn, int(dev),
+                                                 ctypes.byref(where),
                                                  ctypes.byref(nbytes)), "round route")
     if where.value != 0:
         return "round_big", nbytes.value
     return ("round_zone" if dn else "round"), 0
 
 
+def checked_round_devices(dev, like, p: int, n: int) -> list:
+    """The round tail's device arguments after the checks: the slot
+    table, the stats table, the free RDMA and FPGA counts (null: not
+    tracked), the sorted pods' whole GPUs, share, RDMA and FPGA, then G;
+    null pointers and 0 without ``dev`` (a :class:`.device.DeviceTerms`)."""
+    from .device import MAX_SLOTS, STATS
+
+    if dev is None:
+        return [None] * 8 + [0]
+    g = dev.slots.shape[1]
+    if not 1 <= g <= MAX_SLOTS or dev.slots.shape[0] != n:
+        raise ValueError(f"round_tail: the slot table must be [N={n}, G] with G in 1..{MAX_SLOTS}")
+    f32, i32 = torch.float32, torch.int32
+    return kernels.checked_ptrs(
+        "round_tail",
+        (like, dev.slots, dev.stats, dev.rdma, dev.fpga, dev.whole, dev.share, dev.rdma_req,
+         dev.fpga_req),
+        (f32, f32, f32, f32, f32, i32, f32, i32, i32),
+        (like.numel(), n * g, n * STATS, n, n, p, p, p, p),
+    )[1:] + [g]
+
+
 def round_tail(
     top_cost, top_idx, req, est, is_prod, cpu_bind, cpu_amp,
     alloc, fresh, thr, pthr, requested, est_used, prod_used,
-    assigned, active, state, round_quantum: float, quota=None, zone=None,
+    assigned, active, state, round_quantum: float, quota=None, zone=None, dev=None,
 ) -> None:
     """One round's tail on the tensors' device: one launch of the round
     tail kernel for CUDA tensors, :func:`round_tail_plain` for CPU
@@ -368,16 +469,17 @@ def round_tail(
     takes for the table's shape) and the next round's gate are phases of
     the same launch, counted also as ``quota_commit_onehot`` or
     ``quota_commit_sorted``; with ``zone`` the zone selection and charges,
-    counted also as ``zone_phase``. The kernel is ``csrc/round.cu``'s (or
-    with zones ``round_zone.cu``'s) while the round fits in shared memory,
-    else ``round_big.cu``'s, its working set in a device buffer of this
-    launch's own (:func:`route`; counted also as ``round_tail_big``); up
-    to 16,384 pods."""
+    counted also as ``zone_phase``; with ``dev`` the device acceptance and
+    charges, counted also as ``device_phase``. The kernel is
+    ``csrc/round.cu``'s (or with zones ``round_zone.cu``'s) while the round
+    fits in shared memory, else ``round_big.cu``'s, its working set in a
+    device buffer of this launch's own (:func:`route`; counted also as
+    ``round_tail_big``); up to :data:`MAX_ROUND_PODS` pods."""
     args = (top_cost, top_idx, req, est, is_prod, cpu_bind, cpu_amp,
             alloc, fresh, thr, pthr, requested, est_used, prod_used,
             assigned, active, state)
     if top_cost.is_cpu:
-        return round_tail_plain(*args, round_quantum, quota, zone)
+        return round_tail_plain(*args, round_quantum, quota, zone, dev)
     p, k = top_cost.shape
     n, d = alloc.shape
     if not 1 <= d <= 8:
@@ -409,25 +511,30 @@ def round_tail(
             (_F32, _F32, _F32, torch.int8, _BOOL, _BOOL, _I32),
             (pk, n * nz * dn, n * nz * dn, n, n, p, p),
         )[1:] + [nz, dn]
-    name, nbytes = route(top_cost.get_device(), p, d, q_cap, levels, dn)
+    d_args = checked_round_devices(dev, top_cost, p, n)
+    if p > MAX_ROUND_PODS:
+        raise ValueError(f"round_tail: P={p} must be at most {MAX_ROUND_PODS}")
+    name, nbytes = route(top_cost.get_device(), p, d, q_cap, levels, dn, dev is not None)
     lib = kernels.library(name)
     stream = kernels.stream_of(top_cost)
     common = (*ptrs, ctypes.c_float(round_quantum), p, n, d, k, *q_ptrs, q_cap, levels)
     if name == "round":
-        code = lib.koord_round_tail(*common, stream)
+        code = lib.koord_round_tail(*common, *d_args, stream)
     elif name == "round_zone":
-        code = lib.koord_round_tail_zone(*common, *z_args, stream)
+        code = lib.koord_round_tail_zone(*common, *z_args, *d_args, stream)
     else:
         # the launch's own working set, from the caching allocator on its
         # stream: inside a capture it comes from that graph's pool, so no
         # two graphs or streams share one
         buf = torch.empty(nbytes, dtype=torch.uint8, device=top_cost.device) if nbytes else None
-        code = lib.koord_round_tail_big(*common, *(z_args or [None] * 6 + [0, 0]),
+        code = lib.koord_round_tail_big(*common, *(z_args or [None] * 6 + [0, 0]), *d_args,
                                         None if buf is None else buf.data_ptr(), stream)
     kernels.check(lib, code, "round_tail")
     kernels.count("round_tail")
     if name == "round_big":
         kernels.count("round_tail_big")
+    if dev is not None:
+        kernels.count("device_phase")
     if quota is not None:
         branch = "onehot" if quota_ops.onehot_branch(q_cap, d) else "sorted"
         kernels.count(f"quota_commit_{branch}")

@@ -19,7 +19,9 @@ from .. import resolve_device
 
 def from_numpy(cls, device=None, **arrays):
     """``cls.create(**arrays, device=device)`` with numpy inputs
-    (``NodeState``, ``PodBatch`` or ``SolverParams``)."""
+    (``NodeState``, ``PodBatch``, ``SolverParams``, ``numa.NumaState`` or
+    ``device.DeviceState``; an input of None stays None, so a DeviceState
+    keeps an untracked RDMA or FPGA count untracked)."""
     tensors = {
         k: None if v is None else torch.from_numpy(np.ascontiguousarray(v))
         for k, v in arrays.items()

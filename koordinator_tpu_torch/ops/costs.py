@@ -112,3 +112,41 @@ def numa_aligned_cost(
     score = torch.floor(total / wsum)
     score = torch.where(wants_numa[:, None] & has_zone, score, 0.0)
     return -score
+
+
+def device_cost(
+    gpu_units: torch.Tensor,
+    dev_free_total: torch.Tensor,
+    dev_cap_total: torch.Tensor,
+    most_allocated: bool = False,
+) -> torch.Tensor:
+    """DeviceShare Least/MostAllocated score over GPU capacity → cost
+    [P, N] (``costs.py:162-190``): ``gpu_units`` [P] the pods' demand in
+    percent units, ``dev_free_total`` / ``dev_cap_total`` [N] the nodes'
+    free and total percent. The integer-floor score of the capacity used
+    after the pod (MostAllocated) or left (LeastAllocated), 0 where the
+    node has no GPU, the pod would overflow it, or the pod asks for none."""
+    return _device_cost(gpu_units, dev_free_total[None, :], dev_cap_total[None, :],
+                        most_allocated)
+
+
+def device_cost_cols(
+    gpu_units: torch.Tensor,
+    dev_free_total: torch.Tensor,
+    dev_cap_total: torch.Tensor,
+    most_allocated: bool = False,
+) -> torch.Tensor:
+    """:func:`device_cost` over each pod's gathered [P, K] candidate
+    columns (``costs.py:192-211``): the same elementwise arithmetic."""
+    return _device_cost(gpu_units, dev_free_total, dev_cap_total, most_allocated)
+
+
+def _device_cost(gpu_units, free, cap, most_allocated: bool):
+    used_after = (cap - free) + gpu_units[:, None]
+    if most_allocated:
+        raw = torch.floor(used_after * 100.0 / (cap + _SAFE))
+    else:
+        raw = torch.floor((cap - used_after) * 100.0 / (cap + _SAFE))
+    score = torch.where((cap > 0) & (used_after <= cap + 1e-6), raw, 0.0)
+    score = torch.where(gpu_units[:, None] > 0, score, 0.0)
+    return -score

@@ -24,6 +24,7 @@ import torch
 from .. import kernels
 from .costs import load_aware_cost, numa_aligned_cost
 from .masks import EPS, fit_mask, usage_ok
+from .device import checked_devices
 from .numa import checked_zones, numa_fit_mask
 
 
@@ -113,12 +114,16 @@ def zone_terms(req, cpu_bind, cpu_amp, weights, zones):
 def masked_cost(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
-    weights, nomination_jitter: float, mask=None, zones=None,
+    weights, nomination_jitter: float, mask=None, zones=None, devices=None,
+    clamp_device: bool = False,
 ):
     """[P, N] masked, jittered LoadAware cost (``full_feas_cost``
     :864-947), +inf where a pair is infeasible; with ``zones`` (a
     :class:`.numa.ZoneTerms`) the NUMA fit is one more feasibility term and
-    the aligned score is added before the jitter."""
+    the aligned score is added before the jitter; with ``devices`` (a
+    :class:`.device.DeviceTerms`) the device fit another, and its score
+    term is added after the NUMA one (``clamp_device``: the build's
+    min(term, 0), :939-940)."""
     feas = feasible_mask(
         req, est, is_prod, cpu_bind, gate,
         alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr, mask,
@@ -129,6 +134,11 @@ def masked_cost(
         feas &= fit
         if score is not None:
             cost = cost + score
+    if devices is not None:
+        fit, term = devices.fit_and_cost(clamp_device)
+        feas &= fit
+        if term is not None:
+            cost = cost + term
     nodes = torch.arange(alloc.shape[0], device=req.device)[None, :]
     cost = add_jitter(cost, nodes, nomination_jitter)
     return torch.where(feas, cost, torch.inf)
@@ -138,13 +148,14 @@ def nominate_plain(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
     weights, k: int, nomination_jitter: float, approx_topk: bool,
-    trigger=None, out=None, mask=None, zones=None,
+    trigger=None, out=None, mask=None, zones=None, devices=None,
 ):
     """Plain PyTorch nomination: the reference's formulas on [P, N]
     tensors. Pod tensors ([P, D] / [P]) are priority-sorted; node tables
     are [N, D] / [N]; ``thr``/``pthr`` are the effective [N, D] usage and
     prod thresholds. Returns (cost [P, k] float32, node [P, k] int32).
-    ``trigger``, ``out``, ``mask`` and ``zones`` are :func:`nominate`'s: with
+    ``trigger``, ``out``, ``mask``, ``zones`` and ``devices`` are
+    :func:`nominate`'s: with
     ``trigger[0]`` clear nothing is computed and ``out`` is returned as it
     is; otherwise the result is written into ``out``."""
     if trigger is not None and not bool(trigger[0]):
@@ -152,6 +163,7 @@ def nominate_plain(
     cost = masked_cost(
         req, est, is_prod, cpu_bind, gate, alloc, requested, est_used,
         prod_used, fresh, sched, cpu_amp, thr, pthr, weights, nomination_jitter, mask, zones,
+        devices,
     )
     vals, idx = torch.sort(cost, dim=1, stable=True)
     top = nomination_vector(
@@ -174,13 +186,15 @@ _DTYPES = (_F32, _F32, _BOOL, _BOOL, _BOOL, _F32, _F32, _F32, _F32, _BOOL, _BOOL
 
 def launch(lib, ptrs, p: int, n: int, d: int, k: int, nomination_jitter: float,
            approx_topk: bool, chunk: int, device, state_ptr=None, trigger_ptr=None,
-           out=None, mask_ptrs=(None, None), zone_args=(None,) * 4 + (0, 0, 0)):
+           out=None, mask_ptrs=(None, None), zone_args=(None,) * 4 + (0, 0, 0),
+           dev_args=(None,) * 9 + (0,)):
     """One ``koord_nominate`` call of ``lib`` on checked pointers, each
     block walking ``chunk`` nodes; with ``state_ptr`` (a round loop's state
     word) the kernels return at once once its ``done`` is set, with
     ``trigger_ptr`` (a shortlist round's word) while its trigger is clear;
     ``mask_ptrs`` are the node mask's table and rows (:func:`checked_mask`),
-    ``zone_args`` the NUMA terms' (:func:`.numa.checked_zones`).
+    ``zone_args`` the NUMA terms' (:func:`.numa.checked_zones`), ``dev_args``
+    the device terms' (:func:`.device.checked_devices`).
     Writes into ``out`` (cost, node) when given, checked buffers of
     [P, k]. Returns (cost [P, k], node [P, k], the C entry's error code)."""
     chunks = -(-n // chunk)
@@ -198,7 +212,7 @@ def launch(lib, ptrs, p: int, n: int, d: int, k: int, nomination_jitter: float,
         int(nomination_jitter > 0.0), int(approx_topk),
         part_cost.data_ptr(), part_idx.data_ptr(),
         out_cost.data_ptr(), out_idx.data_ptr(), state_ptr, trigger_ptr, *mask_ptrs,
-        *zone_args, kernels.stream_of(out_cost),
+        *zone_args, *dev_args, 0, kernels.stream_of(out_cost),
     )
     return out_cost, out_idx, code
 
@@ -238,7 +252,7 @@ def chunk_of(lib, p: int, n: int, d: int, k: int, index: int, mode: int = 0) -> 
     """Nodes each block of ``lib``'s kernel walks at this shape on device
     ``index`` (``koord_nominate_chunk``: one wave of resident blocks), for
     its instantiation ``mode``: 0 LoadAware only, 1 with a node mask, 2
-    with NUMA zones."""
+    with NUMA zones, 3 with devices, 4 with devices and NUMA zones."""
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     chunk = ctypes.c_int(0)
     kernels.check(lib, lib.koord_nominate_chunk(p, n, d, k, sms, int(mode),
@@ -251,7 +265,7 @@ def nominate(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
     weights, k: int, nomination_jitter: float, approx_topk: bool, state=None,
-    trigger=None, out=None, mask=None, zones=None,
+    trigger=None, out=None, mask=None, zones=None, devices=None,
 ):
     """Round nomination on the tensors' device: the CUDA kernel for CUDA
     tensors, :func:`nominate_plain` for CPU tensors. Same arguments and
@@ -272,12 +286,15 @@ def nominate(
     nodeAffinity, ``spec.nodeName``): (table [M, N] bool, rows [P] int64),
     sorted pod j may use node n only where ``table[rows[j], n]``. ``zones``
     (a :class:`.numa.ZoneTerms`) adds the NUMA fit and, with its scoring,
-    the aligned score (the kernel's NUMA instantiation, D <= 8)."""
+    the aligned score (the kernel's NUMA instantiation, D <= 8); ``devices``
+    (a :class:`.device.DeviceTerms`) the device fit and score (its device
+    instantiations, D <= 8)."""
     args = (req, est, is_prod, cpu_bind, gate, alloc, requested, est_used,
             prod_used, fresh, sched, cpu_amp, thr, pthr, weights)
     if req.is_cpu:
         return nominate_plain(*args, k, nomination_jitter, approx_topk,
-                              trigger=trigger, out=out, mask=mask, zones=zones)
+                              trigger=trigger, out=out, mask=mask, zones=zones,
+                              devices=devices)
     ptrs = checked(args, k)
     p, d = req.shape
     n = alloc.shape[0]
@@ -286,14 +303,17 @@ def nominate(
         (_F32, torch.int32, torch.int32, _F32, torch.int32), (p * d, 2, 4, p * k, p * k),
     )
     lib = kernels.library("nominate")
-    mode = 2 if zones is not None else int(mask is not None)
-    if mode == 2 and d > 8:
-        raise ValueError(f"nominate: D={d} with NUMA zones must be in 1..8")
+    if devices is not None:
+        mode = 4 if zones is not None else 3
+    else:
+        mode = 2 if zones is not None else int(mask is not None)
+    if mode >= 2 and d > 8:
+        raise ValueError(f"nominate: D={d} with NUMA zones or devices must be in 1..8")
     chunk = chunk_of(lib, p, n, d, k, req.get_device(), mode)
     out_cost, out_idx, code = launch(
         lib, ptrs, p, n, d, k, nomination_jitter, approx_topk, chunk, req.device,
         extra[1], extra[2], out, checked_mask("nominate", mask, p, n),
-        checked_zones("nominate", zones, p, n, d),
+        checked_zones("nominate", zones, p, n, d), checked_devices("nominate", devices, p, n),
     )
     kernels.check(lib, code, "nominate")
     kernels.count("nominate")

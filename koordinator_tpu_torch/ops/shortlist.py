@@ -32,6 +32,7 @@ from .masks import EPS, fit_mask_cols, usage_ok_cols
 from .nominate import (
     add_jitter, checked_mask, mask_rows, masked_cost, nomination_vector, zone_terms,
 )
+from .device import checked_devices
 from .numa import checked_zones
 
 #: the largest K the build kernel takes (``kMaxShortlist``)
@@ -49,6 +50,7 @@ def shortlist_build_plain(
     req, est, is_prod, cpu_bind,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
     weights, shortlist_k: int, nomination_jitter: float, mask=None, zones=None,
+    devices=None,
 ):
     """Plain PyTorch shortlist build (``solver.py:949-981``): the masked,
     jittered round-0 cost of every (pod, node) pair with every pod gate
@@ -56,13 +58,16 @@ def shortlist_build_plain(
     ties — then the first K ids ascending and the (K+1)-th cost. Pod
     tensors are priority-sorted; ``thr``/``pthr`` are the effective [N, D]
     thresholds; ``mask`` the pods' hard node constraints and ``zones`` the
-    NUMA terms (:func:`.nominate.nominate` takes them so). Returns (plan_cand [P, K]
+    NUMA terms (:func:`.nominate.nominate` takes them so), ``devices`` the
+    device terms, their score clamped at <= 0 (``clamp_device``, :939-940:
+    the bound must lower-bound every later round's cost). Returns (plan_cand [P, K]
     int32, plan_bound [P] float32, +inf when fewer than K+1 nodes are
     feasible)."""
     gate = torch.ones(req.shape[0], dtype=_BOOL, device=req.device)
     cost = masked_cost(
         req, est, is_prod, cpu_bind, gate, alloc, requested, est_used,
         prod_used, fresh, sched, cpu_amp, thr, pthr, weights, nomination_jitter, mask, zones,
+        devices, clamp_device=True,
     )
     vals, idx = torch.sort(cost, dim=1, stable=True)
     plan_cand = torch.sort(idx[:, :shortlist_k], dim=1).values.to(_I32)
@@ -78,6 +83,7 @@ def shortlist_build(
     req, est, is_prod, cpu_bind,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
     weights, shortlist_k: int, nomination_jitter: float, mask=None, zones=None,
+    devices=None,
 ):
     """The shortlist build on the tensors' device: one launch of
     ``koord_shortlist_build`` (one block a pod, no [P, N] matrix) for CUDA
@@ -86,7 +92,8 @@ def shortlist_build(
     args = (req, est, is_prod, cpu_bind, alloc, requested, est_used, prod_used,
             fresh, sched, cpu_amp, thr, pthr, weights)
     if req.is_cpu:
-        return shortlist_build_plain(*args, shortlist_k, nomination_jitter, mask, zones)
+        return shortlist_build_plain(*args, shortlist_k, nomination_jitter, mask, zones,
+                                     devices)
     p, d = req.shape
     n = alloc.shape[0]
     if not 1 <= shortlist_k <= min(MAX_SHORTLIST, n - 1):
@@ -107,7 +114,8 @@ def shortlist_build(
         *ptrs, p, n, d, shortlist_k, ctypes.c_float(nomination_jitter / 65536.0),
         int(nomination_jitter > 0.0), plan_cand.data_ptr(), plan_bound.data_ptr(),
         *checked_mask("shortlist_build", mask, p, n),
-        *checked_zones("shortlist_build", zones, p, n, d), kernels.stream_of(req),
+        *checked_zones("shortlist_build", zones, p, n, d),
+        *checked_devices("shortlist_build", devices, p, n), 1, kernels.stream_of(req),
     )
     kernels.check(lib, code, "shortlist_build")
     kernels.count("shortlist_build")
@@ -118,7 +126,7 @@ def shortlist_round_plain(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
     weights, plan_cand, plan_bound, k: int, nomination_jitter: float,
-    approx_topk: bool, word, counts, state, mask=None, zones=None,
+    approx_topk: bool, word, counts, state, mask=None, zones=None, devices=None,
 ):
     """Plain PyTorch shortlist round (``shortlist_feas_cost`` :1017-1086
     and :1158-1201): the masked, jittered cost over each pod's gathered
@@ -130,7 +138,10 @@ def shortlist_round_plain(
     ``gate`` [P] is the round's gate (its active pods, with quotas those
     with headroom too); ``mask`` the pods' hard node constraints and
     ``zones`` the NUMA terms (the [P, N] fit and score of the batch-start
-    table gathered at each pod's candidates, ``solver.py:1001-1008``). Sets ``word`` [4] int32 (the
+    table gathered at each pod's candidates, ``solver.py:1001-1008``);
+    ``devices`` the device terms at each candidate, from the round-start
+    stats (:1052-1081, the score LeastAllocated's: the shortlist is off
+    under MostAllocated). Sets ``word`` [4] int32 (the
     round's, zero before it) to (any unsafe pod — the fallback trigger;
     any unsafe pod with a finite candidate; any without) and adds the last
     two to ``counts`` [2]. Returns the nomination (cost [P, k], node
@@ -160,6 +171,11 @@ def shortlist_round_plain(
         feas &= fit.gather(1, cand)
         if score is not None:
             cost = cost + score.gather(1, cand)
+    if devices is not None:
+        fit, term = devices.fit_and_cost()
+        feas &= fit.gather(1, cand)
+        if term is not None:
+            cost = cost + term.gather(1, cand)
     cost = torch.where(feas, add_jitter(cost, cand, nomination_jitter), torch.inf)
     vals, pos = torch.sort(cost, dim=1, stable=True)
     top_cost = vals[:, :k].contiguous()
@@ -185,7 +201,7 @@ def shortlist_round(
     req, est, is_prod, cpu_bind, gate,
     alloc, requested, est_used, prod_used, fresh, sched, cpu_amp, thr, pthr,
     weights, plan_cand, plan_bound, k: int, nomination_jitter: float,
-    approx_topk: bool, word, counts, state, mask=None, zones=None,
+    approx_topk: bool, word, counts, state, mask=None, zones=None, devices=None,
 ):
     """One shortlist round on the tensors' device: one launch of
     ``koord_shortlist_round`` for CUDA tensors (the candidates' rows read
@@ -196,7 +212,7 @@ def shortlist_round(
             prod_used, fresh, sched, cpu_amp, thr, pthr, weights, plan_cand, plan_bound)
     if req.is_cpu:
         return shortlist_round_plain(*args, k, nomination_jitter, approx_topk,
-                                     word, counts, state, mask, zones)
+                                     word, counts, state, mask, zones, devices)
     p, d = req.shape
     n = alloc.shape[0]
     shortlist_k = plan_cand.shape[1]
@@ -217,7 +233,8 @@ def shortlist_round(
         *ptrs[:17], p, n, d, shortlist_k, k, ctypes.c_float(nomination_jitter / 65536.0),
         int(nomination_jitter > 0.0), int(approx_topk), out_cost.data_ptr(),
         out_idx.data_ptr(), *ptrs[17:], *checked_mask("shortlist_round", mask, p, n),
-        *checked_zones("shortlist_round", zones, p, n, d), kernels.stream_of(req),
+        *checked_zones("shortlist_round", zones, p, n, d),
+        *checked_devices("shortlist_round", devices, p, n), kernels.stream_of(req),
     )
     kernels.check(lib, code, "shortlist_round")
     kernels.count("shortlist_round")

@@ -4,9 +4,12 @@ Port of ``koordinator_tpu/ops/solver.py``'s LoadAware round solver
 (:func:`assign`, :679-1535) and its streams (:func:`solve_stream`,
 :1671-1733, and the scheduler's :func:`solve_stream_full`, :1748-1855),
 with ElasticQuota admission (``quotas``: :mod:`.quota`), the pods' hard
-node constraints (``node_mask``) and NUMA zones (``numa``: :mod:`.numa`,
+node constraints (``node_mask``), NUMA zones (``numa``: :mod:`.numa`,
 the zone fit and aligned score in every pricing kernel, the zone pick in
 the round tail, the zone refund in the rollback, the zone table carried
+through a stream) and DeviceShare (``devices``: :mod:`.device`, the GPU,
+RDMA and FPGA fit and score in every pricing kernel, the acceptance and
+slot commit in the round tail, the refunds in the rollback, the dev carry
 through a stream), :func:`enforce_gangs` (:1858-1987, the
 CUDA kernel ``csrc/gangs.cu`` on the card, one launch a batch), the
 candidate shortlist (:func:`shortlist_plan`, :1547-1657) and the
@@ -58,6 +61,8 @@ from . import commit as commit_ops
 from . import nominate as nominate_ops
 from . import quota as quota_ops
 from . import shortlist as shortlist_ops
+from .device import MAX_SLOTS, DeviceState, DeviceTerms, slot_exists_of
+from .device import SCORING as DEVICE_SCORING
 from .numa import SCORING, NumaState, ZoneTerms
 from .commit import _segment_prefix_sums  # noqa: F401  (reference name)
 from .masks import effective_thresholds
@@ -264,8 +269,10 @@ class SolveResult:
     ``solver.py:438-486``. With NUMA, ``node_zone_free`` [N, Z, DN] is the
     zone table, ``pod_zone`` [P] each pod's zone (-1 none) and
     ``pod_zone_charge`` [P, DN] what it charged; without, the reference's
-    placeholders ([N, 1, 1] zeros, -1, [P, 1] zeros). The device fields
-    carry the reference's placeholders: their slice is not ported yet.
+    placeholders ([N, 1, 1] zeros, -1, [P, 1] zeros). With devices,
+    ``node_dev_slots`` [N, G] is the slot table and ``node_rdma_free`` /
+    ``node_fpga_free`` [N] the free counts (zeros where not tracked);
+    without, [N, 1] and [N] zeros.
     ``shortlist_fallbacks`` [2] int32 counts the shortlist rounds that fell
     back to the full axis (bound, exhausted); zeros with the shortlist
     off."""
@@ -332,10 +339,15 @@ _ROUND_FIELDS = ("requests", "estimate", "is_prod", "valid", "qos")
 _SOLVE_FIELDS = _ROUND_FIELDS + ("priority", "gang_id", "gang_min", "gang_nonstrict")
 
 
-def _with_quota(fields, quota: bool, numa: bool = False):
+#: the pod fields of the devices
+_DEVICE_FIELDS = ("gpu_whole", "gpu_share", "rdma", "fpga")
+
+
+def _with_quota(fields, quota: bool, numa: bool = False, devices: bool = False):
     """``fields`` and, with quotas, the chains; with NUMA, the pods'
-    ``numa_required`` flags."""
-    return fields + (("quota_chain",) if quota else ()) + (("numa_required",) if numa else ())
+    ``numa_required`` flags; with devices, their device requests."""
+    return (fields + (("quota_chain",) if quota else ()) + (("numa_required",) if numa else ())
+            + (_DEVICE_FIELDS if devices else ()))
 
 
 def _only(pods: PodBatch, fields, fn) -> PodBatch:
@@ -348,14 +360,15 @@ def _only(pods: PodBatch, fields, fn) -> PodBatch:
 
 
 def _round_setup(pods: PodBatch, nodes: NodeState, params: SolverParams, thresholds=None,
-                 quota: bool = False, numa: bool = False):
+                 quota: bool = False, numa: bool = False, devices: bool = False):
     """What stays fixed over a batch's rounds: the priority order, the
     sorted pods (only the fields the rounds read, with ``quota`` the
-    chains too, with ``numa`` the required flags; the others are None),
+    chains too, with ``numa`` the required flags, with ``devices`` the
+    device requests; the others are None),
     their cpu-bind flags and the effective thresholds (``thresholds`` when
     the caller has them: they do not change within a stream)."""
     order = _priority_order(pods)
-    spods = _only(pods, _with_quota(_ROUND_FIELDS, quota, numa), lambda a: a[order])
+    spods = _only(pods, _with_quota(_ROUND_FIELDS, quota, numa, devices), lambda a: a[order])
     thr, pthr = thresholds or _effective_thresholds(nodes, params)
     return order, spods, _cpu_bind(spods), thr, pthr
 
@@ -366,9 +379,6 @@ def _priority_order(pods: PodBatch) -> torch.Tensor:
 
 
 _NOT_PORTED = {
-    "devices": "queue 1 item 2 (devices)",
-    "dev_carry": "queue 1 item 2 (devices)",
-    "device_scoring": "queue 1 item 2 (devices)",
     "cost_transform": "queue 1 item 5 (transformers and cost_transform)",
 }
 
@@ -389,6 +399,27 @@ def _scoring(numa_scoring) -> int:
     return SCORING[numa_scoring]
 
 
+def _device_scoring(device_scoring) -> int:
+    """``DeviceTerms.scoring`` of a ``device_scoring`` option; raises for
+    one the reference does not know."""
+    if device_scoring not in DEVICE_SCORING:
+        raise ValueError(
+            f"device_scoring={device_scoring!r}: expected one of {list(DEVICE_SCORING)}")
+    return DEVICE_SCORING[device_scoring]
+
+
+def _devices_of(devices, tables, device_scoring):
+    """``_assign_``'s ``devs`` for a DeviceState whose carried tables are
+    ``tables`` = (slots [N, G], rdma [N], fpga [N]; updated in place), or
+    None without devices. A count the state does not track stays None."""
+    if devices is None:
+        return None
+    slots, rdma, fpga = tables
+    return (slots, None if devices.rdma_free is None else rdma,
+            None if devices.fpga_free is None else fpga, devices.cap_total,
+            _device_scoring(device_scoring))
+
+
 def _zones_of(numa, zone_free, numa_scoring):
     """``_assign_``'s ``zones`` for a NumaState whose carried table is
     ``zone_free`` (updated in place), or None without NUMA."""
@@ -405,11 +436,13 @@ def _reject_unported(**options) -> None:
             )
 
 
-def _shortlist_on(shortlist_k, topk: int, n: int) -> bool:
+def _shortlist_on(shortlist_k, topk: int, n: int, device_scoring=None) -> bool:
     """The reference's static gate (``solver.py:856-862``) for the options
     the port takes: a shortlist of K nodes with k <= K < N, where k is the
-    nomination fan-out."""
-    return shortlist_k is not None and min(topk, n) <= shortlist_k < n
+    nomination fan-out, and no MostAllocated device scoring (it rewards
+    usage, so an excluded node's cost can fall below its bound)."""
+    return (shortlist_k is not None and min(topk, n) <= shortlist_k < n
+            and device_scoring != "MostAllocated")
 
 
 def assign(
@@ -450,12 +483,18 @@ def assign(
     began (``numa_carry`` [N, Z, DN] in place of ``numa.zone_free`` when
     given), and the zone pick of each winner in the round tail;
     ``SolveResult.node_zone_free``, ``pod_zone`` and ``pod_zone_charge``
-    then hold the post-commit table, the picks and their charges. Options
-    of other slices raise ``NotImplementedError``."""
-    _reject_unported(
-        devices=devices, dev_carry=dev_carry, device_scoring=device_scoring,
-        cost_transform=cost_transform,
-    )
+    then hold the post-commit table, the picks and their charges.
+    ``devices`` (a :class:`.device.DeviceState`) turns on DeviceShare: the
+    GPU, RDMA and FPGA fit and, with ``device_scoring`` ("LeastAllocated" or
+    "MostAllocated"), the device score, both from each round's start; the
+    round tails' acceptance and charges on the slot table; the gang
+    rollback's refunds. ``dev_carry`` = (slot_free [N, G], rdma_free [N],
+    fpga_free [N]) replaces the state's tables (a chunk's carry);
+    ``SolveResult.node_dev_slots``, ``node_rdma_free`` and
+    ``node_fpga_free`` then hold the post-commit tables (zeros for a count
+    the state does not track). ``cost_transform`` raises
+    ``NotImplementedError``."""
+    _reject_unported(cost_transform=cost_transform)
     p, d = pods.requests.shape
     n = nodes.allocatable.shape[0]
     dev = nodes.allocatable.device
@@ -469,12 +508,26 @@ def assign(
     zone_free = None
     if numa is not None:
         zone_free = (numa.zone_free if numa_carry is None else numa_carry).clone()
+    dev_tables = None
+    if devices is not None:
+        zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
+        if dev_carry is None:
+            dev_carry = (devices.slot_free,
+                         zeros if devices.rdma_free is None else devices.rdma_free,
+                         zeros if devices.fpga_free is None else devices.fpga_free)
+        dev_tables = tuple(t.clone() for t in dev_carry)
+    _device_scoring(device_scoring)
     assignment, rounds, fallbacks, pod_zone, zone_charge = _assign_(
         pods, tables, params, max_rounds=max_rounds, round_quantum=round_quantum,
         topk=topk, nomination_jitter=nomination_jitter, approx_topk=approx_topk,
         shortlist_k=shortlist_k, quota=quota, node_mask=node_mask,
         zones=_zones_of(numa, zone_free, numa_scoring),
+        devs=_devices_of(devices, dev_tables, device_scoring), device_scoring=device_scoring,
     )
+    if dev_tables is None:
+        dev_tables = (torch.zeros((n, 1), dtype=torch.float32, device=dev),
+                      torch.zeros((n,), dtype=torch.float32, device=dev),
+                      torch.zeros((n,), dtype=torch.float32, device=dev))
     if numa is None:
         # no zone is picked without NUMA, so no rollback writes one
         zone_free = torch.zeros((n, 1, 1), dtype=torch.float32, device=dev)
@@ -487,9 +540,9 @@ def assign(
         node_prod_used=tables.prod_used,
         quota_used=QuotaState.disabled(d, device=dev).used if quota is None else quota[1],
         rounds_used=rounds,
-        node_dev_slots=torch.zeros((n, 1), dtype=torch.float32, device=dev),
-        node_rdma_free=torch.zeros((n,), dtype=torch.float32, device=dev),
-        node_fpga_free=torch.zeros((n,), dtype=torch.float32, device=dev),
+        node_dev_slots=dev_tables[0],
+        node_rdma_free=dev_tables[1],
+        node_fpga_free=dev_tables[2],
         node_zone_free=zone_free,
         pod_zone=pod_zone,
         pod_zone_charge=zone_charge,
@@ -515,6 +568,8 @@ def _assign_(
     node_mask=None,
     mask_base=None,
     zones=None,
+    devs=None,
+    device_scoring=None,
 ):
     """:func:`assign`'s rounds and gang rollback with ``nodes``' tables
     (``requested``, ``estimated_used``, ``prod_used``) updated in place.
@@ -545,12 +600,22 @@ def _assign_(
     ``zone_free`` taken before the first round (the reference prices from
     the batch-start table, ``solver.py:771-818``), the round tails pick
     the winners' zones and charge ``zone_free`` in place, and the gang
-    rollback refunds the rolled-back pods' zone charges."""
+    rollback refunds the rolled-back pods' zone charges.
+
+    ``devs`` = (slots [N, G], rdma [N] or None, fpga [N] or None,
+    cap_total [N] or None, scoring) turns on the devices: the batch's stats
+    table is worked out once (:class:`.device.DeviceTerms`), the pricing
+    reads it and the free counts, the round tails charge the tables in
+    place and refresh the stats of the nodes they charge, and the gang
+    rollback refunds. ``device_scoring`` is the option as given: the
+    shortlist is off under "MostAllocated", with or without devices, as in
+    the reference."""
     p = pods.requests.shape[0]
     n = nodes.allocatable.shape[0]
     dev = nodes.allocatable.device
     order, spods, bind_mask, thr, pthr = _round_setup(
-        pods, nodes, params, thresholds, quota is not None, zones is not None
+        pods, nodes, params, thresholds, quota is not None, zones is not None,
+        devs is not None,
     )
     k = min(topk, n)
     mask = None
@@ -578,11 +643,14 @@ def _assign_(
         terms = ZoneTerms.batch_start(zone_free, zone_cap, policy, spods.numa_required, scoring)
         azone = torch.full((p,), -1, dtype=torch.int32, device=dev)
         round_zone = (zone_free, zone_cap, policy, zone_most, spods.numa_required, azone)
+    dterms = None
+    if devs is not None:
+        dterms = DeviceTerms.batch_start(*devs[:4], spods, devs[4])
     fallbacks = None
-    if _shortlist_on(shortlist_k, topk, n):
+    if _shortlist_on(shortlist_k, topk, n, device_scoring):
         plan = shortlist_ops.shortlist_build(
             spods.requests, spods.estimate, spods.is_prod, bind_mask, *node_args,
-            shortlist_k, nomination_jitter, mask, zones=terms,
+            shortlist_k, nomination_jitter, mask, zones=terms, devices=dterms,
         )
         # one word a trip: trip t is round t while the loop runs
         words = torch.zeros((max_rounds, shortlist_ops.WORD), dtype=torch.int32, device=dev)
@@ -596,22 +664,22 @@ def _assign_(
         if fallbacks is None:
             top_cost, top_idx = nominate_ops.nominate(
                 *pod_args, *node_args, k, nomination_jitter, approx_topk, state=state,
-                mask=mask, zones=terms,
+                mask=mask, zones=terms, devices=dterms,
             )
         else:
             top = shortlist_ops.shortlist_round(
                 *pod_args, *node_args, *plan, k, nomination_jitter, approx_topk,
-                words[t], fallbacks, state, mask, zones=terms,
+                words[t], fallbacks, state, mask, zones=terms, devices=dterms,
             )
             top_cost, top_idx = nominate_ops.nominate(
                 *pod_args, *node_args, k, nomination_jitter, approx_topk, state=state,
-                trigger=words[t], out=top, mask=mask, zones=terms,
+                trigger=words[t], out=top, mask=mask, zones=terms, devices=dterms,
             )
         commit_ops.round_tail(
             top_cost, top_idx, spods.requests, spods.estimate, spods.is_prod,
             bind_mask, nodes.cpu_amp, nodes.allocatable, nodes.metric_fresh,
             thr, pthr, requested, est_used, prod_used, assigned, active, state,
-            round_quantum, round_quota, round_zone,
+            round_quantum, round_quota, round_zone, dterms,
         )
 
     # back to original pod order: assignment[order[j]] = assigned[j]
@@ -630,8 +698,12 @@ def _assign_(
             quota_used=None if quota is None else quota[1], rounds_used=None,
             node_zone_free=None if zones is None else zones[0], pod_zone=pod_zone,
             pod_zone_charge=zone_charge,
+            node_dev_slots=None if devs is None else devs[0],
+            node_rdma_free=None if devs is None else devs[1],
+            node_fpga_free=None if devs is None else devs[2],
         ),
         pods,
+        None if devs is None else slot_exists_of(devs[3], devs[0].shape[1]),
     )
     return assignment, state[1].clone(), fallbacks, pod_zone, zone_charge
 
@@ -687,7 +759,7 @@ def solve_stream(
     kw = dict(max_rounds=max_rounds, round_quantum=round_quantum, topk=topk,
               nomination_jitter=nomination_jitter, approx_topk=approx_topk,
               shortlist_k=shortlist_k)
-    tables, (asg, placed, rounds, fallbacks, _), qused, _ = _run_stream(
+    tables, (asg, placed, rounds, fallbacks, _), qused, _, _ = _run_stream(
         pods_stacked, nodes, params, quotas, None, None, kw, cuda_graph
     )
     _copy_out(rounds, fallbacks, rounds_out, fallbacks_out)
@@ -721,13 +793,16 @@ def solve_stream_full(
     shortlist_k=None,
     cuda_graph: bool = True,
     zone_free_out: "torch.Tensor | None" = None,
+    dev_out=None,
 ):
     """The scheduler's stream (``solver.py:1748-1855``): chunks of a
     [C, P, ...] stacked :class:`PodBatch` solved one after another,
-    threading node capacity, the quota table and, with ``numa`` (a
-    :class:`.numa.NumaState`), the zone table, with ``node_mask``
-    [C, P, N] bool the chunks' hard node constraints (None: none) and
-    ``numa_scoring`` the aligned score (:func:`assign`'s).
+    threading node capacity, the quota table, with ``numa`` (a
+    :class:`.numa.NumaState`) the zone table and with ``devices`` (a
+    :class:`.device.DeviceState`) the slot table and free RDMA and FPGA
+    counts (the dev carry), with ``node_mask`` [C, P, N] bool the chunks'
+    hard node constraints (None: none) and ``numa_scoring`` /
+    ``device_scoring`` the scores (:func:`assign`'s).
 
     Returns ``(assignments [C, P], pod_zones [C, P], rounds [C],
     shortlist_fallbacks [C, 2])``, the fallback counts zeros with the
@@ -736,10 +811,11 @@ def solve_stream_full(
     in :func:`solve_stream`; chunk c's pods read rows ``c * P + order`` of
     the stacked mask through the graph's device index, so the mask is
     never copied, and the zone table is one more static buffer of the
-    graph. ``zone_free_out``, an [N, Z, DN] float32 tensor, receives the
-    zone table after the last chunk (the reference keeps it in the scan's
+    graph, as are the device tables. ``zone_free_out``, an [N, Z, DN]
+    float32 tensor, receives the zone table after the last chunk, and
+    ``dev_out`` = (slot_free [N, G], rdma_free [N], fpga_free [N]) tensors
+    (any may be None) the dev carry (the reference keeps both in the scan's
     carry)."""
-    _reject_unported(devices=devices, device_scoring=device_scoring)
     c, p = pods_stacked.requests.shape[:2]
     n = nodes.allocatable.shape[0]
     if node_mask is not None and tuple(node_mask.shape) != (c, p, n):
@@ -750,11 +826,16 @@ def solve_stream_full(
     if numa is not None:
         _scoring(numa_scoring)
         kw["numa_scoring"] = numa_scoring
-    _, (asg, _, rounds, fallbacks, zones), _, zone_free = _run_stream(
-        pods_stacked, nodes, params, quotas, node_mask, numa, kw, cuda_graph
+    _device_scoring(device_scoring)
+    kw["device_scoring"] = device_scoring
+    _, (asg, _, rounds, fallbacks, zones), _, zone_free, dev_tables = _run_stream(
+        pods_stacked, nodes, params, quotas, node_mask, numa, kw, cuda_graph, devices
     )
     if zone_free_out is not None:
         zone_free_out.copy_(zone_free)
+    for out, table in zip(dev_out or (), dev_tables or ()):
+        if out is not None:
+            out.copy_(table)
     if fallbacks is None:
         fallbacks = torch.zeros((c, 2), dtype=torch.int32, device=asg.device)
     if zones is None:
@@ -772,40 +853,47 @@ def _copy_out(rounds, fallbacks, rounds_out, fallbacks_out) -> None:
             fallbacks_out.copy_(fallbacks)
 
 
-def _run_stream(pods_stacked, nodes, params, quotas, node_mask, numa, kw, cuda_graph):
+def _run_stream(pods_stacked, nodes, params, quotas, node_mask, numa, kw, cuda_graph,
+                devices=None):
     """The batches of a stream on the tensors' device: one CUDA graph
     replay a batch on the card (:class:`_StreamGraph`), else eagerly.
     Returns fresh (tables, outputs, quota used table or None, zone table
-    or None)."""
+    or None, device tables or None)."""
     dev = nodes.allocatable.device
     b, p = pods_stacked.requests.shape[:2]
     if dev.type == "cuda" and cuda_graph:
-        return _StreamGraph.run(pods_stacked, nodes, params, quotas, node_mask, numa, kw)
-    bufs = _StreamBuffers(nodes, quotas, numa, b, p, kw)
+        return _StreamGraph.run(pods_stacked, nodes, params, quotas, node_mask, numa, kw,
+                                devices)
+    bufs = _StreamBuffers(nodes, quotas, numa, b, p, kw, devices)
     index = torch.arange(b, device=dev)
     thresholds = _effective_thresholds(nodes, params)
     for i in range(b):
         _stream_step(pods_stacked, nodes, params, quotas, node_mask, numa, thresholds, bufs,
-                     index[i : i + 1], kw)
-    return bufs.tables, bufs.outs, bufs.qused, bufs.zone_free
+                     index[i : i + 1], kw, devices)
+    return bufs.tables, bufs.outs, bufs.qused, bufs.zone_free, bufs.dev
 
 
 class _StreamBuffers:
-    """A stream's state: its node tables, with quotas its quota used table
-    and with NUMA its zone table (copies of the inputs', updated in place
-    batch by batch), and its outputs: assignments [B, P], placed [B],
-    rounds [B], with the shortlist on (``kw``, the solver's arguments) its
-    fallback counts [B, 2] and with NUMA its zone picks [B, P] (each None
-    without)."""
+    """A stream's state: its node tables, with quotas its quota used table,
+    with NUMA its zone table and with devices its dev carry (slot table,
+    free RDMA and FPGA counts: zeros for a count the state does not track)
+    — copies of the inputs', updated in place batch by batch — and its
+    outputs: assignments [B, P], placed [B], rounds [B], with the shortlist
+    on (``kw``, the solver's arguments) its fallback counts [B, 2] and with
+    NUMA its zone picks [B, P] (each None without)."""
 
-    def __init__(self, nodes: NodeState, quotas, numa, b: int, p: int, kw: dict):
+    def __init__(self, nodes: NodeState, quotas, numa, b: int, p: int, kw: dict,
+                 devices=None):
         n = nodes.allocatable.shape[0]
-        shortlist = _shortlist_on(kw["shortlist_k"], kw["topk"], n)
+        shortlist = _shortlist_on(kw["shortlist_k"], kw["topk"], n, kw.get("device_scoring"))
         dev = nodes.allocatable.device
         self.tables = [nodes.requested.clone(), nodes.estimated_used.clone(),
                        nodes.prod_used.clone()]
         self.qused = None if quotas is None else quotas.used.clone()
         self.zone_free = None if numa is None else numa.zone_free.clone()
+        self.dev = None
+        if devices is not None:
+            self.dev = tuple(t.clone() for t in _dev_carry0(devices, n))
         self.outs = (
             torch.empty((b, p), dtype=torch.int32, device=dev),
             torch.empty((b,), dtype=torch.int32, device=dev),
@@ -814,7 +902,7 @@ class _StreamBuffers:
             None if numa is None else torch.empty((b, p), dtype=torch.int32, device=dev),
         )
 
-    def reset(self, nodes: NodeState, quotas, numa) -> None:
+    def reset(self, nodes: NodeState, quotas, numa, devices=None) -> None:
         """Back to the inputs' tables, in place."""
         for table, src in zip(self.tables, (nodes.requested, nodes.estimated_used,
                                             nodes.prod_used)):
@@ -823,17 +911,33 @@ class _StreamBuffers:
             self.qused.copy_(quotas.used)
         if self.zone_free is not None:
             self.zone_free.copy_(numa.zone_free)
+        if self.dev is not None:
+            n = nodes.allocatable.shape[0]
+            for table, src in zip(self.dev, _dev_carry0(devices, n)):
+                table.copy_(src)
+
+
+def _dev_carry0(devices: DeviceState, n: int):
+    """A stream's first dev carry (``solver.py:1789-1800``): the slot
+    table and the free RDMA and FPGA counts, zeros for a count the state
+    does not track."""
+    zeros = torch.zeros((n,), dtype=torch.float32, device=devices.slot_free.device)
+    return (devices.slot_free,
+            zeros if devices.rdma_free is None else devices.rdma_free,
+            zeros if devices.fpga_free is None else devices.fpga_free)
 
 
 def _stream_step(pods_stacked, nodes, params, quotas, node_mask, numa, thresholds, bufs,
-                 index, kw) -> None:
+                 index, kw, devices=None) -> None:
     """Batch ``index`` ([1] int64 on the device) of a stream: its pods
     gathered from the stacked batch, solved with the stream's tables
     (requested, estimated, prod; with quotas the used table; with NUMA the
     zone table) updated in place and its effective ``thresholds``, its
     assignment, placed count, rounds, fallback counts and zone picks
-    written into row ``index`` of the outputs."""
-    fields = _with_quota(_SOLVE_FIELDS, quotas is not None, numa is not None)
+    written into row ``index`` of the outputs. With devices the dev carry
+    is updated in place too."""
+    fields = _with_quota(_SOLVE_FIELDS, quotas is not None, numa is not None,
+                         devices is not None)
     pods = _only(pods_stacked, fields, lambda a: a.index_select(0, index)[0])
     tables = bufs.tables
     cur = dataclasses.replace(
@@ -841,11 +945,12 @@ def _stream_step(pods_stacked, nodes, params, quotas, node_mask, numa, threshold
     )
     kw = dict(kw)
     zones = _zones_of(numa, bufs.zone_free, kw.pop("numa_scoring", None))
+    devs = _devices_of(devices, bufs.dev, kw.get("device_scoring"))
     assignment, rounds_used, fallbacks, pod_zone, _ = _assign_(
         pods, cur, params, thresholds=thresholds,
         quota=None if quotas is None else (quotas.runtime, bufs.qused),
         node_mask=node_mask, mask_base=None if node_mask is None else index, zones=zones,
-        **kw,
+        devs=devs, **kw,
     )
     asg, placed, rounds, fb, zsel = bufs.outs
     asg.index_copy_(0, index, assignment[None])
@@ -887,14 +992,16 @@ class _StreamGraph:
     _last: "_StreamGraph | None" = None
     _retired: list = []
 
-    def __init__(self, key, pods_stacked, nodes, params, quotas, node_mask, numa, kw):
+    def __init__(self, key, pods_stacked, nodes, params, quotas, node_mask, numa, kw,
+                 devices=None):
         dev = nodes.allocatable.device
         b, p = pods_stacked.requests.shape[:2]
         self.key = key
         self.nodes = nodes
         self.quotas = quotas
         self.numa = numa
-        self.bufs = _StreamBuffers(nodes, quotas, numa, b, p, kw)
+        self.devices = devices
+        self.bufs = _StreamBuffers(nodes, quotas, numa, b, p, kw, devices)
         self.index = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.batches = b
         self.params = params
@@ -902,7 +1009,7 @@ class _StreamGraph:
 
         def step():
             _stream_step(pods_stacked, nodes, params, quotas, node_mask, numa,
-                         self.thresholds, self.bufs, self.index, kw)
+                         self.thresholds, self.bufs, self.index, kw, devices)
             self.index.add_(1)
 
         side = torch.cuda.Stream(device=dev)
@@ -922,7 +1029,7 @@ class _StreamGraph:
         """Every batch once, from the node (and quota) tables and the
         thresholds of the call's inputs, into the static tables and
         outputs."""
-        self.bufs.reset(self.nodes, self.quotas, self.numa)
+        self.bufs.reset(self.nodes, self.quotas, self.numa, self.devices)
         for thr, src in zip(self.thresholds, _effective_thresholds(self.nodes, self.params)):
             thr.copy_(src)
         self.index.zero_()
@@ -930,14 +1037,16 @@ class _StreamGraph:
         self.done.record()
 
     @classmethod
-    def run(cls, pods_stacked, nodes, params, quotas, node_mask, numa, kw):
-        tensors = [getattr(obj, f.name) for obj in (pods_stacked, nodes, params, quotas, numa)
+    def run(cls, pods_stacked, nodes, params, quotas, node_mask, numa, kw, devices=None):
+        tensors = [getattr(obj, f.name)
+                   for obj in (pods_stacked, nodes, params, quotas, numa, devices)
                    if obj is not None
                    for f in dataclasses.fields(obj) if getattr(obj, f.name) is not None]
         if node_mask is not None:
             tensors.append(node_mask)
         key = (
             tuple(kw.items()), quotas is not None, node_mask is not None, numa is not None,
+            devices is not None,
             tuple((t.data_ptr(), t.dtype, tuple(t.shape), t.stride()) for t in tensors),
         )
         last = cls._last
@@ -946,16 +1055,17 @@ class _StreamGraph:
                 cls._retired.append(last)
             cls._retired = [g for g in cls._retired if not g.done.query()]
             last = cls._last = cls(key, pods_stacked, nodes, params, quotas, node_mask, numa,
-                                   kw)
+                                   kw, devices)
         last.replay()
         bufs = last.bufs
         return ([t.clone() for t in bufs.tables],
                 tuple(None if t is None else t.clone() for t in bufs.outs),
                 None if bufs.qused is None else bufs.qused.clone(),
-                None if bufs.zone_free is None else bufs.zone_free.clone())
+                None if bufs.zone_free is None else bufs.zone_free.clone(),
+                None if bufs.dev is None else tuple(t.clone() for t in bufs.dev))
 
 
-def enforce_gangs_plain(result: SolveResult, pods: PodBatch) -> SolveResult:
+def enforce_gangs_plain(result: SolveResult, pods: PodBatch, slot_exists=None) -> SolveResult:
     """All-or-nothing gang rollback (Coscheduling Permit semantics,
     ``solver.py:1858-1987``), node tables, gang counts and quotas: gangs
     whose placed-member count is below ``minMember`` lose all their
@@ -969,8 +1079,12 @@ def enforce_gangs_plain(result: SolveResult, pods: PodBatch) -> SolveResult:
     charge back to it, ``node_zone_free + segment_sum(...)`` added row by
     row in pod order (:func:`.commit._scatter_add_`, the order XLA's CPU
     backend gives the reference, :1941-1960), and lose their
-    ``pod_zone``. The plain version of ``csrc/gangs.cu``; returns a new
-    result."""
+    ``pod_zone``. With a slot table (``node_dev_slots``), each node's
+    rolled-back whole GPUs and shares, ``whole * 100 + share`` summed in pod
+    order, are water-filled back onto it (:func:`.device.slot_refund`,
+    ``slot_exists`` [N, G] its real slots, :1913-1929), and their RDMA and
+    FPGA added back to the free counts that are given (:1930-1940). The
+    plain version of ``csrc/gangs.cu``; returns a new result."""
     p, d = pods.requests.shape
     n = result.node_requested.shape[0]
     assignment = result.assignment
@@ -1008,6 +1122,20 @@ def enforce_gangs_plain(result: SolveResult, pods: PodBatch) -> SolveResult:
         flat = zone_free.reshape(n, -1).clone()
         commit_ops._scatter_add_((flat,), torch.where(zref, node_of, n - 1), (delta_z,))
         zone_free = flat.reshape(zone_free.shape)
+    dev_tables = {}
+    if result.node_dev_slots is not None:
+        from .device import slot_refund
+
+        seg = torch.where(rollback, node_of, n - 1)
+        whole = pods.gpu_whole.to(torch.float32)
+        refund = commit_ops.segment_sum_plain(
+            torch.where(rollback, whole * 100.0 + pods.gpu_share, 0.0)[:, None], seg, n)[:, 0]
+        dev_tables["node_dev_slots"] = slot_refund(result.node_dev_slots, refund, slot_exists)
+        for name, req in (("node_rdma_free", pods.rdma), ("node_fpga_free", pods.fpga)):
+            free = getattr(result, name)
+            if free is not None:
+                dev_tables[name] = free + commit_ops.segment_sum_plain(
+                    torch.where(rollback, req.to(torch.float32), 0.0)[:, None], seg, n)[:, 0]
     return dataclasses.replace(
         result,
         assignment=torch.where(keep, assignment, -1),
@@ -1021,12 +1149,14 @@ def enforce_gangs_plain(result: SolveResult, pods: PodBatch) -> SolveResult:
             if result.pod_zone is None
             else torch.where(rollback, -1, result.pod_zone)
         ),
+        **dev_tables,
     )
 
 
 _GANG_FIELDS = (
     "assignment", "node_requested", "node_estimated_used", "node_prod_used",
-    "pod_zone", "quota_used", "node_zone_free",
+    "pod_zone", "quota_used", "node_zone_free", "node_dev_slots", "node_rdma_free",
+    "node_fpga_free",
 )
 
 
@@ -1053,9 +1183,11 @@ def _gangs_scratch_bytes(index: int, p: int, quota: bool) -> int:
     return nbytes.value
 
 
-def _enforce_gangs_(result: SolveResult, pods: PodBatch) -> None:
+def _enforce_gangs_(result: SolveResult, pods: PodBatch, slot_exists=None) -> None:
     """Gang rollback in place on ``result``'s assignment, node tables,
-    ``pod_zone``, ``quota_used`` and ``node_zone_free``: one
+    ``pod_zone``, ``quota_used``, ``node_zone_free`` and the device tables
+    (``node_dev_slots``, ``node_rdma_free``, ``node_fpga_free``, with
+    ``slot_exists`` the real slots): one
     ``koord_enforce_gangs`` launch (``csrc/gangs.cu``) for CUDA tensors,
     :func:`enforce_gangs_plain` written into ``result``'s tensors for CPU
     tensors. The quota refund runs when ``quota_used`` has Q > 1 rows
@@ -1065,7 +1197,7 @@ def _enforce_gangs_(result: SolveResult, pods: PodBatch) -> None:
     runs with it in a device buffer of the launch's own."""
     asg = result.assignment
     if asg.is_cpu:
-        out = enforce_gangs_plain(result, pods)
+        out = enforce_gangs_plain(result, pods, slot_exists)
         for name in _GANG_FIELDS:
             if getattr(result, name) is not None:
                 getattr(result, name).copy_(getattr(out, name))
@@ -1097,11 +1229,28 @@ def _enforce_gangs_(result: SolveResult, pods: PodBatch) -> None:
             "enforce_gangs", (asg, result.node_zone_free, result.pod_zone_charge),
             (_I32, _F32, _F32), (p, n * nz * dn, p * dn),
         )[1:] + [nz, dn]
+    d_args = [None] * 8 + [0]
+    slots = result.node_dev_slots
+    if slots is not None:
+        g = slots.shape[1]
+        if not 1 <= g <= MAX_SLOTS:
+            raise ValueError(f"enforce_gangs: G={g} must be in 1..{MAX_SLOTS}")
+        cap = None
+        if slot_exists is not None:
+            # the real slots of a node are its first cap_total / 100
+            cap = slot_exists.sum(dim=1, dtype=torch.int32).to(torch.float32) * 100.0
+        d_args = kernels.checked_ptrs(
+            "enforce_gangs",
+            (asg, slots, cap, result.node_rdma_free, result.node_fpga_free, pods.gpu_whole,
+             pods.gpu_share, pods.rdma, pods.fpga),
+            (_I32, _F32, _F32, _F32, _F32, _I32, _F32, _I32, _I32),
+            (p, n * g, n, n, n, p, p, p, p),
+        )[1:] + [g]
     lib = kernels.library("gangs")
     nbytes = _gangs_scratch_bytes(asg.get_device(), p, refund)
     # the launch's own working set, as the round tail's (ops/commit.py)
     buf = torch.empty(nbytes, dtype=torch.uint8, device=asg.device) if nbytes else None
-    code = lib.koord_enforce_gangs(*ptrs, p, n, d, *q_ptrs, q_cap, levels, *z_args,
+    code = lib.koord_enforce_gangs(*ptrs, p, n, d, *q_ptrs, q_cap, levels, *z_args, *d_args,
                                    None if buf is None else buf.data_ptr(),
                                    kernels.stream_of(asg))
     kernels.check(lib, code, "enforce_gangs")
@@ -1112,19 +1261,22 @@ def _enforce_gangs_(result: SolveResult, pods: PodBatch) -> None:
         kernels.count("quota_refund")
     if zones:
         kernels.count("zone_refund")
+    if slots is not None:
+        kernels.count("device_refund")
 
 
-def enforce_gangs(result: SolveResult, pods: PodBatch) -> SolveResult:
+def enforce_gangs(result: SolveResult, pods: PodBatch, slot_exists=None) -> SolveResult:
     """All-or-nothing gang rollback (``solver.py:1858-1987``) on the
     tensors' device, functional as the reference is: the result's
-    assignment, node tables, ``pod_zone`` and ``quota_used`` are cloned,
-    then rolled back in place (:func:`_enforce_gangs_`)."""
+    assignment, node tables, ``pod_zone``, ``quota_used`` and device tables
+    are cloned, then rolled back in place (:func:`_enforce_gangs_`;
+    ``slot_exists`` [N, G] bool the slot table's real slots)."""
     out = dataclasses.replace(result, **{
         name: getattr(result, name).clone()
         for name in _GANG_FIELDS
         if getattr(result, name) is not None
     })
-    _enforce_gangs_(out, pods)
+    _enforce_gangs_(out, pods, slot_exists)
     return out
 
 
@@ -1144,23 +1296,30 @@ def shortlist_plan(
     round-0 masked cost with every pod gate open and each pod's
     top-(K+1), ``node_mask`` [P, N] bool holding the pods' node
     constraints, ``numa`` (a :class:`.numa.NumaState`) the NUMA fit of its
-    ``zone_free`` and, with ``numa_scoring``, the aligned score. Returns ``(plan_cand [P, K] int32, candidates ascending
+    ``zone_free`` and, with ``numa_scoring``, the aligned score, ``devices``
+    (a :class:`.device.DeviceState`) the device fit of its tables and, with
+    ``device_scoring``, the device score clamped at <= 0 (:1606-1645).
+    Returns ``(plan_cand [P, K] int32, candidates ascending
     by node id in the solver's priority-sorted pod order, plan_bound [P]
     float32, the (K+1)-th best build cost, +inf when the shortlist holds
     every feasible node)``. One launch of ``csrc/shortlist_build.cu`` on
     the card; :func:`assign` runs its own build inside the solve."""
-    _reject_unported(devices=devices, device_scoring=device_scoring)
-    order, spods, bind, thr, pthr = _round_setup(pods, nodes, params, numa=numa is not None)
-    terms = None
+    order, spods, bind, thr, pthr = _round_setup(pods, nodes, params, numa=numa is not None,
+                                                 devices=devices is not None)
+    terms = dterms = None
     if numa is not None:
         terms = ZoneTerms.batch_start(numa.zone_free, numa.zone_cap, numa.policy,
                                       spods.numa_required, _scoring(numa_scoring))
+    scoring = _device_scoring(device_scoring)
+    if devices is not None:
+        dterms = DeviceTerms.batch_start(devices.slot_free, devices.rdma_free,
+                                         devices.fpga_free, devices.cap_total, spods, scoring)
     return shortlist_ops.shortlist_build(
         spods.requests, spods.estimate, spods.is_prod, bind, nodes.allocatable,
         nodes.requested, nodes.estimated_used, nodes.prod_used, nodes.metric_fresh,
         nodes.schedulable, nodes.cpu_amp, thr, pthr, params.score_weights,
         shortlist_k, nomination_jitter, None if node_mask is None else (node_mask, order),
-        zones=terms,
+        zones=terms, devices=dterms,
     )
 
 

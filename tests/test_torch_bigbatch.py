@@ -56,3 +56,15 @@ def test_bigbatch_golden_on_the_plain_path(quota):
     # the Strict gang rolled back whole; the NonStrict one kept its members
     assert (asg[: chip_smoke.BIG_GANG] < 0).all()
     assert (asg[chip_smoke.BIG_GANG : chip_smoke.BIG_GANG + 500] >= 0).sum() > 300
+
+
+def test_bigbatch_32768_golden_file_holds_the_reference():
+    """The 32,768-pod golden (the round tail's largest batch, checked
+    against the kernels on the card) is what the JAX package gives now."""
+    gold = np.load(chip_smoke.GOLDEN_BIGBATCH_32K)
+    fresh = make_torch_golden.bigbatch_32k_arrays()
+    assert sorted(fresh) == sorted(gold.files)
+    for key, value in fresh.items():
+        np.testing.assert_array_equal(bits(value), bits(gold[key]), err_msg=key)
+    asg = gold["plain_assignment"]
+    assert asg.shape == (32_768,) and (asg[: chip_smoke.BIG_GANG] < 0).all()

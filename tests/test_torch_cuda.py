@@ -31,9 +31,19 @@ three pricing kernels' NUMA instantiations at Z = 1, 2 and 4 under each
 scoring, the round tail's zone phase at 1 to 8,192 pods with and without
 quotas, the zone refund up to 16,384 pods, and ``solve_stream_full`` with
 the zone carry against the NUMA golden; the batch-start zone snapshot and
-side table at 1 to 10,000 nodes and Z = 1 to 8. Tolerance: none — the
-kernels round as the plain versions do, so results must be bitwise equal.
+side table at 1 to 10,000 nodes and Z = 1 to 8. With devices: the stats
+table at G = 1 to 256, the three pricing kernels' device instantiations
+(G = 8 and 16, slots padded to 24, RDMA tracked and not, each scoring,
+with and without zones), the round tail's device phase at 1 to 8,192
+pods alone and with quotas and zones, the device refunds up to 16,384
+pods at G = 8 to 32, ``solve_stream_full`` with the dev carry against
+the device golden, and with devices, quotas, a node mask and zones
+together against the plain routes. Rounds and rollbacks of 32,768 pods,
+and the 32,768-pod golden. Tolerance: none — the kernels round as the plain
+versions do, so results must be bitwise equal.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -210,8 +220,10 @@ def test_round_tail_refuses_misaligned_rows(cuda):
 
 
 def test_commit_refuses_a_round_too_large_for_one_block(cuda):
-    dev = [torch.from_numpy(a).to(cuda) for a in round_inputs(1, 20_000, 100, 8)]
-    with pytest.raises(RuntimeError, match="round_tail: CUDA error"):
+    """One block takes up to 32,768 pods (32 rows a thread in device
+    memory); a larger round is refused, never solved some other way."""
+    dev = [torch.from_numpy(a).to(cuda) for a in round_inputs(1, 32_769, 100, 8)]
+    with pytest.raises(ValueError, match="32768"):
         tcommit.round_tail(*dev, 0.35)
 
 
@@ -929,3 +941,326 @@ def test_numa_stream_full_on_card_matches_plain_and_golden(cuda):
                     np.testing.assert_array_equal(o.cpu().numpy(), gold[f"{key}_{name}"])
                 np.testing.assert_array_equal(bits(z.cpu().numpy()),
                                               bits(gold[f"{key}_zone_free"]))
+
+
+# ------------------------------------------------- devices and 32,768-pod rounds
+
+from koordinator_tpu_torch.ops import device as tdev  # noqa: E402
+
+
+def device_demand(seed, p, n, g, rdma=True, pad_to=None):
+    """``chip_smoke.device_tables``' slot table (G = 16 with ``g`` 16, else
+    8; padded with empty slots to ``pad_to``), RDMA and FPGA counts (RDMA
+    not tracked without ``rdma``) and device requests of ``p`` pods over
+    ``n`` nodes: (devices dict, pods dict of gpu_whole, gpu_share, rdma,
+    fpga)."""
+    nodes = dict(allocatable=np.ones((n, 2), np.float32))
+    pods, devices = chip_smoke.device_tables(seed, nodes, dict(requests=np.ones((p, 2))),
+                                             g16=g == 16, rdma=rdma, batch=p)
+    if pad_to:
+        devices["slot_free"] = np.pad(devices["slot_free"],
+                                      ((0, 0), (0, pad_to - devices["slot_free"].shape[1])))
+    return devices, {k: pods[k] for k in ("gpu_whole", "gpu_share", "rdma", "fpga")}
+
+
+def device_terms(devices, pods, device, scoring=1):
+    """DeviceTerms on ``device`` of a device_demand draw (the pods taken as
+    sorted), the stats table from device_prep on that device."""
+    t = {k: None if v is None else torch.from_numpy(v.copy()).to(device)
+         for k, v in devices.items()}
+    sp = T.PodBatch(**{f.name: None for f in dataclasses.fields(T.PodBatch)})
+    for k, v in pods.items():
+        setattr(sp, k, torch.from_numpy(v.copy()).to(device))
+    return tdev.DeviceTerms.batch_start(t["slot_free"], t["rdma_free"], t["fpga_free"],
+                                        t["cap_total"], sp, scoring)
+
+
+@pytest.mark.parametrize("n", [1, 257, 10_000])
+@pytest.mark.parametrize("g", [1, 8, 16, 33, 256])
+def test_device_prep_kernel_matches_plain(cuda, n, g):
+    """The batch's stats table (``csrc/device_prep.cu``) at G = 1 to 256
+    (above 32 slots the total is summed in windows of 32)."""
+    rng = np.random.default_rng(n + g)
+    vals = np.asarray([100.0, 100.0, 0.0, 70.0, 66.7, 33.3, 12.5, 0.1], np.float32)
+    slots = vals[rng.integers(0, vals.size, (n, g))]
+    before = kernels.launches["device_prep"]
+    got = tdev.device_prep(torch.from_numpy(slots).to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.launches["device_prep"] == before + 1
+    np.testing.assert_array_equal(bits(got.cpu().numpy()),
+                                  bits(tdev.device_prep_plain(torch.from_numpy(slots)).numpy()))
+
+
+@pytest.mark.parametrize("p, n, d", [(1, 9, 1), (37, 300, 3), (512, 10_000, 2), (200, 5003, 8)])
+@pytest.mark.parametrize("g, rdma, pad", [(8, True, None), (16, True, None), (8, False, 24)])
+@pytest.mark.parametrize("scoring", [0, 1, 2])
+@pytest.mark.parametrize("zones", [0, 2])
+def test_pricing_kernels_with_devices_match_plain(cuda, p, n, d, g, rdma, pad, scoring, zones):
+    """The device instantiations of nomination (approx and exact), the
+    shortlist build (the score clamped) and the shortlist round, with and
+    without NUMA zones, against their plain versions."""
+    arrays, numa, required = zone_inputs(p * 5 + n + g, p, n, d, max(zones, 1))
+    devices, demand = device_demand(p + n + g, p, n, g, rdma, pad)
+    outs = []
+    for device in (cuda, "cpu"):
+        args = [torch.from_numpy(a).to(device) for a in arrays]
+        z = None
+        if zones:
+            z = tnuma.ZoneTerms.batch_start(torch.from_numpy(numa["zone_free"]).to(device),
+                                            torch.from_numpy(numa["zone_cap"]).to(device),
+                                            torch.from_numpy(numa["policy"]).to(device),
+                                            torch.from_numpy(required).to(device), 1)
+        v = device_terms(devices, demand, device, scoring)
+        res = []
+        for approx in (False, True):
+            res += list(tnom.nominate(*args, min(4, n), 4.0, approx, zones=z, devices=v))
+        k = min(64, n - 1)
+        if k >= 1:
+            plan = tsl.shortlist_build(*(args[:4] + args[5:]), k, 4.0, zones=z, devices=v)
+            word = torch.zeros(tsl.WORD, dtype=torch.int32, device=device)
+            counts = torch.zeros(2, dtype=torch.int32, device=device)
+            state = torch.zeros(2, dtype=torch.int32, device=device)
+            top = tsl.shortlist_round(*args, *plan, min(4, k), 4.0, True, word, counts, state,
+                                      zones=z, devices=v)
+            res += [*plan, *top, word[:3], counts]
+        outs.append([t.cpu() for t in res])
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(*outs)):
+        a, b = a.numpy(), b.numpy()
+        if a.dtype == np.float32:
+            fin = np.isfinite(b)
+            np.testing.assert_array_equal(np.isfinite(a), fin, err_msg=str(i))
+            a, b = a[fin], b[fin]
+        np.testing.assert_array_equal(bits(a), bits(b), err_msg=str(i))
+
+
+@pytest.mark.parametrize("p", [1, 17, 512, 4096, 8192])
+@pytest.mark.parametrize("g, rdma", [(8, True), (16, True), (8, False)])
+@pytest.mark.parametrize("quota, zones", [(False, False), (True, False), (False, True),
+                                          (True, True)])
+def test_round_tail_device_phase_matches_plain(cuda, p, g, rdma, quota, zones):
+    """The round tail's device phase (shared memory, and device memory at
+    8,192 pods and wherever the working set outgrows shared memory), alone
+    and with quotas and zones: tables, loop state, the slot table, the
+    stats table, RDMA and FPGA. Hot nodes give a node several share pods
+    and more whole GPUs than it holds in one round."""
+    d = 2
+    n = max(3, p // 8)
+    arrays = round_inputs(p + g + 3 * quota + 5 * zones, p, n, d)
+    arrays[16] = np.array([0, 2], np.int32)
+    devices, demand = device_demand(p * 3 + g, p, n, g, rdma)
+    nodes = dict(allocatable=arrays[7], estimated_used=arrays[12])
+    _, numa, required = chip_smoke.zone_tables(p + 2, nodes, p)
+    outs = []
+    for device in (cuda, "cpu"):
+        args = [torch.from_numpy(a.copy()).to(device) for a in arrays]
+        v = device_terms(devices, demand, device)
+        q = z = None
+        if quota:
+            chain, runtime, used = (torch.from_numpy(a).to(device)
+                                    for a in quota_inputs(p + 3, p, 21, d))
+            q = (chain, runtime, used, torch.ones(p, dtype=torch.bool, device=device))
+        if zones:
+            z = (torch.from_numpy(np.ascontiguousarray(numa["zone_free"][:, :2])).to(device),
+                 torch.from_numpy(np.ascontiguousarray(numa["zone_cap"][:, :2])).to(device),
+                 torch.from_numpy(numa["policy"]).to(device),
+                 torch.from_numpy(numa["zone_most"]).to(device),
+                 torch.from_numpy(required).to(device),
+                 torch.full((p,), -1, dtype=torch.int32, device=device))
+        if device == cuda:
+            before = kernels.launches["device_phase"]
+            tcommit.round_tail(*args, 0.35, quota=q, zone=z, dev=v)
+            torch.cuda.synchronize()
+            assert kernels.launches["device_phase"] == before + 1
+        else:
+            tcommit.round_tail_plain(*args, 0.35, quota=q, zone=z, dev=v)
+        outs.append(args[11:] + [v.slots, v.stats] + [t for t in (v.rdma, v.fpga)
+                                                      if t is not None]
+                    + ([] if q is None else list(q[2:])) + ([] if z is None else [z[0], z[5]]))
+    assert_round_equal(*outs)
+
+
+@pytest.mark.parametrize("p, n", [(17, 5), (512, 64), (1000, 300), (16_384, 2000)])
+@pytest.mark.parametrize("g, cap", [(8, True), (16, False), (32, True)])
+def test_enforce_gangs_device_refund_matches_plain(cuda, p, n, g, cap):
+    """The rollback's device refunds: shares summed in pod order, the
+    water-fill (ties in index order, padding slots without headroom when
+    cap_total is known; above 16 slots the chunked running sum), RDMA and
+    FPGA back."""
+    result, pods = gang_inputs(p * 7 + g, p, n, 2, "all short")
+    devices, demand = device_demand(p + g, p, n, 16 if g == 16 else 8, True,
+                                    pad_to=g if g > 16 else None)
+    pods.update(demand)
+    outs = []
+    for device in (cuda, "cpu"):
+        got = solve_result(result, device)
+        got.node_dev_slots = torch.from_numpy(devices["slot_free"].copy()).to(device)
+        got.node_rdma_free = torch.from_numpy(devices["rdma_free"].copy()).to(device)
+        got.node_fpga_free = torch.from_numpy(devices["fpga_free"].copy()).to(device)
+        exists = (tdev.slot_exists_of(torch.from_numpy(devices["cap_total"]).to(device), g)
+                  if cap else None)
+        before = kernels.launches["device_refund"]
+        T._enforce_gangs_(got, from_numpy(T.PodBatch, device=device, **pods), exists)
+        if device == cuda:
+            assert kernels.launches["device_refund"] == before + 1
+        outs.append(got)
+    torch.cuda.synchronize()
+    for f in ("assignment", "node_requested", "node_dev_slots", "node_rdma_free",
+              "node_fpga_free"):
+        np.testing.assert_array_equal(bits(getattr(outs[0], f).cpu().numpy()),
+                                      bits(getattr(outs[1], f).numpy()), err_msg=f)
+
+
+@pytest.mark.parametrize("d", [1, 4, 8])
+@pytest.mark.parametrize("q", [0, 1057])
+@pytest.mark.parametrize("zones", [False, True])
+def test_round_tail_at_32768_pods_matches_plain(cuda, d, q, zones):
+    """A round of 32,768 pods (a gang larger than the JAX scheduler's
+    bucket, padded) in the device-memory round tail, 32 rows a thread:
+    without quotas and with the sorted tree, with and without zones."""
+    p = 32_768
+    n = 4096
+    arrays = round_inputs(p + d + q, p, n, d)
+    arrays[16] = np.array([0, 2], np.int32)
+    nodes = dict(allocatable=np.pad(arrays[7], ((0, 0), (0, max(0, 2 - d)))),
+                 estimated_used=np.pad(arrays[12], ((0, 0), (0, max(0, 2 - d)))))
+    _, numa, required = chip_smoke.zone_tables(p + 9, nodes, p)
+    dn = min(2, d)
+    outs = []
+    for device in (cuda, "cpu"):
+        args = [torch.from_numpy(a.copy()).to(device) for a in arrays]
+        qq = z = None
+        if q:
+            chain, runtime, used = (torch.from_numpy(a).to(device)
+                                    for a in quota_inputs(p * 5 + q, p, q, d))
+            qq = (chain, runtime, used, torch.zeros(p, dtype=torch.bool, device=device))
+        if zones:
+            z = (torch.from_numpy(np.ascontiguousarray(numa["zone_free"][:, :2, :dn])).to(device),
+                 torch.from_numpy(np.ascontiguousarray(numa["zone_cap"][:, :2, :dn])).to(device),
+                 torch.from_numpy(numa["policy"]).to(device),
+                 torch.from_numpy(numa["zone_most"]).to(device),
+                 torch.from_numpy(required).to(device),
+                 torch.full((p,), -1, dtype=torch.int32, device=device))
+        if device == cuda:
+            before = kernels.launches["round_tail_big"]
+            tcommit.round_tail(*args, 0.35, quota=qq, zone=z)
+            torch.cuda.synchronize()
+            assert kernels.launches["round_tail_big"] == before + 1
+        else:
+            tcommit.round_tail_plain(*args, 0.35, quota=qq, zone=z)
+        outs.append(args[11:] + ([] if qq is None else list(qq[2:]))
+                    + ([] if z is None else [z[0], z[5]]))
+    assert_round_equal(*outs)
+
+
+@pytest.mark.parametrize("q", [1, 1057])
+def test_enforce_gangs_at_32768_pods_matches_plain(cuda, q):
+    p, n = 32_768, 4096
+    result, pods = gang_inputs(p + q, p, n, 4, "all short")
+    pods["quota_chain"] = quota_inputs(p + q, p, q, 4, fill=1.0)[0]
+    outs = []
+    for device in (cuda, "cpu"):
+        got = solve_result(result, device)
+        got.quota_used = torch.full((q, 4), 1e6, device=device)
+        T._enforce_gangs_(got, from_numpy(T.PodBatch, device=device, **pods))
+        outs.append(got)
+    torch.cuda.synchronize()
+    for f in ("assignment", "node_requested", "node_estimated_used", "node_prod_used",
+              "quota_used"):
+        np.testing.assert_array_equal(bits(getattr(outs[0], f).cpu().numpy()),
+                                      bits(getattr(outs[1], f).numpy()), err_msg=f)
+
+
+def test_device_stream_full_on_card_matches_plain_and_golden(cuda):
+    """``solve_stream_full(devices=...)``, one graph replay a chunk with the
+    dev carry static buffers, equals the eager plain route and the device
+    golden's small streams: assignments, rounds, fallback counts and the
+    final slot table, RDMA and FPGA; no host sync on a replay."""
+    from tools import make_torch_golden
+
+    gold = np.load(chip_smoke.GOLDEN_DEVICE)
+    nodes, pods, devices, params = make_torch_golden.device_fixture_small()
+    nodes_t, pods_t, params_t = chip_smoke.port_inputs(torch, nodes, chip_smoke.stacked(pods),
+                                                       params, cuda)
+    dev_t = tdev.DeviceState.create(**devices, device=cuda)
+    for scoring, k in make_torch_golden.DEVICE_SMALL_CELLS:
+        kw = dict(chip_smoke.SOLVE, devices=dev_t, device_scoring=scoring, shortlist_k=k)
+        tables = [tuple(torch.empty_like(t) for t in (dev_t.slot_free, dev_t.rdma_free,
+                                                       dev_t.fpga_free)) for _ in range(3)]
+        first = T.solve_stream_full(pods_t, nodes_t, params_t, dev_out=tables[0], **kw)
+        kernels.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = T.solve_stream_full(pods_t, nodes_t, params_t, dev_out=tables[1], **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert kernels.replays["solve_stream"] == 2 and kernels.launches["device_phase"] > 0
+        with chip_smoke.plain_versions():
+            plain = T.solve_stream_full(pods_t, nodes_t, params_t, cuda_graph=False,
+                                        dev_out=tables[2], **kw)
+        key = chip_smoke.device_key(scoring, k)
+        for out, tabs in zip((first, again, plain), tables):
+            for name, o in zip(("assignments", "pod_zones", "rounds", "fallbacks"), out):
+                if name != "pod_zones":
+                    np.testing.assert_array_equal(o.cpu().numpy(), gold[f"{key}_{name}"])
+            for name, t in zip(("slot_free", "rdma_free", "fpga_free"), tabs):
+                np.testing.assert_array_equal(bits(t.cpu().numpy()), bits(gold[f"{key}_{name}"]))
+
+
+@pytest.mark.parametrize("quota", [False, True])
+def test_bigbatch_32768_golden_on_card(cuda, quota):
+    """``assign`` on the 32,768-pod batch (the device-memory round tail at
+    32 rows a thread, the rollback in device memory) equals the JAX
+    package's golden bit for bit."""
+    gold = np.load(chip_smoke.GOLDEN_BIGBATCH_32K)
+    pods_t, nodes_t, params_t, quotas = chip_smoke.big_port_inputs(
+        torch, 4 * chip_smoke.BIG_PODS, quota, cuda)
+    res = to_numpy(T.assign(pods_t, nodes_t, params_t, quotas=quotas, **chip_smoke.SOLVE))
+    key = "quota" if quota else "plain"
+    for f, g in (("assignment", "assignment"), ("rounds_used", "rounds"),
+                 ("node_requested", "requested"), ("node_estimated_used", "estimated_used"),
+                 ("node_prod_used", "prod_used")) + ((("quota_used", "quota_used"),) if quota
+                                                    else ()):
+        np.testing.assert_array_equal(bits(res[f]), bits(gold[f"{key}_{g}"]), err_msg=f)
+
+
+def test_stream_full_with_every_option_matches_plain(cuda):
+    """``solve_stream_full`` with devices, quotas, a node mask and NUMA
+    zones together (the scheduler's full constraint set), one graph replay
+    a chunk, equals the eager plain route on the card and the plain route
+    on the CPU: assignments, zone picks, rounds, fallbacks and the final
+    zone table, slot table, RDMA and FPGA."""
+    nodes, pods, params = chip_smoke.rich_fixture(3, 2000, 4 * chip_smoke.BATCH)
+    pods, devices = chip_smoke.device_tables(3, nodes, pods)
+    nodes, numa, required = chip_smoke.zone_tables(3, nodes, pods["requests"].shape[0])
+    pods["numa_required"] = required
+    runtime, used = chip_smoke.quota_tree(2, 2, pods["requests"])
+    chain, constrained, zone = chip_smoke.quota_draws(2, 2, pods["requests"].shape[0])
+    pods["quota_chain"] = chain
+    mask = chip_smoke.node_mask_np(constrained, zone, 2000).reshape(4, chip_smoke.BATCH, 2000)
+    outs = []
+    for device, graph in ((cuda, True), (cuda, False), ("cpu", False)):
+        nodes_t, pods_t, params_t = chip_smoke.port_inputs(
+            torch, nodes, chip_smoke.stacked(pods), params, device)
+        numa_t = tnuma.NumaState.create(**numa, device=device)
+        dev_t = tdev.DeviceState.create(**devices, device=device)
+        quotas = T.QuotaState(runtime=torch.from_numpy(runtime).to(device),
+                              used=torch.from_numpy(used).to(device))
+        zf = torch.empty_like(numa_t.zone_free)
+        tables = tuple(torch.empty_like(t) for t in (dev_t.slot_free, dev_t.rdma_free,
+                                                      dev_t.fpga_free))
+        kw = dict(chip_smoke.SOLVE, quotas=quotas, numa=numa_t, devices=dev_t,
+                  node_mask=torch.from_numpy(mask).to(device), numa_scoring="LeastAllocated",
+                  device_scoring="LeastAllocated", shortlist_k=chip_smoke.SHORTLIST_K,
+                  cuda_graph=graph, zone_free_out=zf, dev_out=tables)
+        if device == cuda and not graph:
+            with chip_smoke.plain_versions():
+                out = T.solve_stream_full(pods_t, nodes_t, params_t, **kw)
+        else:
+            out = T.solve_stream_full(pods_t, nodes_t, params_t, **kw)
+        outs.append([t.cpu() for t in (*out, zf, *tables)])
+    torch.cuda.synchronize()
+    assert (outs[0][0] >= 0).sum() > 500 and (outs[0][1] >= 0).sum() > 0
+    for other in outs[1:]:
+        for i, (a, b) in enumerate(zip(outs[0], other)):
+            np.testing.assert_array_equal(bits(a.numpy()), bits(b.numpy()), err_msg=str(i))

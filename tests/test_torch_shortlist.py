@@ -22,6 +22,7 @@ from koordinator_tpu.ops import costs as JC
 from koordinator_tpu.ops import masks as JM
 from koordinator_tpu.ops import solver as J
 from koordinator_tpu_torch.ops import costs as TC
+from koordinator_tpu_torch.ops import device as TD
 from koordinator_tpu_torch.ops import masks as TM
 from koordinator_tpu_torch.ops import nominate as TN
 from koordinator_tpu_torch.ops import numa as TZ
@@ -264,12 +265,23 @@ def test_shortlist_gate_and_unported_options():
     # below the fan-out the gate is off: the zeros sentinel
     res = T.assign(pods, nodes, params, shortlist_k=2)
     np.testing.assert_array_equal(res.shortlist_fallbacks.numpy(), [0, 0])
-    for option in ("cost_transform", "device_scoring"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-            T.assign(pods, nodes, params, shortlist_k=4, **{option: object()})
-    for option in ("devices", "device_scoring"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-            T.shortlist_plan(pods, nodes, params, shortlist_k=4, **{option: object()})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+        T.assign(pods, nodes, params, shortlist_k=4, cost_transform=object())
+    # devices, ported: a slot table and its score are taken; MostAllocated
+    # turns the shortlist off (the reference's gate), a strategy the
+    # reference does not know is refused
+    devices = TD.DeviceState.create(np.full((6, 4), 100.0, np.float32),
+                                    cap_total=np.full(6, 400.0), device="cpu")
+    res = T.assign(pods, nodes, params, shortlist_k=4, devices=devices,
+                   device_scoring="LeastAllocated")
+    assert tuple(res.node_dev_slots.shape) == (6, 4)
+    assert not T._shortlist_on(4, 4, 6, "MostAllocated")
+    with pytest.raises(ValueError, match="device_scoring"):
+        T.assign(pods, nodes, params, shortlist_k=4, device_scoring="Balanced")
+    for scoring in (None, "LeastAllocated", "MostAllocated"):
+        cand, _ = T.shortlist_plan(pods, nodes, params, shortlist_k=4, devices=devices,
+                                   device_scoring=scoring)
+        assert tuple(cand.shape) == (8, 4)
     # NUMA, ported: a zone table and its aligned score are taken
     zone = np.full((6, 2, 2), 4000.0, np.float32)
     numa = TZ.NumaState.create(zone_free=zone, zone_cap=zone, policy=np.full(6, 3, np.int8),

@@ -17,6 +17,7 @@ import torch
 
 import chip_smoke
 from koordinator_tpu.ops import solver as J
+from koordinator_tpu_torch.ops import device as TD
 from koordinator_tpu_torch.ops import numa as TN
 from koordinator_tpu_torch.ops import solver as T
 from koordinator_tpu_torch.ops.convert import from_jax, from_numpy, to_numpy
@@ -257,6 +258,18 @@ def test_unported_options_raise(option):
                  "numa_scoring": "LeastAllocated"}[option]
         res = T.assign(tp, tn, tpar, **{"numa": numa, option: value})
         assert tuple(res.node_zone_free.shape) == (4, 2, 2)
+        return
+    if option in ("devices", "dev_carry", "device_scoring"):
+        # ported with the device slice: taken, and the dev tables come back
+        devices = TD.DeviceState.create(np.full((4, 2), 100.0, np.float32),
+                                        rdma_free=np.ones(4), cap_total=np.full(4, 200.0),
+                                        device="cpu")
+        value = {"devices": devices,
+                 "dev_carry": (devices.slot_free * 0.5, devices.rdma_free, torch.zeros(4)),
+                 "device_scoring": "MostAllocated"}[option]
+        res = T.assign(tp, tn, tpar, **{"devices": devices, option: value})
+        assert tuple(res.node_dev_slots.shape) == (4, 2)
+        assert tuple(res.node_rdma_free.shape) == (4,)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
         T.assign(tp, tn, tpar, **{option: object()})

@@ -20,6 +20,7 @@ import torch
 
 import chip_smoke
 from koordinator_tpu.ops import solver as J
+from koordinator_tpu_torch.ops import device as TD
 from koordinator_tpu_torch.ops import numa as TN
 from koordinator_tpu_torch.ops import solver as T
 from koordinator_tpu_torch.ops.convert import from_jax
@@ -167,9 +168,17 @@ def test_solve_stream_full_checks_its_options():
     _, (tp, tn, tpar) = both(nodes, pods, params, BATCH)
     with pytest.raises(ValueError, match="node_mask"):
         T.solve_stream_full(tp, tn, tpar, node_mask=torch.from_numpy(mask[0]))
-    for option in ("devices", "device_scoring"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-            T.solve_stream_full(tp, tn, tpar, **{option: object()})
+    # devices, ported: the slot table is taken and its carry comes back, a
+    # strategy the reference does not know is refused
+    n = tn.allocatable.shape[0]
+    devices = TD.DeviceState.create(np.full((n, 8), 100.0, np.float32),
+                                    cap_total=np.full(n, 800.0), device="cpu")
+    with pytest.raises(ValueError, match="device_scoring"):
+        T.solve_stream_full(tp, tn, tpar, devices=devices, device_scoring="Balanced")
+    slots = torch.empty_like(devices.slot_free)
+    got = T.solve_stream_full(tp, tn, tpar, devices=devices, device_scoring="LeastAllocated",
+                              dev_out=(slots, None, None))
+    assert torch.equal(slots, devices.slot_free) and got[0].shape == tp.requests.shape[:2]
     # NUMA, ported: the zone table is taken, a strategy it does not know is
     # refused
     n = tn.allocatable.shape[0]

@@ -2,12 +2,13 @@
 """Where the round-tail kernel spends its cycles, phase by phase.
 
     python3 tools/round_phases.py [--pods 512 4096] [--quota none onehot sorted] [--zones]
+                                  [--devices]
 
 Builds a copy of the round tail (``koordinator_tpu_torch/csrc/round.cuh``
 with the entry of ``round.cu``, or with ``--zones`` of ``round_zone.cu``)
 in which thread 0 reads ``clock64()`` at the start of the kernel, before
-each numbered phase comment of ``round_tail_kernel`` ("// 1. ...",
-"// 2. ...", ...) and before the state word is written, then runs it on
+each phase comment of ``round_tail_kernel`` ("// 1. ...", "// 4-5. ...",
+"// Z. ...", "// 7d. ...") and before the state word is written, then runs it on
 the card on round 0 of ``chip_smoke.py``'s kernel-check fixture (batch 0,
 and the first P / 512 batches as one round for P > 512, N = 10,000,
 D = 2). Each run's tables, assignments, active flags and state word (and
@@ -19,7 +20,10 @@ the kernel's start to each mark, and the CUDA-event time of a call.
 after ``chip_smoke.QUOTA_LATER`` batches, where the quotas bind; phase 6
 is then the quota commit). ``--zones`` runs the rounds with NUMA zones
 (``chip_smoke.numa_port_inputs``, LeastAllocated pricing, after 3
-batches). The quota commit's and the zone phase's cycles are also given by
+batches). ``--devices`` runs the rounds with devices
+(``chip_smoke.device_port_inputs``: G = 16, RDMA and FPGA; LeastAllocated
+pricing, after 3 batches; phases "D." and "7d." are the device
+acceptance and charges), without quotas. The quota commit's and the zone phase's cycles are also given by
 sub-phase ("// q1. ...", "// z1. ...": the cycles from there to the next
 mark, summed over the chain's levels). Needs a CUDA device and ``nvcc``;
 the copy is built under ``koordinator_tpu_torch/build/``.
@@ -67,7 +71,7 @@ def instrumented(src: str) -> "tuple[str, list[str], list[str]]":
         out_q.append(line)
     names, out, k = ["start"], [], 1
     for line in src[body_at:].splitlines(keepends=True):
-        m = re.match(r"  // (\d+(?:-\d+)?)\. (.*)", line)
+        m = re.match(r"  // (\d+(?:-\d+)?[a-z]?|[A-Z])\. (.*)", line)
         if m:
             out.append("  " + MARK.format(k) + "\n")
             out.append("  " + QUOTA_MARK.format(0) + "\n")
@@ -99,6 +103,7 @@ def main() -> int:
     ap.add_argument("--quota", choices=["none", "onehot", "sorted"], nargs="+",
                     default=["none"], help="the rounds to run: without quotas, or a tree")
     ap.add_argument("--zones", action="store_true", help="the rounds with NUMA zones")
+    ap.add_argument("--devices", action="store_true", help="the rounds with devices")
     args = ap.parse_args()
 
     import numpy as np
@@ -147,12 +152,29 @@ def main() -> int:
                 prod_used=res.node_prod_used)
             zf = res.node_zone_free
         zone_case = (nodes_z, pods_zs, params_z, numa_z, zf)
+    dev_case = None
+    if args.devices:
+        # the device kernel check's state: three batches committed
+        nodes_d, pods_d, params_d, dev_d = chip_smoke.device_port_inputs(torch, dev)
+        pods_ds = solver.tree_map(lambda a: a.reshape((-1, chip_smoke.BATCH) + a.shape[1:]),
+                                  pods_d)
+        carry = solver._dev_carry0(dev_d, nodes_d.allocatable.shape[0])
+        for b in range(3):
+            res = solver.assign(solver.tree_map(lambda a: a[b], pods_ds), nodes_d, params_d,
+                                devices=dev_d, dev_carry=carry, device_scoring="LeastAllocated",
+                                **chip_smoke.SOLVE)
+            nodes_d = chip_smoke.dataclasses.replace(
+                nodes_d, requested=res.node_requested, estimated_used=res.node_estimated_used,
+                prod_used=res.node_prod_used)
+            carry = (res.node_dev_slots, res.node_rdma_free, res.node_fpga_free)
+        dev_case = (nodes_d, pods_ds, params_d, dev_d, carry)
     for mode in args.quota:
         tree = None if mode == "none" else mode
         quota = None
         zone = None
-        if tree and zone_case:
-            print("FAIL: --zones runs without quotas", file=sys.stderr)
+        if sum(map(bool, (tree, zone_case, dev_case))) > 1:
+            print("FAIL: --zones and --devices each run without quotas, and not together",
+                  file=sys.stderr)
             return 1
         if tree:
             pods_s, nodes_t, params_t, quotas, mask = chip_smoke.quota_port_inputs(
@@ -181,6 +203,15 @@ def main() -> int:
                     torch, batch, nodes_t, params_t, later.used, masks.reshape(b * chip_smoke.BATCH, -1),
                     quotas.runtime)
                 top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True, mask=smask)
+            elif dev_case:
+                nodes_d, pods_ds, params_d, dev_d, carry = dev_case
+                b = max(1, p // chip_smoke.BATCH)
+                batch = solver.tree_map(lambda a: a[3 : 3 + b].reshape((-1,) + a.shape[2:]),
+                                        pods_ds)
+                spods, nom_args, terms = chip_smoke.device_round_case(
+                    torch, batch, nodes_d, carry, dev_d, params_d, 1)
+                top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True,
+                                                          devices=terms)
             elif zone_case:
                 nodes_z, pods_zs, params_z, numa_z, zf = zone_case
                 b = max(1, p // chip_smoke.BATCH)
@@ -197,10 +228,25 @@ def main() -> int:
                 rt += [quota[2], quota[3]]  # the used table and the gate, updated in place
             if zone is not None:
                 rt += [zone[0], zone[5]]  # the zone table and the picks, updated in place
+            if dev_case:
+                # the tables the device phase charges, updated in place
+                rt += [terms.slots, terms.stats] + [t for t in (terms.rdma, terms.fpga)
+                                                    if t is not None]
             want = [t.clone() for t in rt]
+
+            def dev_of(work):
+                if not dev_case:
+                    return None
+                rest = iter(work[17:])
+                return chip_smoke.dataclasses.replace(
+                    terms, slots=next(rest), stats=next(rest),
+                    rdma=None if terms.rdma is None else next(rest),
+                    fpga=None if terms.fpga is None else next(rest))
+
             commit_ops.round_tail(
                 *want[:17], 0.35, quota=None if quota is None else (quota[0], quota[1], *want[17:]),
-                zone=None if zone is None else (want[17],) + zone[1:5] + (want[18],))
+                zone=None if zone is None else (want[17],) + zone[1:5] + (want[18],),
+                dev=dev_of(want))
             n, d = nom_args[5].shape
             q_cap, levels = (0, 0) if quota is None else (quota[1].shape[0], quota[0].shape[1])
 
@@ -212,8 +258,9 @@ def main() -> int:
                     work[17].data_ptr(), zone[1].data_ptr(), zone[2].data_ptr(),
                     zone[3].data_ptr(), zone[4].data_ptr(), work[18].data_ptr(),
                     zone[1].shape[1], zone[1].shape[2]]
+                d_args = commit_ops.checked_round_devices(dev_of(work), work[0], p, n)
                 code = fn(*[t.data_ptr() for t in work[:17]], ctypes.c_float(0.35), p, n, d, 4,
-                          *q_ptrs, q_cap, levels, *z_args, kernels.stream_of(work[0]))
+                          *q_ptrs, q_cap, levels, *z_args, *d_args, kernels.stream_of(work[0]))
                 if code != 0:
                     raise RuntimeError(f"round_phases: CUDA error {code}")
 
