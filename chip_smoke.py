@@ -122,6 +122,37 @@ Phases (any failure exits non-zero and prints no result line):
     assignments and the final slot table, RDMA and FPGA counts equal to
     ``tests/data/torch_golden_device.npz``; then an eager pass through the
     plain versions, equal.
+14. the cost-transform route's kernels: ``csrc/cost_full.cu`` (every
+    pair's pre-jitter cost and flags) and ``csrc/nominate_cost.cu`` (the
+    jitter, ``+inf`` and the top-k over a transformed cost) against their
+    plain versions at P=512 and 4,096 over 10,000 nodes, plain, with a
+    node mask, with ``zone_tables(2)``' zones, with ``device_tables(4)``'
+    devices and with both, at round 0 and after 3 batches, under a veto
+    and a bias transform, with ``approx_topk`` and without: cost, flags
+    and nomination vector bitwise equal; then their times, the plain
+    versions', ``torch.topk``'s, and ``device_consumption``'s;
+15. the scheduler seam: ``BatchScheduler.schedule`` at full size on the
+    ``__graft_entry__._dryrun_production_scheduler`` recipe
+    (``production_scheduler``, ``production_pods``: 10,000 nodes, 20,480
+    pods in five chunks through ``solve_stream_full`` at K=64, then two
+    cycles on the leftovers and waves of 4,608), and with
+    ``seam_transform`` registered (8,192 pods through
+    ``_dispatch_pipelined`` and ``assign(cost_transform=)``): each
+    cycle's digest of the bound pods with their nodes and annotations and
+    of the unschedulable names equal to ``tests/data/torch_golden_seam.npz``
+    (the JAX scheduler's), the fallback ladder at level 0 with no solver
+    failure, counts zeroed before each path's cycles and read after them
+    with every kernel of the path launched; each cycle's wall time split
+    into host lowering, device solve and Reserve/commit, its graph
+    captures, host syncs in the solve and whether the resident node
+    tables kept their addresses; the busy share of each path's last
+    cycle, profiled. The recipe is built from the modules a caller
+    passes in (``SeamModules``; here the port's), so the golden's tool
+    and the tests build the reference's from the same code.
+
+A kernel's device time (``device_ms``) is read from ``torch.profiler``
+only from a window that holds all of its kernels (else "not measured",
+null), and the run fails if one falls below its bound.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -636,29 +667,65 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: each :func:`device_ms` reading: the kernel name filter, the window's
+#: calls, the matching kernels of each one-call window and of each window
+#: of ``iters`` calls, the edge markers each window lost, and whether one
+#: was taken
+DEVICE_WINDOWS: list = []
+#: the kernel of ``torch.cuda._sleep``: a profiled window opens with
+#: :data:`PAD` of them and closes with one. A window has been seen to drop
+#: the first few kernels it ran (up to eight; one-call windows all of
+#: theirs; PERF.md section 7), and the pad takes that loss
+MARKER = "spin_kernel"
+PAD = 64
+
+
 def device_ms(torch, fn, iters: int, name_part: "str | None"):
     """Mean device time per call of the CUDA kernels whose name contains
-    ``name_part`` (all of them for None), from ``torch.profiler``; None
-    when the profiler shows no device time."""
+    ``name_part`` (all of them for None), from ``torch.profiler``.
+
+    A profiled window can lose some of its kernel intervals (PERF.md
+    section 7), and a sum over what is left reads as a faster kernel. So
+    each window opens with :data:`PAD` marker kernels and closes with
+    one (:data:`MARKER`), the kernels of one
+    call are counted first (the most of two profiled calls), and a
+    window of ``iters`` calls is taken only when it holds ``iters`` times
+    as many; after three windows that do not, None (not measured). Each
+    reading is logged in :data:`DEVICE_WINDOWS`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    # a profiled window has been seen to lose its kernel intervals now and
-    # then (PERF.md section 7): one more window before "not measured"
-    for _ in range(2):
+    log = dict(kernels=name_part, iters=iters, per_call=[], windows=[], markers_lost=0,
+               taken=False)
+
+    def window(calls: int) -> list:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(PAD):
+                torch.cuda._sleep(1)
+            for _ in range(calls):
                 fn()
+            torch.cuda._sleep(1)
             torch.cuda.synchronize()
-        total = sum(
-            evt.time_range.elapsed_us()
-            for evt in prof.events()
-            if evt.device_type == DeviceType.CUDA
-            and (name_part is None or name_part in evt.name)
-        )
-        if total > 0:
-            return total / iters / 1000.0
+        kept = [evt for evt in prof.events() if evt.device_type == DeviceType.CUDA]
+        log["markers_lost"] += PAD + 1 - sum(MARKER in evt.name for evt in kept)
+        return [(evt.name, evt.time_range.elapsed_us()) for evt in kept
+                if MARKER not in evt.name and (name_part is None or name_part in evt.name)]
+
+    log["per_call"] = [len(window(1)), len(window(1))]
+    DEVICE_WINDOWS.append(log)
+    per_call = max(log["per_call"])
+    if per_call == 0:
+        return None
+    for _ in range(3):
+        events = window(iters)
+        log["windows"].append(len(events))
+        if len(events) == iters * per_call:
+            log["taken"] = True
+            return sum(t for _, t in events) / iters / 1000.0
+        log.setdefault("names", {})
+        for name, _ in events:
+            log["names"][name[:80]] = log["names"].get(name[:80], 0) + 1
     return None
 
 
@@ -2097,12 +2164,18 @@ def phase_two_cycles(torch, dev, report):
     row_bytes = sum(t.element_size() * t[0].numel() for t in to_tensors(resident))
     scatter_bytes = 2 * row_bytes * int(refresh.numel()) + 8 * int(refresh.numel())
     gather_bytes = 2 * row_bytes * int(window.numel()) + 9 * int(window.numel())
+    # the commit deltas: nine [N, D] tables read, three written, two
+    # operations an element
+    delta_bytes = 12 * sum(t.element_size() * t.numel() for t in tables) // 3
+    delta_ops = 2 * sum(t.numel() for t in tables)
     report["two_cycles"] = dict(nodes=N_NODES, batches=16, refreshed_rows=out["refreshed"],
                                 window_rows=500, graph_replayed=True, addresses_kept=True,
                                 scatter_rows_bytes=scatter_bytes,
                                 scatter_rows_bound_ms=bound_of(scatter_bytes, 0)[0],
                                 gather_rows_bytes=gather_bytes,
                                 gather_rows_bound_ms=bound_of(gather_bytes, 0)[0],
+                                apply_commit_deltas_bytes=delta_bytes,
+                                apply_commit_deltas_bound_ms=bound_of(delta_bytes, delta_ops)[0],
                                 **times)
     print(json.dumps({"two_cycles": report["two_cycles"]}), flush=True)
 
@@ -2536,9 +2609,12 @@ def phase_bigbatch(torch, dev, report):
         args, q, pre, pods_t = timing[label]
         p, d = args[2].shape
         n = args[7].shape[0]
-        iters = 30
+        iters, dev_iters = 30, 10
+        # the calls the timings make: cuda_ms' warm-up and iters, then
+        # device_ms' two counting calls and up to three windows
+        calls = iters + 1 + 2 + 3 * dev_iters
         copies = iter([([t.clone() for t in args[ROUND_MUTABLE]], q[2].clone(), q[3].clone())
-                       for _ in range(2 * iters + 2)])
+                       for _ in range(calls)])
         fixed = args[:ROUND_MUTABLE.start]
 
         def t_round():
@@ -2561,9 +2637,9 @@ def phase_bigbatch(torch, dev, report):
             replaces="koordinator_tpu/ops/solver.py:1204", launches=None, kernels_per_launch=1,
             max_abs_err=checks["round_tail_big"], ms=cuda_ms(torch, t_round, iters),
             plain_ms=cuda_ms(torch, t_round_plain, 2), bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, device_ms=device_ms(torch, t_round, 10, "round_tail_kernel"),
+            library_ms=None, device_ms=device_ms(torch, t_round, dev_iters, "round_tail_kernel"),
             library_device_ms=None, bytes=nbytes, operations=nops))
-        gang_copies = iter([solver.tree_map(lambda a: a.clone(), pre) for _ in range(62)])
+        gang_copies = iter([solver.tree_map(lambda a: a.clone(), pre) for _ in range(calls)])
         after = solver.enforce_gangs(pre, pods_t)
         rolled = (pre.assignment >= 0) & (after.assignment < 0)
         n_rolled = int(rolled.sum())
@@ -2581,7 +2657,7 @@ def phase_bigbatch(torch, dev, report):
             plain_ms=cuda_ms(torch, lambda: solver.enforce_gangs_plain(pre, pods_t), 2),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             device_ms=device_ms(torch, lambda: solver._enforce_gangs_(next(gang_copies), pods_t),
-                                10, "enforce_gangs_kernel"),
+                                dev_iters, "enforce_gangs_kernel"),
             library_device_ms=None, bytes=g_bytes, operations=g_ops))
         launches = next(ln["launches"] for ln in lines if ln["at"] == label)
         report["kernels"][-2]["launches"] = launches.get("round_tail_big")
@@ -3176,6 +3252,563 @@ def phase_device_streams(torch, dev, report):
     report["device_streams"] = lines
 
 
+SEAM_NODES = 10_000
+SEAM_PODS = 20_480
+#: the later cycles' waves of new pods: two chunks of the default bucket
+#: (the scanned path), touching few enough nodes that the next refresh
+#: scatters their rows in place
+SEAM_WAVE = 4_608
+#: the transformer cycle: 8,192 pods through ``_dispatch_pipelined``
+SEAM_TRANSFORM_PODS = 8_192
+GOLDEN_SEAM = os.path.join(ROOT, "tests", "data", "torch_golden_seam.npz")
+
+
+@dataclasses.dataclass(frozen=True)
+class SeamModules:
+    """The modules of one package that the seam's recipe builds from, each
+    under its path in the package. The caller imports them from its own
+    package (:func:`port_modules` here; the golden's tool and the tests
+    import the reference's), so this script never names the reference."""
+    extension: object           # api/extension.py
+    types: object               # api/types.py
+    topology: object            # core/topology.py
+    snapshot: object            # core/snapshot.py
+    nodenumaresource: object    # scheduler/plugins/nodenumaresource.py
+    deviceshare: object         # scheduler/plugins/deviceshare.py
+    elasticquota: object        # scheduler/plugins/elasticquota.py
+    reservation: object         # scheduler/plugins/reservation.py
+    batch_solver: object        # scheduler/batch_solver.py
+
+
+def port_modules() -> SeamModules:
+    """The port's :class:`SeamModules`."""
+    from koordinator_tpu_torch.api import extension, types
+    from koordinator_tpu_torch.core import snapshot, topology
+    from koordinator_tpu_torch.scheduler import batch_solver
+    from koordinator_tpu_torch.scheduler.plugins import (
+        deviceshare,
+        elasticquota,
+        nodenumaresource,
+        reservation,
+    )
+
+    return SeamModules(extension, types, topology, snapshot, nodenumaresource, deviceshare,
+                       elasticquota, reservation, batch_solver)
+
+
+def production_scheduler(mods: SeamModules, n_nodes: int, n_pods: int,
+                         batch_bucket: int = 4096, device=None, selectors: bool = False):
+    """The JAX package's ``__graft_entry__._dryrun_production_scheduler``
+    cluster built from ``mods`` (one package's :class:`SeamModules`), so
+    both schedulers see the same snapshot and managers:
+    ``n_nodes`` nodes of 16 CPUs and 64 GiB with a 2-socket SingleNUMANode
+    topology and 4 GPUs, the ``dry-team`` quota (sized for the GPU pods
+    of :func:`production_pods`' ``n_pods``) and the ``dry-resv``
+    reservation, its ghost placed. ``device``
+    goes to the scheduler when given (the port's); ``selectors`` labels
+    the nodes ``zone=a``/``b``."""
+    ext, t = mods.extension, mods.types
+    topo = mods.topology.CPUTopology.uniform(
+        sockets=2, numa_per_socket=1, cores_per_numa=8, threads_per_core=1)
+    numa_mod = mods.nodenumaresource
+    snap = mods.snapshot.ClusterSnapshot()
+    numa = numa_mod.NUMAManager(snap)
+    dm = mods.deviceshare.DeviceManager(snap)
+    for i in range(n_nodes):
+        name = f"n{i:05d}"
+        labels = {"zone": "ab"[i % 2]} if selectors else {}
+        snap.upsert_node(t.Node(
+            meta=t.ObjectMeta(name=name, labels=labels),
+            status=t.NodeStatus(allocatable={ext.RES_CPU: 16000, ext.RES_MEMORY: 65536}),
+        ))
+        numa.register_node(name, topo, numa_mod.NUMAPolicy.SINGLE_NUMA_NODE,
+                           memory_per_zone_mib=32768)
+        dm.upsert_device(t.Device(
+            meta=t.ObjectMeta(name=name),
+            devices=[t.DeviceInfo(dev_type="gpu", minor=g, numa_node=g // 2)
+                     for g in range(4)],
+        ))
+    n_gpu = n_pods - 1 - (n_pods - 1) * 3 // 8
+    gqm = mods.elasticquota.GroupQuotaManager(
+        snap.config,
+        cluster_total={ext.RES_CPU: 16000 * n_nodes, ext.RES_MEMORY: 65536 * n_nodes},
+    )
+    gqm.upsert_quota(t.ElasticQuota(
+        meta=t.ObjectMeta(name="dry-team"),
+        min={ext.RES_CPU: 4000 * n_gpu, ext.RES_MEMORY: 8192 * n_gpu},
+        max={ext.RES_CPU: 8000 * n_gpu, ext.RES_MEMORY: 16384 * n_gpu},
+    ))
+    bs = mods.batch_solver
+    kw = {} if device is None else {"device": device}
+    sched = bs.BatchScheduler(snap, bs.LoadAwareArgs(), quotas=gqm, numa=numa, devices=dm,
+                              batch_bucket=batch_bucket, **kw)
+    sched.extender.monitor.stop_background()
+    rm = mods.reservation.ReservationManager(sched)
+    sched.reservations = rm
+    rm.add(t.Reservation(
+        meta=t.ObjectMeta(name="dry-resv"),
+        requests={ext.RES_CPU: 2000, ext.RES_MEMORY: 4096},
+        owners=[t.ReservationOwner(label_selector={"app": "resv-owner"})],
+    ))
+    if rm.schedule_pending() < 1:
+        raise RuntimeError("the reservation's ghost was not placed")
+    return sched
+
+
+def production_pods(mods: SeamModules, n_pods: int, prefix: str = "", owner: bool = True,
+                    selectors: bool = False, gang: int = 0):
+    """The recipe's pods: 3/8 LSR cpuset pods (4 CPUs, priority 9500), the
+    rest GPU pods under the ``dry-team`` quota (2 CPUs, 2 GPUs, priority
+    9000) and, with ``owner``, the reservation's owner last (one pod of
+    ``n_pods`` either way); names start with ``prefix``. ``selectors``
+    gives every fifth GPU pod a ``zone=b`` node selector; ``gang`` > 0
+    adds a Strict gang of that many 16-CPU pods, all required, before the
+    owner."""
+    ext, t = mods.extension, mods.types
+    n_lsr = (n_pods - 1) * 3 // 8
+    n_gpu = n_pods - int(owner) - n_lsr
+    pods = []
+    for i in range(n_lsr):
+        pods.append(t.Pod(
+            meta=t.ObjectMeta(name=f"{prefix}lsr{i:05d}", labels={ext.LABEL_POD_QOS: "LSR"}),
+            spec=t.PodSpec(requests={ext.RES_CPU: 4000, ext.RES_MEMORY: 4096}, priority=9500),
+        ))
+    for i in range(n_gpu):
+        spec = t.PodSpec(requests={ext.RES_CPU: 2000, ext.RES_MEMORY: 4096, ext.RES_GPU: 2},
+                         priority=9000)
+        if selectors and i % 5 == 0:
+            spec.node_selector = {"zone": "b"}
+        pods.append(t.Pod(
+            meta=t.ObjectMeta(name=f"{prefix}gpu{i:05d}",
+                              labels={ext.LABEL_QUOTA_NAME: "dry-team"}),
+            spec=spec,
+        ))
+    for i in range(gang):
+        pods.append(t.Pod(
+            meta=t.ObjectMeta(name=f"{prefix}gang{i:03d}", annotations={
+                ext.ANNOTATION_GANG_NAME: f"{prefix}dry-gang",
+                ext.ANNOTATION_GANG_MIN_AVAILABLE: str(gang),
+            }),
+            spec=t.PodSpec(requests={ext.RES_CPU: 16000, ext.RES_MEMORY: 8192},
+                           priority=9200),
+        ))
+    if owner:
+        pods.append(t.Pod(
+            meta=t.ObjectMeta(name=f"{prefix}owner", labels={"app": "resv-owner"}),
+            spec=t.PodSpec(requests={ext.RES_CPU: 2000, ext.RES_MEMORY: 4096}, priority=9000),
+        ))
+    return pods
+
+
+def seam_transform(cost):
+    """The seam's BeforeScore transform (torch): node n costs 2 points
+    more where ``n % 8 == 3`` and is vetoed (``+inf``) where
+    ``n % 97 == 0``. Exact in float32 on any device: the costs are whole
+    numbers, and the bias a power of two.
+    ``tools/make_torch_golden.py:seam_transform_jax`` is the same in
+    ``jnp``."""
+    import torch
+
+    n = torch.arange(cost.shape[1], device=cost.device)
+    cost = cost + torch.where(n % 8 == 3, 2.0, 0.0)
+    return torch.where((n % 97 == 0)[None, :], torch.inf, cost)
+
+
+def seam_outcome(ext, out) -> dict:
+    """What a scheduling cycle decided: each bound pod's node and its
+    ``ANNOTATION_RESOURCE_STATUS``, ``ANNOTATION_DEVICE_ALLOCATED`` and
+    ``ANNOTATION_RESERVATION_ALLOCATED``, and the unschedulable pods'
+    names, sorted."""
+    bound = sorted(
+        (p.meta.name, node,
+         p.meta.annotations.get(ext.ANNOTATION_RESOURCE_STATUS, ""),
+         p.meta.annotations.get(ext.ANNOTATION_DEVICE_ALLOCATED, ""),
+         p.meta.annotations.get(ext.ANNOTATION_RESERVATION_ALLOCATED, ""))
+        for p, node in out.bound
+    )
+    return {"bound": bound, "unschedulable": sorted(p.meta.name for p in out.unschedulable)}
+
+
+def seam_digest(outcome: dict) -> dict:
+    """The sha256 of a cycle's bound pods with their annotations and of
+    its unschedulable names, with their counts."""
+    def sha(obj):
+        return hashlib.sha256(json.dumps(obj).encode()).hexdigest()
+
+    return {"bound": len(outcome["bound"]), "bound_sha256": sha(outcome["bound"]),
+            "unschedulable": len(outcome["unschedulable"]),
+            "unschedulable_sha256": sha(outcome["unschedulable"])}
+
+
+def seam_cycles(mods: SeamModules, n_nodes: int = SEAM_NODES, n_pods: int = SEAM_PODS, waves: int = 2,
+                wave: int = SEAM_WAVE, device=None, transform=None, schedule=None):
+    """The seam's cycles on the scheduler of ``mods``' package: the recipe's ``n_pods``
+    pods, then ``waves`` cycles each on the previous cycle's leftovers and
+    ``wave`` new pods of the same mix (``w2-``, ``w3-``, ...), with
+    ``transform`` registered as the BeforeScore cost transformer.
+    ``schedule(sched, pods)`` runs a cycle (default ``sched.schedule``).
+    Returns (scheduler, each cycle's :func:`seam_outcome`)."""
+    ext = mods.extension
+    sched = production_scheduler(mods, n_nodes, n_pods, device=device)
+    if transform is not None:
+        sched.extender.register_cost_transformer(transform)
+    schedule = schedule or (lambda s, pods: s.schedule(pods))
+    out = schedule(sched, production_pods(mods, n_pods))
+    outcomes = [seam_outcome(ext, out)]
+    for w in range(2, waves + 2):
+        pods = list(out.unschedulable) + production_pods(mods, wave, prefix=f"w{w}-",
+                                                         owner=False)
+        out = schedule(sched, pods)
+        outcomes.append(seam_outcome(ext, out))
+    return sched, outcomes
+
+
+def transform_port_inputs(torch, device, n_pods: int = 16 * BATCH):
+    """The cost-transform kernel checks' inputs: ``rich_fixture(1,
+    N_NODES, n_pods)`` with ``zone_tables(NUMA_SEED)``' zones,
+    ``device_tables(DEVICE_SEED)``' devices and ``quota_draws``' node
+    constraints (a quarter of the pods held to a quarter of the nodes), as
+    the port's tensors on ``device``: (nodes, flat pods, params,
+    NumaState, DeviceState, mask [n_pods, N] bool)."""
+    from koordinator_tpu_torch.ops.device import DeviceState
+    from koordinator_tpu_torch.ops.numa import NumaState
+
+    nodes, pods, params = rich_fixture(1, N_NODES, n_pods)
+    nodes, numa, required = zone_tables(NUMA_SEED, nodes, n_pods)
+    pods, devices = device_tables(DEVICE_SEED, nodes, pods)
+    _, constrained, zone = quota_draws(2, 2, n_pods)
+    nodes_t, pods_t, params_t = port_inputs(torch, nodes, dict(pods, numa_required=required),
+                                            params, device)
+    mask = torch.from_numpy(node_mask_np(constrained, zone, N_NODES)).to(device)
+    return (nodes_t, pods_t, params_t, NumaState.create(**numa, device=device),
+            DeviceState.create(**devices, device=device), mask)
+
+
+#: the cost-transform checks' transforms (torch, any device): a veto of
+#: every fifth node, and a bias of a power of two on every eighth
+TRANSFORMS = {
+    "veto": lambda torch: lambda c: torch.where(
+        (torch.arange(c.shape[1], device=c.device) % 5 == 0)[None, :], torch.inf, c),
+    "bias": lambda torch: lambda c: c * 2.0 - torch.where(
+        torch.arange(c.shape[1], device=c.device) % 8 == 3, 4.0, 0.0),
+}
+#: the pricing terms of each cost-transform check
+TRANSFORM_MODES = ("plain", "mask", "numa", "devices", "numa+devices")
+
+
+def phase_cost_transform_kernels(torch, dev, report):
+    """Phase 14, the cost-transform route's kernels: ``csrc/cost_full.cu``
+    (the materialized pre-jitter cost and the flags) and
+    ``csrc/nominate_cost.cu`` (the jitter, ``+inf`` where infeasible and
+    the top-k, over a transformed cost), each against its plain version on
+    the same inputs, at P=512 and 4,096 over 10,000 nodes (D=2) with
+    ``transform_port_inputs``' terms in each of ``TRANSFORM_MODES`` (the
+    NUMA and device scores LeastAllocated), at the start and after 3
+    batches, under each of ``TRANSFORMS``, with ``approx_topk`` and
+    without: the cost buffer, the flags and the nomination vector bitwise
+    equal. Then their times at P=4,096 with NUMA and devices (the seam's
+    transformer cycle), the plain versions' and ``torch.topk``'s."""
+    from koordinator_tpu_torch import kernels
+    from koordinator_tpu_torch.ops import cost_full as cf
+    from koordinator_tpu_torch.ops import solver
+    from koordinator_tpu_torch.ops.device import DeviceTerms
+    from koordinator_tpu_torch.ops.numa import ZoneTerms
+
+    nodes_t, pods_t, params_t, numa_t, dev_t, mask_t = transform_port_inputs(torch, dev)
+    n = nodes_t.allocatable.shape[0]
+    pods_s = solver.tree_map(lambda a: a.reshape((-1, BATCH) + a.shape[1:]), pods_t)
+    zone0 = numa_t.zone_free
+    carry0 = solver._dev_carry0(dev_t, n)
+    later, zone, carry = nodes_t, zone0, carry0
+    for b in range(3):
+        res = solver.assign(solver.tree_map(lambda a: a[b], pods_s), later, params_t,
+                            numa=numa_t, numa_carry=zone, devices=dev_t, dev_carry=carry,
+                            numa_scoring="LeastAllocated", device_scoring="LeastAllocated", **SOLVE)
+        later = dataclasses.replace(later, requested=res.node_requested,
+                                    estimated_used=res.node_estimated_used,
+                                    prod_used=res.node_prod_used)
+        zone, carry = res.node_zone_free, (res.node_dev_slots, res.node_rdma_free,
+                                           res.node_fpga_free)
+    cases = [("start, P=512", slice(3 * BATCH, 4 * BATCH), nodes_t, zone0, carry0),
+             ("after 3 batches, P=512", slice(4 * BATCH, 5 * BATCH), later, zone, carry),
+             ("after 3 batches, P=4096", slice(8 * BATCH, 16 * BATCH), later, zone, carry)]
+    checks = {"cost_full": 0.0, "nominate_cost": 0.0}
+    seen, timing = [], None
+    for label, rows, state, zfree, tables in cases:
+        pods_b = solver.tree_map(lambda a: a[rows], pods_t)
+        order, spods, bind, thr, pthr = solver._round_setup(pods_b, state, params_t, numa=True,
+                                                            devices=True)
+        nom_args = (spods.requests, spods.estimate, spods.is_prod, bind, spods.valid,
+                    state.allocatable, state.requested, state.estimated_used, state.prod_used,
+                    state.metric_fresh, state.schedulable, state.cpu_amp, thr, pthr,
+                    params_t.score_weights)
+        for mode in TRANSFORM_MODES:
+            kw = {}
+            if mode == "mask":
+                kw["mask"] = (mask_t[rows], order)
+            if "numa" in mode:
+                kw["zones"] = ZoneTerms.batch_start(zfree, numa_t.zone_cap, numa_t.policy,
+                                                    spods.numa_required, 1)
+            if "devices" in mode:
+                slots, rdma, fpga = (t.clone() for t in tables)
+                kw["devices"] = DeviceTerms.batch_start(slots, rdma, fpga, dev_t.cap_total,
+                                                        spods, 1)
+            kernels.reset_launches()
+            got = cf.cost_full(*nom_args, **kw)
+            if kernels.launches.get("cost_full", 0) != 1:
+                fail(f"cost_full ({label}, {mode}): the kernel did not launch")
+            want = cf.cost_full_plain(*nom_args, **kw)
+            checks["cost_full"] = max(checks["cost_full"], check_equal(
+                f"cost_full ({label}, {mode})",
+                [("cost", got[0], want[0]), ("feasible", got[1], want[1])]))
+            feas = int(got[1].sum())
+            if feas == 0 or feas == got[1].numel():
+                fail(f"cost_full ({label}, {mode}): the check needs feasible and infeasible "
+                     "pairs")
+            for tname, make in TRANSFORMS.items():
+                cost = make(torch)(got[0]).contiguous()
+                for approx in (True, False):
+                    kc, ki = cf.nominate_cost(cost, got[1], 4, 4.0, approx)
+                    pc, pi = cf.nominate_cost_plain(cost, got[1], 4, 4.0, approx)
+                    kc, ki, pc, pi = (t.cpu().numpy() for t in (kc, ki, pc, pi))
+                    if not (bits_equal(kc, pc) and np.array_equal(ki, pi)):
+                        fail(f"nominate_cost ({label}, {mode}, {tname}, approx={approx}): "
+                             "differs from nominate_cost_plain")
+                    fin = np.isfinite(kc)
+                    checks["nominate_cost"] = max(checks["nominate_cost"],
+                                                  max_abs(kc[fin], pc[fin]))
+            seen.append(dict(at=label, mode=mode, feasible_share=feas / got[1].numel()))
+            if label.endswith("4096") and mode == "numa+devices":
+                timing = (spods, nom_args, kw, bind)
+    print(f"cost-transform checks: bitwise equal to the plain versions {json.dumps(checks)}; "
+          f"{json.dumps(seen)}", flush=True)
+
+    spods, nom_args, kw, bind = timing
+    p, d = spods.requests.shape
+    pairs = p * n
+    cost, feas_buf = cf.cost_full(*nom_args, **kw)
+    feas = int(feas_buf.sum())
+    fresh_nodes = int(nom_args[9].sum())
+    node_row = 6 * d * 4 + 2 + 4
+    zones, devs = kw["zones"], kw["devices"]
+    zone_bytes = n * (2 * zones.cap.shape[1] * zones.cap.shape[2] * 4
+                      + (1 + zones.cap.shape[2] + zones.cap.shape[1]) * 4)
+    in_bytes = (n * node_row + p * (2 * d * 4 + 4) + d * 4 + zone_bytes
+                + n * (4 * 4 + 3 * 4) + p * (4 * 4 + 4))
+    # every pair's score, no jitter: pair_ops less the jitter's 7 a pair
+    a_ops = (pair_ops(d, pairs, int(bind.sum()) * n,
+                      (int(spods.valid.sum()) + int(spods.is_prod.sum())) * fresh_nodes, pairs)
+             - 7 * pairs + zone_pair_ops(zones, pairs) + device_pair_ops(devs, pairs))
+    b_ops = pairs * 10
+    transformed = TRANSFORMS["veto"](torch)(cost).contiguous()
+    top = (torch.empty((p, 4), dtype=torch.float32, device=dev),
+           torch.empty((p, 4), dtype=torch.int32, device=dev))
+
+    def add_row(name, source, replaces, fn, plain, kname, nbytes, nops, iters, library=None):
+        b_ms, b_by = bound_of(nbytes, nops)
+        report["kernels"].append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=None,
+            kernels_per_launch=1, max_abs_err=checks[name],
+            ms=cuda_ms(torch, fn, iters), plain_ms=cuda_ms(torch, plain, 3),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=None if library is None else cuda_ms(torch, library, iters),
+            device_ms=device_ms(torch, fn, 20, kname),
+            library_device_ms=None if library is None else device_ms(torch, library, 20, None),
+            bytes=nbytes, operations=nops,
+        ))
+
+    add_row("cost_full", "koordinator_tpu_torch/csrc/cost_full.cu",
+            "koordinator_tpu/ops/solver.py:864",
+            lambda: cf.cost_full(*nom_args, **kw, out=(cost, feas_buf)),
+            lambda: cf.cost_full_plain(*nom_args, **kw), "cost_full_kernel",
+            pairs * 5 + in_bytes, a_ops, 50)
+    add_row("nominate_cost", "koordinator_tpu_torch/csrc/nominate_cost.cu",
+            "koordinator_tpu/ops/solver.py:1121",
+            lambda: cf.nominate_cost(transformed, feas_buf, 4, 4.0, True, out=top),
+            lambda: cf.nominate_cost_plain(transformed, feas_buf, 4, 4.0, True),
+            "nominate_cost_kernel", pairs * 5 + p * 4 * 8, b_ops, 50,
+            library=lambda: torch.topk(transformed, 4, dim=1, largest=False))
+    # device_consumption (torch ops of each batch's device set-up) at the
+    # seam's chunk: two int32/float32 reads and two float32 writes a pod,
+    # three operations
+    from koordinator_tpu_torch.ops.device import device_consumption
+
+    dc_bytes, dc_ops = p * 16, p * 3
+    dc = (spods.gpu_whole, spods.gpu_share)
+    report["device_consumption"] = dict(
+        pods=p, ms=cuda_ms(torch, lambda: device_consumption(*dc), 200),
+        device_ms=device_ms(torch, lambda: device_consumption(*dc), 50, None),
+        bound_ms=bound_of(dc_bytes, dc_ops)[0], bound_by=bound_of(dc_bytes, dc_ops)[1])
+    print(json.dumps({"device_consumption": report["device_consumption"]}), flush=True)
+    report["cost_transform_checks"] = seen
+    kernels.reset_launches()
+
+
+def phase_seam(torch, dev, report):
+    """Phase 15, the scheduler seam at full size: the port's
+    ``BatchScheduler.schedule`` on the production recipe
+    (:func:`seam_cycles`: 10,000 nodes, 20,480 pods in five chunks of the
+    default bucket of 4,096 through ``_dispatch_scanned`` and
+    ``solve_stream_full`` at K=64, then two cycles each on the leftovers
+    and a wave of 4,608), and the recipe with :func:`seam_transform`
+    registered (8,192 pods through ``_dispatch_pipelined`` and
+    ``assign(cost_transform=)``). Each cycle's digest of the bound pods
+    with their nodes and annotations and of the unschedulable names must
+    equal ``tests/data/torch_golden_seam.npz`` (the JAX scheduler's);
+    ``_fallback_level`` must stay 0 and no solver failure may be noted.
+    Launch counts are zeroed just before each path's first cycle and read
+    just after its last, and every kernel of the path must have launched.
+    For each cycle: wall time, split into host lowering, the device solve
+    (the solver call, synchronized) and Reserve/commit; graph captures and
+    their time; host syncs inside the solve; whether the resident node
+    tables kept their addresses from the cycle before; and the busy share
+    of each path's last cycle, profiled."""
+    import warnings
+
+    from koordinator_tpu_torch import kernels
+    from koordinator_tpu_torch.ops import solver
+    from koordinator_tpu_torch.scheduler import batch_solver as bs
+
+    with np.load(GOLDEN_SEAM) as f:
+        golden = {k: f[k].item() for k in f.files}
+    stream_full, assign, graph_init = solver.solve_stream_full, bs.assign, \
+        solver._StreamGraph.__init__
+    captures = {"count": 0, "s": 0.0}
+
+    def counted_init(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph_init(self, *a, **k)
+        torch.cuda.synchronize()
+        captures["count"] += 1
+        captures["s"] += time.perf_counter() - t0
+
+    def timed(fn, cur, key, solve=False):
+        """``fn`` adding its seconds to ``cur[key]``; a solve is
+        synchronized and its host syncs counted."""
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if solve:
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = fn(*a, **k)
+                finally:
+                    if solve:
+                        torch.cuda.set_sync_debug_mode(0)
+            if solve:
+                torch.cuda.synchronize()
+                cur["host_syncs_in_solve"] += sum(is_sync_warning(w) for w in caught)
+            cur[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    def resident_ptrs(sched):
+        state = sched._resident_nodes
+        return [getattr(state, f.name).data_ptr() for f in dataclasses.fields(state)
+                if getattr(state, f.name) is not None]
+
+    paths = {}
+    for path, kw in (("scanned", {}),
+                     ("transformer", dict(n_pods=SEAM_TRANSFORM_PODS, waves=0,
+                                          transform=seam_transform))):
+        stats, failures, ptrs = [], [], []
+        last = 2 if path == "scanned" else 0
+
+        def schedule(sched, pods):
+            cur = dict(lowering_s=0.0, solve_s=0.0, commit_s=0.0, host_syncs_in_solve=0)
+            for name in ("pod_batch", "node_state", "quota_state", "_constraint_states",
+                         "_node_constraint_mask"):
+                setattr(sched, name, timed(getattr(type(sched), name).__get__(sched), cur,
+                                           "lowering_s"))
+            sched._commit = timed(type(sched)._commit.__get__(sched), cur, "commit_s")
+
+            def note(level, exc):
+                failures.append(repr(exc))
+                type(sched)._note_solver_failure(sched, level, exc)
+
+            sched._note_solver_failure = note
+            solver.solve_stream_full = timed(stream_full, cur, "solve_s", solve=True)
+            bs.assign = timed(assign, cur, "solve_s", solve=True)
+            cap0 = dict(captures)
+            if not stats:
+                kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prof = contextlib.nullcontext()
+            if len(stats) == last:
+                from torch.profiler import ProfilerActivity, profile
+
+                prof = profile(activities=[ProfilerActivity.CUDA])
+            with prof as window:
+                out = sched.schedule(pods)
+                torch.cuda.synchronize()
+            cur["wall_s"] = time.perf_counter() - t0
+            cur["other_host_s"] = (cur["wall_s"] - cur["lowering_s"] - cur["solve_s"]
+                                   - cur["commit_s"])
+            cur["graph_captures"] = captures["count"] - cap0["count"]
+            cur["capture_s"] = captures["s"] - cap0["s"]
+            ptrs.append(resident_ptrs(sched))
+            cur["resident_addresses_kept"] = len(ptrs) > 1 and ptrs[-1] == ptrs[-2]
+            if window is not None:
+                busy = profile_busy_ms(torch, window)
+                cur["profiled_busy_ms"] = busy
+                cur["profiled_busy_share"] = (busy / (cur["wall_s"] * 1e3)
+                                              if isinstance(busy, float) else busy)
+            if sched._fallback_level != 0 or sched._cycle_solver_failed or failures:
+                fail(f"seam {path} cycle {len(stats) + 1}: the fallback ladder moved "
+                     f"(level {sched._fallback_level}): {failures}")
+            stats.append(cur)
+            return out
+
+        solver._StreamGraph.__init__ = counted_init
+        try:
+            t0 = time.perf_counter()
+            _, outcomes = seam_cycles(port_modules(), device=dev, schedule=schedule, **kw)
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+            total_s = time.perf_counter() - t0
+        finally:
+            solver.solve_stream_full, bs.assign = stream_full, assign
+            solver._StreamGraph.__init__ = graph_init
+        keys = (["transform"] if path == "transformer"
+                else [f"c{c}" for c in range(1, len(outcomes) + 1)])
+        for key, outcome, cur in zip(keys, outcomes, stats):
+            digest = seam_digest(outcome)
+            want = {k: golden[f"{key}_{k}"] for k in digest}
+            if digest != want:
+                fail(f"seam {path} cycle {key}: {digest} differs from the JAX golden {want}")
+            cur.update(bound=digest["bound"], unschedulable=digest["unschedulable"])
+        need = (("cost_full", "nominate_cost") if path == "transformer"
+                else ("shortlist_build", "shortlist_round", "nominate"))
+        need += ("round_tail", "enforce_gangs", "quota_gate", "zone_prep", "device_prep")
+        missing = [k for k in need if launches.get(k, 0) == 0]
+        if missing:
+            fail(f"seam {path}: kernels of the path never launched: {missing} ({launches})")
+        if path == "scanned" and not stats[-1]["resident_addresses_kept"]:
+            fail("seam: the last cycle's refresh moved the resident node tables")
+        paths[path] = launches
+        print(f"seam_{path}: " + json.dumps(dict(
+            cycles=stats, launches=launches, setup_and_cycles_s=total_s,
+            golden="bitwise equal to the JAX scheduler's digests")), flush=True)
+    for row in report["kernels"]:
+        if row["name"] in ("cost_full", "nominate_cost"):
+            row["launches"] = paths["transformer"][row["name"]]
+    report["seam_launches"] = paths
+    kernels.reset_launches()
+
+
+def profile_busy_ms(torch, prof):
+    """Device busy milliseconds of a profiled window: the sum of its CUDA
+    kernel and copy intervals, or "not measured" when it shows none."""
+    from torch.autograd import DeviceType
+
+    busy = sum(evt.time_range.elapsed_us() for evt in prof.events()
+               if evt.device_type == DeviceType.CUDA) / 1e3
+    return busy if busy > 0 else "not measured"
+
+
 def main() -> int:
     import torch
 
@@ -3223,6 +3856,16 @@ def main() -> int:
     phase_numa_streams(torch, dev, report)
     phase_device_kernels(torch, dev, report)
     phase_device_streams(torch, dev, report)
+    phase_cost_transform_kernels(torch, dev, report)
+    phase_seam(torch, dev, report)
+    taken = sum(w["taken"] for w in DEVICE_WINDOWS)
+    print(f"device_ms: {taken} of {len(DEVICE_WINDOWS)} readings whole; the others "
+          f"(not measured): {json.dumps([w for w in DEVICE_WINDOWS if not w['taken']])}",
+          flush=True)
+    below = [(row["name"], row["device_ms"], row["bound_ms"]) for row in report["kernels"]
+             if row.get("device_ms") is not None and row["device_ms"] < row["bound_ms"]]
+    if below:
+        fail(f"device times below their bound (name, device_ms, bound_ms): {below}")
     print(smi_line, flush=True)
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(json.dumps({

@@ -6,6 +6,8 @@ into ``build/lib<name>-<hash>.so`` on first use, then loaded with
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and never
 served stale. Every C entry returns
 ``cudaGetLastError()`` after its launch; :func:`check` raises on non-zero.
+A kernel that cannot be built, loaded or launched raises
+:class:`KernelError`.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -85,6 +87,12 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "device_prep": {
         "koord_device_prep": [_P] * 2 + [_I] * 2 + [_P],
     },
+    "cost_full": {
+        "koord_cost_full": [_P] * 15 + [_I] * 3 + [_P] * 9 + [_I] * 3 + [_P] * 9 + [_I, _P],
+    },
+    "nominate_cost": {
+        "koord_nominate_cost": [_P] * 2 + [_I] * 3 + [_F, _I, _I] + [_P] * 4,
+    },
 }
 
 #: Kernel launches by wrapper name, eager or replayed from a CUDA graph.
@@ -98,6 +106,16 @@ captured: collections.Counter = collections.Counter()
 replays: collections.Counter = collections.Counter()
 
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+class KernelError(RuntimeError):
+    """A hand kernel could not be built or loaded, or the card refused or
+    failed its launch. The scheduler's fallback ladder never absorbs it."""
+
+
+class KernelArgumentError(KernelError, ValueError):
+    """A launch refused before it reached the card: a tensor off the
+    launch's CUDA device, of the wrong dtype or size, or not contiguous."""
 
 
 def reset_launches() -> None:
@@ -138,7 +156,7 @@ def nvcc() -> str:
     path = Path(cuda_home) / "bin" / "nvcc"
     if path.exists():
         return str(path)
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    raise KernelError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
 def library_path(src: Path) -> Path:
@@ -177,7 +195,7 @@ def build(names: "list[str] | None" = None) -> dict[str, float]:
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+        raise KernelError("kernel build failed:\n" + "\n".join(failures))
     return seconds
 
 
@@ -196,7 +214,10 @@ def library(name: str) -> ctypes.CDLL:
     src = CSRC / f"{name}.cu"
     if not library_path(src).exists():
         build([name])
-    lib = ctypes.CDLL(str(library_path(src)))
+    try:
+        lib = ctypes.CDLL(str(library_path(src)))
+    except OSError as exc:
+        raise KernelError(f"cannot load {library_path(src).name}: {exc}") from exc
     for entry, argtypes in SIGNATURES[name].items():
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
@@ -210,7 +231,7 @@ def library(name: str) -> ctypes.CDLL:
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.koord_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+        raise KernelError(f"{what}: CUDA error {code} ({msg})")
 
 
 def stream_of(t: torch.Tensor) -> int:
@@ -221,8 +242,8 @@ def stream_of(t: torch.Tensor) -> int:
 def checked_ptrs(what: str, tensors, dtypes, sizes) -> list:
     """The data pointers of a launch's tensors (None stays None), after
     checking that each lies on the first tensor's CUDA device, has its
-    dtype and number of elements and is contiguous; raises ValueError on
-    any other tensor. The checks are cheap attribute reads: a launch's host
+    dtype and number of elements and is contiguous; raises
+    :class:`KernelArgumentError` (a ValueError) on any other tensor. The checks are cheap attribute reads: a launch's host
     time is most of a small kernel's time on the card."""
     index = tensors[0].get_device()
     ptrs = []
@@ -231,12 +252,12 @@ def checked_ptrs(what: str, tensors, dtypes, sizes) -> list:
             ptrs.append(None)
             continue
         if index < 0 or t.get_device() != index:
-            raise ValueError(f"{what}: every tensor must lie on one CUDA device")
+            raise KernelArgumentError(f"{what}: every tensor must lie on one CUDA device")
         if t.dtype is not dtype or t.numel() != size:
-            raise ValueError(
+            raise KernelArgumentError(
                 f"{what}: expected {dtype} of {size} elements, got {t.dtype} {tuple(t.shape)}"
             )
         if not t.is_contiguous():
-            raise ValueError(f"{what}: tensors must be contiguous")
+            raise KernelArgumentError(f"{what}: tensors must be contiguous")
         ptrs.append(t.data_ptr())
     return ptrs

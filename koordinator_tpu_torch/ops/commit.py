@@ -445,7 +445,9 @@ def checked_round_devices(dev, like, p: int, n: int) -> list:
         return [None] * 8 + [0]
     g = dev.slots.shape[1]
     if not 1 <= g <= MAX_SLOTS or dev.slots.shape[0] != n:
-        raise ValueError(f"round_tail: the slot table must be [N={n}, G] with G in 1..{MAX_SLOTS}")
+        raise kernels.KernelArgumentError(
+            f"round_tail: the slot table must be [N={n}, G] with G in 1..{MAX_SLOTS}"
+        )
     f32, i32 = torch.float32, torch.int32
     return kernels.checked_ptrs(
         "round_tail",
@@ -483,7 +485,7 @@ def round_tail(
     p, k = top_cost.shape
     n, d = alloc.shape
     if not 1 <= d <= 8:
-        raise ValueError(f"round_tail: D={d} must be in 1..8")
+        raise kernels.KernelArgumentError(f"round_tail: D={d} must be in 1..8")
     pk, pd, nd = p * k, p * d, n * d
     ptrs = kernels.checked_ptrs(
         "round_tail", args, _ROUND_DTYPES,
@@ -505,7 +507,9 @@ def round_tail(
         zone_free, zone_cap, policy, zone_most, required, pod_zone = zone
         _, nz, dn = zone_cap.shape
         if not (1 <= nz <= 8 and 1 <= dn <= min(4, d)) or zone_free.shape != zone_cap.shape:
-            raise ValueError(f"round_tail: zones [N, Z={nz}, DN={dn}] need Z <= 8, DN <= min(4, D)")
+            raise kernels.KernelArgumentError(
+                f"round_tail: zones [N, Z={nz}, DN={dn}] need Z <= 8, DN <= min(4, D)"
+            )
         z_args = kernels.checked_ptrs(
             "round_tail", (top_cost, zone_free, zone_cap, policy, zone_most, required, pod_zone),
             (_F32, _F32, _F32, torch.int8, _BOOL, _BOOL, _I32),
@@ -513,7 +517,7 @@ def round_tail(
         )[1:] + [nz, dn]
     d_args = checked_round_devices(dev, top_cost, p, n)
     if p > MAX_ROUND_PODS:
-        raise ValueError(f"round_tail: P={p} must be at most {MAX_ROUND_PODS}")
+        raise kernels.KernelArgumentError(f"round_tail: P={p} must be at most {MAX_ROUND_PODS}")
     name, nbytes = route(top_cost.get_device(), p, d, q_cap, levels, dn, dev is not None)
     lib = kernels.library(name)
     stream = kernels.stream_of(top_cost)

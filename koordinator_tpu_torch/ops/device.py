@@ -219,7 +219,7 @@ def device_prep(slot_free):
         return device_prep_plain(slot_free)
     n, g = slot_free.shape
     if not 1 <= g <= MAX_SLOTS:
-        raise ValueError(f"device_prep: G={g} must be in 1..{MAX_SLOTS}")
+        raise kernels.KernelArgumentError(f"device_prep: G={g} must be in 1..{MAX_SLOTS}")
     stats = torch.empty((n, STATS), dtype=torch.float32, device=slot_free.device)
     ptrs = kernels.checked_ptrs("device_prep", (slot_free, stats),
                                 (torch.float32, torch.float32), (n * g, n * STATS))

@@ -226,7 +226,9 @@ def checked_mask(what: str, mask, p: int, n: int) -> tuple:
         return (None, None)
     table, rows = mask
     if table.dim() < 2 or table.shape[-1] != n or rows.shape != (p,):
-        raise ValueError(f"{what}: the node mask must be [..., N={n}] with [P={p}] rows")
+        raise kernels.KernelArgumentError(
+            f"{what}: the node mask must be [..., N={n}] with [P={p}] rows"
+        )
     return tuple(kernels.checked_ptrs(
         what, (table, rows), (torch.bool, torch.int64), (table.numel(), p)
     ))
@@ -238,9 +240,9 @@ def checked(args, k: int) -> list:
     p, d = req.shape
     n = alloc.shape[0]
     if not 1 <= k <= min(MAX_K, n):
-        raise ValueError(f"nominate: k={k} must be in 1..min({MAX_K}, N={n})")
+        raise kernels.KernelArgumentError(f"nominate: k={k} must be in 1..min({MAX_K}, N={n})")
     if not 1 <= d <= 16:
-        raise ValueError(f"nominate: D={d} must be in 1..16")
+        raise kernels.KernelArgumentError(f"nominate: D={d} must be in 1..16")
     pd, nd = p * d, n * d
     return kernels.checked_ptrs(
         "nominate", args, _DTYPES, (pd, pd, p, p, p, nd, nd, nd, nd, n, n, n, nd, nd, d)
@@ -308,7 +310,9 @@ def nominate(
     else:
         mode = 2 if zones is not None else int(mask is not None)
     if mode >= 2 and d > 8:
-        raise ValueError(f"nominate: D={d} with NUMA zones or devices must be in 1..8")
+        raise kernels.KernelArgumentError(
+            f"nominate: D={d} with NUMA zones or devices must be in 1..8"
+        )
     chunk = chunk_of(lib, p, n, d, k, req.get_device(), mode)
     out_cost, out_idx, code = launch(
         lib, ptrs, p, n, d, k, nomination_jitter, approx_topk, chunk, req.device,

@@ -202,8 +202,9 @@ def zone_prep(zone_free, zone_cap, policy):
         return zone_prep_plain(zone_free, zone_cap, policy)
     n, z, dn = zone_cap.shape
     if not (1 <= z <= MAX_ZONES and 1 <= dn <= MAX_ZONE_DIMS):
-        raise ValueError(f"zone_prep: Z={z} must be in 1..{MAX_ZONES} and DN={dn} in "
-                         f"1..{MAX_ZONE_DIMS}")
+        raise kernels.KernelArgumentError(
+            f"zone_prep: Z={z} must be in 1..{MAX_ZONES} and DN={dn} in 1..{MAX_ZONE_DIMS}"
+        )
     snapshot = torch.empty_like(zone_free)
     side = torch.empty((n, 1 + dn + z), dtype=torch.int32, device=zone_free.device)
     ptrs = kernels.checked_ptrs(
@@ -237,12 +238,16 @@ def checked_zones(what: str, zones: "ZoneTerms | None", p: int, n: int, d: int) 
         return [None] * 4 + [0, 0, 0]
     _, nz, dn = zones.cap.shape
     if zones.free.shape != (n, nz, dn) or zones.cap.shape != (n, nz, dn):
-        raise ValueError(f"{what}: zone tables must be [N={n}, Z, DN]")
+        raise kernels.KernelArgumentError(f"{what}: zone tables must be [N={n}, Z, DN]")
     if not (1 <= nz <= MAX_ZONES and 1 <= dn <= min(MAX_ZONE_DIMS, d)):
-        raise ValueError(f"{what}: Z={nz} must be in 1..{MAX_ZONES} and DN={dn} in "
-                         f"1..min({MAX_ZONE_DIMS}, D={d})")
+        raise kernels.KernelArgumentError(
+            f"{what}: Z={nz} must be in 1..{MAX_ZONES} and DN={dn} in "
+            f"1..min({MAX_ZONE_DIMS}, D={d})"
+        )
     if zones.side is None:
-        raise ValueError(f"{what}: the zone terms have no side table (ZoneTerms.batch_start)")
+        raise kernels.KernelArgumentError(
+            f"{what}: the zone terms have no side table (ZoneTerms.batch_start)"
+        )
     ptrs = kernels.checked_ptrs(
         what, (zones.free, zones.cap, zones.side, zones.required),
         (torch.float32, torch.float32, torch.int32, torch.bool),

@@ -97,11 +97,11 @@ def shortlist_build(
     p, d = req.shape
     n = alloc.shape[0]
     if not 1 <= shortlist_k <= min(MAX_SHORTLIST, n - 1):
-        raise ValueError(
+        raise kernels.KernelArgumentError(
             f"shortlist_build: K={shortlist_k} must be in 1..min({MAX_SHORTLIST}, N-1={n - 1})"
         )
     if not 1 <= d <= 8:
-        raise ValueError(f"shortlist_build: D={d} must be in 1..8")
+        raise kernels.KernelArgumentError(f"shortlist_build: D={d} must be in 1..8")
     pd, nd = p * d, n * d
     ptrs = kernels.checked_ptrs(
         "shortlist_build", args, _BUILD_DTYPES,
@@ -217,9 +217,11 @@ def shortlist_round(
     n = alloc.shape[0]
     shortlist_k = plan_cand.shape[1]
     if not 1 <= k <= min(MAX_K, shortlist_k):
-        raise ValueError(f"shortlist_round: k={k} must be in 1..min({MAX_K}, K={shortlist_k})")
+        raise kernels.KernelArgumentError(
+            f"shortlist_round: k={k} must be in 1..min({MAX_K}, K={shortlist_k})"
+        )
     if not 1 <= d <= 8:
-        raise ValueError(f"shortlist_round: D={d} must be in 1..8")
+        raise kernels.KernelArgumentError(f"shortlist_round: D={d} must be in 1..8")
     pd, nd = p * d, n * d
     ptrs = kernels.checked_ptrs(
         "shortlist_round", args + (word, counts, state), _ROUND_DTYPES + (_I32,) * 3,

@@ -14,7 +14,9 @@ through a stream), :func:`enforce_gangs` (:1858-1987, the
 CUDA kernel ``csrc/gangs.cu`` on the card, one launch a batch), the
 candidate shortlist (:func:`shortlist_plan`, :1547-1657) and the
 resident-row helpers :func:`scatter_rows` / :func:`gather_rows`
-(:248-283). Each round:
+(:248-283), and the BeforeScore ``cost_transform`` (:942-946), whose
+route materializes the round's [P, N] cost (:mod:`.cost_full`). Each
+round:
 
 1. nominate — every still-unassigned pod's masked, jittered LoadAware cost
    over all nodes (with quotas only the pods with headroom along their
@@ -24,7 +26,12 @@ resident-row helpers :func:`scatter_rows` / :func:`gather_rows`
    ``csrc/shortlist_build.cu``), and a round nominates over them
    (:func:`.shortlist.shortlist_round`, ``csrc/shortlist_round.cu``),
    falling back to the full axis only when the exactness check fails —
-   a branch taken on the device;
+   a branch taken on the device. With ``cost_transform`` the round
+   instead writes every pair's pre-jitter cost and feasibility
+   (:func:`.cost_full.cost_full`, ``csrc/cost_full.cu``), runs the
+   transform on that buffer, and nominates over the result
+   (:func:`.cost_full.nominate_cost`, ``csrc/nominate_cost.cu``); the
+   shortlist is off, as in the reference;
 2. the round tail — the pod with the r-th highest priority among active
    pods takes its (r mod k)-th best finite node; pods stably sorted by
    node, segmented prefix sums, acceptance under capacity, thresholds and
@@ -58,6 +65,7 @@ import torch
 
 from .. import kernels, resolve_device
 from . import commit as commit_ops
+from . import cost_full as cost_ops
 from . import nominate as nominate_ops
 from . import quota as quota_ops
 from . import shortlist as shortlist_ops
@@ -378,11 +386,6 @@ def _priority_order(pods: PodBatch) -> torch.Tensor:
     return torch.sort(-pods.priority, stable=True).indices
 
 
-_NOT_PORTED = {
-    "cost_transform": "queue 1 item 5 (transformers and cost_transform)",
-}
-
-
 def _zone_most(numa: NumaState) -> torch.Tensor:
     """The nodes' MostAllocated zone-pick flags: ``zone_most``, or False
     everywhere when it is None (``solver.py:785-789``)."""
@@ -428,21 +431,15 @@ def _zones_of(numa, zone_free, numa_scoring):
     return (zone_free, numa.zone_cap, numa.policy, _zone_most(numa), _scoring(numa_scoring))
 
 
-def _reject_unported(**options) -> None:
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name} is not ported yet: ROADMAP.md {_NOT_PORTED[name]}"
-            )
-
-
-def _shortlist_on(shortlist_k, topk: int, n: int, device_scoring=None) -> bool:
-    """The reference's static gate (``solver.py:856-862``) for the options
-    the port takes: a shortlist of K nodes with k <= K < N, where k is the
-    nomination fan-out, and no MostAllocated device scoring (it rewards
-    usage, so an excluded node's cost can fall below its bound)."""
+def _shortlist_on(shortlist_k, topk: int, n: int, device_scoring=None,
+                  cost_transform=None) -> bool:
+    """The reference's static gate (``solver.py:856-862``): a shortlist of
+    K nodes with k <= K < N, where k is the nomination fan-out, no cost
+    transform (an arbitrary rewrite breaks the bound) and no MostAllocated
+    device scoring (it rewards usage, so an excluded node's cost can fall
+    below its bound)."""
     return (shortlist_k is not None and min(topk, n) <= shortlist_k < n
-            and device_scoring != "MostAllocated")
+            and cost_transform is None and device_scoring != "MostAllocated")
 
 
 def assign(
@@ -492,9 +489,12 @@ def assign(
     fpga_free [N]) replaces the state's tables (a chunk's carry);
     ``SolveResult.node_dev_slots``, ``node_rdma_free`` and
     ``node_fpga_free`` then hold the post-commit tables (zeros for a count
-    the state does not track). ``cost_transform`` raises
-    ``NotImplementedError``."""
-    _reject_unported(cost_transform=cost_transform)
+    the state does not track). ``cost_transform``, a torch callable
+    ``[P, N] float32 -> [P, N] float32`` (the scheduler's BeforeScore
+    chain), rewrites each round's cost of the priority-sorted pods over
+    every node before the jitter, as ``solver.py:942-946`` does; it turns
+    the shortlist off. Its route keeps a [P, N] cost and flag buffer for
+    the batch (:mod:`.cost_full`)."""
     p, d = pods.requests.shape
     n = nodes.allocatable.shape[0]
     dev = nodes.allocatable.device
@@ -523,6 +523,7 @@ def assign(
         shortlist_k=shortlist_k, quota=quota, node_mask=node_mask,
         zones=_zones_of(numa, zone_free, numa_scoring),
         devs=_devices_of(devices, dev_tables, device_scoring), device_scoring=device_scoring,
+        cost_transform=cost_transform,
     )
     if dev_tables is None:
         dev_tables = (torch.zeros((n, 1), dtype=torch.float32, device=dev),
@@ -570,6 +571,7 @@ def _assign_(
     zones=None,
     devs=None,
     device_scoring=None,
+    cost_transform=None,
 ):
     """:func:`assign`'s rounds and gang rollback with ``nodes``' tables
     (``requested``, ``estimated_used``, ``prod_used``) updated in place.
@@ -609,7 +611,15 @@ def _assign_(
     place and refresh the stats of the nodes they charge, and the gang
     rollback refunds. ``device_scoring`` is the option as given: the
     shortlist is off under "MostAllocated", with or without devices, as in
-    the reference."""
+    the reference.
+
+    ``cost_transform`` (a torch callable) takes the materialized-cost
+    route: each trip writes the pairs' pre-jitter cost and flags into
+    buffers kept for the batch (:func:`.cost_full.cost_full`), calls the
+    transform on the cost, and nominates over its result
+    (:func:`.cost_full.nominate_cost`); both kernels return at once after
+    the fixed point, the transform then runs on the stale buffer and its
+    result is not read. The shortlist is off."""
     p = pods.requests.shape[0]
     n = nodes.allocatable.shape[0]
     dev = nodes.allocatable.device
@@ -647,7 +657,13 @@ def _assign_(
     if devs is not None:
         dterms = DeviceTerms.batch_start(*devs[:4], spods, devs[4])
     fallbacks = None
-    if _shortlist_on(shortlist_k, topk, n, device_scoring):
+    if cost_transform is not None:
+        # the batch's buffers, never a round's: 5 bytes a pair
+        cost_buf = (torch.empty((p, n), dtype=torch.float32, device=dev),
+                    torch.empty((p, n), dtype=torch.uint8, device=dev))
+        top_buf = (torch.empty((p, k), dtype=torch.float32, device=dev),
+                   torch.empty((p, k), dtype=torch.int32, device=dev))
+    elif _shortlist_on(shortlist_k, topk, n, device_scoring):
         plan = shortlist_ops.shortlist_build(
             spods.requests, spods.estimate, spods.is_prod, bind_mask, *node_args,
             shortlist_k, nomination_jitter, mask, zones=terms, devices=dterms,
@@ -661,7 +677,13 @@ def _assign_(
         # the pricing kernels take the gate; the round tail ranks the
         # active pods
         pod_args = (spods.requests, spods.estimate, spods.is_prod, bind_mask, gate)
-        if fallbacks is None:
+        if cost_transform is not None:
+            cost_ops.cost_full(*pod_args, *node_args, mask=mask, zones=terms, devices=dterms,
+                               state=state, out=cost_buf)
+            cost = _transformed(cost_transform, cost_buf[0])
+            top_cost, top_idx = cost_ops.nominate_cost(
+                cost, cost_buf[1], k, nomination_jitter, approx_topk, state=state, out=top_buf)
+        elif fallbacks is None:
             top_cost, top_idx = nominate_ops.nominate(
                 *pod_args, *node_args, k, nomination_jitter, approx_topk, state=state,
                 mask=mask, zones=terms, devices=dterms,
@@ -708,6 +730,19 @@ def _assign_(
     return assignment, state[1].clone(), fallbacks, pod_zone, zone_charge
 
 
+def _transformed(cost_transform, cost: torch.Tensor) -> torch.Tensor:
+    """``cost_transform(cost)``, checked: a float32 tensor of ``cost``'s
+    shape on its device, made contiguous."""
+    out = cost_transform(cost)
+    if (not isinstance(out, torch.Tensor) or out.dtype is not torch.float32
+            or out.shape != cost.shape or out.device != cost.device):
+        raise ValueError(
+            f"cost_transform must return a float32 tensor of shape {tuple(cost.shape)} "
+            f"on {cost.device}"
+        )
+    return out.contiguous()
+
+
 def _zone_charges(pods: PodBatch, cpu_amp, assignment, pod_zone, dn: int) -> torch.Tensor:
     """[P, DN] the zone charge each zoned pod applied (``solver.py:1500-1516``):
     its zone-scoped request, CPU times ``max(cpu_amp, 1)`` of its node for
@@ -747,6 +782,7 @@ def solve_stream(
     ``fallbacks_out``, a [B, 2] int32 tensor, each batch's
     ``shortlist_fallbacks`` (zeros with the shortlist off), as
     ``solve_stream_full`` returns them (``solver.py:1748-1855``).
+    ``cost_transform`` is :func:`assign`'s, applied in every batch.
 
     On CUDA tensors one batch's :func:`assign` — the priority sort, the
     gathers, ``max_rounds`` trips of nomination and round tail, the gang
@@ -754,11 +790,14 @@ def solve_stream(
     replay taking its batch's pods through a device index the graph
     advances (:class:`_StreamGraph`); nothing is read back to the host.
     ``cuda_graph=False`` runs the batches eagerly instead (the plain route
-    on the card, whose plain versions read through the host)."""
-    _reject_unported(cost_transform=cost_transform)
+    on the card, whose plain versions read through the host). With a
+    ``cost_transform`` the batches always run eagerly: the user's callable
+    need not be capturable. They still read nothing back to the host."""
     kw = dict(max_rounds=max_rounds, round_quantum=round_quantum, topk=topk,
               nomination_jitter=nomination_jitter, approx_topk=approx_topk,
               shortlist_k=shortlist_k)
+    if cost_transform is not None:
+        kw["cost_transform"] = cost_transform
     tables, (asg, placed, rounds, fallbacks, _), qused, _, _ = _run_stream(
         pods_stacked, nodes, params, quotas, None, None, kw, cuda_graph
     )
@@ -861,7 +900,7 @@ def _run_stream(pods_stacked, nodes, params, quotas, node_mask, numa, kw, cuda_g
     or None, device tables or None)."""
     dev = nodes.allocatable.device
     b, p = pods_stacked.requests.shape[:2]
-    if dev.type == "cuda" and cuda_graph:
+    if dev.type == "cuda" and cuda_graph and kw.get("cost_transform") is None:
         return _StreamGraph.run(pods_stacked, nodes, params, quotas, node_mask, numa, kw,
                                 devices)
     bufs = _StreamBuffers(nodes, quotas, numa, b, p, kw, devices)
@@ -885,7 +924,8 @@ class _StreamBuffers:
     def __init__(self, nodes: NodeState, quotas, numa, b: int, p: int, kw: dict,
                  devices=None):
         n = nodes.allocatable.shape[0]
-        shortlist = _shortlist_on(kw["shortlist_k"], kw["topk"], n, kw.get("device_scoring"))
+        shortlist = _shortlist_on(kw["shortlist_k"], kw["topk"], n, kw.get("device_scoring"),
+                                  kw.get("cost_transform"))
         dev = nodes.allocatable.device
         self.tables = [nodes.requested.clone(), nodes.estimated_used.clone(),
                        nodes.prod_used.clone()]
@@ -1234,7 +1274,7 @@ def _enforce_gangs_(result: SolveResult, pods: PodBatch, slot_exists=None) -> No
     if slots is not None:
         g = slots.shape[1]
         if not 1 <= g <= MAX_SLOTS:
-            raise ValueError(f"enforce_gangs: G={g} must be in 1..{MAX_SLOTS}")
+            raise kernels.KernelArgumentError(f"enforce_gangs: G={g} must be in 1..{MAX_SLOTS}")
         cap = None
         if slot_exists is not None:
             # the real slots of a node are its first cap_total / 100

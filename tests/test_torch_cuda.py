@@ -39,8 +39,13 @@ pods alone and with quotas and zones, the device refunds up to 16,384
 pods at G = 8 to 32, ``solve_stream_full`` with the dev carry against
 the device golden, and with devices, quotas, a node mask and zones
 together against the plain routes. Rounds and rollbacks of 32,768 pods,
-and the 32,768-pod golden. Tolerance: none — the kernels round as the plain
-versions do, so results must be bitwise equal.
+and the 32,768-pod golden. The cost-transform route: the materialized
+cost and flags at D = 1 to 16 with each term and a node mask, the
+nomination over a given cost with non-finite entries, NaNs of both signs
+and infeasible rows, both returning at once when ``done`` is set, and
+``assign`` and ``solve_stream`` with a transform against their CPU runs.
+Tolerance: none — the kernels round as the plain versions do, so results
+must be bitwise equal.
 """
 
 import dataclasses
@@ -1264,3 +1269,162 @@ def test_stream_full_with_every_option_matches_plain(cuda):
     for other in outs[1:]:
         for i, (a, b) in enumerate(zip(outs[0], other)):
             np.testing.assert_array_equal(bits(a.numpy()), bits(b.numpy()), err_msg=str(i))
+
+
+from koordinator_tpu_torch.ops import cost_full as tcf  # noqa: E402
+
+
+@pytest.mark.parametrize("p, n, d", [(1, 1, 1), (37, 300, 3), (512, 10_000, 2), (70, 5003, 8),
+                                     (33, 257, 16)])
+@pytest.mark.parametrize("zones, devices, mask", [(0, False, False), (0, False, True),
+                                                  (2, False, False), (0, True, False),
+                                                  (2, True, True)])
+def test_cost_full_kernel_matches_plain(cuda, p, n, d, zones, devices, mask):
+    """The materialized cost and flags (``csrc/cost_full.cu``) of every
+    pair, infeasible pairs included, with each term and a node mask."""
+    if (zones or devices) and d > 8:
+        pytest.skip("NUMA zones and devices take D <= 8")
+    arrays, numa, required = zone_inputs(p * 3 + n + d, p, n, d, max(zones, 1))
+    dev_tables, demand = device_demand(p + n, p, n, 8)
+    rows = np.random.default_rng(n).random((p, n)) < 0.7
+    outs = []
+    for device in (cuda, "cpu"):
+        args = [torch.from_numpy(a).to(device) for a in arrays]
+        kw = {}
+        if zones:
+            kw["zones"] = tnuma.ZoneTerms.batch_start(
+                torch.from_numpy(numa["zone_free"]).to(device),
+                torch.from_numpy(numa["zone_cap"]).to(device),
+                torch.from_numpy(numa["policy"]).to(device),
+                torch.from_numpy(required).to(device), 1)
+        if devices:
+            kw["devices"] = device_terms(dev_tables, demand, device, 2)
+        if mask:
+            kw["mask"] = (torch.from_numpy(rows).to(device),
+                          torch.arange(p, device=device).flip(0))
+        before = kernels.launches["cost_full"]
+        outs.append([t.cpu() for t in tcf.cost_full(*args, **kw)])
+        assert kernels.launches["cost_full"] == before + (device == cuda)
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(bits(a.numpy()), bits(b.numpy()))
+
+
+@pytest.mark.parametrize("p, n, k", [(1, 1, 1), (5, 31, 3), (64, 1000, 4), (130, 10_001, 8),
+                                     (4096, 10_000, 4), (9, 33, 8)])
+@pytest.mark.parametrize("jitter, approx", [(4.0, True), (4.0, False), (0.0, True)])
+def test_nominate_cost_kernel_matches_plain(cuda, p, n, k, jitter, approx):
+    """The nomination over a given cost (``csrc/nominate_cost.cu``) on
+    costs with ``+inf``, ``-inf``, ``-0.0``/``+0.0`` ties, NaNs of both
+    signs, infeasible pairs and whole rows infeasible."""
+    if k > n:
+        pytest.skip("k <= N")
+    rng = np.random.default_rng(p + n + k)
+    cost = rng.integers(-50, 3, (p, n)).astype(np.float32)
+    pick = rng.random((p, n))
+    cost[pick < 0.02] = np.inf
+    cost[(pick >= 0.02) & (pick < 0.03)] = -np.inf
+    cost[(pick >= 0.03) & (pick < 0.035)] = np.nan
+    cost[(pick >= 0.035) & (pick < 0.04)] = -np.nan
+    cost[(pick >= 0.04) & (pick < 0.06)] = -0.0
+    feas = (rng.random((p, n)) < 0.8).astype(np.uint8)
+    feas[::7] = 0
+    # both on the card: its adds give every NaN the canonical bits
+    args = (torch.from_numpy(cost).to(cuda), torch.from_numpy(feas).to(cuda), k, jitter, approx)
+    state = torch.zeros(2, dtype=torch.int32, device=cuda)
+    before = kernels.launches["nominate_cost"]
+    outs = [[t.cpu().numpy() for t in fn(*args, state=state)]
+            for fn in (tcf.nominate_cost, tcf.nominate_cost_plain)]
+    assert kernels.launches["nominate_cost"] == before + 1
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])
+    np.testing.assert_array_equal(bits(outs[0][0]), bits(outs[1][0]))
+
+
+def test_cost_transform_kernels_return_at_once_when_done(cuda):
+    arrays = nominate_inputs(3, 40, 100, 2)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    state = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+    out = (torch.full((40, 100), 7.0, device=cuda),
+           torch.full((40, 100), 9, dtype=torch.uint8, device=cuda))
+    tcf.cost_full(*args, state=state, out=out)
+    top = (torch.full((40, 4), 5.0, device=cuda), torch.full((40, 4), 3, dtype=torch.int32,
+                                                             device=cuda))
+    tcf.nominate_cost(out[0], out[1], 4, 4.0, True, state=state, out=top)
+    torch.cuda.synchronize()
+    assert (out[0] == 7.0).all() and (out[1] == 9).all()
+    assert (top[0] == 5.0).all() and (top[1] == 3).all()
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_assign_with_a_transform_on_card_matches_cpu(cuda, approx):
+    """``assign(cost_transform=)`` through the two kernels on the card
+    equals its CPU run (the plain versions), NUMA zones and devices on;
+    every trip runs, the shortlist is off."""
+    nodes, pods, params = chip_smoke.rich_fixture(3, 300, 512)
+    nodes, numa, required = chip_smoke.zone_tables(2, nodes, 512)
+    pods, devices = chip_smoke.device_tables(4, nodes, pods)
+    transform = chip_smoke.TRANSFORMS["veto"](torch)
+
+    def run(device):
+        return to_numpy(T.assign(
+            from_numpy(T.PodBatch, device=device, **pods, numa_required=required),
+            from_numpy(T.NodeState, device=device, **nodes),
+            from_numpy(T.SolverParams, device=device, **params),
+            numa=tnuma.NumaState.create(**numa, device=device),
+            devices=tdev.DeviceState.create(**devices, device=device),
+            numa_scoring="LeastAllocated", device_scoring="LeastAllocated",
+            max_rounds=12, approx_topk=approx, shortlist_k=64, cost_transform=transform,
+        ))
+
+    kernels.reset_launches()
+    got = run(cuda)
+    assert kernels.launches["cost_full"] == kernels.launches["nominate_cost"] == 12
+    assert kernels.launches["shortlist_build"] == 0
+    want = run("cpu")
+    for f in ("assignment", "rounds_used", "node_requested", "node_estimated_used",
+              "node_prod_used", "node_zone_free", "pod_zone", "node_dev_slots"):
+        np.testing.assert_array_equal(bits(got[f]), bits(want[f]), err_msg=f)
+
+
+def test_solve_stream_with_a_transform_runs_eagerly_on_card(cuda):
+    """With a transform the stream captures no graph, and equals its CPU
+    run."""
+    nodes, pods, params = chip_smoke.rich_fixture(5, 300, 4 * 256, batch=256)
+    transform = chip_smoke.TRANSFORMS["bias"](torch)
+    outs = []
+    for device in (cuda, "cpu"):
+        kernels.reset_launches()
+        asg, final, placed, _ = T.solve_stream(
+            from_numpy(T.PodBatch, device=device, **chip_smoke.stacked(pods, 256)),
+            from_numpy(T.NodeState, device=device, **nodes),
+            from_numpy(T.SolverParams, device=device, **params), max_rounds=12,
+            approx_topk=True, cost_transform=transform)
+        if device == cuda:
+            assert not kernels.replays and kernels.launches["cost_full"] == 4 * 12
+        outs.append((asg.cpu().numpy(), final.requested.cpu().numpy(), placed.cpu().numpy()))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(bits(a), bits(b))
+
+
+def test_a_refused_launch_fails_the_scheduling_cycle(cuda, monkeypatch):
+    """A launch the card refuses (every C entry answers
+    ``cudaErrorInvalidValue``) propagates out of
+    ``BatchScheduler.schedule``: the fallback ladder stays at level 0 and
+    the cycle's work never moves to the host reference."""
+    class Refusing:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            if name.startswith("koord_") and name != "koord_error_string":
+                return lambda *_args: 1
+            return getattr(self._lib, name)
+
+    mods = chip_smoke.port_modules()
+    sched = chip_smoke.production_scheduler(mods, 64, 200, 64, device=cuda)
+    loaded = kernels.library
+    monkeypatch.setattr(kernels, "library", lambda name: Refusing(loaded(name)))
+    with pytest.raises(kernels.KernelError, match="CUDA error 1"):
+        sched.schedule(chip_smoke.production_pods(mods, 200))
+    assert sched._fallback_level == 0 and not sched._cycle_solver_failed
+    assert sched.extender.registry.get("solver_fallback_total").value(level="1") == 0.0

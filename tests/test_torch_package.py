@@ -45,12 +45,19 @@ def run_python(code, cwd=ROOT, args=()):
 
 
 def test_runs_with_jax_blocked_and_loads_no_reference_module():
+    """Every module of the port imports with ``jax`` blocked; the solver
+    and a scheduling cycle of the seam's recipe run on the CPU."""
     code = """
-import sys
+import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax"):
     sys.modules[name] = None  # any import of it raises ImportError
 import numpy as np
 import chip_smoke
+import koordinator_tpu_torch
+modules = [m.name for m in pkgutil.walk_packages(koordinator_tpu_torch.__path__,
+                                                 "koordinator_tpu_torch.")]
+for name in modules:
+    importlib.import_module(name)
 from koordinator_tpu_torch.ops import convert, solver
 nodes, pods, params = chip_smoke.headline_inputs(chip_smoke.build_fixture(0, 64, 128))
 res = solver.assign(
@@ -59,8 +66,10 @@ res = solver.assign(
     convert.from_numpy(solver.SolverParams, device="cpu", **params),
     max_rounds=12, approx_topk=True,
 )
+_, (cycle,) = chip_smoke.seam_cycles(chip_smoke.port_modules(), 16, 40, waves=0, device="cpu")
 loaded = [m for m in sys.modules if m.split(".")[0] in ("koordinator_tpu", "bench")]
 assert not loaded, loaded
+assert len(modules) > 50 and len(cycle["bound"]) == 40, (len(modules), cycle)
 print("placed", int((res.assignment >= 0).sum()))
 """
     out = run_python(code)
@@ -84,6 +93,12 @@ def test_no_import_of_jax_or_the_jax_package(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: import {name}"
+    # no import the scan cannot see: a module named at run time
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Name):
+            assert node.id not in ("importlib", "__import__"), f"{path}: {node.id}"
+        elif isinstance(node, ast.alias):
+            assert node.name.split(".")[0] != "importlib", f"{path}: import {node.name}"
 
 
 def test_constructors_default_to_cuda_and_raise_without_it():

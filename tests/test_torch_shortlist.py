@@ -265,8 +265,10 @@ def test_shortlist_gate_and_unported_options():
     # below the fan-out the gate is off: the zeros sentinel
     res = T.assign(pods, nodes, params, shortlist_k=2)
     np.testing.assert_array_equal(res.shortlist_fallbacks.numpy(), [0, 0])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        T.assign(pods, nodes, params, shortlist_k=4, cost_transform=object())
+    # a cost transform (ported) turns the shortlist off, as in the reference
+    res = T.assign(pods, nodes, params, shortlist_k=4, cost_transform=lambda c: c + 1.0)
+    np.testing.assert_array_equal(res.shortlist_fallbacks.numpy(), [0, 0])
+    assert not T._shortlist_on(4, 4, 6, cost_transform=lambda c: c)
     # devices, ported: a slot table and its score are taken; MostAllocated
     # turns the shortlist off (the reference's gate), a strategy the
     # reference does not know is refused

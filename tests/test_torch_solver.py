@@ -271,5 +271,9 @@ def test_unported_options_raise(option):
         assert tuple(res.node_dev_slots.shape) == (4, 2)
         assert tuple(res.node_rdma_free.shape) == (4,)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        T.assign(tp, tn, tpar, **{option: object()})
+    # cost_transform, ported with the cost-transform route: an identity
+    # transform gives the solve without one
+    want = T.assign(tp, tn, tpar)
+    got = T.assign(tp, tn, tpar, cost_transform=lambda cost: cost)
+    for f in ("assignment", "node_requested", "node_estimated_used", "node_prod_used"):
+        np.testing.assert_array_equal(getattr(want, f).numpy(), getattr(got, f).numpy())

@@ -45,13 +45,26 @@
   ``bench_device_gang_20k`` and ``_build_device_stream``) the cells of
   ``chip_smoke.DEVICE_CELLS``, kept as their placed counts, summed rounds
   and fallback counts and the sha256 of their assignments and final
-  tables.
+  tables;
+- ``tests/data/torch_golden_seam.npz``: the scheduler seam. The JAX
+  package's ``BatchScheduler.schedule`` on ``chip_smoke``'s production
+  recipe (``production_scheduler`` and ``production_pods``), kept as
+  each cycle's :func:`chip_smoke.seam_digest` (bound and unschedulable
+  counts and the sha256 of the bound pods with their nodes and
+  annotations, and of the unschedulable names): ``small``, one cycle at
+  ``SEAM_SMALL`` (64 nodes, 200 pods, buckets of 64) with
+  ``SEAM_SMALL_CASE``'s node selectors and Strict gang; ``c1``-``c3``, the
+  full-size cycles of :func:`chip_smoke.seam_cycles` (10,000 nodes,
+  20,480 pods, then two waves of 4,608 on the leftovers); ``transform``,
+  one full-size cycle of 8,192 pods with :func:`seam_transform_jax`
+  registered (about a minute on the CPU).
 
     python tools/make_torch_golden.py              # every file
     python tools/make_torch_golden.py --quota      # the quota file only
     python tools/make_torch_golden.py --bigbatch   # the big-batch file only
     python tools/make_torch_golden.py --numa       # the NUMA file only
     python tools/make_torch_golden.py --device     # the device file only
+    python tools/make_torch_golden.py --seam       # the seam file only
 
 The NUMA file's final zone tables come from a copy of
 ``solve_stream_full``'s scan that also returns its zone carry
@@ -556,6 +569,62 @@ def device_arrays() -> dict:
     return out
 
 
+#: the small seam case: nodes, pods and the batch bucket
+SEAM_SMALL = (64, 200, 64)
+#: and its recipe's options: every fifth GPU pod held to ``zone=b`` nodes
+#: (the scanned path's stacked mask) and a Strict gang of 70 that rolls back
+SEAM_SMALL_CASE = dict(selectors=True, gang=70)
+SEAM_PATH = chip_smoke.GOLDEN_SEAM
+
+
+def seam_transform_jax(cost):
+    """:func:`chip_smoke.seam_transform` in ``jnp``: node n costs 2 points
+    more where ``n % 8 == 3`` and is vetoed where ``n % 97 == 0``."""
+    import jax.numpy as jnp
+
+    n = jnp.arange(cost.shape[1])
+    cost = cost + jnp.where(n % 8 == 3, 2.0, 0.0)
+    return jnp.where((n % 97 == 0)[None, :], jnp.inf, cost)
+
+
+def seam_digest_arrays(prefix: str, digest: dict) -> dict:
+    """A :func:`chip_smoke.seam_digest` as arrays named ``prefix_key``."""
+    return {f"{prefix}_{k}": np.asarray(v) for k, v in digest.items()}
+
+
+def reference_modules() -> "chip_smoke.SeamModules":
+    """The JAX package's :class:`chip_smoke.SeamModules`."""
+    from koordinator_tpu.api import extension, types
+    from koordinator_tpu.core import snapshot, topology
+    from koordinator_tpu.scheduler import batch_solver
+    from koordinator_tpu.scheduler.plugins import (
+        deviceshare,
+        elasticquota,
+        nodenumaresource,
+        reservation,
+    )
+
+    return chip_smoke.SeamModules(extension, types, topology, snapshot, nodenumaresource,
+                                  deviceshare, elasticquota, reservation, batch_solver)
+
+
+def seam_arrays() -> dict:
+    mods = reference_modules()
+    n_nodes, n_pods, bucket = SEAM_SMALL
+    sched = chip_smoke.production_scheduler(mods, n_nodes, n_pods, bucket,
+                                            selectors=SEAM_SMALL_CASE["selectors"])
+    small = chip_smoke.seam_outcome(mods.extension, sched.schedule(
+        chip_smoke.production_pods(mods, n_pods, **SEAM_SMALL_CASE)))
+    out = seam_digest_arrays("small", chip_smoke.seam_digest(small))
+    _, cycles = chip_smoke.seam_cycles(mods)
+    for c, outcome in enumerate(cycles, 1):
+        out.update(seam_digest_arrays(f"c{c}", chip_smoke.seam_digest(outcome)))
+    _, (outcome,) = chip_smoke.seam_cycles(mods, n_pods=chip_smoke.SEAM_TRANSFORM_PODS,
+                                           waves=0, transform=seam_transform_jax)
+    out.update(seam_digest_arrays("transform", chip_smoke.seam_digest(outcome)))
+    return out
+
+
 def main() -> None:
     import jax
 
@@ -564,9 +633,10 @@ def main() -> None:
     files = [(PATH, golden_arrays), (SHORTLIST_PATH, shortlist_golden_arrays),
              (QUOTA_PATH, lambda: {**quota_small_arrays(), **quota_full_arrays()}),
              (BIGBATCH_PATH, bigbatch_arrays), (BIGBATCH_32K_PATH, bigbatch_32k_arrays),
-             (NUMA_PATH, numa_arrays), (DEVICE_PATH, device_arrays)]
+             (NUMA_PATH, numa_arrays), (DEVICE_PATH, device_arrays),
+             (SEAM_PATH, seam_arrays)]
     only = {"--quota": [QUOTA_PATH], "--bigbatch": [BIGBATCH_PATH, BIGBATCH_32K_PATH],
-            "--numa": [NUMA_PATH], "--device": [DEVICE_PATH]}
+            "--numa": [NUMA_PATH], "--device": [DEVICE_PATH], "--seam": [SEAM_PATH]}
     picked = [path for a in sys.argv[1:] if a in only for path in only[a]]
     if picked:
         files = [f for f in files if f[0] in picked]
