@@ -148,7 +148,26 @@ Phases (any failure exits non-zero and prints no result line):
     tables kept their addresses; the busy share of each path's last
     cycle, profiled. The recipe is built from the modules a caller
     passes in (``SeamModules``; here the port's), so the golden's tool
-    and the tests build the reference's from the same code.
+    and the tests build the reference's from the same code;
+16. the exact sequential solver, ``assign_sequential``: the scan
+    (``csrc/sequential.cu``, one launch for every step) and the build
+    (``csrc/shortlist_build.cu`` with the jitter off) against the plain
+    twin on ``rich_fixture(1, 10000, 4096)`` at P=512 and 4,096, without
+    quotas and with the sorted tree, full axis and K=64, bitwise; then
+    the full size, ``rich_fixture(7, 10000, 16384)`` for each of
+    ``SEQ_CELLS`` (no tree and the sorted tree, full axis and K=64), the
+    digests of the assignment, node tables and quota table and the
+    fallback counts equal to ``tests/data/torch_golden_sequential.npz``
+    (the JAX package's), with each run's wall and device time, placed
+    pods, fallbacks and launches (counts zeroed just before each run, read
+    just after); then the times of the scan, its serial floor and the
+    build at P=4,096 beside their twins';
+17. the five scoring programs (``csrc/score_programs.cu``: LeastAllocated,
+    MostAllocated, ScarceResourceAvoidance, NodeResourcesFitPlus and the
+    NUMA alignment) at P=512, N=10,000, D=2 (NUMA Z=2 and 4), each driven
+    once through its entry with the counts zeroed around the pass, bitwise
+    equal to its plain twin and to the JAX package's digests in the same
+    golden; their times; ``estimate_pod_usage``'s time.
 
 A kernel's device time (``device_ms``) is read from ``torch.profiler``
 only from a window that holds all of its kernels (else "not measured",
@@ -243,6 +262,84 @@ DEVICE_CELLS = ((None, SHORTLIST_K), (None, None), ("LeastAllocated", SHORTLIST_
 #: what a device stream returns, in order (``device_stream_full``)
 DEVICE_OUTPUTS = ("assignments", "pod_zones", "rounds", "fallbacks", "slot_free",
                   "rdma_free", "fpga_free")
+
+
+GOLDEN_SEQUENTIAL = os.path.join(ROOT, "tests", "data", "torch_golden_sequential.npz")
+#: the sequential solver's full-size runs (phase 16): ``rich_fixture(SEQ_SEED,
+#: N_NODES, SEQ_PODS)`` in one ``assign_sequential`` call, for each cell
+#: (quota tree or None, shortlist_k or None)
+SEQ_SEED = 7
+SEQ_PODS = 16_384
+SEQ_CELLS = ((None, None), (None, SHORTLIST_K), ("sorted", None), ("sorted", SHORTLIST_K))
+#: the golden's small cases, kept whole: ``rich_fixture(SEQ_SEED,
+#: *SEQ_SMALL)`` with no tree and with each of ``QUOTA_TREES``' (at 512
+#: pods the sorted tree's teams admit no pod; the one-hot tree binds)
+SEQ_SMALL = (2_000, BATCH)
+#: what ``assign_sequential`` returns that the golden and the checks compare
+SEQ_OUTPUTS = ("assignment", "node_requested", "node_estimated_used", "node_prod_used",
+               "quota_used", "shortlist_fallbacks")
+#: the scoring programs' checks (phase 17): ``score_fixture(SCORE_SEED,
+#: SCORE_PODS, N_NODES, 2, z)`` for z in SCORE_ZONES
+SCORE_SEED = 3
+SCORE_PODS = BATCH
+SCORE_ZONES = (2, 4)
+
+
+def seq_key(tree, k) -> str:
+    """A sequential cell's key in the golden: its tree and K (0: off)."""
+    return f"{tree or 'none'}_k{k or 0}"
+
+
+def sequential_inputs(tree, nodes: dict, pods: dict, params: dict):
+    """A sequential cell's numpy inputs: (nodes, pods, params, quotas), the
+    pods with ``tree``'s chains and quotas its (runtime, used), or the
+    fixture as it is and None without a tree."""
+    if tree is None:
+        return nodes, pods, params, None
+    nodes, pods, params, quotas, _ = quota_fixture(tree, nodes, pods, params)
+    return nodes, pods, params, quotas
+
+
+def score_fixture(seed: int, p: int, n: int, d: int, z: int, dn: "int | None" = None) -> dict:
+    """The scoring programs' inputs, drawn to reach every branch: nodes with
+    zero allocatable in some dims and requested above allocatable on some
+    (the clip binds), pods asking for nothing in some dims, weights of 0.5
+    to 2, scarce and MostAllocated dims (the last dim always scarce), and a
+    zone table [n, z, dn] (dn = min(d, 2) by default) with empty zones and
+    zones a pod does not fit. Numpy float32 / bool arrays by argument
+    name."""
+    rng = np.random.default_rng(seed)
+    dn = min(d, 2) if dn is None else dn
+    alloc = rng.choice([0.0, 4000.0, 32000.0, 64000.0], (n, d), p=[0.05, 0.15, 0.4, 0.4])
+    requested = alloc * rng.uniform(0.0, 1.15, (n, d))
+    req = rng.choice([0.0, 250.0, 1000.0, 4000.0, 16000.0], (p, d),
+                     p=[0.15, 0.2, 0.3, 0.25, 0.1])
+    scarce = rng.random(d) < 0.5
+    scarce[-1] = True
+    zone_cap = alloc[:, None, :dn] / z
+    zone_free = np.clip(zone_cap * rng.uniform(-0.2, 1.0, (n, z, dn)), 0.0, None)
+    f32 = np.float32
+    return dict(pod_req=req.astype(f32), node_requested=requested.astype(f32),
+                node_allocatable=alloc.astype(f32),
+                weights=rng.choice([0.5, 1.0, 2.0], d).astype(f32), scarce_dims=scarce,
+                most_allocated_dims=rng.random(d) < 0.5, zone_free=zone_free.astype(f32))
+
+
+#: the scoring programs' arguments, by program, from a ``score_fixture``
+SCORE_ARGS = {
+    "least_allocated_cost": ("pod_req", "node_requested", "node_allocatable", "weights"),
+    "most_allocated_cost": ("pod_req", "node_requested", "node_allocatable", "weights"),
+    "scarce_resource_cost": ("pod_req", "node_allocatable", "scarce_dims"),
+    "fit_plus_cost": ("pod_req", "node_requested", "node_allocatable", "weights",
+                      "most_allocated_dims"),
+}
+
+
+def array_digest(a) -> str:
+    """sha256 of an array's little-endian bytes in its own dtype."""
+    a = np.asarray(a)
+    return hashlib.sha256(np.ascontiguousarray(a, dtype=a.dtype.newbyteorder("<")).tobytes()
+                          ).hexdigest()
 
 
 def device_key(scoring, k) -> str:
@@ -974,11 +1071,15 @@ def ptxas_summary(kernels) -> dict:
         "shortlist_round_kernelILi2ELi4ELb0ELb1E": "shortlist_round_kernel<2,4,devices>",
         "quota_gate_kernel": "quota_gate_kernel",
         "device_prep_kernel": "device_prep_kernel",
+        "sequential_kernelILi2EE": "sequential_kernel<2>",
+        "score_program_kernelILi0ELi2EE": "score_program_kernel<least,2>",
+        "score_program_kernelILi3ELi2EE": "score_program_kernel<fit_plus,2>",
+        "score_program_kernelILi4ELi2EE": "score_program_kernel<numa,DN=2>",
     }
     out: dict = {}
     worst = {"registers": 0, "spill_bytes": 0}
     for src in ("nominate", "round", "round_zone", "round_big", "gangs", "shortlist_build",
-                "shortlist_round", "quota", "device_prep"):
+                "shortlist_round", "quota", "device_prep", "sequential", "score_programs"):
         entry = None
         for line in kernels.build_log(src).splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -3799,6 +3900,257 @@ def phase_seam(torch, dev, report):
     kernels.reset_launches()
 
 
+def sequential_port_inputs(torch, tree, nodes: dict, pods: dict, params: dict, device):
+    """A sequential cell's inputs as the port's tensors on ``device``:
+    (pods, nodes, params, QuotaState or None)."""
+    from koordinator_tpu_torch.ops import solver
+
+    nodes, pods, params, quotas = sequential_inputs(tree, nodes, pods, params)
+    nodes_t, pods_t, params_t = port_inputs(torch, nodes, pods, params, device)
+    q = None if quotas is None else solver.QuotaState(
+        *(torch.from_numpy(a).to(device) for a in quotas))
+    return pods_t, nodes_t, params_t, q
+
+
+def seq_outputs(res) -> dict:
+    """``SEQ_OUTPUTS`` and ``rounds_used`` of an ``assign_sequential``
+    result, as numpy arrays."""
+    return {f: getattr(res, f).cpu().numpy() for f in SEQ_OUTPUTS + ("rounds_used",)}
+
+
+def phase_sequential(torch, dev, report):
+    """Phase 16, the exact sequential solver: the port's
+    ``assign_sequential`` (the build, ``csrc/shortlist_build.cu`` with the
+    jitter off, once a call with ``shortlist_k``; the scan,
+    ``csrc/sequential.cu``, one launch for every step; ``enforce_gangs``).
+    First the kernels against the plain twin (``assign_sequential_plain``
+    on the card) on ``rich_fixture(1, 10000, 4096)`` at P=512 and 4,096,
+    without quotas and with the sorted tree, full axis and K=64: the
+    assignment, node tables, quota table, fallback counts and rounds
+    bitwise equal, and the build's candidates and bound equal to its
+    twin's. Then the main path at full size, ``rich_fixture(SEQ_SEED,
+    10000, 16384)`` for each of ``SEQ_CELLS``: counts zeroed just before
+    each solve and read just after it (one scan, one rollback, one build
+    with K), the sha256 of every output and the fallback counts equal to
+    ``tests/data/torch_golden_sequential.npz`` (the JAX package's), wall
+    time, device time from whole profiled windows, placed pods. Then the
+    times of the scan, its serial floor (the same launch over one node)
+    and the build at P=4,096 beside their plain twins'."""
+    from koordinator_tpu_torch import kernels
+    from koordinator_tpu_torch.ops import sequential as seq_ops
+    from koordinator_tpu_torch.ops import solver
+
+    fixture = rich_fixture(1, N_NODES, 8 * BATCH)
+    checks = {"sequential": 0.0, "sequential_build": 0.0}
+    seen = []
+    for tree in (None, "sorted"):
+        for p in (BATCH, 8 * BATCH):
+            pods = {k: v[:p] for k, v in fixture[1].items()}
+            args = sequential_port_inputs(torch, tree, fixture[0], pods, fixture[2], dev)
+            for k in (None, SHORTLIST_K):
+                kernels.reset_launches()
+                got = seq_outputs(solver.assign_sequential(*args, shortlist_k=k))
+                want = seq_outputs(solver.assign_sequential_plain(*args, shortlist_k=k))
+                label = f"sequential ({seq_key(tree, k)}, P={p})"
+                if kernels.launches.get("sequential") != 1:
+                    fail(f"{label}: the scan did not launch once ({dict(kernels.launches)})")
+                for f in want:
+                    if not bits_equal(got[f], want[f]):
+                        fail(f"{label}: {f} differs from assign_sequential_plain")
+                seen.append(dict(case=label, placed=int((got["assignment"] >= 0).sum()),
+                                 fallbacks=got["shortlist_fallbacks"].tolist()))
+                if k is not None:
+                    _, spods, bind, thr, pthr = solver._round_setup(args[0], args[1], args[2])
+                    n_t = args[1]
+                    b_args = (spods.requests, spods.estimate, spods.is_prod, bind,
+                              n_t.allocatable, n_t.requested, n_t.estimated_used, n_t.prod_used,
+                              n_t.metric_fresh, n_t.schedulable, n_t.cpu_amp, thr, pthr,
+                              args[2].score_weights)
+                    kc, kb = seq_ops.sequential_build(*b_args, k)
+                    pc, pb = seq_ops.sequential_build_plain(*b_args, k)
+                    if not (bits_equal(kc.cpu(), pc.cpu()) and bits_equal(kb.cpu(), pb.cpu())):
+                        fail(f"sequential_build ({seq_key(tree, k)}, P={p}): differs from "
+                             "sequential_build_plain")
+    print(f"sequential checks: bitwise equal to the plain twins {json.dumps(checks)}; "
+          f"{json.dumps(seen)}", flush=True)
+
+    with np.load(GOLDEN_SEQUENTIAL) as f:
+        golden = {k: f[k] for k in f.files}
+    full = rich_fixture(SEQ_SEED, N_NODES, SEQ_PODS)
+    if fixture_digest(*full) != str(golden["full_fixture_sha256"]):
+        fail("sequential: the full-size fixture differs from the golden's")
+    path_launches: dict = {}
+    for tree, k in SEQ_CELLS:
+        key = seq_key(tree, k)
+        args = sequential_port_inputs(torch, tree, *full, dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = solver.assign_sequential(*args, shortlist_k=k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        need = {"sequential": 1, "enforce_gangs": 1, "sequential_build": 1 if k else 0}
+        if any(launches.get(name, 0) != n for name, n in need.items()):
+            fail(f"sequential {key}: launches {launches}, expected {need}")
+        out = seq_outputs(res)
+        for f in SEQ_OUTPUTS:
+            if array_digest(out[f]) != str(golden[f"full_{key}_{f}_sha256"]):
+                fail(f"sequential {key}: {f} differs from the JAX golden")
+        if not np.array_equal(out["shortlist_fallbacks"], golden[f"full_{key}_fallbacks"]):
+            fail(f"sequential {key}: fallbacks {out['shortlist_fallbacks']} differ from the "
+                 f"JAX golden's {golden[f'full_{key}_fallbacks']}")
+        if k is not None and tree is None:
+            path_launches = launches
+        print(f"sequential_{key}: " + json.dumps(dict(
+            pods=SEQ_PODS, nodes=N_NODES, wall_s=wall,
+            device_ms=device_ms(torch, lambda: solver.assign_sequential(*args, shortlist_k=k),
+                                2, None),
+            placed=int((out["assignment"] >= 0).sum()),
+            fallbacks=out["shortlist_fallbacks"].tolist(), launches=launches,
+            golden="bitwise equal to the JAX package's digests")), flush=True)
+    kernels.reset_launches()
+
+    # times at P=4,096 (the kernel check's sorted-free case), kernel and twin
+    pods = {k: v[:8 * BATCH] for k, v in fixture[1].items()}
+    pods_t, nodes_t, params_t, _ = sequential_port_inputs(torch, None, fixture[0], pods,
+                                                          fixture[2], dev)
+    _, spods, bind, thr, pthr = solver._round_setup(pods_t, nodes_t, params_t)
+    p, d = spods.requests.shape
+    n = N_NODES
+    tables = (nodes_t.requested, nodes_t.estimated_used, nodes_t.prod_used)
+
+    def node_args(rows=slice(None), fresh_tables=True):
+        t = [x[rows].clone() if fresh_tables else x[rows] for x in tables]
+        return (nodes_t.allocatable[rows], *t, nodes_t.metric_fresh[rows],
+                nodes_t.schedulable[rows], nodes_t.cpu_amp[rows], thr[rows], pthr[rows],
+                params_t.score_weights)
+
+    pod_args = (spods.requests, spods.estimate, spods.is_prod, spods.valid, bind)
+    build_pods = (spods.requests, spods.estimate, spods.is_prod, bind)
+    fresh_nodes = int(nodes_t.metric_fresh.sum())
+    node_row = 6 * d * 4 + 2 + 4
+    valid = int(spods.valid.sum())
+    pairs = valid * n
+    scan_bytes = n * node_row + p * (2 * d * 4 + 3) + d * 4 + p * 4 + 8 + 3 * n * d * 4
+    scan_ops = pairs * (3 * d + 1)
+    build_ops = (p * n * (3 * d + 1) + int(bind.sum()) * n * 5
+                 + (p + int(spods.is_prod.sum())) * fresh_nodes * 7 * d)
+    build_bytes = n * node_row + p * (2 * d * 4 + 2) + d * 4 + p * (SHORTLIST_K + 1) * 4
+    floor_ms = cuda_ms(torch, lambda: seq_ops.sequential_scan(*pod_args,
+                                                              *node_args(slice(0, 1))), 3)
+
+    def add_row(name, replaces, fn, plain, kname, nbytes, nops, iters, **extra):
+        b_ms, b_by = bound_of(nbytes, nops)
+        report["kernels"].append(dict(
+            name=name, route="cuda", source=f"koordinator_tpu_torch/csrc/{extra.pop('src')}",
+            replaces=replaces, launches=path_launches.get(name, 0), kernels_per_launch=1,
+            max_abs_err=checks[name], ms=cuda_ms(torch, fn, iters),
+            plain_ms=cuda_ms(torch, plain, 1), bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            device_ms=device_ms(torch, fn, iters, kname), bytes=nbytes, operations=nops,
+            shape=f"P={p}, N={n}, D={d}", **extra))
+
+    add_row("sequential", "koordinator_tpu/ops/solver.py:2087",
+            lambda: seq_ops.sequential_scan(*pod_args, *node_args()),
+            lambda: seq_ops.sequential_scan_plain(*pod_args, *node_args()),
+            "sequential_kernel", scan_bytes, scan_ops, 3, src="sequential.cu",
+            serial_floor_ms=floor_ms, serial_floor="the same launch over one node")
+    add_row("sequential_build", "koordinator_tpu/ops/solver.py:2044",
+            lambda: seq_ops.sequential_build(*build_pods, *node_args(fresh_tables=False),
+                                             SHORTLIST_K),
+            lambda: seq_ops.sequential_build_plain(*build_pods, *node_args(fresh_tables=False),
+                                                   SHORTLIST_K),
+            "shortlist_build_kernel", build_bytes, build_ops, 20, src="shortlist_build.cu")
+    kernels.reset_launches()
+
+
+#: each scoring program's source line in the JAX package and its fp32
+#: operations a pair and dim (NUMA: a zone and dim)
+SCORE_ROWS = {
+    "least_allocated_cost": ("koordinator_tpu/ops/costs.py:90", 8),
+    "most_allocated_cost": ("koordinator_tpu/ops/costs.py:102", 9),
+    "scarce_resource_cost": ("koordinator_tpu/ops/costs.py:115", 3),
+    "fit_plus_cost": ("koordinator_tpu/ops/costs.py:134", 10),
+    "numa_alignment_cost": ("koordinator_tpu/ops/numa.py:146", 8),
+}
+
+
+def phase_score_programs(torch, dev, report):
+    """Phase 17, the five scoring programs (``csrc/score_programs.cu``):
+    on ``score_fixture(SCORE_SEED, 512, 10000, 2, z)`` for z in
+    ``SCORE_ZONES``, each program driven once through its entry (NUMA
+    alignment LeastAllocated and MostAllocated), counts zeroed just before
+    and read just after; each result bitwise equal to its plain twin on
+    the same tensors and its sha256 equal to the JAX package's in
+    ``tests/data/torch_golden_sequential.npz``. Then their times (Z=4 for
+    NUMA) beside the twins', and ``estimator.estimate_pod_usage``'s at
+    16,384 × 2."""
+    from koordinator_tpu_torch import kernels
+    from koordinator_tpu_torch.ops import costs
+    from koordinator_tpu_torch.ops import numa as numa_ops
+    from koordinator_tpu_torch.ops.estimator import estimate_pod_usage
+
+    with np.load(GOLDEN_SEQUENTIAL) as f:
+        golden = {k: f[k] for k in f.files}
+    path_launches: dict = {}
+    for z in SCORE_ZONES:
+        fix = score_fixture(SCORE_SEED, SCORE_PODS, N_NODES, 2, z)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in fix.items()}
+        numa = numa_ops.NumaState(t["zone_free"], t["zone_free"],
+                                  torch.zeros(N_NODES, dtype=torch.int8, device=dev))
+        calls = {name: (getattr(costs, name), getattr(costs, f"{name}_plain"),
+                        [t[a] for a in args]) for name, args in SCORE_ARGS.items()}
+        for most in (False, True):
+            calls[f"numa_alignment_cost_z{z}_{'most' if most else 'least'}"] = (
+                numa_ops.numa_alignment_cost, numa_ops.numa_alignment_cost_plain,
+                [t["pod_req"], numa, most])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        outs = {key: fn(*a) for key, (fn, _, a) in calls.items()}
+        torch.cuda.synchronize()
+        for name, c in kernels.launches.items():
+            path_launches[name] = path_launches.get(name, 0) + c
+        for key, (_, plain, a) in calls.items():
+            got = outs[key].cpu().numpy()
+            if not bits_equal(got, plain(*a).cpu().numpy()):
+                fail(f"{key} (Z={z}): differs from its plain twin")
+            if array_digest(got) != str(golden[f"score_z{z}_{key}_sha256"]):
+                fail(f"{key} (Z={z}): differs from the JAX golden")
+    missing = [k for k in SCORE_ROWS if path_launches.get(k, 0) == 0]
+    if missing:
+        fail(f"scoring programs never launched: {missing} ({path_launches})")
+    print("score checks: bitwise equal to the plain twins and the JAX golden "
+          f"(Z={list(SCORE_ZONES)}); launches {json.dumps(path_launches)}", flush=True)
+
+    p, n, d, z = SCORE_PODS, N_NODES, 2, SCORE_ZONES[-1]
+    dn = min(d, 2)
+    for name, (replaces, per_dim) in SCORE_ROWS.items():
+        fn, plain, a = calls[name if name in calls else f"{name}_z{z}_least"]
+        numa_row = name == "numa_alignment_cost"
+        nbytes = p * n * 4 + p * d * 4 + (n * z * dn * 4 if numa_row else 2 * n * d * 4 + 2 * d * 4)
+        nops = p * n * (z * dn if numa_row else d) * per_dim
+        b_ms, b_by = bound_of(nbytes, nops)
+        report["kernels"].append(dict(
+            name=name, route="cuda", source="koordinator_tpu_torch/csrc/score_programs.cu",
+            replaces=replaces, launches=path_launches.get(name, 0), kernels_per_launch=1,
+            max_abs_err=0.0, ms=cuda_ms(torch, lambda: fn(*a), 50),
+            plain_ms=cuda_ms(torch, lambda: plain(*a), 5), bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, device_ms=device_ms(torch, lambda: fn(*a), 20,
+                                                 "score_program_kernel"),
+            bytes=nbytes, operations=nops,
+            shape=f"P={p}, N={n}, D={d}" + (f", Z={z}, DN={dn}" if numa_row else "")))
+    req = torch.from_numpy(build_fixture(SEQ_SEED, N_NODES, SEQ_PODS)["req"]).to(dev)
+    scale = torch.tensor([0.85, 0.70], dtype=torch.float32, device=dev)
+    est_bytes, est_ops = 2 * req.numel() * 4 + 8, req.numel()
+    report["estimate_pod_usage"] = dict(
+        pods=SEQ_PODS, dims=2, ms=cuda_ms(torch, lambda: estimate_pod_usage(req, scale), 200),
+        device_ms=device_ms(torch, lambda: estimate_pod_usage(req, scale), 50, None),
+        bound_ms=bound_of(est_bytes, est_ops)[0], bound_by=bound_of(est_bytes, est_ops)[1],
+        bytes=est_bytes)
+    print(json.dumps({"estimate_pod_usage": report["estimate_pod_usage"]}), flush=True)
+    kernels.reset_launches()
+
+
 def profile_busy_ms(torch, prof):
     """Device busy milliseconds of a profiled window: the sum of its CUDA
     kernel and copy intervals, or "not measured" when it shows none."""
@@ -3858,6 +4210,8 @@ def main() -> int:
     phase_device_streams(torch, dev, report)
     phase_cost_transform_kernels(torch, dev, report)
     phase_seam(torch, dev, report)
+    phase_sequential(torch, dev, report)
+    phase_score_programs(torch, dev, report)
     taken = sum(w["taken"] for w in DEVICE_WINDOWS)
     print(f"device_ms: {taken} of {len(DEVICE_WINDOWS)} readings whole; the others "
           f"(not measured): {json.dumps([w for w in DEVICE_WINDOWS if not w['taken']])}",

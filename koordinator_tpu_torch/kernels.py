@@ -93,6 +93,13 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "nominate_cost": {
         "koord_nominate_cost": [_P] * 2 + [_I] * 3 + [_F, _I, _I] + [_P] * 4,
     },
+    "sequential": {
+        "koord_sequential": [_P] * 15 + [_I] * 3 + [_P, _I] + [_P] * 2 + [_I] + [_P] * 2
+        + [_I] + [_P] * 3,
+    },
+    "score_programs": {
+        "koord_score_program": [_I] + [_P] * 6 + [_I] * 5 + [_P],
+    },
 }
 
 #: Kernel launches by wrapper name, eager or replayed from a CUDA graph.

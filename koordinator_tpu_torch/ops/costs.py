@@ -1,14 +1,24 @@
-"""LoadAware score as a vectorized cost term over (pods × nodes).
+"""Score plugins as vectorized cost terms over (pods × nodes).
 
-Port of ``koordinator_tpu/ops/costs.py:22-87``. Lower cost = better node.
+Port of ``koordinator_tpu/ops/costs.py``. Lower cost = better node.
 Scores follow the reference's 0..100 integer-floor convention
-(``load_aware.go:387-406``), then negate into costs. The plain form here is
-also what the kernels compute per pair (``csrc/loadaware.cuh``).
+(``load_aware.go:387-406``), then negate into costs. The LoadAware forms
+here are also what the pricing kernels compute per pair
+(``csrc/loadaware.cuh``).
+
+The four request-based scoring programs (:90-160: :func:`least_allocated_cost`,
+:func:`most_allocated_cost`, :func:`scarce_resource_cost`,
+:func:`fit_plus_cost`) and ``numa.numa_alignment_cost`` have no caller on
+a solve path. Each is one launch of ``csrc/score_programs.cu`` on CUDA
+tensors (a thread a pair, the program's pair function inside) and its
+``_plain`` twin on CPU tensors; there is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .. import kernels
 
 _SAFE = 1e-9
 
@@ -150,3 +160,125 @@ def _device_cost(gpu_units, free, cap, most_allocated: bool):
     score = torch.where((cap > 0) & (used_after <= cap + 1e-6), raw, 0.0)
     score = torch.where(gpu_units[:, None] > 0, score, 0.0)
     return -score
+
+
+# ------------------------------------------------ the scoring programs
+
+
+def least_allocated_cost_plain(pod_req, node_requested, node_allocatable, weights):
+    """Request-based LeastAllocated (``costs.py:90-100``): the least-used
+    score of ``requested + req`` → cost [P, N]."""
+    after = node_requested[None, :, :] + pod_req[:, None, :]
+    return -_utilization_free_score(after, node_allocatable[None, :, :], weights)
+
+
+def most_allocated_cost_plain(pod_req, node_requested, node_allocatable, weights):
+    """MostAllocated (``costs.py:102-113``): ``-(100 - free_score)``."""
+    after = node_requested[None, :, :] + pod_req[:, None, :]
+    free_score = _utilization_free_score(after, node_allocatable[None, :, :], weights)
+    return -(100.0 - free_score)
+
+
+def scarce_resource_cost_plain(pod_req, node_allocatable, scarce_dims):
+    """ScarceResourceAvoidance (``costs.py:115-132``): the count of scarce
+    dims the node has and the pod does not ask for, times ``100 /
+    n_scarce`` (a float32 division of the count of scarce dims, at least
+    1) → [P, N] in 0..100."""
+    node_has = (node_allocatable > 0) & scarce_dims[None, :]
+    pod_wants = pod_req > 0
+    wasted = node_has[None, :, :] & ~pod_wants[:, None, :]
+    n_scarce = torch.clamp(torch.sum(scarce_dims, dtype=torch.int32), min=1).to(torch.float32)
+    # a tensor over a tensor: ``100.0 / t`` would be ``t.reciprocal() * 100``
+    factor = torch.full_like(n_scarce, 100.0) / n_scarce
+    return torch.sum(wasted, dim=-1, dtype=torch.int32) * factor
+
+
+def fit_plus_cost_plain(pod_req, node_requested, node_allocatable, dim_weights,
+                        most_allocated_dims):
+    """NodeResourcesFitPlus (``costs.py:134-160``): each dim's clipped used
+    fraction after the pod (MostAllocated dims) or its complement, × 100,
+    weighted by the dims the pod asks for, over the sum of those weights +
+    ``_SAFE`` → cost [P, N]. Both sums run in d order."""
+    alloc = node_allocatable[None, :, :]
+    after = node_requested[None, :, :] + pod_req[:, None, :]
+    frac_used = torch.where(alloc > 0, torch.clamp(after / (alloc + _SAFE), 0.0, 1.0), 0.0)
+    per_dim = torch.where(most_allocated_dims[None, None, :], frac_used, 1.0 - frac_used) * 100.0
+    wants = (pod_req > 0).to(per_dim.dtype)
+    w = dim_weights[None, None, :] * wants[:, None, :]
+    terms = per_dim * w
+    total, wsum = terms[..., 0], w[..., 0]
+    for d in range(1, terms.shape[-1]):
+        total = total + terms[..., d]
+        wsum = wsum + w[..., d]
+    return -(total / (wsum + _SAFE))
+
+
+#: ``csrc/score_programs.cu``'s programs, by wrapper name
+PROGRAMS = {"least_allocated_cost": 0, "most_allocated_cost": 1, "scarce_resource_cost": 2,
+            "fit_plus_cost": 3, "numa_alignment_cost": 4}
+#: the most resource dims the scoring programs take (``kMaxDims``)
+MAX_DIMS = 8
+_F32 = torch.float32
+
+
+def score_program(name: str, pod_req, node_a, node_b, weights, flags, d_node: int,
+                  zones: int = 0):
+    """One launch of ``koord_score_program`` for program ``name``: pods
+    ``pod_req`` [P, D]; the node tables ``node_a`` (requested, or for NUMA
+    the zone table [N, Z, DN]) and ``node_b`` (allocatable), each [N,
+    d_node] or None; ``weights`` [d_node] float32 and ``flags`` [d_node]
+    bool or None; ``zones`` Z for NUMA. Returns the cost [P, N] float32.
+    Raises :class:`..kernels.KernelArgumentError` on a tensor the kernel
+    does not take and :class:`..kernels.KernelError` on a refused launch."""
+    p, d = pod_req.shape
+    ref = node_b if node_a is None else node_a
+    n = ref.shape[0]
+    if not 1 <= d_node <= MAX_DIMS or d_node > d:
+        raise kernels.KernelArgumentError(
+            f"{name}: dims {d_node} must be in 1..min({MAX_DIMS}, D={d})")
+    per_node = d_node * max(zones, 1)
+    tensors = (pod_req, node_a, node_b, weights, flags)
+    ptrs = kernels.checked_ptrs(
+        name, tensors, (_F32, _F32, _F32, _F32, torch.bool),
+        (p * d, n * per_node, n * d_node, d_node, d_node))
+    out = torch.empty((p, n), dtype=_F32, device=pod_req.device)
+    lib = kernels.library("score_programs")
+    code = lib.koord_score_program(PROGRAMS[name], *ptrs, out.data_ptr(), p, n, d, d_node,
+                                   zones, kernels.stream_of(pod_req))
+    kernels.check(lib, code, name)
+    kernels.count(name)
+    return out
+
+
+def least_allocated_cost(pod_req, node_requested, node_allocatable, weights):
+    """:func:`least_allocated_cost_plain` on the tensors' device (one
+    launch of ``csrc/score_programs.cu`` on CUDA tensors)."""
+    if pod_req.is_cpu:
+        return least_allocated_cost_plain(pod_req, node_requested, node_allocatable, weights)
+    return score_program("least_allocated_cost", pod_req, node_requested, node_allocatable,
+                         weights, None, node_allocatable.shape[1])
+
+
+def most_allocated_cost(pod_req, node_requested, node_allocatable, weights):
+    """:func:`most_allocated_cost_plain` on the tensors' device."""
+    if pod_req.is_cpu:
+        return most_allocated_cost_plain(pod_req, node_requested, node_allocatable, weights)
+    return score_program("most_allocated_cost", pod_req, node_requested, node_allocatable,
+                         weights, None, node_allocatable.shape[1])
+
+
+def scarce_resource_cost(pod_req, node_allocatable, scarce_dims):
+    """:func:`scarce_resource_cost_plain` on the tensors' device."""
+    if pod_req.is_cpu:
+        return scarce_resource_cost_plain(pod_req, node_allocatable, scarce_dims)
+    return score_program("scarce_resource_cost", pod_req, None, node_allocatable, None,
+                         scarce_dims, node_allocatable.shape[1])
+
+
+def fit_plus_cost(pod_req, node_requested, node_allocatable, dim_weights, most_allocated_dims):
+    """:func:`fit_plus_cost_plain` on the tensors' device."""
+    if pod_req.is_cpu:
+        return fit_plus_cost_plain(pod_req, node_requested, node_allocatable, dim_weights,
+                                   most_allocated_dims)
+    return score_program("fit_plus_cost", pod_req, node_requested, node_allocatable,
+                         dim_weights, most_allocated_dims, node_allocatable.shape[1])

@@ -2,8 +2,9 @@
 under each node's topology policy, and the strategy-ordered zone pick.
 
 Port of ``koordinator_tpu/ops/numa.py``: the policy constants,
-:class:`NumaState` (:29-45), :func:`zone_pick` (:48-75) and
-:func:`numa_fit_mask` (:77-145), as plain PyTorch functions. On the card
+:class:`NumaState` (:29-45), :func:`zone_pick` (:48-75),
+:func:`numa_fit_mask` (:77-145) and :func:`numa_alignment_cost`
+(:146-172), as plain PyTorch functions. On the card
 they are terms of the hand kernels: the fit is one more feasibility term
 of the pair arithmetic every pricing kernel shares
 (``csrc/loadaware.cuh``), the pick a phase of the round tail
@@ -23,9 +24,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .. import kernels, resolve_device
+from .costs import score_program
 from .masks import EPS
 
 #: NUMAPolicy enum values (``core.topology.NUMAPolicy``)
@@ -128,6 +131,53 @@ def numa_fit_mask(pod_requests, pod_wants_numa, numa: NumaState, cpu_amp=None,
         strict_pn = strict_pn | pod_required[:, None]
     ok = torch.where(strict_pn, any_zone, total_fit | ~pod_wants_numa[:, None])
     return ok | ~has_zones[None, :]
+
+
+def numa_alignment_cost_plain(pod_requests, numa: NumaState, most_allocated: bool = False):
+    """[P, N] cost over each node's best zone (``numa.py:146-172``): a
+    zone's score is the mean over its DN dims of its free fraction after
+    the pod, ``clip((free - req) / max(max_z free, 1e-9), 0, 1)``, × 100
+    (MostAllocated: 100 minus it), -1 where the pod does not fit in the
+    zone within ``EPS``; the node's cost is minus the best zone's score.
+    The mean adds the dims in order and multiplies by the float32
+    reciprocal of DN: XLA rewrites ``jnp.mean``'s division by a constant
+    so (at DN = 3 the two differ in the last bit)."""
+    dn = numa.zone_free.shape[-1]
+    req = pod_requests[:, :dn]
+    after = numa.zone_free[None, :, :, :] - req[:, None, None, :]        # [P, N, Z, DN]
+    fits = torch.all(after >= -EPS, dim=-1)                              # [P, N, Z]
+    total = torch.clamp(numa.zone_free.max(dim=1).values, min=1e-9)     # [N, DN]
+    frac_free = torch.clamp(after / total[None, :, None, :], 0.0, 1.0)
+    mean = frac_free[..., 0]
+    for d in range(1, dn):
+        mean = mean + frac_free[..., d]
+    zone_score = mean * _inverse(dn) * 100.0
+    if most_allocated:
+        zone_score = 100.0 - zone_score
+    zone_score = torch.where(fits, zone_score, -1.0)
+    return -zone_score.max(dim=-1).values
+
+
+def _inverse(dn: int) -> float:
+    """float32 ``1 / dn``, rounded once, as a Python float."""
+    return float(np.float32(1.0) / np.float32(dn))
+
+
+def numa_alignment_cost(pod_requests, numa: NumaState, most_allocated: bool = False):
+    """:func:`numa_alignment_cost_plain` on the tensors' device: one launch
+    of ``csrc/score_programs.cu``'s NUMA program for CUDA tensors (Z up to
+    :data:`MAX_ZONES`, DN up to :data:`MAX_ZONE_DIMS`), the plain version
+    for CPU tensors."""
+    if pod_requests.is_cpu:
+        return numa_alignment_cost_plain(pod_requests, numa, most_allocated)
+    _, nz, dn = numa.zone_free.shape
+    if not (1 <= nz <= MAX_ZONES and 1 <= dn <= MAX_ZONE_DIMS):
+        raise kernels.KernelArgumentError(
+            f"numa_alignment_cost: Z={nz} must be in 1..{MAX_ZONES} and DN={dn} in "
+            f"1..{MAX_ZONE_DIMS}")
+    flag = torch.full((dn,), bool(most_allocated), dtype=torch.bool, device=pod_requests.device)
+    return score_program("numa_alignment_cost", pod_requests, numa.zone_free, None, None, flag,
+                         dn, zones=nz)
 
 
 @dataclass

@@ -14,9 +14,11 @@ through a stream), :func:`enforce_gangs` (:1858-1987, the
 CUDA kernel ``csrc/gangs.cu`` on the card, one launch a batch), the
 candidate shortlist (:func:`shortlist_plan`, :1547-1657) and the
 resident-row helpers :func:`scatter_rows` / :func:`gather_rows`
-(:248-283), and the BeforeScore ``cost_transform`` (:942-946), whose
-route materializes the round's [P, N] cost (:mod:`.cost_full`). Each
-round:
+(:248-283), the BeforeScore ``cost_transform`` (:942-946), whose
+route materializes the round's [P, N] cost (:mod:`.cost_full`), and the
+exact sequential-commit solver :func:`assign_sequential` (:1990-2241,
+:mod:`.sequential`: one persistent launch of ``csrc/sequential.cu`` walks
+every pod). Each round of :func:`assign`:
 
 1. nominate — every still-unassigned pod's masked, jittered LoadAware cost
    over all nodes (with quotas only the pods with headroom along their
@@ -68,6 +70,7 @@ from . import commit as commit_ops
 from . import cost_full as cost_ops
 from . import nominate as nominate_ops
 from . import quota as quota_ops
+from . import sequential as sequential_ops
 from . import shortlist as shortlist_ops
 from .device import MAX_SLOTS, DeviceState, DeviceTerms, slot_exists_of
 from .device import SCORING as DEVICE_SCORING
@@ -1318,6 +1321,99 @@ def enforce_gangs(result: SolveResult, pods: PodBatch, slot_exists=None) -> Solv
     })
     _enforce_gangs_(out, pods, slot_exists)
     return out
+
+
+def assign_sequential_plain(
+    pods: PodBatch,
+    nodes: NodeState,
+    params: SolverParams,
+    quotas: "QuotaState | None" = None,
+    shortlist_k: "int | None" = None,
+) -> SolveResult:
+    """Exact sequential-commit solver (``solver.py:1990-2241``) in plain
+    PyTorch: the CPU path of :func:`assign_sequential` and its kernels'
+    oracle. Every pod in priority order (stable) takes the best node at the
+    tables as the pods before it left them: the quota gate along its chain,
+    the fit with amplified CPU for cpuset-bound pods, the usage and prod
+    thresholds, the floored LeastAllocated score, the first node winning
+    ties; the commit charges the winner's row (CPU × ``max(cpu_amp, 1)``
+    for cpuset-bound pods) and each distinct quota of the chain once.
+    ``shortlist_k`` (on when 0 < K < N) prunes each step to the pod's K
+    build-time candidates, with the same decisions
+    (:mod:`.sequential`); ``shortlist_fallbacks`` counts the steps that
+    ran the full axis. Then the gang rollback on the pods in their own
+    order. ``rounds_used`` is P; the zone and device fields are the
+    reference's zero placeholders."""
+    return _assign_sequential(pods, nodes, params, quotas, shortlist_k, plain=True)
+
+
+def assign_sequential(
+    pods: PodBatch,
+    nodes: NodeState,
+    params: SolverParams,
+    quotas: "QuotaState | None" = None,
+    shortlist_k: "int | None" = None,
+) -> SolveResult:
+    """:func:`assign_sequential_plain` on the tensors' device. On the card:
+    the priority sort, with the shortlist one launch of the build
+    (:func:`.sequential.sequential_build`), one launch of the scan
+    (``csrc/sequential.cu``: every step in one block), the scatter back to
+    pod order and one launch of ``enforce_gangs`` (``csrc/gangs.cu``),
+    with no host read between them. A build or launch fault raises
+    :class:`..kernels.KernelError`. On CPU tensors it runs the plain
+    version."""
+    if pods.requests.is_cpu:
+        return assign_sequential_plain(pods, nodes, params, quotas, shortlist_k)
+    return _assign_sequential(pods, nodes, params, quotas, shortlist_k, plain=False)
+
+
+def _assign_sequential(pods, nodes, params, quotas, shortlist_k, plain: bool) -> SolveResult:
+    p, d = pods.requests.shape
+    n = nodes.allocatable.shape[0]
+    dev = nodes.allocatable.device
+    if plain:
+        build, scan = sequential_ops.sequential_build_plain, sequential_ops.sequential_scan_plain
+    else:
+        build, scan = sequential_ops.sequential_build, sequential_ops.sequential_scan
+    order, spods, bind, thr, pthr = _round_setup(pods, nodes, params, quota=quotas is not None)
+    requested, est_used, prod_used = (
+        t.clone() for t in (nodes.requested, nodes.estimated_used, nodes.prod_used))
+    node_args = (nodes.allocatable, requested, est_used, prod_used, nodes.metric_fresh,
+                 nodes.schedulable, nodes.cpu_amp, thr, pthr, params.score_weights)
+    plan = None
+    if shortlist_k is not None and 0 < shortlist_k < n:
+        # from the initial tables, before the scan writes them
+        plan = build(spods.requests, spods.estimate, spods.is_prod, bind, *node_args,
+                     shortlist_k)
+    quota = None
+    qused = QuotaState.disabled(d, device=dev).used
+    if quotas is not None:
+        qused = quotas.used.clone()
+        quota = (spods.quota_chain, quotas.runtime, qused)
+    assigned, fallbacks = scan(spods.requests, spods.estimate, spods.is_prod, spods.valid,
+                               bind, *node_args, quota=quota, plan=plan)
+    result = SolveResult(
+        assignment=torch.empty_like(assigned).scatter_(0, order, assigned),
+        node_requested=requested,
+        node_estimated_used=est_used,
+        node_prod_used=prod_used,
+        quota_used=qused,
+        rounds_used=torch.full((), p, dtype=torch.int32, device=dev),
+        shortlist_fallbacks=fallbacks,
+    )
+    if plain:
+        result = enforce_gangs_plain(result, pods)
+    else:
+        _enforce_gangs_(result, pods)
+    return dataclasses.replace(
+        result,
+        node_dev_slots=torch.zeros((n, 1), dtype=torch.float32, device=dev),
+        node_rdma_free=torch.zeros((n,), dtype=torch.float32, device=dev),
+        node_fpga_free=torch.zeros((n,), dtype=torch.float32, device=dev),
+        node_zone_free=torch.zeros((n, 1, 1), dtype=torch.float32, device=dev),
+        pod_zone=torch.full((p,), -1, dtype=torch.int32, device=dev),
+        pod_zone_charge=torch.zeros((p, 1), dtype=torch.float32, device=dev),
+    )
 
 
 def shortlist_plan(

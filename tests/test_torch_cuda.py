@@ -57,7 +57,9 @@ import torch
 import chip_smoke
 from koordinator_tpu_torch import kernels
 from koordinator_tpu_torch.ops import commit as tcommit
+from koordinator_tpu_torch.ops import costs as tcosts
 from koordinator_tpu_torch.ops import nominate as tnom
+from koordinator_tpu_torch.ops import sequential as tseq
 from koordinator_tpu_torch.ops import shortlist as tsl
 from koordinator_tpu_torch.ops import solver as T
 from koordinator_tpu_torch.ops.convert import from_numpy, to_numpy
@@ -1428,3 +1430,166 @@ def test_a_refused_launch_fails_the_scheduling_cycle(cuda, monkeypatch):
         sched.schedule(chip_smoke.production_pods(mods, 200))
     assert sched._fallback_level == 0 and not sched._cycle_solver_failed
     assert sched.extender.registry.get("solver_fallback_total").value(level="1") == 0.0
+
+
+# ---------------------------------------------- the exact sequential solver
+
+
+def sequential_inputs(seed, p, n, d, q, k):
+    """The scan's CPU tensors (in ``sequential_scan``'s order; pods taken as
+    already priority-sorted): ``nominate_inputs``' pods and nodes, a tenth
+    of the pods invalid; with ``q`` quotas [q, D] and chains of four levels
+    (unused levels, a level past the table, a quota named twice); with
+    ``k`` the build's plan from the plain build. Returns (args, quota,
+    plan)."""
+    a = nominate_inputs(seed, p, n, d)
+    rng = np.random.default_rng(seed + 1)
+    a[6] = (a[5] * rng.uniform(0.0, 0.9, (n, d))).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (a[0], a[1], a[2], a[4], a[3], *a[5:])]
+    quota = None
+    if q:
+        chain = rng.integers(-1, q, (p, 4)).astype(np.int32)
+        chain[::7, 3] = q + 5
+        chain[::5, 1] = chain[::5, 0]
+        demand = a[0].sum(0)
+        runtime = np.tile(demand * np.float32(0.3), (q, 1)).astype(np.float32)
+        quota = (torch.from_numpy(chain), torch.from_numpy(runtime),
+                 torch.zeros((q, d), dtype=torch.float32))
+    plan = None
+    if k:
+        plan = tseq.sequential_build_plain(*args[:4], *args[5:], k)
+    return args, quota, plan
+
+
+@pytest.mark.parametrize("p, n, d, k", [
+    (p, n, d, k)
+    for p, n, d in [(1, 1, 1), (37, 5, 3), (512, 2000, 2), (300, 1500, 8), (1000, 10_001, 2),
+                    (100, 3, 2)]
+    for k in (None, 1, 4, 64) if k is None or k < n])
+@pytest.mark.parametrize("q", [0, 3, 1057])
+def test_sequential_scan_kernel_matches_plain(cuda, p, n, d, q, k):
+    """``csrc/sequential.cu`` against ``sequential_scan_plain``: the picks,
+    the three node tables, the quota table and the fallback counts (the
+    shortlist only where K < N, as the entry turns it on)."""
+    args, quota, plan = sequential_inputs(p * 11 + n + q, p, n, d, q, k)
+    dev_args = [t.to(cuda) for t in args]
+    dev_quota = None if quota is None else tuple(t.to(cuda) for t in quota)
+    dev_plan = None if plan is None else tuple(t.to(cuda) for t in plan)
+    for i in (6, 7, 8):
+        args[i] = args[i].clone()
+    host_quota = None if quota is None else (quota[0], quota[1], quota[2].clone())
+    before = kernels.launches["sequential"]
+    ka, kf = tseq.sequential_scan(*dev_args, quota=dev_quota, plan=dev_plan)
+    torch.cuda.synchronize()
+    assert kernels.launches["sequential"] == before + 1
+    pa, pf = tseq.sequential_scan_plain(*args, quota=host_quota, plan=plan)
+    np.testing.assert_array_equal(ka.cpu().numpy(), pa.numpy())
+    np.testing.assert_array_equal(kf.cpu().numpy(), pf.numpy())
+    for i in (6, 7, 8):
+        np.testing.assert_array_equal(bits(dev_args[i].cpu().numpy()), bits(args[i].numpy()))
+    if quota is not None:
+        np.testing.assert_array_equal(bits(dev_quota[2].cpu().numpy()),
+                                      bits(host_quota[2].numpy()))
+
+
+@pytest.mark.parametrize("p, n, d, k", [(1, 2, 1, 1), (37, 300, 3, 8), (512, 10_000, 2, 64),
+                                        (64, 65, 2, 64), (200, 5003, 8, 200)])
+def test_sequential_build_kernel_matches_plain(cuda, p, n, d, k):
+    """The build (``shortlist_build.cu`` with the jitter off) against
+    ``sequential_build_plain``: candidates and the score bound."""
+    args, _, _ = sequential_inputs(p + n, p, n, d, 0, None)
+    build_args = args[:4] + args[5:]
+    before = kernels.launches["sequential_build"]
+    kc, kb = tseq.sequential_build(*(t.to(cuda) for t in build_args), k)
+    torch.cuda.synchronize()
+    assert kernels.launches["sequential_build"] == before + 1
+    pc, pb = tseq.sequential_build_plain(*build_args, k)
+    np.testing.assert_array_equal(kc.cpu().numpy(), pc.numpy())
+    np.testing.assert_array_equal(bits(kb.cpu().numpy()), bits(pb.numpy()))
+
+
+@pytest.mark.parametrize("tree", [None, "onehot", "sorted"])
+@pytest.mark.parametrize("k", [None, chip_smoke.SHORTLIST_K])
+def test_assign_sequential_on_card_matches_golden(cuda, tree, k):
+    """The port's ``assign_sequential`` on the card (build, scan, rollback)
+    against the JAX package's small cases in
+    ``tests/data/torch_golden_sequential.npz``."""
+    nodes, pods, params, quotas = chip_smoke.sequential_inputs(
+        tree, *chip_smoke.rich_fixture(chip_smoke.SEQ_SEED, *chip_smoke.SEQ_SMALL))
+    nodes_t, pods_t, params_t = chip_smoke.port_inputs(torch, nodes, pods, params, cuda)
+    qt = None if quotas is None else T.QuotaState(
+        *(torch.from_numpy(a).to(cuda) for a in quotas))
+    kernels.reset_launches()
+    res = T.assign_sequential(pods_t, nodes_t, params_t, qt, shortlist_k=k)
+    torch.cuda.synchronize()
+    assert kernels.launches["sequential"] == 1 and kernels.launches["enforce_gangs"] == 1
+    assert kernels.launches["sequential_build"] == (1 if k else 0)
+    key = chip_smoke.seq_key(tree, k)
+    with np.load(chip_smoke.GOLDEN_SEQUENTIAL) as golden:
+        for f in chip_smoke.SEQ_OUTPUTS:
+            np.testing.assert_array_equal(bits(getattr(res, f).cpu().numpy()),
+                                          bits(golden[f"{key}_{f}"]), err_msg=f)
+
+
+@pytest.mark.parametrize("p, n", [(1, 1), (37, 300), (512, 10_000), (3, 70_001)])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+@pytest.mark.parametrize("name", list(chip_smoke.SCORE_ARGS))
+def test_score_program_kernel_matches_plain(cuda, p, n, d, name):
+    fix = chip_smoke.score_fixture(p + n + d, p, n, d, 2)
+    host = [torch.from_numpy(fix[a]) for a in chip_smoke.SCORE_ARGS[name]]
+    before = kernels.launches[name]
+    got = getattr(tcosts, name)(*(t.to(cuda) for t in host))
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 1
+    want = getattr(tcosts, f"{name}_plain")(*host)
+    np.testing.assert_array_equal(bits(got.cpu().numpy()), bits(want.numpy()))
+
+
+@pytest.mark.parametrize("p, n", [(1, 1), (37, 300), (512, 10_000)])
+@pytest.mark.parametrize("z", [1, 2, 4, 8])
+@pytest.mark.parametrize("dn", [1, 2, 3, 4])
+@pytest.mark.parametrize("most", [False, True])
+def test_numa_alignment_kernel_matches_plain(cuda, p, n, z, dn, most):
+    fix = chip_smoke.score_fixture(p + n + z, p, n, 4, z, dn=dn)
+    state = tnuma.NumaState.create(fix["zone_free"], fix["zone_free"],
+                                   np.zeros(n, np.int8), device="cpu")
+    req = torch.from_numpy(fix["pod_req"])
+    before = kernels.launches["numa_alignment_cost"]
+    got = tnuma.numa_alignment_cost(
+        req.to(cuda), tnuma.NumaState(*(t.to(cuda) for t in (state.zone_free, state.zone_cap,
+                                                             state.policy))), most)
+    torch.cuda.synchronize()
+    assert kernels.launches["numa_alignment_cost"] == before + 1
+    want = tnuma.numa_alignment_cost_plain(req, state, most)
+    np.testing.assert_array_equal(bits(got.cpu().numpy()), bits(want.numpy()))
+
+
+def test_a_refused_launch_fails_the_sequential_solve_and_the_scores(cuda, monkeypatch):
+    """A launch the card refuses raises ``KernelError`` out of
+    ``assign_sequential`` (the build, then the scan) and out of every
+    scoring program; nothing falls back to the plain twins."""
+    class Refusing:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            if name.startswith("koord_") and name != "koord_error_string":
+                return lambda *_args: 1
+            return getattr(self._lib, name)
+
+    nodes, pods, params = chip_smoke.rich_fixture(chip_smoke.SEQ_SEED, 300, 512)
+    nodes_t, pods_t, params_t = chip_smoke.port_inputs(torch, nodes, pods, params, cuda)
+    fix = chip_smoke.score_fixture(1, 8, 20, 2, 2)
+    loaded = kernels.library
+    monkeypatch.setattr(kernels, "library", lambda name: Refusing(loaded(name)))
+    for k in (None, 8):
+        with pytest.raises(kernels.KernelError, match="CUDA error 1"):
+            T.assign_sequential(pods_t, nodes_t, params_t, shortlist_k=k)
+    for name, args in chip_smoke.SCORE_ARGS.items():
+        with pytest.raises(kernels.KernelError, match="CUDA error 1"):
+            getattr(tcosts, name)(*(torch.from_numpy(fix[a]).to(cuda) for a in args))
+    zf = torch.from_numpy(fix["zone_free"]).to(cuda)
+    with pytest.raises(kernels.KernelError, match="CUDA error 1"):
+        tnuma.numa_alignment_cost(torch.from_numpy(fix["pod_req"]).to(cuda),
+                                  tnuma.NumaState(zf, zf, torch.zeros(20, dtype=torch.int8,
+                                                                      device=cuda)))

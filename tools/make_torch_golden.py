@@ -57,7 +57,18 @@
   full-size cycles of :func:`chip_smoke.seam_cycles` (10,000 nodes,
   20,480 pods, then two waves of 4,608 on the leftovers); ``transform``,
   one full-size cycle of 8,192 pods with :func:`seam_transform_jax`
-  registered (about a minute on the CPU).
+  registered (about a minute on the CPU);
+- ``tests/data/torch_golden_sequential.npz``: the exact sequential
+  solver and the scoring programs. ``assign_sequential`` on
+  ``rich_fixture(7, 2000, 512)`` with no quota tree and with each of
+  ``chip_smoke.QUOTA_TREES``', full axis and ``shortlist_k=64``
+  (assignment, the three node tables, quota table and fallback counts,
+  whole); the same on the full-size ``rich_fixture(7, 10000, 16384)``
+  with no tree and the sorted tree, full axis and K=64
+  (``chip_smoke.SEQ_CELLS``), kept as each output's sha256, the placed
+  count and the fallback counts (about 5-6 s a cell on the CPU); and the
+  sha256 of the five scoring programs' outputs on
+  ``chip_smoke.score_fixture(3, 512, 10000, 2, z)`` for Z = 2 and 4.
 
     python tools/make_torch_golden.py              # every file
     python tools/make_torch_golden.py --quota      # the quota file only
@@ -65,6 +76,7 @@
     python tools/make_torch_golden.py --numa       # the NUMA file only
     python tools/make_torch_golden.py --device     # the device file only
     python tools/make_torch_golden.py --seam       # the seam file only
+    python tools/make_torch_golden.py --sequential # the sequential file only
 
 The NUMA file's final zone tables come from a copy of
 ``solve_stream_full``'s scan that also returns its zone carry
@@ -625,6 +637,91 @@ def seam_arrays() -> dict:
     return out
 
 
+SEQUENTIAL_PATH = chip_smoke.GOLDEN_SEQUENTIAL
+
+
+def jax_sequential(nodes, pods, params, quotas, shortlist_k) -> dict:
+    """The JAX package's ``assign_sequential`` on numpy dicts (``quotas``
+    (runtime, used) or None): ``chip_smoke.SEQ_OUTPUTS`` as numpy arrays."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.ops.solver import (
+        NodeState, PodBatch, QuotaState, SolverParams, assign_sequential,
+    )
+
+    q = None if quotas is None else QuotaState(runtime=jnp.asarray(quotas[0]),
+                                               used=jnp.asarray(quotas[1]))
+    res = assign_sequential(
+        PodBatch.create(**pods), NodeState.create(**nodes),
+        SolverParams(**{k: jnp.asarray(v) for k, v in params.items()}), q,
+        shortlist_k=shortlist_k,
+    )
+    return {f: np.asarray(getattr(res, f)) for f in chip_smoke.SEQ_OUTPUTS}
+
+
+def sequential_small_cases():
+    """The golden's small cases: (key, (nodes, pods, params, quotas),
+    shortlist_k) on ``rich_fixture(SEQ_SEED, *SEQ_SMALL)`` with no tree and
+    each of ``QUOTA_TREES``', full axis and K=64."""
+    fixture = chip_smoke.rich_fixture(chip_smoke.SEQ_SEED, *chip_smoke.SEQ_SMALL)
+    for tree in (None, *chip_smoke.QUOTA_TREES):
+        for k in (None, chip_smoke.SHORTLIST_K):
+            yield (chip_smoke.seq_key(tree, k), chip_smoke.sequential_inputs(tree, *fixture), k)
+
+
+def jax_scores(fix: dict, z: int) -> dict:
+    """The JAX package's five scoring programs on a ``score_fixture``:
+    program name (NUMA: ``numa_alignment_cost_z{z}_least`` and
+    ``_most``) → [P, N] float32."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.ops import costs
+    from koordinator_tpu.ops.numa import NumaState, numa_alignment_cost
+
+    out = {name: np.asarray(getattr(costs, name)(*(jnp.asarray(fix[a]) for a in args)))
+           for name, args in chip_smoke.SCORE_ARGS.items()}
+    n = fix["zone_free"].shape[0]
+    numa = NumaState(zone_free=jnp.asarray(fix["zone_free"]),
+                     zone_cap=jnp.asarray(fix["zone_free"]),
+                     policy=jnp.zeros((n,), jnp.int8))
+    for most in (False, True):
+        out[f"numa_alignment_cost_z{z}_{'most' if most else 'least'}"] = np.asarray(
+            numa_alignment_cost(jnp.asarray(fix["pod_req"]), numa, most))
+    return out
+
+
+def sequential_arrays() -> dict:
+    """The sequential golden: the small cases whole, the full-size cells'
+    digests (``rich_fixture(SEQ_SEED, N_NODES, SEQ_PODS)``: about 5-6 s a
+    cell on the CPU) and the scoring programs' digests at ``SCORE_PODS`` ×
+    ``N_NODES``."""
+    import time
+
+    out = dict(fixture_sha256=np.array(chip_smoke.fixture_digest(
+        *chip_smoke.rich_fixture(chip_smoke.SEQ_SEED, *chip_smoke.SEQ_SMALL))))
+    for key, inputs, k in sequential_small_cases():
+        out.update({f"{key}_{f}": a for f, a in jax_sequential(*inputs, k).items()})
+    full = chip_smoke.rich_fixture(chip_smoke.SEQ_SEED, chip_smoke.N_NODES, chip_smoke.SEQ_PODS)
+    out["full_fixture_sha256"] = np.array(chip_smoke.fixture_digest(*full))
+    for tree, k in chip_smoke.SEQ_CELLS:
+        key = "full_" + chip_smoke.seq_key(tree, k)
+        t0 = time.perf_counter()
+        res = jax_sequential(*chip_smoke.sequential_inputs(tree, *full), k)
+        out.update({f"{key}_{f}_sha256": np.array(chip_smoke.array_digest(a))
+                    for f, a in res.items()})
+        out[f"{key}_placed"] = np.array(int((res["assignment"] >= 0).sum()))
+        out[f"{key}_fallbacks"] = res["shortlist_fallbacks"]
+        print(f"{key}: placed {int(out[f'{key}_placed'])}, fallbacks "
+              f"{res['shortlist_fallbacks'].tolist()}, {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    for z in chip_smoke.SCORE_ZONES:
+        fix = chip_smoke.score_fixture(chip_smoke.SCORE_SEED, chip_smoke.SCORE_PODS,
+                                       chip_smoke.N_NODES, 2, z)
+        out.update({f"score_z{z}_{name}_sha256": np.array(chip_smoke.array_digest(a))
+                    for name, a in jax_scores(fix, z).items()})
+    return out
+
+
 def main() -> None:
     import jax
 
@@ -634,9 +731,10 @@ def main() -> None:
              (QUOTA_PATH, lambda: {**quota_small_arrays(), **quota_full_arrays()}),
              (BIGBATCH_PATH, bigbatch_arrays), (BIGBATCH_32K_PATH, bigbatch_32k_arrays),
              (NUMA_PATH, numa_arrays), (DEVICE_PATH, device_arrays),
-             (SEAM_PATH, seam_arrays)]
+             (SEAM_PATH, seam_arrays), (SEQUENTIAL_PATH, sequential_arrays)]
     only = {"--quota": [QUOTA_PATH], "--bigbatch": [BIGBATCH_PATH, BIGBATCH_32K_PATH],
-            "--numa": [NUMA_PATH], "--device": [DEVICE_PATH], "--seam": [SEAM_PATH]}
+            "--numa": [NUMA_PATH], "--device": [DEVICE_PATH], "--seam": [SEAM_PATH],
+            "--sequential": [SEQUENTIAL_PATH]}
     picked = [path for a in sys.argv[1:] if a in only for path in only[a]]
     if picked:
         files = [f for f in files if f[0] in picked]
