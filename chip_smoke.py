@@ -1063,9 +1063,9 @@ def ptxas_summary(kernels) -> dict:
         "round_tail_kernelILi4ELi32ELb1ELb1ELb1E":
             "round_tail_kernel<4,32,quota,zone,device memory>",
         "enforce_gangs_kernel": "enforce_gangs_kernel",
-        "shortlist_build_kernelILi2ELb1ELb0ELb0E": "shortlist_build_kernel<2,stored>",
-        "shortlist_build_kernelILi2ELb1ELb1ELb0E": "shortlist_build_kernel<2,stored,numa>",
-        "shortlist_build_kernelILi2ELb1ELb0ELb1E": "shortlist_build_kernel<2,stored,devices>",
+        "shortlist_build_kernelILi2ELb0ELb0E": "shortlist_build_kernel<2>",
+        "shortlist_build_kernelILi2ELb1ELb0E": "shortlist_build_kernel<2,numa>",
+        "shortlist_build_kernelILi2ELb0ELb1E": "shortlist_build_kernel<2,devices>",
         "shortlist_round_kernelILi2ELi4ELb0ELb0E": "shortlist_round_kernel<2,4>",
         "shortlist_round_kernelILi2ELi4ELb1ELb0E": "shortlist_round_kernel<2,4,numa>",
         "shortlist_round_kernelILi2ELi4ELb0ELb1E": "shortlist_round_kernel<2,4,devices>",
@@ -1395,6 +1395,10 @@ def phase_kernels(torch, dev, report):
             device_ms=device_ms(torch, fn, min(50, iters // 4), kname),
             library_device_ms=None if lib_fn is None else device_ms(torch, lib_fn, 50, None),
             bytes=nbytes, operations=nops,
+            **({} if lib_fn is None else dict(library_of=(
+                "zeros + index_add_ of the refunds of the pods already known to roll back: "
+                "the refund scatter only, not the rollback (counting members, deciding "
+                "gangs, unassigning)"))),
         ))
     report["kernels"] = rows
     report["rollbacks"] = rollbacks
@@ -1558,6 +1562,57 @@ def phase_golden(torch, dev):
     )
 
 
+#: nodes of the build checks' wide case: above 51,200, where a pod's keys
+#: (4 bytes a node) no longer fit a block's shared memory
+WIDE_NODES = 60_000
+
+
+def wide_build_check(torch, dev, kind: str) -> float:
+    """The shortlist build over WIDE_NODES nodes (``rich_fixture(5,
+    WIDE_NODES, BATCH)`` at round 0) at K=64 with the jitter on and off,
+    against the plain build: ``kind`` "plain", "numa" (``zone_tables``'
+    zones, LeastAllocated) or "devices" (``device_tables``' devices,
+    LeastAllocated, the score clamped). Returns the largest difference of
+    a finite bound (0.0)."""
+    from koordinator_tpu_torch.ops import shortlist as sl
+    from koordinator_tpu_torch.ops import solver
+    from koordinator_tpu_torch.ops.device import DeviceState
+    from koordinator_tpu_torch.ops.numa import NumaState
+
+    nodes, pods, params = rich_fixture(5, WIDE_NODES, BATCH)
+    if kind == "numa":
+        nodes, numa, required = zone_tables(NUMA_SEED, nodes, BATCH)
+        pods = dict(pods, numa_required=required)
+    elif kind == "devices":
+        pods, devices = device_tables(DEVICE_SEED, nodes, pods)
+    nodes_t, pods_t, params_t = port_inputs(torch, nodes, pods, params, dev)
+    kw = {}
+    if kind == "numa":
+        numa_t = NumaState.create(**numa, device=dev)
+        _, nom_args, terms, _ = numa_round_case(torch, pods_t, nodes_t, numa_t.zone_free, numa_t,
+                                                params_t, 1)
+        kw = dict(zones=terms)
+    elif kind == "devices":
+        dev_t = DeviceState.create(**devices, device=dev)
+        _, nom_args, terms = device_round_case(torch, pods_t, nodes_t,
+                                               solver._dev_carry0(dev_t, WIDE_NODES), dev_t,
+                                               params_t, 1)
+        kw = dict(devices=terms)
+    else:
+        _, nom_args = round_inputs(pods_t, nodes_t, params_t)
+    b_args = nom_args[:4] + nom_args[5:]
+    worst = 0.0
+    for jitter in (4.0, 0.0):
+        plan = sl.shortlist_build(*b_args, SHORTLIST_K, jitter, **kw)
+        want = sl.shortlist_build_plain(*b_args, SHORTLIST_K, jitter, **kw)
+        fin = torch.isfinite(want[1])
+        worst = max(worst, check_equal(
+            f"shortlist_build ({kind}, N={WIDE_NODES}, jitter {jitter})",
+            [("cand", plan[0], want[0]), ("bound", plan[1][fin], want[1][fin]),
+             ("finite", torch.isfinite(plan[1]), fin)]))
+    return worst
+
+
 def phase_shortlist_kernels(torch, dev, report):
     """Phase 3, the shortlist: the build and round kernels against their
     plain versions at K=64 on the kernel check's fixture, at round 0 and
@@ -1592,6 +1647,14 @@ def phase_shortlist_kernels(torch, dev, report):
         fin = torch.isfinite(pb).cpu().numpy()
         checks["shortlist_build"] = max(checks["shortlist_build"],
                                         max_abs(kb.cpu()[fin], pb.cpu()[fin]))
+        # the jitter off: ties of integer scores, every zero cost -0
+        plan = sl.shortlist_build(*build_args, SHORTLIST_K, 0.0)
+        want = sl.shortlist_build_plain(*build_args, SHORTLIST_K, 0.0)
+        fin = torch.isfinite(want[1])
+        checks["shortlist_build"] = max(checks["shortlist_build"], check_equal(
+            f"shortlist_build ({label}, jitter off)",
+            [("cand", plan[0], want[0]), ("bound", plan[1][fin], want[1][fin]),
+             ("finite", torch.isfinite(plan[1]), fin)]))
         for which, bnd in (("build bound", kb), ("below every cost", torch.full_like(kb, -1e3))):
             outs = []
             for fn in (sl.shortlist_round, sl.shortlist_round_plain):
@@ -1612,6 +1675,8 @@ def phase_shortlist_kernels(torch, dev, report):
             timing = (nom_args, build_args, kc, kb, spods)
     if flags[1]["word"][0] != 1:
         fail("shortlist_round: a bound below every cost must make the round fall back")
+    checks["shortlist_build"] = max(checks["shortlist_build"], wide_build_check(torch, dev,
+                                                                                "plain"))
 
     # the contention fixture, trip by trip, kernels against plain versions
     c_nodes, c_pods, c_params = contention_fixture()
@@ -2410,13 +2475,14 @@ def phase_numa_kernels(torch, dev, report):
                          "differs from nominate_plain")
                 checks["nominate_numa"] = max(checks["nominate_numa"], max_abs(kc[fin], pc[fin]))
             b_args = nom_args[:4] + nom_args[5:]
-            plan = sl.shortlist_build(*b_args, SHORTLIST_K, 4.0, zones=terms)
-            want = sl.shortlist_build_plain(*b_args, SHORTLIST_K, 4.0, zones=terms)
-            fin = torch.isfinite(want[1])
-            checks["shortlist_build_numa"] = max(checks["shortlist_build_numa"], check_equal(
-                f"shortlist_build with zones ({label}, scoring {scoring})",
-                [("cand", plan[0], want[0]), ("bound", plan[1][fin], want[1][fin]),
-                 ("finite", torch.isfinite(plan[1]), fin)]))
+            for jitter in (0.0, 4.0):  # the jitter's build last: the round below takes it
+                plan = sl.shortlist_build(*b_args, SHORTLIST_K, jitter, zones=terms)
+                want = sl.shortlist_build_plain(*b_args, SHORTLIST_K, jitter, zones=terms)
+                fin = torch.isfinite(want[1])
+                checks["shortlist_build_numa"] = max(checks["shortlist_build_numa"], check_equal(
+                    f"shortlist_build with zones ({label}, scoring {scoring}, jitter {jitter})",
+                    [("cand", plan[0], want[0]), ("bound", plan[1][fin], want[1][fin]),
+                     ("finite", torch.isfinite(plan[1]), fin)]))
             outs = []
             for fn in (sl.shortlist_round, sl.shortlist_round_plain):
                 word = torch.zeros(sl.WORD, dtype=torch.int32, device=dev)
@@ -2482,6 +2548,8 @@ def phase_numa_kernels(torch, dev, report):
         seen.append(dict(at=label, rolled_back=int(rolled.sum()), zone_refunds=zoned))
         if label.startswith("after") and "512" in label:
             timing["gangs"] = (pre, pods_b)
+    checks["shortlist_build_numa"] = max(checks["shortlist_build_numa"],
+                                         wide_build_check(torch, dev, "numa"))
     print(f"numa checks: bitwise equal to the plain versions {json.dumps(checks)}; "
           f"{json.dumps(seen)}", flush=True)
 
@@ -2939,6 +3007,109 @@ def device_pair_ops(terms, pairs: int) -> int:
     return ops + (pairs * 8 if terms.scoring else 0)
 
 
+#: the device phase's crowded rounds (phase 12 and the card tests): (pods,
+#: with quotas and zones)
+CROWDED_ROUNDS = ((512, False), (4096, False), (8192, True), (32_768, False))
+
+
+def crowded_round_inputs(torch, dev, p: int, quota: bool = False, zones: bool = False):
+    """A round of ``p`` pods that all nominate one of four GPU nodes (the
+    device streams' end, where gangs of whole-GPU pods crowd onto the few
+    nodes that still have free GPUs, each with RDMA and an FPGA), at the
+    start of ``device_port_inputs``' fixture (G = 16, RDMA and FPGA
+    tracked): its
+    whole, share, whole+share, RDMA and FPGA pods in four segments of
+    about p / 4 rows, the four nodes given room enough (allocatable 1e7)
+    that their GPUs, RDMA and FPGA bind before their CPU and memory, and
+    the gangs' 64-GPU members asking for 4, so that no segment is shut by
+    its first rows. With ``quota`` the one-hot tree's chains (a third of
+    its runtime), with
+    ``zones`` NUMA zones. Returns the round tail's arguments, the
+    DeviceTerms and the quota and zone tuples (None when off), on
+    ``dev``."""
+    from koordinator_tpu_torch.ops import quota as quota_ops
+    from koordinator_tpu_torch.ops import solver
+    from koordinator_tpu_torch.ops.numa import NumaState
+
+    nodes_t, pods_t, params_t, dev_t = device_port_inputs(torch, dev, n_pods=max(p, 16 * BATCH))
+    n = nodes_t.allocatable.shape[0]
+    pods_b = solver.tree_map(lambda a: a[:p], pods_t)
+    pods_b = dataclasses.replace(pods_b, gpu_whole=pods_b.gpu_whole.clamp(max=4))
+    gpu = np.flatnonzero((dev_t.cap_total.cpu().numpy() >= 800.0)
+                         & (dev_t.rdma_free.cpu().numpy() > 0)
+                         & (dev_t.fpga_free.cpu().numpy() > 0))[:4]
+    alloc = nodes_t.allocatable.clone()
+    alloc[torch.from_numpy(gpu).to(dev)] = 1e7
+    state = dataclasses.replace(nodes_t, allocatable=alloc)
+    spods, nom_args, terms = device_round_case(torch, pods_b, state, solver._dev_carry0(dev_t, n),
+                                               dev_t, params_t, 1)
+    rng = np.random.default_rng(DEVICE_SEED + p)
+    cost = np.sort(rng.integers(-100, 0, (p, 4)), axis=1).astype(np.float32)
+    idx = rng.choice(gpu, (p, 4)).astype(np.int32)
+    args = round_tail_args(torch, spods, nom_args, torch.from_numpy(cost).to(dev),
+                           torch.from_numpy(idx).to(dev))
+    order = solver._priority_order(pods_b)
+    q = z = None
+    if quota:
+        runtime, used = quota_tree(*QUOTA_TREES["onehot"], pods_t.requests.cpu().numpy())
+        chain, _, _ = quota_draws(*QUOTA_TREES["onehot"], pods_t.requests.shape[0])
+        chain = torch.from_numpy(chain).to(dev)[:p][order]
+        runtime = torch.from_numpy(runtime * np.float32(0.3)).to(dev)
+        used = torch.from_numpy(used).to(dev)
+        gate = torch.empty_like(spods.valid)
+        quota_ops.quota_gate_plain(spods.valid, spods.requests, chain, runtime, used, gate)
+        q = (chain, runtime, used, gate)
+    if zones:
+        _, numa, required = zone_tables(
+            NUMA_SEED, dict(allocatable=nodes_t.allocatable.cpu().numpy(),
+                            estimated_used=nodes_t.estimated_used.cpu().numpy()),
+            pods_t.requests.shape[0])
+        numa_t = NumaState.create(**numa, device=dev)
+        z = (numa_t.zone_free.clone(), numa_t.zone_cap, numa_t.policy, numa_t.zone_most,
+             torch.from_numpy(required[:p]).to(dev)[order],
+             torch.full((p,), -1, dtype=torch.int32, device=dev))
+    return args, terms, q, z
+
+
+def device_round_both(torch, args, terms, q, z):
+    """The round tail with devices (and quotas, zones) as the kernel runs
+    it and as its plain version runs it on CPU copies, each on its own
+    copy of the tables: (pairs of (name, kernel's, plain's) tables, the
+    plain side's arguments and DeviceTerms, the plain round's arguments
+    without devices)."""
+    from koordinator_tpu_torch import kernels
+    from koordinator_tpu_torch.ops import commit as commit_ops
+
+    work = [t.clone() for t in args]
+    wd = device_terms_copy(terms)
+    wq = None if q is None else (q[0], q[1], q[2].clone(), q[3].clone())
+    wz = None if z is None else (z[0].clone(),) + z[1:5] + (z[5].clone(),)
+    kernels.reset_launches()
+    commit_ops.round_tail(*work, 0.35, quota=wq, zone=wz, dev=wd)
+    if kernels.launches.get("device_phase", 0) != 1:
+        fail("round_tail with devices: no device phase ran")
+    host = [t.cpu().clone() for t in args]
+    hd = device_terms_copy(terms, "cpu")
+    hq = None if q is None else tuple(t.cpu().clone() for t in q)
+    hz = None if z is None else tuple(t.cpu().clone() for t in z)
+    commit_ops.round_tail_plain(*host, 0.35, quota=hq, zone=hz, dev=hd)
+    names = ("requested", "estimated_used", "prod_used", "assigned", "active", "state")
+    pairs = [(nm, a, b) for nm, a, b in zip(names, work[ROUND_MUTABLE], host[ROUND_MUTABLE])]
+    pairs += [("slots", wd.slots, hd.slots), ("stats", wd.stats, hd.stats)]
+    pairs += [(nm, getattr(wd, nm), getattr(hd, nm)) for nm in ("rdma", "fpga")
+              if getattr(wd, nm) is not None]
+    if q is not None:
+        pairs += [("quota_used", wq[2], hq[2]), ("gate", wq[3], hq[3])]
+    if z is not None:
+        pairs += [("zone_free", wz[0], hz[0]), ("pod_zone", wz[5], hz[5])]
+    # the same round without devices: which pods the devices refused
+    plain_nd = [t.cpu().clone() for t in args]
+    commit_ops.round_tail_plain(
+        *plain_nd, 0.35, quota=None if q is None else tuple(t.cpu().clone() for t in q),
+        zone=None if z is None else tuple(t.cpu().clone() for t in z))
+    return pairs, host, hd, plain_nd
+
+
 def phase_device_kernels(torch, dev, report):
     """Phase 12, devices: ``csrc/device_prep.cu``, the three pricing
     kernels with the device terms under each ``device_scoring`` (and none),
@@ -3006,14 +3177,16 @@ def phase_device_kernels(torch, dev, report):
                     checks["nominate_device"] = max(checks["nominate_device"],
                                                     max_abs(kc[fin], pc[fin]))
                 b_args = nom_args[:4] + nom_args[5:]
-                plan = sl.shortlist_build(*b_args, SHORTLIST_K, 4.0, devices=terms)
-                want = sl.shortlist_build_plain(*b_args, SHORTLIST_K, 4.0, devices=terms)
-                fin = torch.isfinite(want[1])
-                checks["shortlist_build_device"] = max(checks["shortlist_build_device"],
-                                                       check_equal(
-                    f"shortlist_build with devices ({label}, scoring {scoring})",
-                    [("cand", plan[0], want[0]), ("bound", plan[1][fin], want[1][fin]),
-                     ("finite", torch.isfinite(plan[1]), fin)]))
+                for jitter in (0.0, 4.0):  # the jitter's build last: the round below takes it
+                    plan = sl.shortlist_build(*b_args, SHORTLIST_K, jitter, devices=terms)
+                    want = sl.shortlist_build_plain(*b_args, SHORTLIST_K, jitter, devices=terms)
+                    fin = torch.isfinite(want[1])
+                    checks["shortlist_build_device"] = max(checks["shortlist_build_device"],
+                                                           check_equal(
+                        f"shortlist_build with devices ({label}, scoring {scoring}, "
+                        f"jitter {jitter})",
+                        [("cand", plan[0], want[0]), ("bound", plan[1][fin], want[1][fin]),
+                         ("finite", torch.isfinite(plan[1]), fin)]))
                 outs = []
                 for fn in (sl.shortlist_round, sl.shortlist_round_plain):
                     word = torch.zeros(sl.WORD, dtype=torch.int32, device=dev)
@@ -3059,38 +3232,9 @@ def phase_device_kernels(torch, dev, report):
                         z = (numa_t.zone_free.clone(), numa_t.zone_cap, numa_t.policy,
                              numa_t.zone_most, torch.from_numpy(required[:p_b]).to(dev)[order],
                              torch.full((p_b,), -1, dtype=torch.int32, device=dev))
-                    work = [t.clone() for t in args]
-                    wd = device_terms_copy(terms)
-                    wq = None if q is None else (q[0], q[1], q[2].clone(), q[3].clone())
-                    wz = None if z is None else (z[0].clone(),) + z[1:5] + (z[5].clone(),)
-                    kernels.reset_launches()
-                    commit_ops.round_tail(*work, 0.35, quota=wq, zone=wz, dev=wd)
-                    if kernels.launches.get("device_phase", 0) != 1:
-                        fail(f"round_tail with devices ({label}, {mode}): no device phase ran")
-                    host = [t.cpu().clone() for t in args]
-                    hd = device_terms_copy(terms, "cpu")
-                    hq = None if q is None else tuple(t.cpu().clone() for t in q)
-                    hz = None if z is None else tuple(t.cpu().clone() for t in z)
-                    commit_ops.round_tail_plain(*host, 0.35, quota=hq, zone=hz, dev=hd)
-                    names = ("requested", "estimated_used", "prod_used", "assigned", "active",
-                             "state")
-                    pairs = [(nm, a, b) for nm, a, b in zip(names, work[ROUND_MUTABLE],
-                                                             host[ROUND_MUTABLE])]
-                    pairs += [("slots", wd.slots, hd.slots), ("stats", wd.stats, hd.stats)]
-                    pairs += [(nm, getattr(wd, nm), getattr(hd, nm)) for nm in ("rdma", "fpga")
-                              if getattr(wd, nm) is not None]
-                    if q is not None:
-                        pairs += [("quota_used", wq[2], hq[2]), ("gate", wq[3], hq[3])]
-                    if z is not None:
-                        pairs += [("zone_free", wz[0], hz[0]), ("pod_zone", wz[5], hz[5])]
+                    pairs, host, hd, plain_nd = device_round_both(torch, args, terms, q, z)
                     checks["round_tail_device"] = max(checks["round_tail_device"], check_equal(
                         f"round_tail with devices ({label}, {mode})", pairs))
-                    # the same round without devices: which pods the devices refused
-                    plain_nd = [t.cpu().clone() for t in args]
-                    commit_ops.round_tail_plain(
-                        *plain_nd, 0.35,
-                        quota=None if q is None else tuple(t.cpu().clone() for t in q),
-                        zone=None if z is None else tuple(t.cpu().clone() for t in z))
                     changed = int((hd.slots != terms.slots.cpu()).any(dim=1).sum())
                     refused = int(((plain_nd[14] >= 0) & (host[14] < 0)).sum())
                     if mode == "alone" and (changed == 0 or refused == 0):
@@ -3134,6 +3278,29 @@ def phase_device_kernels(torch, dev, report):
             seen.append(dict(at=label, rolled_back=int(rolled.sum()), gpu_refunds=refunded))
             if rdma and label.startswith("after") and "512" in label:
                 timing["gangs"] = (pre, pods_g, exists)
+    checks["shortlist_build_device"] = max(checks["shortlist_build_device"],
+                                           wide_build_check(torch, dev, "devices"))
+    # the crowded rounds: segments of hundreds of rows on four GPU nodes
+    for p_c, both in CROWDED_ROUNDS:
+        args, terms, q, z = crowded_round_inputs(torch, dev, p_c, quota=both, zones=both)
+        pairs, host, hd, plain_nd = device_round_both(torch, args, terms, q, z)
+        label = f"crowded, P={p_c}" + (", quotas and zones" if both else "")
+        checks["round_tail_device"] = max(checks["round_tail_device"], check_equal(
+            f"round_tail with devices ({label})", pairs))
+        n = terms.stats.shape[0]
+        _, node_key = commit_ops._choose(host[0], host[1], host[15], n)
+        refused = (plain_nd[14] >= 0) & (host[14] < 0)
+        share = hd.share > 1e-3
+        row = dict(at=label, longest_segment=int(torch.bincount(node_key[node_key < n]).max()),
+                   nodes_charged=int((hd.slots != terms.slots.cpu()).any(dim=1).sum()),
+                   refused_by_devices=int(refused.sum()),
+                   share_refused=int((refused & share).sum()),
+                   rdma_refused=int((refused & (hd.rdma_req > 0)).sum()))
+        if min(row["nodes_charged"], row["refused_by_devices"]) == 0 or \
+                row["longest_segment"] < p_c // 8:
+            fail(f"round_tail with devices ({label}): the check needs long segments, slot "
+                 f"commits and device refusals, got {row}")
+        seen.append(row)
     print(f"device checks: bitwise equal to the plain versions {json.dumps(checks)}; "
           f"{json.dumps(seen)}", flush=True)
 

@@ -109,20 +109,24 @@
 // - The device phase (DeviceShare, solver.py:1246-1274 and :1386-1416) is
 //   a run-time branch of every instantiation (devices.slots != nullptr),
 //   each half in a frame of its own that takes only the working set and
-//   the tables (device_accept, device_charge): after the fit tests, one
-//   thread a node segment walks its rows in sorted order with the whole
-//   GPUs asked for so far (plus one for each share pod that opens a full
-//   slot: its share above the node's round-start best partial slot), the
-//   share pods so far and the RDMA and FPGA so far — small whole numbers,
-//   exact in any order — against the node's round-start stats and free
-//   counts, and refuses the rows past them and every share pod but the
-//   segment's first; it runs before the zone selection, as the
-//   reference's acceptance does. After the node charges the same thread
-//   applies slot_commit to the node's slot row (device.cuh) from its final
-//   winners, takes their RDMA and FPGA off the free counts, and refreshes
-//   the node's row of the stats table, which the next round's pricing
-//   reads (device_prep.cu works it out once a batch). The rows hand their
-//   flags to the phase through two words a row of the working set.
+//   the tables (device_accept, device_charge). After the fit tests, each
+//   row needs its node segment's running sums: the whole GPUs asked for
+//   so far (plus one for each share pod that opens a full slot: its share
+//   above the node's round-start best partial slot), the share pods so far
+//   and the RDMA and FPGA so far, against the node's round-start stats and
+//   free counts; the rows past them and every share pod but the segment's
+//   first are refused. The sums are whole numbers, exact in any order, so
+//   they are a block-wide segmented scan of integers (a span of rows a
+//   thread, the spans' sums scanned by warp shuffles): no thread walks a
+//   segment, however many pods crowd onto one node as a fleet runs out. It
+//   runs before the zone selection, as the reference's acceptance does.
+//   After the node charges the same scan over the final winners gives each
+//   segment's whole GPUs, RDMA, FPGA and share winner, and the thread of
+//   its last row applies slot_commit to the node's slot row (device.cuh),
+//   takes the RDMA and FPGA off the free counts, and refreshes the node's
+//   row of the stats table, which the next round's pricing reads
+//   (device_prep.cu works it out once a batch). The rows hand their flags
+//   to the phase through two words a row of the working set.
 
 #pragma once
 
@@ -1202,93 +1206,221 @@ struct RoundDevices {
 };
 
 // A sorted row's device word: its pod row (low 16 bits: P <= 32,768) and
-// flags. The segment word of a segment's first row is its node, of any
-// other row -1.
+// flags. The segment word of a sorted row is its node: the keys' high half,
+// kept because the quota commit takes the keys' room before the charges.
 constexpr int kDevRowMask = 0xFFFF;
 constexpr int kDevOk = 1 << 16;     // accepted (in: by the fit tests; out: and the devices)
 constexpr int kDevOpens = 1 << 17;  // a share pod that opens a full slot
 constexpr int kDevFinal = 1 << 18;  // a final winner
 
-// Two words a row: the device word and the segment word.
-__host__ __device__ inline size_t dev_bytes(int P) { return (size_t)P * 2 * sizeof(int); }
+// The device phase's running sums: four whole numbers and whether a
+// segment starts in the span they cover. A sum stops at kDevSat: a float
+// sum of whole numbers is exact up to 2^24, so below that the integer is
+// the float walk's value, and above it both exceed every count they are
+// held against (a node's slots, at most 256, and its free RDMA and FPGA,
+// below 2^24).
+constexpr uint32_t kDevSat = 1u << 25;
+constexpr int kDevScanWords = 5;  // a warp's total in the scan area: head, four sums
+
+struct DevSums {
+  uint32_t v[4];
+  bool head;
+};
+
+__device__ __forceinline__ DevSums dev_none() { return DevSums{{0u, 0u, 0u, 0u}, false}; }
+
+// A pod's ask as a term of the sums (a count: an ask above kDevSat, or one
+// read as negative, exceeds every count it is held against).
+__device__ __forceinline__ uint32_t dev_term(int ask) { return min((uint32_t)ask, kDevSat); }
+
+// l then r. In the charges (kCharge) the fourth sum is the share winner's
+// word, OR-ed: a segment has at most one share winner.
+template <bool kCharge>
+__device__ __forceinline__ DevSums dev_then(const DevSums& l, const DevSums& r) {
+  if (r.head) return r;
+  DevSums o;
+  o.head = l.head;
+#pragma unroll
+  for (int f = 0; f < 4; ++f)
+    o.v[f] = kCharge && f == 3 ? (l.v[f] | r.v[f]) : min(l.v[f] + r.v[f], kDevSat);
+  return o;
+}
+
+__device__ __forceinline__ DevSums dev_shfl_up(const DevSums& x, int off) {
+  DevSums y;
+#pragma unroll
+  for (int f = 0; f < 4; ++f) y.v[f] = __shfl_up_sync(kFull, x.v[f], off);
+  y.head = __shfl_up_sync(kFull, (int)x.head, off) != 0;
+  return y;
+}
+
+// The inclusive scan of a warp's DevSums, in lane order.
+template <bool kCharge>
+__device__ __forceinline__ DevSums dev_warp_scan(DevSums x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const DevSums y = dev_shfl_up(x, off);
+    if (lane >= off) x = dev_then<kCharge>(y, x);
+  }
+  return x;
+}
+
+__device__ __forceinline__ DevSums dev_load(const int* w) {
+  DevSums x;
+  x.head = w[0] != 0;
+#pragma unroll
+  for (int f = 0; f < 4; ++f) x.v[f] = (uint32_t)w[1 + f];
+  return x;
+}
+
+__device__ __forceinline__ void dev_store(int* w, const DevSums& x) {
+  w[0] = x.head;
+#pragma unroll
+  for (int f = 0; f < 4; ++f) w[1 + f] = (int)x.v[f];
+}
+
+// The exclusive segmented scan of one DevSums a thread, in thread order,
+// across the block: warp shuffles, then the warps' totals through `area`
+// (kWarps * kDevScanWords words of the working set). The whole block
+// calls it.
+template <bool kCharge>
+__device__ DevSums dev_block_scan(const DevSums x, int* area) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const DevSums inc = dev_warp_scan<kCharge>(x);
+  DevSums before = dev_shfl_up(inc, 1);
+  if (lane == 0) before = dev_none();
+  if (lane == 31) dev_store(area + warp * kDevScanWords, inc);
+  __syncthreads();
+  if (warp == 0) {
+    const DevSums t = dev_warp_scan<kCharge>(
+        lane < nwarps ? dev_load(area + lane * kDevScanWords) : dev_none());
+    if (lane < nwarps) dev_store(area + lane * kDevScanWords, t);
+  }
+  __syncthreads();
+  if (warp > 0) before = dev_then<kCharge>(dev_load(area + (warp - 1) * kDevScanWords), before);
+  return before;
+}
+
+// Two words a row, the device word and the segment word, then the scan
+// area.
+__host__ __device__ inline size_t dev_bytes(int P) {
+  return ((size_t)P * 2 + kWarps * kDevScanWords) * sizeof(int);
+}
+
+// Thread t's span of the sorted rows: C = ceil(P / T) in a row from t * C.
+__device__ __forceinline__ void dev_span(int P, int& j0, int& j1) {
+  const int c = (P + blockDim.x - 1) / blockDim.x;
+  j0 = min(P, (int)threadIdx.x * c);
+  j1 = min(P, j0 + c);
+}
+
+// Sorted row j's terms in the acceptance: its node, whether its segment
+// starts there, its pod row, whether it opens a full slot, and the whole
+// GPUs (plus one when it opens), its share count (0 or 1), RDMA and FPGA.
+struct DevRow {
+  int node, row;
+  bool head, frac, opens;
+  DevSums t;
+};
+
+__device__ __forceinline__ DevRow dev_row(const uint64_t* keys, int j, int N,
+                                          const RoundDevices& dv) {
+  DevRow r;
+  r.node = (int)(keys[j] >> 32);
+  r.row = (int)(keys[j] & 0xFFFFFFFFu);
+  r.head = j == 0 || (int)(keys[j - 1] >> 32) != r.node;
+  const float partial = dv.stats[(size_t)min(r.node, N - 1) * koord_device::kStats + 1];
+  const float share = dv.share[r.row];
+  r.frac = share > kEps;
+  r.opens = r.frac && share > partial + kEps;
+  r.t.head = r.head;
+  r.t.v[0] = dev_term(dv.whole[r.row]) + (r.opens ? 1u : 0u);
+  r.t.v[1] = r.frac ? 1u : 0u;
+  r.t.v[2] = dv.rdma != nullptr ? dev_term(dv.rdma_req[r.row]) : 0u;
+  r.t.v[3] = dv.fpga != nullptr ? dev_term(dv.fpga_req[r.row]) : 0u;
+  return r;
+}
 
 // The device acceptance (solver.py:1246-1274) on the rows' fit acceptance
-// (kDevOk in d_info, written by each row): one thread a node segment, its
-// rows in sorted order. The whole block calls it; every loop is a walk of
-// the working set and the tables, so it keeps no array.
+// (kDevOk in d_info, written by each row). Within each node's segment of
+// the sorted rows: the whole GPUs asked so far (plus one for each share pod
+// that opens a full slot) within the node's full slots, only the
+// segment's first share pod, the RDMA and FPGA asked so far within the
+// free counts. The four running sums are whole numbers, so they are a
+// segmented scan of integers: each thread takes a span of rows in order,
+// sums it, the block scans the spans' sums, and each row then holds its
+// own prefixes against the node's round-start stats and counts. The whole
+// block calls it.
 __device__ __noinline__ void device_accept(const uint64_t* keys, int P, int N, int* d_info,
-                                           int* d_seg, const RoundDevices dv) {
+                                           int* d_seg, int* d_scan, const RoundDevices dv) {
   __syncthreads();  // every row's fit acceptance is in
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const int node = (int)(keys[i] >> 32);
-    if (i > 0 && (int)(keys[i - 1] >> 32) == node) {
-      d_seg[i] = -1;
-      continue;
-    }
-    d_seg[i] = node;
-    const bool real = node < N;
-    const float* st = dv.stats + (size_t)min(node, N - 1) * koord_device::kStats;
-    const float full = st[0], partial = st[1];
-    const float rfree = dv.rdma != nullptr && real ? dv.rdma[node] : 0.0f;
-    const float ffree = dv.fpga != nullptr && real ? dv.fpga[node] : 0.0f;
-    float seg_full = 0.0f, seg_frac = 0.0f, seg_rdma = 0.0f, seg_fpga = 0.0f;
-    for (int j = i; j < P && (int)(keys[j] >> 32) == node; ++j) {
-      const int row = (int)(keys[j] & 0xFFFFFFFFu);
-      const float whole = (float)dv.whole[row], share = dv.share[row];
-      const bool frac = share > kEps;
-      const bool opens = frac && share > partial + kEps;
-      seg_full = seg_full + (whole + (opens ? 1.0f : 0.0f));
-      seg_frac = seg_frac + (frac ? 1.0f : 0.0f);
-      bool ok = (d_info[j] & kDevOk) != 0 && real;
-      ok = ok && seg_full <= full + kEps;
-      ok = ok && (!frac || seg_frac - 1.0f < 0.5f);
-      if (dv.rdma != nullptr) {
-        seg_rdma = seg_rdma + (float)dv.rdma_req[row];
-        ok = ok && seg_rdma <= rfree + kEps;
-      }
-      if (dv.fpga != nullptr) {
-        seg_fpga = seg_fpga + (float)dv.fpga_req[row];
-        ok = ok && seg_fpga <= ffree + kEps;
-      }
-      d_info[j] = row | (ok ? kDevOk : 0) | (opens ? kDevOpens : 0);
-    }
+  int j0, j1;
+  dev_span(P, j0, j1);
+  DevSums run = dev_none();
+  for (int j = j0; j < j1; ++j) run = dev_then<false>(run, dev_row(keys, j, N, dv).t);
+  run = dev_block_scan<false>(run, d_scan);
+  for (int j = j0; j < j1; ++j) {
+    const DevRow r = dev_row(keys, j, N, dv);
+    run = dev_then<false>(run, r.t);
+    const bool real = r.node < N;
+    const float full = dv.stats[(size_t)min(r.node, N - 1) * koord_device::kStats];
+    bool ok = (d_info[j] & kDevOk) != 0 && real;
+    ok = ok && (float)run.v[0] <= full + kEps;
+    ok = ok && (!r.frac || (float)run.v[1] - 1.0f < 0.5f);
+    if (dv.rdma != nullptr) ok = ok && (float)run.v[2] <= (real ? dv.rdma[r.node] : 0.0f) + kEps;
+    if (dv.fpga != nullptr) ok = ok && (float)run.v[3] <= (real ? dv.fpga[r.node] : 0.0f) + kEps;
+    d_info[j] = r.row | (ok ? kDevOk : 0) | (r.opens ? kDevOpens : 0);
+    d_seg[j] = r.node;
   }
   __syncthreads();
 }
 
 // The device charges (solver.py:1386-1416) of the final winners (kDevFinal
-// in d_info): one thread a node segment sums its winners' whole GPUs,
-// RDMA and FPGA (whole numbers, exact in any order), takes its one share
-// winner, applies slot_commit to the node's slot row, subtracts the sums
-// from the free counts and refreshes the node's stats row. Nodes without
-// a winner are not touched (slot_commit and `free - 0` leave them as they
-// are). The whole block calls it.
+// in d_info): the same segmented scan sums each segment's winners' whole
+// GPUs, RDMA and FPGA (whole numbers, exact in any order) and finds its
+// one share winner; the thread of the segment's last row applies
+// slot_commit to the node's slot row, subtracts the sums from the free
+// counts and refreshes the node's stats row. Nodes without a winner are
+// not touched (slot_commit and `free - 0` leave them as they are). The
+// whole block calls it.
 __device__ __noinline__ void device_charge(int P, int N, const int* d_info, const int* d_seg,
-                                           const RoundDevices dv) {
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const int node = d_seg[i];
-    if (node < 0 || node >= N) continue;
-    float whole = 0.0f, frac = 0.0f, rdma = 0.0f, fpga = 0.0f;
-    bool opens = false, any = false;
-    for (int j = i; j < P && (j == i || d_seg[j] < 0); ++j) {
-      const int info = d_info[j];
-      if (!(info & kDevFinal)) continue;
+                                           int* d_scan, const RoundDevices dv) {
+  int j0, j1;
+  dev_span(P, j0, j1);
+  auto terms = [&](int j) {
+    const int info = d_info[j];
+    DevSums t = dev_none();
+    t.head = j == 0 || d_seg[j - 1] != d_seg[j];
+    if (info & kDevFinal) {
       const int row = info & kDevRowMask;
-      any = true;
-      whole = whole + (float)dv.whole[row];
-      const float share = dv.share[row];
-      if (share > kEps) {
-        frac = share;
-        opens = (info & kDevOpens) != 0;
-      }
-      rdma = rdma + (float)dv.rdma_req[row];
-      fpga = fpga + (float)dv.fpga_req[row];
+      t.v[0] = dev_term(dv.whole[row]);
+      t.v[1] = dev_term(dv.rdma_req[row]);
+      t.v[2] = dev_term(dv.fpga_req[row]);
+      // bit 0: a winner; above it, the share winner's sorted row + 1
+      t.v[3] = 1u | (dv.share[row] > kEps ? (uint32_t)(j + 1) << 1 : 0u);
     }
-    if (!any) continue;
+    return t;
+  };
+  DevSums run = dev_none();
+  for (int j = j0; j < j1; ++j) run = dev_then<true>(run, terms(j));
+  run = dev_block_scan<true>(run, d_scan);
+  for (int j = j0; j < j1; ++j) {
+    run = dev_then<true>(run, terms(j));
+    const int node = d_seg[j];
+    if ((j + 1 < P && d_seg[j + 1] == node) || node >= N || !(run.v[3] & 1u)) continue;
+    float frac = 0.0f;
+    bool opens = false;
+    if (run.v[3] >> 1) {
+      const int info = d_info[(run.v[3] >> 1) - 1];
+      frac = dv.share[info & kDevRowMask];
+      opens = (info & kDevOpens) != 0;
+    }
     float* row = dv.slots + (size_t)node * dv.G;
-    koord_device::slot_commit_row(row, dv.G, whole, frac, opens);
-    if (dv.rdma != nullptr) dv.rdma[node] = dv.rdma[node] - rdma;
-    if (dv.fpga != nullptr) dv.fpga[node] = dv.fpga[node] - fpga;
+    koord_device::slot_commit_row(row, dv.G, (float)run.v[0], frac, opens);
+    if (dv.rdma != nullptr) dv.rdma[node] = dv.rdma[node] - (float)run.v[1];
+    if (dv.fpga != nullptr) dv.fpga[node] = dv.fpga[node] - (float)run.v[2];
     koord_device::slot_stats_row(row, dv.G, dv.stats + (size_t)node * koord_device::kStats);
   }
   __syncthreads();
@@ -1386,6 +1518,7 @@ round_tail_kernel(const float* __restrict__ top_cost,
   // segment word [P] each, after the zone phase's
   int* d_info = (int*)((char*)z_bits + (kZone ? zone_bytes(P, zn.DN) : 0));
   int* d_seg = d_info + P;
+  int* d_scan = d_seg + P;
   const bool devices = dv.slots != nullptr;
   const int tid = threadIdx.x, T = blockDim.x;
   // the rows present: the loops with a barrier run over these only (above
@@ -1615,7 +1748,7 @@ round_tail_kernel(const float* __restrict__ top_cost,
       const int i = tid + r * T;
       if (i < P) d_info[i] = ok[r] ? kDevOk : 0;
     }
-    device_accept(keys, P, N, d_info, d_seg, dv);
+    device_accept(keys, P, N, d_info, d_seg, d_scan, dv);
 #pragma unroll (R <= 4 ? R : 1)
     for (int r = 0; r < R; ++r) {
       const int i = tid + r * T;
@@ -1751,7 +1884,7 @@ round_tail_kernel(const float* __restrict__ top_cost,
       if (i < P && ok[r]) d_info[i] |= kDevFinal;
     }
     __syncthreads();
-    device_charge(P, N, d_info, d_seg, dv);
+    device_charge(P, N, d_info, d_seg, d_scan, dv);
   }
 
   // 8. The loop state (:1433-1452): un-sort the accepts onto `assigned`

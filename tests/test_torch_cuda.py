@@ -432,6 +432,66 @@ def test_shortlist_build_kernel_matches_plain(cuda, p, n, d, k, jitter):
     np.testing.assert_array_equal(bits(kb.cpu().numpy()), bits(pb.numpy()))
 
 
+#: the build's edge cases: (pods, nodes, K, zones, devices)
+BUILD_EDGES = {
+    "K=1024": (24, 3000, 1024, False, False),
+    "N=K+1 at K=1024": (7, 1025, 1024, False, False),
+    "N=K+1 at K=64": (5, 65, 64, False, False),
+    "512 pods over 60,000 nodes": (512, 60_000, 64, False, False),
+    "infeasible and masked rows": (96, 5000, 64, False, False),
+    "zones": (64, 60_000, 64, True, False),
+    "devices": (64, 60_000, 64, False, True),
+    "zones and devices, masked": (64, 20_000, 64, True, True),
+}
+
+
+@pytest.mark.parametrize("case", list(BUILD_EDGES))
+@pytest.mark.parametrize("jitter", [4.0, 0.0])
+def test_shortlist_build_kernel_edge_cases_match_plain(cuda, case, jitter):
+    """The build's edges against its plain version: K = 1,024 (a chunk's
+    list holds every node of it), N = K + 1, 512 pods over 60,000 nodes,
+    rows with no feasible pair (requests no node holds: the bound +inf,
+    the lowest ids) and all-false node-mask rows, and the NUMA and device
+    instantiations (LeastAllocated, the device score clamped), the jitter
+    on and off (ties of integer scores, every zero cost -0)."""
+    p, n, k, zones, devs = BUILD_EDGES[case]
+    arrays, numa, required = zone_inputs(p * 7 + n + k, p, n, 2, 2)
+    arrays = arrays[:4] + arrays[5:]
+    masked = "masked" in case
+    if "infeasible" in case:
+        arrays[0][::5] = 1e9
+        masked = True
+    devices, demand = device_demand(p + n, p, n, 16, True)
+    rng = np.random.default_rng(p + n)
+    table = rng.random((3, n)) < 0.5
+    table[1] = False
+    rows = rng.integers(0, 3, p).astype(np.int64)
+    outs = []
+    for device in (cuda, "cpu"):
+        args = [torch.from_numpy(a).to(device) for a in arrays]
+        kw = {}
+        if masked:
+            kw["mask"] = (torch.from_numpy(table).to(device), torch.from_numpy(rows).to(device))
+        if zones:
+            kw["zones"] = tnuma.ZoneTerms.batch_start(
+                torch.from_numpy(numa["zone_free"]).to(device),
+                torch.from_numpy(numa["zone_cap"]).to(device),
+                torch.from_numpy(numa["policy"]).to(device),
+                torch.from_numpy(required).to(device), 1)
+        if devs:
+            kw["devices"] = device_terms(devices, demand, device, 1)
+        before = kernels.launches["shortlist_build"]
+        outs.append([t.cpu() for t in tsl.shortlist_build(*args, k, jitter, **kw)])
+        if device == cuda:
+            assert kernels.launches["shortlist_build"] == before + 1
+    torch.cuda.synchronize()
+    (kc, kb), (pc, pb) = outs
+    np.testing.assert_array_equal(kc.numpy(), pc.numpy())
+    np.testing.assert_array_equal(bits(kb.numpy()), bits(pb.numpy()))
+    if masked:
+        assert np.isinf(pb.numpy()).any()
+
+
 def round_both(cuda, arrays, plan, k, approx, done=False, bound=None):
     """The shortlist round on the card and its plain version on the CPU;
     returns ((cost, node, word, counts) kernel, the same plain)."""
@@ -1085,6 +1145,23 @@ def test_round_tail_device_phase_matches_plain(cuda, p, g, rdma, quota, zones):
                                                       if t is not None]
                     + ([] if q is None else list(q[2:])) + ([] if z is None else [z[0], z[5]]))
     assert_round_equal(*outs)
+
+
+@pytest.mark.parametrize("p, both", chip_smoke.CROWDED_ROUNDS)
+def test_round_tail_device_phase_crowded_matches_plain(cuda, p, both):
+    """The device phase's long segments: every pod of a round nominates one
+    of four GPU nodes (``chip_smoke.crowded_round_inputs``: whole, share,
+    whole+share, RDMA and FPGA pods, segments of about P / 4 rows, share
+    pods refused after a segment's first, RDMA running out partway), in
+    shared memory (512 and 4,096 pods) and device memory (8,192 pods with
+    quotas and zones, 32,768): the kernel's tables equal the plain
+    round's."""
+    args, terms, q, z = chip_smoke.crowded_round_inputs(torch, cuda, p, quota=both, zones=both)
+    pairs, host, _, plain_nd = chip_smoke.device_round_both(torch, args, terms, q, z)
+    torch.cuda.synchronize()
+    for name, a, b in pairs:
+        np.testing.assert_array_equal(bits(a.cpu().numpy()), bits(b.numpy()), err_msg=name)
+    assert ((plain_nd[14] >= 0) & (host[14] < 0)).any()
 
 
 @pytest.mark.parametrize("p, n", [(17, 5), (512, 64), (1000, 300), (16_384, 2000)])

@@ -51,13 +51,18 @@ def assert_bits_equal(want, got, what=""):
 
 
 def device_case(seed, n=160, p=128, batch=None, rdma=True, quota=False, mask=False,
-                zones=False):
-    """A rich fixture with device tables (and, as asked, a quota tree with
-    chains, a node mask and NUMA zones); pods stacked [C, batch] when
+                zones=False, fleet=False):
+    """A rich fixture with device tables (with ``fleet``, the device
+    streams' recipe ``chip_smoke.gpu_fleet``; and, as asked, a quota tree
+    with chains, a node mask and NUMA zones); pods stacked [C, batch] when
     ``batch`` is given. Returns the JAX and port inputs as dicts of
     (pods, nodes, params, devices, quotas, numa, node_mask)."""
     nodes, pods, params = chip_smoke.rich_fixture(seed, n, p, batch=batch or p)
-    pods, devices = chip_smoke.device_tables(seed, nodes, pods, rdma=rdma, batch=batch or p)
+    if fleet:
+        pods, devices = chip_smoke.gpu_fleet(nodes, pods, batch=batch or p, rdma=rdma)
+    else:
+        pods, devices = chip_smoke.device_tables(seed, nodes, pods, rdma=rdma,
+                                                 batch=batch or p)
     jax_in = {}
     node_mask = None
     if quota:
@@ -110,6 +115,29 @@ def test_assign_with_devices_matches_reference(scoring, k):
     assert (slots != np.asarray(jin["devices"].slot_free)).sum() > 10
     gpu = (tp.gpu_whole.numpy() > 0) | (tp.gpu_share.numpy() > 0)
     assert (got.assignment.numpy()[gpu] >= 0).sum() > 10
+
+
+@pytest.mark.parametrize("scoring", SCORINGS)
+@pytest.mark.parametrize("k, rdma", [(None, True), (8, True), (None, False)])
+def test_assign_with_devices_on_a_crowded_fleet_matches_reference(scoring, k, rdma):
+    """512 pods over 16 nodes of the device streams' fleet
+    (``chip_smoke.gpu_fleet``: 8 GPUs a node, two-member gangs of whole
+    GPUs, shares of 50 and 30, RDMA on every other node, FPGA on every
+    tenth): each round's segments run to dozens of rows a node, so the
+    device acceptance refuses share pods after a segment's first and runs
+    out of GPUs and RDMA partway, round after round — the semantics the
+    round tail's segmented scans keep. Assignments, slot table, RDMA and
+    FPGA bitwise equal to the reference's."""
+    (jp, jn, jpar, jin), (tp, tn, tpar, tin) = device_case(5, n=16, p=512, rdma=rdma,
+                                                           fleet=True)
+    kw = dict(device_scoring=scoring, shortlist_k=k, max_rounds=12, approx_topk=True)
+    want = J.assign(jp, jn, jpar, **jin, **kw)
+    got = T.assign(tp, tn, tpar, **tin, **kw)
+    assert_results_equal(want, got)
+    gpu = (tp.gpu_whole.numpy() > 0) | (tp.gpu_share.numpy() > 0)
+    placed = got.assignment.numpy() >= 0
+    assert (placed & gpu).sum() > 16 and (~placed & gpu).sum() > 16
+    assert int(got.rounds_used) > 2
 
 
 @pytest.mark.parametrize("quota, mask, zones, scoring, k", [

@@ -65,6 +65,7 @@ def main() -> int:
         return 1
     spec = importlib.util.spec_from_file_location("smoke_fixture", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = smoke  # its dataclasses look their module up
     spec.loader.exec_module(smoke)
     solve = dict(smoke.SOLVE)
     if args.shortlist_k is not None:
