@@ -87,10 +87,11 @@ Phases (any failure exits non-zero and prints no result line):
    after 3 batches) and 4,096; then their times;
 10. rounds above 4,096 pods: the big batch (``bigbatch_fixture``: D=4,
     2,000 nodes, a Strict gang of 6,000 that rolls back) at P=8,192,
-    16,384 and 32,768, without quotas and with the sorted tree: the round
-    tail (``csrc/round_big.cu``, its working set in device memory) and the
-    rollback against their plain versions, ``assign`` against the
-    big-batch goldens (P=8,192 and 32,768) and the plain versions on the
+    16,384 and 32,768, and the batch of a Strict gang of 32,769 at 65,536
+    (``csrc/round_huge.cu``), without quotas and with the sorted tree: the
+    round tail (its working set in device memory) and the rollback against
+    their plain versions, ``assign`` against the big-batch goldens (P=8,192
+    and 32,768 whole, 65,536 as digests) and the plain versions on the
     card (16,384 and 32,768); times;
 11. the NUMA streams: ``solve_stream_full(numa=...)`` at full size on the
     headline fixture with ``binpack_numa``'s zones (``bench_suite.py``'s
@@ -109,8 +110,11 @@ Phases (any failure exits non-zero and prints no result line):
     instantiations under each ``device_scoring`` and none, the round
     tail's device phase (alone, with quotas, with zones, with both) and
     ``enforce_gangs``' device refunds, bitwise equal to their plain
-    versions at P=512 (the start and after 3 batches) and 4,096; then
-    their times;
+    versions at P=512 (the start and after 3 batches) and 4,096; the
+    nomination with devices and NUMA zones together (``dev_numa_port_inputs``)
+    under each scoring; the round tail on ``DOMAIN_CASES``' crowded rounds
+    (negative asks, free counts past 2^24, a wide batch's float walk);
+    then their times;
 13. the device streams: ``solve_stream_full(devices=...)`` at full size
     on the headline fixture with ``gpu_fleet``'s devices (after
     ``bench_suite.py``'s ``bench_device_gang_20k`` and
@@ -239,6 +243,12 @@ QUOTA_LATER = 9
 GOLDEN_BIGBATCH = os.path.join(ROOT, "tests", "data", "torch_golden_bigbatch.npz")
 #: the same at 32,768 pods (a gang past the bucket, padded)
 GOLDEN_BIGBATCH_32K = os.path.join(ROOT, "tests", "data", "torch_golden_bigbatch_32768.npz")
+#: the batch of a gang of 32,769 members, which the JAX scheduler pads to
+#: 65,536 pods (``bigbatch_fixture(HUGE_PODS, gang=HUGE_GANG)``): the
+#: JAX package's digests of ``assign`` on it
+GOLDEN_BIGBATCH_64K = os.path.join(ROOT, "tests", "data", "torch_golden_bigbatch_65536.npz")
+HUGE_PODS = 65_536
+HUGE_GANG = 32_769
 #: the big batch: one round of BIG_PODS pods at D = 4 over BIG_NODES nodes,
 #: with a Strict gang of BIG_GANG members that rolls back
 BIG_PODS = 8_192
@@ -612,6 +622,62 @@ def device_tables(seed: int, nodes: dict, pods: dict, g16: bool = True, rdma: bo
     return pods, devices
 
 
+#: the device sums' domain cases (ROADMAP queue 3 item 1): a negative
+#: whole, RDMA or FPGA ask among the GPU pods; nodes whose free RDMA and
+#: FPGA counts are 2^24 and more; a node whose RDMA pods' running sum
+#: crosses 2^24, ahead of the other nodes' segments
+DOMAIN_CASES = ("negative", "free_2_24", "sum_2_24")
+
+
+def device_domain_case(case: str, pods: dict, devices: dict):
+    """``device_tables``' pods and devices (numpy dicts) changed for one of
+    :data:`DOMAIN_CASES`, where the round tail's integer device sums
+    (``csrc/round.cuh``) and the reference's float prefix sums part
+    unless the port takes the float walk:
+
+    - ``negative``: every fifth whole-GPU pod asks for -1 GPU, every
+      fourth RDMA pod for -1 RDMA and every third FPGA pod for -1 FPGA;
+    - ``free_2_24``: the nodes with RDMA hold 2^24 + 2k free (k = 1..4,
+      even, so float32 holds them), those with an FPGA 2^24 + 2; every RDMA
+      and FPGA pod asks for one or two, so that a node's winners' charges,
+      summed first and then taken off, round;
+    - ``sum_2_24``: node 0 holds 2^25 free RDMA and 2^25 free FPGA, and
+      eight pods without GPUs ask it for 2^23 + 1 RDMA and 2^23 + 1 FPGA,
+      so the round's RDMA and FPGA cumsums pass 2^24 in node 0's segment,
+      before every other node's rows, whose prefixes then round.
+
+    Returns (pods, devices)."""
+    pods, devices = dict(pods), dict(devices)
+    whole, rdma, fpga = (pods[k].copy() for k in ("gpu_whole", "rdma", "fpga"))
+    big = np.int32((1 << 23) + 1)
+    if case == "negative":
+        whole[np.flatnonzero(whole > 0)[::5]] = -1
+        rdma[np.flatnonzero(rdma > 0)[::4]] = -1
+        fpga[np.flatnonzero(fpga > 0)[::3]] = -1
+    elif case == "free_2_24":
+        n = devices["fpga_free"].shape[0]
+        base = np.float32(1 << 24)
+        if devices.get("rdma_free") is not None:
+            r = devices["rdma_free"]
+            devices["rdma_free"] = np.where(r > 0, base + 2 * (np.arange(n) % 4 + 1), r).astype(
+                np.float32)
+        f = devices["fpga_free"]
+        devices["fpga_free"] = np.where(f > 0, base + 2, f).astype(np.float32)
+    elif case == "sum_2_24":
+        free_pods = np.flatnonzero((whole == 0) & (pods["gpu_share"] == 0))[:8]
+        rdma[free_pods] = big
+        fpga[free_pods] = big
+        for key in ("rdma_free", "fpga_free"):
+            if devices.get(key) is not None:
+                t = devices[key].copy()
+                t[0] = np.float32(1 << 25)
+                devices[key] = t
+    else:
+        raise ValueError(f"unknown domain case {case!r}")
+    pods.update(gpu_whole=whole, rdma=rdma, fpga=fpga)
+    return pods, devices
+
+
 def gpu_fleet(nodes: dict, pods: dict, batch: int = BATCH, rdma: bool = True):
     """The full-size device recipe over a fixture's numpy dicts, after
     ``bench_suite.py``: ``bench_device_gang_20k``'s nodes (8 GPU slots of
@@ -659,11 +725,12 @@ def gpu_fleet(nodes: dict, pods: dict, batch: int = BATCH, rdma: bool = True):
     return pods, devices
 
 
-def bigbatch_fixture(n_pods: int, n_nodes: int = BIG_NODES, seed: int = BIG_SEED):
+def bigbatch_fixture(n_pods: int, n_nodes: int = BIG_NODES, seed: int = BIG_SEED,
+                     gang: int = BIG_GANG):
     """One round of ``n_pods`` pods at D = 4 (cpu, memory and two more
     dims a node and a pod carry: ``rich_fixture``'s first two, then 0.5
     and 0.25 of its memory), the batch of a gang larger than the JAX
-    scheduler's bucket: its first ``BIG_GANG`` pods are one Strict gang
+    scheduler's bucket: its first ``gang`` pods are one Strict gang
     whose minMember equals its size, ten of them invalid (so it cannot be
     placed whole and rolls back), the next 500 one NonStrict gang of
     minMember 600 (kept as placed). Returns numpy dicts (nodes, pods,
@@ -680,15 +747,15 @@ def bigbatch_fixture(n_pods: int, n_nodes: int = BIG_NODES, seed: int = BIG_SEED
     for k in ("requests", "estimate"):
         pods[k] = widen(pods[k])
     gang_id = np.full(n_pods, -1, np.int32)
-    gang_id[:BIG_GANG] = 0
-    gang_id[BIG_GANG : BIG_GANG + 500] = 1
+    gang_id[:gang] = 0
+    gang_id[gang : gang + 500] = 1
     gang_min = np.zeros(n_pods, np.int32)
-    gang_min[:2] = (BIG_GANG, 600)
+    gang_min[:2] = (gang, 600)
     nonstrict = np.zeros(n_pods, bool)
     nonstrict[1] = True
     valid = pods["valid"].copy()
-    valid[:BIG_GANG] = True
-    valid[BIG_GANG - 10 : BIG_GANG] = False
+    valid[:gang] = True
+    valid[gang - 10 : gang] = False
     pods.update(gang_id=gang_id, gang_min=gang_min, gang_nonstrict=nonstrict, valid=valid)
     params = dict(
         usage_thresholds=np.asarray((65.0, 95.0, 0.0, 0.0), np.float32),
@@ -1038,30 +1105,39 @@ ROUND_MUTABLE = slice(11, 17)
 def ptxas_summary(kernels) -> dict:
     """Registers, shared memory and spills of the main path's kernels
     (nominate at D=2 with four list slots, K <= 4, with and without a node
-    mask, with NUMA zones and with devices; the round tail at D=2 without
-    quotas, with them and with zones, one and four rows a thread, and at
-    D=4 in device memory; the shortlist kernels without and with zones and
+    mask, with NUMA zones (Z = 4 and 2), with devices and with both; the
+    round tail at D=2 without quotas, with them and with zones, one and
+    four rows a thread, with devices alone and with zones (the device
+    phase's instantiations), and at D=4 in device memory at 32 and 128
+    rows a thread; the shortlist kernels without and with zones and
     with devices; the device side table), from ``nvcc -Xptxas -v`` in the
     build logs, and the most registers and spill bytes over every nominate
     instantiation."""
     import re
 
     wanted = {
-        "nominate_kernelILi2ELi4ELb0ELb0ELb0E": "nominate_kernel<2,4>",
-        "nominate_kernelILi2ELi4ELb1ELb0ELb0E": "nominate_kernel<2,4,masked>",
-        "nominate_kernelILi2ELi4ELb1ELb1ELb0E": "nominate_kernel<2,4,numa>",
-        "nominate_kernelILi2ELi4ELb1ELb0ELb1E": "nominate_kernel<2,4,devices>",
-        "nominate_kernelILi2ELi4ELb1ELb1ELb1E": "nominate_kernel<2,4,numa,devices>",
+        "nominate_kernelILi2ELi4ELb0ELb0ELb0ELi1ELi1EE": "nominate_kernel<2,4>",
+        "nominate_kernelILi2ELi4ELb1ELb0ELb0ELi1ELi1EE": "nominate_kernel<2,4,masked>",
+        "nominate_kernelILi2ELi4ELb1ELb1ELb0ELi4ELi2EE": "nominate_kernel<2,4,numa,Z=4>",
+        "nominate_kernelILi2ELi4ELb1ELb1ELb0ELi2ELi2EE": "nominate_kernel<2,4,numa,Z=2>",
+        "nominate_kernelILi2ELi4ELb1ELb0ELb1ELi1ELi1EE": "nominate_kernel<2,4,devices>",
+        "nominate_kernelILi2ELi4ELb1ELb1ELb1ELi4ELi2EE": "nominate_kernel<2,4,numa,devices,Z=4>",
+        "nominate_kernelILi2ELi4ELb1ELb1ELb1ELi2ELi2EE": "nominate_kernel<2,4,numa,devices,Z=2>",
         "nominate_merge_kernelILi4E": "nominate_merge_kernel<4>",
-        "round_tail_kernelILi2ELi1ELb0ELb0ELb0E": "round_tail_kernel<2,1>",
-        "round_tail_kernelILi2ELi1ELb1ELb0ELb0E": "round_tail_kernel<2,1,quota>",
-        "round_tail_kernelILi2ELi4ELb1ELb0ELb0E": "round_tail_kernel<2,4,quota>",
-        "round_tail_kernelILi2ELi1ELb0ELb1ELb0E": "round_tail_kernel<2,1,zone>",
-        "round_tail_kernelILi2ELi4ELb0ELb1ELb0E": "round_tail_kernel<2,4,zone>",
-        "round_tail_kernelILi4ELi32ELb0ELb0ELb1E": "round_tail_kernel<4,32,device memory>",
-        "round_tail_kernelILi4ELi32ELb1ELb0ELb1E": "round_tail_kernel<4,32,quota,device memory>",
-        "round_tail_kernelILi4ELi32ELb1ELb1ELb1E":
+        "round_tail_kernelILi2ELi1ELb0ELb0ELb0ELb0E": "round_tail_kernel<2,1>",
+        "round_tail_kernelILi2ELi1ELb1ELb0ELb0ELb0E": "round_tail_kernel<2,1,quota>",
+        "round_tail_kernelILi2ELi4ELb1ELb0ELb0ELb0E": "round_tail_kernel<2,4,quota>",
+        "round_tail_kernelILi2ELi1ELb0ELb1ELb0ELb0E": "round_tail_kernel<2,1,zone>",
+        "round_tail_kernelILi2ELi4ELb0ELb1ELb0ELb0E": "round_tail_kernel<2,4,zone>",
+        "round_tail_kernelILi2ELi1ELb0ELb0ELb0ELb1E": "round_tail_kernel<2,1,devices>",
+        "round_tail_kernelILi2ELi1ELb0ELb1ELb0ELb1E": "round_tail_kernel<2,1,zone,devices>",
+        "round_tail_kernelILi4ELi32ELb0ELb0ELb1ELb1E": "round_tail_kernel<4,32,device memory>",
+        "round_tail_kernelILi4ELi32ELb1ELb0ELb1ELb1E":
+            "round_tail_kernel<4,32,quota,device memory>",
+        "round_tail_kernelILi4ELi32ELb1ELb1ELb1ELb1E":
             "round_tail_kernel<4,32,quota,zone,device memory>",
+        "round_tail_kernelILi4ELi128ELb1ELb1ELb1ELb1E":
+            "round_tail_kernel<4,128,quota,zone,device memory>",
         "enforce_gangs_kernel": "enforce_gangs_kernel",
         "shortlist_build_kernelILi2ELb0ELb0E": "shortlist_build_kernel<2>",
         "shortlist_build_kernelILi2ELb1ELb0E": "shortlist_build_kernel<2,numa>",
@@ -1078,7 +1154,8 @@ def ptxas_summary(kernels) -> dict:
     }
     out: dict = {}
     worst = {"registers": 0, "spill_bytes": 0}
-    for src in ("nominate", "round", "round_zone", "round_big", "gangs", "shortlist_build",
+    for src in ("nominate", "nominate_terms", "round", "round_dev", "round_zone",
+                "round_zone_dev", "round_big", "round_huge", "gangs", "shortlist_build",
                 "shortlist_round", "quota", "device_prep", "sequential", "score_programs"):
         entry = None
         for line in kernels.build_log(src).splitlines():
@@ -1094,7 +1171,7 @@ def ptxas_summary(kernels) -> dict:
                 spill = int(m.group(1)) + int(m.group(2))
                 if label:
                     out.setdefault(label, {})["spill_bytes"] = spill
-                if src == "nominate":
+                if src.startswith("nominate"):
                     worst["spill_bytes"] = max(worst["spill_bytes"], spill)
             m = re.search(r"Used (\d+) registers", line)
             if m:
@@ -1104,7 +1181,7 @@ def ptxas_summary(kernels) -> dict:
                     out.setdefault(label, {}).update(
                         registers=regs, smem_bytes=int(smem.group(1)) if smem else 0
                     )
-                if src == "nominate":
+                if src.startswith("nominate"):
                     worst["registers"] = max(worst["registers"], regs)
     out["nominate, every instantiation"] = worst
     return out
@@ -2366,8 +2443,10 @@ def numa_port_inputs(torch, device, n_pods: int = 16 * BATCH):
 def numa_round_case(torch, pods_b, state, zone_free, numa_t, params_t, scoring: int):
     """Round 0 of batch ``pods_b`` with NUMA zones at node state ``state``
     and zone table ``zone_free``: the sorted pods, the nomination kernel's
-    arguments, the pricing's ZoneTerms (a snapshot of the table) and the
-    round tail's zone tuple (a copy of the table, no picks yet)."""
+    arguments, the pricing's ZoneTerms (a snapshot of the table, with the
+    pod order of the solver's full-axis route) and the round tail's zone
+    tuple (a copy of the table, no picks yet)."""
+    from koordinator_tpu_torch.ops import nominate as nominate_ops
     from koordinator_tpu_torch.ops import solver
     from koordinator_tpu_torch.ops.numa import ZoneTerms
 
@@ -2379,23 +2458,56 @@ def numa_round_case(torch, pods_b, state, zone_free, numa_t, params_t, scoring: 
     )
     terms = ZoneTerms.batch_start(zone_free, numa_t.zone_cap, numa_t.policy,
                                   spods.numa_required, scoring)
+    terms.order = nominate_ops.pod_order(bind, terms)
     p = spods.requests.shape[0]
     zone = (zone_free.clone(), numa_t.zone_cap, numa_t.policy, numa_t.zone_most,
             spods.numa_required, torch.full((p,), -1, dtype=torch.int32, device=zone_free.device))
     return spods, nom_args, terms, zone
 
 
-def zone_pair_ops(terms, pairs: int) -> int:
-    """fp32 operations of the NUMA terms of ``pairs`` (pod, node) pairs
-    given each node's side row (see PERF.md): the amplified request (4 a
-    dim), each zone's fit (an add and a compare a zone and dim), the
-    total's test (2 a dim); with the aligned score each zone's fit (2 a
-    zone and dim) and key compare (1 a zone), the picked zone's score (10
-    a dim) and the weighted floor (3)."""
+def pair_counts(torch, rows, cols, feas=None, cand=None):
+    """Pairs of the sorted pods ``rows`` [P] bool with the nodes ``cols``
+    [N] bool: over every node, or over each pod's candidate nodes ``cand``
+    [P, K]; with ``feas`` [P, N] bool only the feasible ones."""
+    if cand is not None:
+        pick = cols[cand]
+        if feas is not None:
+            pick = pick & torch.gather(feas, 1, cand)
+        return int(pick[rows].sum())
+    if feas is not None:
+        return int((feas[rows] & cols).sum())
+    return int(rows.sum()) * int(cols.sum())
+
+
+def zone_pair_ops(terms, bind, feas=None, cand=None) -> int:
+    """fp32 operations of the NUMA terms of the (pod, node) pairs that need
+    them (see PERF.md), given each node's side row: none on a node without
+    zones; on the others a pod that wants alignment (cpuset-bound
+    ``bind`` [P] or required) has its request amplified (4 a dim) and
+    either each zone's fit (an add and a compare a zone and dim: a
+    required pod, or a SINGLE_NUMA_NODE node) or the totals' test (2 a
+    dim), and with the aligned score, on its feasible pairs (``feas``
+    [P, N] bool, the LoadAware fit; every pair without), each zone's fit
+    (2 a zone and dim), key compare (1 a zone), the picked zone's score
+    (10 a dim) and the weighted floor (3); any other pod only the zones'
+    fit on SINGLE_NUMA_NODE nodes. Over every node, or each pod's
+    candidates ``cand`` [P, K]."""
+    import torch
+
+    from koordinator_tpu_torch.ops.numa import SIDE_HAS_ZONES, SIDE_SINGLE
+
     z, dn = terms.cap.shape[1:]
-    ops = pairs * (dn * 4 + z * dn * 2 + dn * 2)
+    info = terms.side[:, 0]
+    zoned = (info & SIDE_HAS_ZONES) != 0
+    single = zoned & ((info & SIDE_SINGLE) != 0)
+    wants = bind | terms.required
+    strict = pair_counts(torch, terms.required, zoned, cand=cand) + pair_counts(
+        torch, wants & ~terms.required, single, cand=cand)
+    total = pair_counts(torch, wants & ~terms.required, zoned & ~single, cand=cand)
+    ops = (pair_counts(torch, wants, zoned, cand=cand) * dn * 4 + strict * z * dn * 2
+           + total * dn * 2 + pair_counts(torch, ~wants, single, cand=cand) * z * dn * 2)
     if terms.scoring:
-        ops += pairs * (z * dn * 2 + z + dn * 10 + 3)
+        ops += pair_counts(torch, wants, zoned, feas, cand) * (z * dn * 2 + z + dn * 10 + 3)
     return ops
 
 
@@ -2571,19 +2683,21 @@ def phase_numa_kernels(torch, dev, report):
             library_device_ms=None, bytes=nbytes, operations=nops,
         ))
 
-    feas = int(nominate_ops.feasible_mask(*nom_args[:14]).sum())
+    fit = nominate_ops.feasible_mask(*nom_args[:14])
+    feas = int(fit.sum())
     fresh_nodes = int(nom_args[9].sum())
     bind_pods = int(nom_args[3].sum())
     node_row = 6 * d * 4 + 2 + 4
     nom_ops = pair_ops(d, p * n, bind_pods * n, (int(spods.valid.sum())
                                                 + int(spods.is_prod.sum())) * fresh_nodes, feas)
     nom_bytes = n * node_row + p * (2 * d * 4 + 3) + d * 4 + p * 4 * 8 + zone_bytes
-    chunk = nominate_ops.chunk_of(kernels.library("nominate"), p, n, d, 4, dev.index or 0, 2)
-    add_row("nominate_numa", "koordinator_tpu_torch/csrc/nominate.cu",
+    chunk = nominate_ops.chunk_of(nominate_ops.library_of(2), p, n, d, 4, dev.index or 0, 2,
+                                  *terms.cap.shape[1:])
+    add_row("nominate_numa", "koordinator_tpu_torch/csrc/nominate_terms.cu",
             "koordinator_tpu/ops/numa.py:77", lambda: nominate_ops.nominate(
                 *nom_args, 4, 4.0, True, zones=terms),
             lambda: nominate_ops.nominate_plain(*nom_args, 4, 4.0, True, zones=terms),
-            "nominate", nom_bytes, nom_ops + zone_pair_ops(terms, p * n), 200,
+            "nominate", nom_bytes, nom_ops + zone_pair_ops(terms, nom_args[3], fit), 200,
             1 if chunk >= n else 2)
     b_args = nom_args[:4] + nom_args[5:]
     plan = sl.shortlist_build(*b_args, SHORTLIST_K, 4.0, zones=terms)
@@ -2592,7 +2706,8 @@ def phase_numa_kernels(torch, dev, report):
             "koordinator_tpu/ops/costs.py:212",
             lambda: sl.shortlist_build(*b_args, SHORTLIST_K, 4.0, zones=terms),
             lambda: sl.shortlist_build_plain(*b_args, SHORTLIST_K, 4.0, zones=terms),
-            "shortlist_build_kernel", build_bytes, nom_ops + zone_pair_ops(terms, p * n), 100)
+            "shortlist_build_kernel", build_bytes,
+            nom_ops + zone_pair_ops(terms, nom_args[3], fit), 100)
     word = torch.zeros(sl.WORD, dtype=torch.int32, device=dev)
     counts = torch.zeros(2, dtype=torch.int32, device=dev)
     st = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -2608,7 +2723,7 @@ def phase_numa_kernels(torch, dev, report):
                                              zones=terms),
             "shortlist_round_kernel", round_bytes,
             pair_ops(d, p * SHORTLIST_K, bind_pods * SHORTLIST_K, p * SHORTLIST_K, feas // 10)
-            + zone_pair_ops(terms, p * SHORTLIST_K), 200)
+            + zone_pair_ops(terms, nom_args[3], cand=cand), 200)
     prep_in = (zone[0], numa_t.zone_cap, numa_t.policy)
     add_row("zone_prep", "koordinator_tpu_torch/csrc/zone_prep.cu",
             "koordinator_tpu/ops/numa.py:77",
@@ -2653,13 +2768,19 @@ def phase_numa_kernels(torch, dev, report):
     kernels.reset_launches()
 
 
+def big_gang(n_pods: int) -> int:
+    """The Strict gang of the big batch of ``n_pods``: ``HUGE_GANG`` in the
+    65,536-pod batch it makes, else ``BIG_GANG``."""
+    return HUGE_GANG if n_pods == HUGE_PODS else BIG_GANG
+
+
 def big_port_inputs(torch, n_pods: int, quota: bool, device):
-    """The big batch (``bigbatch_fixture``) as the port's tensors, with the
-    sorted-branch quota tree when ``quota``: (pods, nodes, params,
-    QuotaState or None)."""
+    """The big batch (``bigbatch_fixture``, with :func:`big_gang`'s gang)
+    as the port's tensors, with the sorted-branch quota tree when
+    ``quota``: (pods, nodes, params, QuotaState or None)."""
     from koordinator_tpu_torch.ops import solver
 
-    nodes, pods, params = bigbatch_fixture(n_pods)
+    nodes, pods, params = bigbatch_fixture(n_pods, gang=big_gang(n_pods))
     quotas = None
     if quota:
         pods, (runtime, used) = bigbatch_quotas(pods)
@@ -2671,28 +2792,30 @@ def big_port_inputs(torch, n_pods: int, quota: bool, device):
 
 def phase_bigbatch(torch, dev, report):
     """Phase 10, rounds above 4,096 pods: at P=8,192, 16,384 and 32,768
-    (D=4, 2,000 nodes, a Strict gang of 6,000 that rolls back), without
-    quotas and with the sorted-branch tree, the round tail (round 0) and
-    the gang rollback against their plain versions on CPU copies, the whole
-    ``assign`` against the big-batch golden (P=8,192 and, where the golden
-    holds it, 32,768) or against the plain versions on the card; then
-    their times."""
+    (D=4, 2,000 nodes, a Strict gang of 6,000 that rolls back) and 65,536
+    (the batch of a Strict gang of 32,769, as the JAX scheduler pads it:
+    ``csrc/round_huge.cu``), without quotas and with the sorted-branch
+    tree, the round tail (round 0) and the gang rollback against their
+    plain versions on CPU copies, the whole ``assign`` against the
+    big-batch goldens (P=8,192 and 32,768 whole, 65,536 as digests) or
+    against the plain versions on the card; then their times."""
     from koordinator_tpu_torch import kernels
     from koordinator_tpu_torch.ops import commit as commit_ops
     from koordinator_tpu_torch.ops import nominate as nominate_ops
     from koordinator_tpu_torch.ops import solver
     from koordinator_tpu_torch.ops.convert import to_numpy
 
-    golds = {BIG_PODS: np.load(GOLDEN_BIGBATCH), 4 * BIG_PODS: np.load(GOLDEN_BIGBATCH_32K)}
+    golds = {BIG_PODS: np.load(GOLDEN_BIGBATCH), 4 * BIG_PODS: np.load(GOLDEN_BIGBATCH_32K),
+             HUGE_PODS: np.load(GOLDEN_BIGBATCH_64K)}
     for n_pods, gold in golds.items():
-        nodes, pods, params = bigbatch_fixture(n_pods)
+        nodes, pods, params = bigbatch_fixture(n_pods, gang=big_gang(n_pods))
         if str(gold["fixture_sha256"]) != fixture_digest(nodes, bigbatch_quotas(pods)[0],
                                                           params):
             fail(f"big batch: the P={n_pods} fixture differs from the one its golden was "
                  "made from")
     checks = {"round_tail_big": 0.0, "enforce_gangs_big": 0.0}
     lines, timing = [], {}
-    for n_pods in (BIG_PODS, 2 * BIG_PODS, 4 * BIG_PODS):
+    for n_pods in (BIG_PODS, 2 * BIG_PODS, 4 * BIG_PODS, HUGE_PODS):
         for quota in (False, True):
             label = f"P={n_pods}, {'quotas' if quota else 'no quotas'}"
             pods_t, nodes_t, params_t, quotas = big_port_inputs(torch, n_pods, quota, dev)
@@ -2702,7 +2825,21 @@ def phase_bigbatch(torch, dev, report):
             got = to_numpy(res)
             key = "quota" if quota else "plain"
             gold = golds.get(n_pods)
-            if gold is not None:
+            if n_pods == HUGE_PODS:
+                outs = {"assignment": got["assignment"], "requested": got["node_requested"],
+                        "estimated_used": got["node_estimated_used"],
+                        "prod_used": got["node_prod_used"]}
+                if quota:
+                    outs["quota_used"] = got["quota_used"]
+                digests = {f"{key}_{nm}_sha256": array_digest(a) for nm, a in outs.items()}
+                digests[f"{key}_rounds"] = int(got["rounds_used"])
+                digests[f"{key}_placed"] = int((got["assignment"] >= 0).sum())
+                want = {k: (int(gold[k]) if k.endswith(("_rounds", "_placed")) else str(gold[k]))
+                        for k in digests}
+                if digests != want:
+                    fail(f"big batch ({label}): {digests} differs from the JAX package's "
+                         f"digests {want}")
+            elif gold is not None:
                 fields = [("assignment", "assignment"), ("rounds_used", "rounds"),
                           ("node_requested", "requested"),
                           ("node_estimated_used", "estimated_used"),
@@ -2712,7 +2849,7 @@ def phase_bigbatch(torch, dev, report):
                 for f, g in fields:
                     if not bits_equal(got[f], gold[f"{key}_{g}"]):
                         fail(f"big batch ({label}): {f} differs from the JAX package's")
-            if n_pods != BIG_PODS:
+            if n_pods not in (BIG_PODS, HUGE_PODS):
                 with plain_versions():
                     want = to_numpy(solver.assign(pods_t, nodes_t, params_t, quotas=quotas,
                                                   **SOLVE))
@@ -2723,7 +2860,7 @@ def phase_bigbatch(torch, dev, report):
             if launches.get("round_tail_big", 0) == 0:
                 fail(f"big batch ({label}): no round ran in the device-memory round tail")
             a = got["assignment"]
-            if (a[:BIG_GANG] >= 0).any():
+            if (a[:big_gang(n_pods)] >= 0).any():
                 fail(f"big batch ({label}): the Strict gang was not rolled back")
             # round 0 against the plain version on CPU copies
             _, spods, bind, thr, pthr = solver._round_setup(pods_t, nodes_t, params_t,
@@ -2770,11 +2907,11 @@ def phase_bigbatch(torch, dev, report):
                               rolled_back=rolled, gangs_in_device_memory=bool(big_gangs),
                               launches=launches))
             timing[label] = (args, q, pre, pods_t)
-    print(f"big batch: bitwise equal to the JAX package's goldens (P={BIG_PODS} and "
-          f"{4 * BIG_PODS}) and to the "
+    print(f"big batch: bitwise equal to the JAX package's goldens (P={BIG_PODS}, "
+          f"{4 * BIG_PODS} and {HUGE_PODS}) and to the "
           f"plain versions {json.dumps(checks)}; {json.dumps(lines)}", flush=True)
     for label in (f"P={BIG_PODS}, quotas", f"P={2 * BIG_PODS}, quotas",
-                  f"P={4 * BIG_PODS}, quotas"):
+                  f"P={4 * BIG_PODS}, quotas", f"P={HUGE_PODS}, quotas"):
         args, q, pre, pods_t = timing[label]
         p, d = args[2].shape
         n = args[7].shape[0]
@@ -2802,7 +2939,8 @@ def phase_bigbatch(torch, dev, report):
         b_ms, b_by = bound_of(nbytes, nops)
         report["kernels"].append(dict(
             name=f"round_tail_big_p{p}", route="cuda",
-            source="koordinator_tpu_torch/csrc/round_big.cu",
+            source="koordinator_tpu_torch/csrc/" + (
+                "round_huge.cu" if p > 4 * BIG_PODS else "round_big.cu"),
             replaces="koordinator_tpu/ops/solver.py:1204", launches=None, kernels_per_launch=1,
             max_abs_err=checks["round_tail_big"], ms=cuda_ms(torch, t_round, iters),
             plain_ms=cuda_ms(torch, t_round_plain, 2), bound_ms=b_ms, bound_by=b_by,
@@ -2891,8 +3029,7 @@ def phase_numa_streams(torch, dev, report):
             final_zones = zone_free.cpu().numpy()
             times = [seconds] + [run()[2] for _ in range(PASSES - 1)]
             need = ["zone_prep", "nominate", "round_tail", "zone_phase", "enforce_gangs"]
-            if k:
-                need += ["shortlist_build", "shortlist_round"]
+            need += ["shortlist_build", "shortlist_round"] if k else ["pod_order"]
             for name in need:
                 if launches.get(name, 0) <= 0:
                     fail(f"numa stream ({scoring}, K={k}): launched no {name} kernel")
@@ -2950,16 +3087,20 @@ def phase_numa_streams(torch, dev, report):
     report["numa_streams"] = lines
 
 
-def device_port_inputs(torch, device, n_pods: int = 16 * BATCH, rdma: bool = True):
+def device_port_inputs(torch, device, n_pods: int = 16 * BATCH, rdma: bool = True,
+                       domain: "str | None" = None):
     """The device kernel checks' inputs: ``rich_fixture(1, N_NODES,
     n_pods)`` with ``device_tables(DEVICE_SEED)``' devices (G = 16 with
-    RDMA and FPGA tracked; with ``rdma`` False G = 8 and RDMA not tracked)
-    as the port's tensors on ``device``: (nodes, flat pods, params,
+    RDMA and FPGA tracked; with ``rdma`` False G = 8 and RDMA not tracked;
+    with ``domain`` changed for that case of :data:`DOMAIN_CASES`) as the
+    port's tensors on ``device``: (nodes, flat pods, params,
     DeviceState)."""
     from koordinator_tpu_torch.ops.device import DeviceState
 
     nodes, pods, params = rich_fixture(1, N_NODES, n_pods)
     pods, devices = device_tables(DEVICE_SEED, nodes, pods, g16=rdma, rdma=rdma)
+    if domain is not None:
+        pods, devices = device_domain_case(domain, pods, devices)
     nodes_t, pods_t, params_t = port_inputs(torch, nodes, pods, params, device)
     return nodes_t, pods_t, params_t, DeviceState.create(**devices, device=device)
 
@@ -2968,7 +3109,9 @@ def device_round_case(torch, pods_b, state, dev_tables, dev_t, params_t, scoring
     """Round 0 of batch ``pods_b`` with devices at node state ``state`` and
     dev carry ``dev_tables`` (slots, rdma, fpga): the sorted pods, the
     nomination kernel's arguments and the batch's DeviceTerms (its stats
-    table from ``csrc/device_prep.cu``, tables cloned)."""
+    table from ``csrc/device_prep.cu``, tables cloned, the pod order of
+    the solver's full-axis route)."""
+    from koordinator_tpu_torch.ops import nominate as nominate_ops
     from koordinator_tpu_torch.ops import solver
     from koordinator_tpu_torch.ops.device import DeviceTerms
 
@@ -2982,7 +3125,56 @@ def device_round_case(torch, pods_b, state, dev_tables, dev_t, params_t, scoring
     terms = DeviceTerms.batch_start(slots, rdma if dev_t.rdma_free is not None else None,
                                     fpga if dev_t.fpga_free is not None else None,
                                     dev_t.cap_total, spods, scoring)
+    terms.order = nominate_ops.pod_order(bind, None, terms)
     return spods, nom_args, terms
+
+
+def dev_numa_port_inputs(torch, device, n_pods: int = 16 * BATCH):
+    """The device-with-zones kernel checks' inputs: ``rich_fixture(1,
+    N_NODES, n_pods)`` with ``zone_tables(NUMA_SEED)``' zones and
+    ``device_tables(DEVICE_SEED)``' devices (G = 16, RDMA and FPGA
+    tracked), as the port's tensors on ``device``: (nodes, flat pods,
+    params, NumaState, DeviceState)."""
+    from koordinator_tpu_torch.ops.device import DeviceState
+    from koordinator_tpu_torch.ops.numa import NumaState
+
+    nodes, pods, params = rich_fixture(1, N_NODES, n_pods)
+    nodes, numa, required = zone_tables(NUMA_SEED, nodes, n_pods)
+    pods, devices = device_tables(DEVICE_SEED, nodes, pods)
+    nodes_t, pods_t, params_t = port_inputs(torch, nodes, dict(pods, numa_required=required),
+                                            params, device)
+    return (nodes_t, pods_t, params_t, NumaState.create(**numa, device=device),
+            DeviceState.create(**devices, device=device))
+
+
+def dev_numa_round_case(torch, pods_b, state, numa_t, dev_tables, dev_t, params_t,
+                        scoring: int):
+    """Round 0 of batch ``pods_b`` with zones and devices at node state
+    ``state``, zone table ``numa_t.zone_free`` and dev carry ``dev_tables``:
+    the sorted pods, the nomination kernel's arguments, the ZoneTerms and
+    the DeviceTerms, both under ``scoring`` (the aligned score LeastAllocated
+    for any scoring but 0), the DeviceTerms with the pod order of the
+    solver's full-axis route."""
+    from koordinator_tpu_torch.ops import nominate as nominate_ops
+    from koordinator_tpu_torch.ops import solver
+    from koordinator_tpu_torch.ops.device import DeviceTerms
+    from koordinator_tpu_torch.ops.numa import ZoneTerms
+
+    _, spods, bind, thr, pthr = solver._round_setup(pods_b, state, params_t, numa=True,
+                                                    devices=True)
+    nom_args = (
+        spods.requests, spods.estimate, spods.is_prod, bind, spods.valid, state.allocatable,
+        state.requested, state.estimated_used, state.prod_used, state.metric_fresh,
+        state.schedulable, state.cpu_amp, thr, pthr, params_t.score_weights,
+    )
+    zones = ZoneTerms.batch_start(numa_t.zone_free, numa_t.zone_cap, numa_t.policy,
+                                  spods.numa_required, min(scoring, 1))
+    slots, rdma, fpga = (None if t is None else t.clone() for t in dev_tables)
+    devs = DeviceTerms.batch_start(slots, rdma if dev_t.rdma_free is not None else None,
+                                   fpga if dev_t.fpga_free is not None else None,
+                                   dev_t.cap_total, spods, scoring)
+    devs.order = nominate_ops.pod_order(bind, zones, devs)
+    return spods, nom_args, zones, devs
 
 
 def device_terms_copy(terms, to=None):
@@ -2997,14 +3189,28 @@ def device_terms_copy(terms, to=None):
                                 for f in dc.fields(terms) if f.name != "scoring"})
 
 
-def device_pair_ops(terms, pairs: int) -> int:
-    """fp32 operations of the device terms of ``pairs`` (pod, node) pairs
-    (see PERF.md): the fit's compares and adds (10), RDMA and FPGA (2 each
-    tracked), with a score its subtractions, product, division, floor and
-    tests (8)."""
-    ops = pairs * (10 + (2 if terms.rdma is not None else 0) + (2 if terms.fpga is not None
-                                                                 else 0))
-    return ops + (pairs * 8 if terms.scoring else 0)
+def device_pair_ops(terms, feas=None, cand=None) -> int:
+    """fp32 operations of the device terms of the (pod, node) pairs that
+    need them (see PERF.md): a pod that asks for a GPU, a share, RDMA or
+    FPGA takes the fit's compares and adds (10) and RDMA and FPGA (2 each
+    tracked) on every node; a pod that asks for nothing fits where its
+    node's counts are not negative, which is the node's, counted once a
+    node (2, and 2 each tracked); with a score a pod with units > 0 on a
+    node with GPUs, on its feasible pairs (``feas`` [P, N] bool, the
+    LoadAware fit; every pair without), its subtractions, product,
+    division, floor and tests (8). Over every node, or each pod's
+    candidates ``cand`` [P, K]."""
+    import torch
+
+    n = terms.slots.shape[0]
+    every = torch.ones(n, dtype=torch.bool, device=terms.slots.device)
+    asks = ((terms.whole != 0) | (terms.share > 1e-3) | (terms.rdma_req != 0)
+            | (terms.fpga_req != 0))
+    tracked = (2 if terms.rdma is not None else 0) + (2 if terms.fpga is not None else 0)
+    ops = pair_counts(torch, asks, every, cand=cand) * (10 + tracked) + n * (2 + tracked)
+    if terms.scoring:
+        ops += pair_counts(torch, terms.units > 0, terms.cap > 0, feas, cand) * 8
+    return ops
 
 
 #: the device phase's crowded rounds (phase 12 and the card tests): (pods,
@@ -3012,7 +3218,8 @@ def device_pair_ops(terms, pairs: int) -> int:
 CROWDED_ROUNDS = ((512, False), (4096, False), (8192, True), (32_768, False))
 
 
-def crowded_round_inputs(torch, dev, p: int, quota: bool = False, zones: bool = False):
+def crowded_round_inputs(torch, dev, p: int, quota: bool = False, zones: bool = False,
+                         domain: "str | None" = None):
     """A round of ``p`` pods that all nominate one of four GPU nodes (the
     device streams' end, where gangs of whole-GPU pods crowd onto the few
     nodes that still have free GPUs, each with RDMA and an FPGA), at the
@@ -3024,20 +3231,25 @@ def crowded_round_inputs(torch, dev, p: int, quota: bool = False, zones: bool = 
     the gangs' 64-GPU members asking for 4, so that no segment is shut by
     its first rows. With ``quota`` the one-hot tree's chains (a third of
     its runtime), with
-    ``zones`` NUMA zones. Returns the round tail's arguments, the
+    ``zones`` NUMA zones; with ``domain`` the devices changed for that case
+    of :data:`DOMAIN_CASES` (``sum_2_24``: node 0 is made one of the four,
+    ahead of the others' segments). Returns the round tail's arguments, the
     DeviceTerms and the quota and zone tuples (None when off), on
     ``dev``."""
     from koordinator_tpu_torch.ops import quota as quota_ops
     from koordinator_tpu_torch.ops import solver
     from koordinator_tpu_torch.ops.numa import NumaState
 
-    nodes_t, pods_t, params_t, dev_t = device_port_inputs(torch, dev, n_pods=max(p, 16 * BATCH))
+    nodes_t, pods_t, params_t, dev_t = device_port_inputs(torch, dev, n_pods=max(p, 16 * BATCH),
+                                                          domain=domain)
     n = nodes_t.allocatable.shape[0]
     pods_b = solver.tree_map(lambda a: a[:p], pods_t)
     pods_b = dataclasses.replace(pods_b, gpu_whole=pods_b.gpu_whole.clamp(max=4))
     gpu = np.flatnonzero((dev_t.cap_total.cpu().numpy() >= 800.0)
                          & (dev_t.rdma_free.cpu().numpy() > 0)
                          & (dev_t.fpga_free.cpu().numpy() > 0))[:4]
+    if domain == "sum_2_24":
+        gpu = np.concatenate([[0], gpu[:3]])
     alloc = nodes_t.allocatable.clone()
     alloc[torch.from_numpy(gpu).to(dev)] = 1e7
     state = dataclasses.replace(nodes_t, allocatable=alloc)
@@ -3129,8 +3341,9 @@ def phase_device_kernels(torch, dev, report):
     from koordinator_tpu_torch.ops import solver
     from koordinator_tpu_torch.ops.numa import NumaState
 
-    checks = {k: 0.0 for k in ("device_prep", "nominate_device", "shortlist_build_device",
-                               "shortlist_round_device", "round_tail_device", "device_refund")}
+    checks = {k: 0.0 for k in ("device_prep", "nominate_device", "nominate_dev_numa",
+                               "pod_order", "shortlist_build_device", "shortlist_round_device",
+                               "round_tail_device", "device_refund")}
     seen, timing = [], {}
     for rdma in (True, False):
         nodes_t, pods_t, params_t, dev_t = device_port_inputs(torch, dev, rdma=rdma)
@@ -3301,6 +3514,70 @@ def phase_device_kernels(torch, dev, report):
             fail(f"round_tail with devices ({label}): the check needs long segments, slot "
                  f"commits and device refusals, got {row}")
         seen.append(row)
+    # the device sums at the edges of their domain: negative asks, free
+    # counts of 2^24 and more, a wide batch that takes the float walk
+    for case in DOMAIN_CASES:
+        for p_c, both in ((512, False), (8192, True)):
+            args, terms, q, z = crowded_round_inputs(torch, dev, p_c, quota=both, zones=both,
+                                                     domain=case)
+            wide = int(terms.wide[0])
+            if wide != int(case == "sum_2_24"):
+                fail(f"device_prep ({case}, P={p_c}): the wide flag reads {wide}")
+            pairs, host, _, _ = device_round_both(torch, args, terms, q, z)
+            checks["round_tail_device"] = max(checks["round_tail_device"], check_equal(
+                f"round_tail with devices ({case}, P={p_c})", pairs))
+            seen.append(dict(at=f"{case}, P={p_c}", wide=wide,
+                             placed=int((host[14] >= 0).sum())))
+    # nomination with devices and NUMA zones together (the seam's
+    # instantiation), at the start and after 3 batches of assign with both
+    nodes_t, pods_t, params_t, numa_t, dev_t = dev_numa_port_inputs(torch, dev)
+    n = nodes_t.allocatable.shape[0]
+    pods_s = solver.tree_map(lambda a: a.reshape((-1, BATCH) + a.shape[1:]), pods_t)
+    carry0 = solver._dev_carry0(dev_t, n)
+    later, carry, zf = nodes_t, carry0, numa_t.zone_free
+    for b in range(3):
+        res = solver.assign(solver.tree_map(lambda a: a[b], pods_s), later, params_t,
+                            numa=numa_t, numa_carry=zf, devices=dev_t, dev_carry=carry,
+                            numa_scoring="LeastAllocated", device_scoring="LeastAllocated",
+                            **SOLVE)
+        later = dataclasses.replace(later, requested=res.node_requested,
+                                    estimated_used=res.node_estimated_used,
+                                    prod_used=res.node_prod_used)
+        carry = (res.node_dev_slots, res.node_rdma_free, res.node_fpga_free)
+        zf = res.node_zone_free
+    numa_later = dataclasses.replace(numa_t, zone_free=zf)
+    for label, pods_b, state, numa_s, tables in (
+            ("start, P=512", solver.tree_map(lambda a: a[3], pods_s), nodes_t, numa_t, carry0),
+            ("after 3 batches, P=512", solver.tree_map(lambda a: a[4], pods_s), later, numa_later,
+             carry),
+            ("after 3 batches, P=4096",
+             solver.tree_map(lambda a: a[8:16].reshape((-1,) + a.shape[2:]), pods_s), later,
+             numa_later, carry)):
+        for scoring in (0, 1, 2):
+            spods, nom_args, zt, dt = dev_numa_round_case(torch, pods_b, state, numa_s, tables,
+                                                          dev_t, params_t, scoring)
+            for approx in (False, True):
+                kc, ki = nominate_ops.nominate(*nom_args, 4, 4.0, approx, zones=zt, devices=dt)
+                pc, pi = nominate_ops.nominate_plain(*nom_args, 4, 4.0, approx, zones=zt,
+                                                     devices=dt)
+                torch.cuda.synchronize()
+                kc, ki, pc, pi = (t.cpu().numpy() for t in (kc, ki, pc, pi))
+                fin = np.isfinite(kc)
+                if not (np.array_equal(fin, np.isfinite(pc)) and bits_equal(kc[fin], pc[fin])
+                        and np.array_equal(ki[fin], pi[fin])):
+                    fail(f"nominate with devices and zones ({label}, scoring {scoring}, "
+                         f"approx={approx}): differs from nominate_plain")
+                checks["nominate_dev_numa"] = max(checks["nominate_dev_numa"],
+                                                  max_abs(kc[fin], pc[fin]))
+            if label.startswith("after") and "512" in label and scoring == 1:
+                timing["dev_numa"] = (spods, nom_args, zt, dt)
+            # the batch's pod order for the term kernels, with zones,
+            # devices and both
+            for zz, dd in ((zt, None), (None, dt), (zt, dt)):
+                got = nominate_ops.pod_order(nom_args[3], zz, dd)
+                want = nominate_ops.pod_order_plain(nom_args[3], zz, dd)
+                checks["pod_order"] = max(checks["pod_order"], check_equal(
+                    f"pod_order ({label})", [("order", got, want)]))
     print(f"device checks: bitwise equal to the plain versions {json.dumps(checks)}; "
           f"{json.dumps(seen)}", flush=True)
 
@@ -3326,20 +3603,51 @@ def phase_device_kernels(torch, dev, report):
             "koordinator_tpu/ops/device.py:58", lambda: device_ops.device_prep(terms.slots),
             lambda: device_ops.device_prep_plain(terms.slots), "device_prep_kernel",
             n * g * 4 + n * 4 * 4, n * g * 5, 200)
-    feas = int(nominate_ops.feasible_mask(*nom_args[:14]).sum())
+    fit = nominate_ops.feasible_mask(*nom_args[:14])
+    feas = int(fit.sum())
     fresh_nodes = int(nom_args[9].sum())
     bind_pods = int(nom_args[3].sum())
     node_row = 6 * d * 4 + 2 + 4
     nom_ops = pair_ops(d, p * n, bind_pods * n, (int(spods.valid.sum())
                                                 + int(spods.is_prod.sum())) * fresh_nodes, feas)
     nom_bytes = n * node_row + p * (2 * d * 4 + 3) + d * 4 + p * 4 * 8 + dev_node + dev_pod
-    chunk = nominate_ops.chunk_of(kernels.library("nominate"), p, n, d, 4, dev.index or 0, 3)
-    add_row("nominate_device", "koordinator_tpu_torch/csrc/nominate.cu",
+    chunk = nominate_ops.chunk_of(nominate_ops.library_of(3), p, n, d, 4, dev.index or 0, 3)
+    add_row("nominate_device", "koordinator_tpu_torch/csrc/nominate_terms.cu",
             "koordinator_tpu/ops/device.py:73", lambda: nominate_ops.nominate(
                 *nom_args, 4, 4.0, True, devices=terms),
             lambda: nominate_ops.nominate_plain(*nom_args, 4, 4.0, True, devices=terms),
-            "nominate", nom_bytes, nom_ops + device_pair_ops(terms, p * n), 200,
+            "nominate", nom_bytes, nom_ops + device_pair_ops(terms, fit), 200,
             1 if chunk >= n else 2)
+    _, dn_args, dn_zones, dn_devs = timing["dev_numa"]
+    z, dn = dn_zones.cap.shape[1:]
+    dn_fit = nominate_ops.feasible_mask(*dn_args[:14])
+    dn_feas = int(dn_fit.sum())
+    dn_ops = pair_ops(d, p * n, int(dn_args[3].sum()) * n,
+                      (int(dn_args[4].sum()) + int(dn_args[2].sum())) * int(dn_args[9].sum()),
+                      dn_feas)
+    dn_bytes = nom_bytes + n * z * dn * 4 * 2 + n * (1 + dn + z) * 4 + p
+    chunk = nominate_ops.chunk_of(nominate_ops.library_of(4), p, n, d, 4, dev.index or 0, 4, z,
+                                  dn)
+    order_bytes = p * (1 + 1 + 4 * 4 + 4)
+
+    add_row("pod_order", "koordinator_tpu_torch/csrc/nominate_terms.cu",
+            "koordinator_tpu/ops/solver.py:1121",
+            lambda: nominate_ops.pod_order(dn_args[3], dn_zones, dn_devs),
+            lambda: nominate_ops.pod_order_plain(dn_args[3], dn_zones, dn_devs),
+            "pod_order_kernel", order_bytes, p * 9 * 2, 200)
+    key = (torch.where(dn_zones.required, 2, torch.where(dn_args[3], 1, 0)) * 3
+           + torch.where((dn_devs.whole != 0) | (dn_devs.share > 1e-3), 2,
+                         torch.where((dn_devs.rdma_req != 0) | (dn_devs.fpga_req != 0), 1, 0)))
+    report["kernels"][-1]["library_ms"] = cuda_ms(
+        torch, lambda: torch.sort(key, stable=True), 200)
+    add_row("nominate_dev_numa", "koordinator_tpu_torch/csrc/nominate_terms.cu",
+            "koordinator_tpu/ops/solver.py:898", lambda: nominate_ops.nominate(
+                *dn_args, 4, 4.0, True, zones=dn_zones, devices=dn_devs),
+            lambda: nominate_ops.nominate_plain(*dn_args, 4, 4.0, True, zones=dn_zones,
+                                                devices=dn_devs),
+            "nominate", dn_bytes,
+            dn_ops + zone_pair_ops(dn_zones, dn_args[3], dn_fit)
+            + device_pair_ops(dn_devs, dn_fit), 200, 1 if chunk >= n else 2)
     b_args = nom_args[:4] + nom_args[5:]
     plan = sl.shortlist_build(*b_args, SHORTLIST_K, 4.0, devices=terms)
     build_bytes = (n * node_row + p * (2 * d * 4 + 2) + d * 4 + p * (SHORTLIST_K + 1) * 4
@@ -3348,7 +3656,7 @@ def phase_device_kernels(torch, dev, report):
             "koordinator_tpu/ops/costs.py:162",
             lambda: sl.shortlist_build(*b_args, SHORTLIST_K, 4.0, devices=terms),
             lambda: sl.shortlist_build_plain(*b_args, SHORTLIST_K, 4.0, devices=terms),
-            "shortlist_build_kernel", build_bytes, nom_ops + device_pair_ops(terms, p * n), 100)
+            "shortlist_build_kernel", build_bytes, nom_ops + device_pair_ops(terms, fit), 100)
     word = torch.zeros(sl.WORD, dtype=torch.int32, device=dev)
     counts = torch.zeros(2, dtype=torch.int32, device=dev)
     st = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -3364,7 +3672,7 @@ def phase_device_kernels(torch, dev, report):
                                              devices=terms),
             "shortlist_round_kernel", round_bytes,
             pair_ops(d, p * SHORTLIST_K, bind_pods * SHORTLIST_K, p * SHORTLIST_K, feas // 10)
-            + device_pair_ops(terms, p * SHORTLIST_K), 200)
+            + device_pair_ops(terms, cand=cand), 200)
     iters = 200
     copies = iter([([t.clone() for t in args[ROUND_MUTABLE]], device_terms_copy(terms))
                    for _ in range(2 * iters + 2)])
@@ -3461,7 +3769,8 @@ def phase_device_streams(torch, dev, report):
         times = [seconds] + [run()[2] for _ in range(PASSES - 1)]
         shortlist = solver._shortlist_on(k, SOLVE.get("topk", 4), N_NODES, scoring)
         need = ["device_prep", "nominate", "round_tail", "device_phase", "enforce_gangs",
-                "device_refund"] + (["shortlist_build", "shortlist_round"] if shortlist else [])
+                "device_refund"] + (["shortlist_build", "shortlist_round"] if shortlist
+                                    else ["pod_order"])
         for name in need:
             if launches.get(name, 0) <= 0:
                 fail(f"device stream ({scoring}, K={k}): launched no {name} kernel")
@@ -3510,7 +3819,7 @@ def phase_device_streams(torch, dev, report):
             nm = row["name"]
             if nm == "round_tail_device":
                 row["launches"] = row["launches"] or launches.get("device_phase")
-            elif nm in ("device_refund", "device_prep"):
+            elif nm in ("device_refund", "device_prep", "pod_order"):
                 row["launches"] = row["launches"] or launches.get(nm)
             elif nm == "nominate_device" and not shortlist:
                 row["launches"] = row["launches"] or launches.get("nominate")
@@ -3529,6 +3838,8 @@ SEAM_WAVE = 4_608
 #: the transformer cycle: 8,192 pods through ``_dispatch_pipelined``
 SEAM_TRANSFORM_PODS = 8_192
 GOLDEN_SEAM = os.path.join(ROOT, "tests", "data", "torch_golden_seam.npz")
+#: the seam's digest of a cycle with one Strict gang of 32,769 members
+GOLDEN_GANG = os.path.join(ROOT, "tests", "data", "torch_golden_gang.npz")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -3866,7 +4177,7 @@ def phase_cost_transform_kernels(torch, dev, report):
     # every pair's score, no jitter: pair_ops less the jitter's 7 a pair
     a_ops = (pair_ops(d, pairs, int(bind.sum()) * n,
                       (int(spods.valid.sum()) + int(spods.is_prod.sum())) * fresh_nodes, pairs)
-             - 7 * pairs + zone_pair_ops(zones, pairs) + device_pair_ops(devs, pairs))
+             - 7 * pairs + zone_pair_ops(zones, bind) + device_pair_ops(devs))
     b_ops = pairs * 10
     transformed = TRANSFORMS["veto"](torch)(cost).contiguous()
     top = (torch.empty((p, 4), dtype=torch.float32, device=dev),
@@ -4063,6 +4374,10 @@ def phase_seam(torch, dev, report):
     for row in report["kernels"]:
         if row["name"] in ("cost_full", "nominate_cost"):
             row["launches"] = paths["transformer"][row["name"]]
+        elif row["name"] == "nominate_dev_numa":
+            # the seam's recipe has zones and devices: its every nomination
+            # is this instantiation
+            row["launches"] = paths["scanned"]["nominate"]
     report["seam_launches"] = paths
     kernels.reset_launches()
 

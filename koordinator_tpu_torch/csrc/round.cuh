@@ -107,9 +107,12 @@
 //   over the rows present only, so a smaller round pays no barrier for
 //   rows it does not have.
 // - The device phase (DeviceShare, solver.py:1246-1274 and :1386-1416) is
-//   a run-time branch of every instantiation (devices.slots != nullptr),
-//   each half in a frame of its own that takes only the working set and
-//   the tables (device_accept, device_charge). After the fit tests, each
+//   compiled into the instantiations with kDev only (the shared-memory
+//   entries round_dev.cu and round_zone_dev.cu; in the device-memory ones
+//   a run-time branch, devices.slots != nullptr), so the rounds without
+//   devices carry none of its code or registers. Each half runs in a frame
+//   of its own that takes only the working set and the tables
+//   (device_accept, device_charge). After the fit tests, each
 //   row needs its node segment's running sums: the whole GPUs asked for
 //   so far (plus one for each share pod that opens a full slot: its share
 //   above the node's round-start best partial slot), the share pods so far
@@ -158,6 +161,8 @@ constexpr int kLast = 4;  // the last row of its node's segment (with quotas)
 constexpr int kBigRows = 16;
 // rows a thread of the device-memory round (up to 32,768 pods)
 constexpr int kGlobalRows = 32;
+// rows a thread of the device-memory round above that (up to 131,072 pods)
+constexpr int kHugeRows = 128;
 
 // NUMA zones (ops/numa.py): at most this many a node and dims a zone
 constexpr int kMaxZones = 8;
@@ -520,10 +525,11 @@ __host__ __device__ inline QuotaLayout quota_layout(int P, int D, int Q, int L, 
   at += (size_t)P * D * sizeof(float);
   q.ext = at;
   at += onehot ? (size_t)P * D * sizeof(float) : (size_t)D * scan_levels(P).total * sizeof(float);
+  const size_t pos = R > kGlobalRows ? sizeof(uint32_t) : sizeof(uint16_t);  // QuotaPos<R>
   q.gs = at;
-  if (onehot) at += (size_t)P * sizeof(uint16_t);
+  if (onehot) at += (size_t)P * pos;
   q.gend = at;
-  if (onehot) at += (size_t)P * sizeof(uint16_t);
+  if (onehot) at += (size_t)P * pos;
   q.total = at;
   return q;
 }
@@ -532,6 +538,11 @@ __host__ __device__ inline QuotaLayout quota_layout(int P, int D, int Q, int L, 
 // the device-memory round (where Q may be as large as an int).
 template <int R>
 using QuotaKey = typename std::conditional<(R > 4), uint64_t, uint32_t>::type;
+
+// The type of a row position in the one-hot branch's group starts and
+// ends: 16 bits up to 65,536 pods, 32 in the rounds above.
+template <int R>
+using QuotaPos = typename std::conditional<(R > kGlobalRows), uint32_t, uint16_t>::type;
 
 // Sorts P unique keys, k[r] of row tid + r * blockDim.x (rows past P
 // ignored), ascending: on return k[r] holds the key of rank tid + r *
@@ -706,9 +717,9 @@ struct ChunkScanDeep {
 // One quota's groups in order (group g ends at gend[g]): each group's
 // chunk offset — the chunk totals' cumsum at the chunk before it —
 // replaces its total in ext, which then joins the scan.
-template <int D, class Scan, class KeyT>
+template <int D, class Scan, class KeyT, class PosT>
 __device__ void walk_groups(Scan& scan, int i, KeyT q, int P, int pb, KeyT pmask,
-                            const KeyT* sk, const uint16_t* gend, float* ext) {
+                            const KeyT* sk, const PosT* gend, float* ext) {
   for (int g = i; g < P && (sk[g] >> pb) == q; g = gend[g] + 1) {
     const int c0 = (int)(sk[g] & pmask) / kScanBase;
     float tot[D];
@@ -764,8 +775,9 @@ __device__ void quota_commit(bool (&ok)[R], const uint64_t (&key)[R], int P, cha
   KeyT* buf1 = (KeyT*)(qarea + ql.buf1);
   float* sreq = (float*)(qarea + ql.sreq);
   float* ext = (float*)(qarea + ql.ext);
-  uint16_t* gs = (uint16_t*)(qarea + ql.gs);
-  uint16_t* gend = (uint16_t*)(qarea + ql.gend);
+  using PosT = QuotaPos<R>;
+  PosT* gs = (PosT*)(qarea + ql.gs);
+  PosT* gend = (PosT*)(qarea + ql.gend);
   const bool onehot = onehot_branch(Q, D);
   const int pb = pos_bits(P);
   const KeyT pmask = ((KeyT)1 << pb) - 1;
@@ -820,9 +832,9 @@ __device__ void quota_commit(bool (&ok)[R], const uint64_t (&key)[R], int P, cha
           const float* v = sreq + (size_t)(sk[j] & pmask) * D;
 #pragma unroll
           for (int d = 0; d < D; ++d) tot[d] = j == i ? v[d] : tot[d] + v[d];
-          gs[j] = (uint16_t)i;
+          gs[j] = (PosT)i;
         }
-        gend[i] = (uint16_t)(j - 1);
+        gend[i] = (PosT)(j - 1);
 #pragma unroll
         for (int d = 0; d < D; ++d) ext[(size_t)i * D + d] = tot[d];
       }
@@ -1191,8 +1203,9 @@ __device__ void zone_charge(const bool (&ok)[R], const int (&zsel)[R], const uin
 // table [N, G] and free RDMA / FPGA counts [N] (nullptr: not tracked),
 // charged in place, and the stats table [N, 4] (full count, best partial,
 // largest slot, total) the round's pricing read, refreshed for the nodes
-// charged — and the priority-sorted pods' whole GPUs, share, RDMA and
-// FPGA [P]. slots == nullptr: no devices.
+// charged — the priority-sorted pods' whole GPUs, share, RDMA and FPGA
+// [P], and the batch's wide flag [1] (device_prep.cu). slots == nullptr:
+// no devices.
 struct RoundDevices {
   float* slots;
   float* stats;
@@ -1202,36 +1215,33 @@ struct RoundDevices {
   const float* share;
   const int* rdma_req;
   const int* fpga_req;
+  const int* wide;
   int G;
 };
 
-// A sorted row's device word: its pod row (low 16 bits: P <= 32,768) and
+// A sorted row's device word: its pod row (low 20 bits: P <= 2^20) and
 // flags. The segment word of a sorted row is its node: the keys' high half,
 // kept because the quota commit takes the keys' room before the charges.
-constexpr int kDevRowMask = 0xFFFF;
-constexpr int kDevOk = 1 << 16;     // accepted (in: by the fit tests; out: and the devices)
-constexpr int kDevOpens = 1 << 17;  // a share pod that opens a full slot
-constexpr int kDevFinal = 1 << 18;  // a final winner
+constexpr int kDevRowMask = (1 << 20) - 1;
+constexpr int kDevOk = 1 << 20;     // accepted (in: by the fit tests; out: and the devices)
+constexpr int kDevOpens = 1 << 21;  // a share pod that opens a full slot
+constexpr int kDevFinal = 1 << 22;  // a final winner
 
 // The device phase's running sums: four whole numbers and whether a
-// segment starts in the span they cover. A sum stops at kDevSat: a float
-// sum of whole numbers is exact up to 2^24, so below that the integer is
-// the float walk's value, and above it both exceed every count they are
-// held against (a node's slots, at most 256, and its free RDMA and FPGA,
-// below 2^24).
-constexpr uint32_t kDevSat = 1u << 25;
+// segment starts in the span they cover. The reference takes float prefix
+// sums of the round's sorted rows (a cumsum less the cumsum before the
+// segment); while the batch is not wide (device_prep.cu: each series'
+// absolute values sum to at most 2^24) every partial sum of that walk is
+// an integer float32 holds, so the signed integer sum is its value, a
+// negative ask included. A wide batch takes the float walk (device_walk).
 constexpr int kDevScanWords = 5;  // a warp's total in the scan area: head, four sums
 
 struct DevSums {
-  uint32_t v[4];
+  int v[4];
   bool head;
 };
 
-__device__ __forceinline__ DevSums dev_none() { return DevSums{{0u, 0u, 0u, 0u}, false}; }
-
-// A pod's ask as a term of the sums (a count: an ask above kDevSat, or one
-// read as negative, exceeds every count it is held against).
-__device__ __forceinline__ uint32_t dev_term(int ask) { return min((uint32_t)ask, kDevSat); }
+__device__ __forceinline__ DevSums dev_none() { return DevSums{{0, 0, 0, 0}, false}; }
 
 // l then r. In the charges (kCharge) the fourth sum is the share winner's
 // word, OR-ed: a segment has at most one share winner.
@@ -1241,8 +1251,7 @@ __device__ __forceinline__ DevSums dev_then(const DevSums& l, const DevSums& r) 
   DevSums o;
   o.head = l.head;
 #pragma unroll
-  for (int f = 0; f < 4; ++f)
-    o.v[f] = kCharge && f == 3 ? (l.v[f] | r.v[f]) : min(l.v[f] + r.v[f], kDevSat);
+  for (int f = 0; f < 4; ++f) o.v[f] = kCharge && f == 3 ? (l.v[f] | r.v[f]) : l.v[f] + r.v[f];
   return o;
 }
 
@@ -1270,14 +1279,14 @@ __device__ __forceinline__ DevSums dev_load(const int* w) {
   DevSums x;
   x.head = w[0] != 0;
 #pragma unroll
-  for (int f = 0; f < 4; ++f) x.v[f] = (uint32_t)w[1 + f];
+  for (int f = 0; f < 4; ++f) x.v[f] = w[1 + f];
   return x;
 }
 
 __device__ __forceinline__ void dev_store(int* w, const DevSums& x) {
   w[0] = x.head;
 #pragma unroll
-  for (int f = 0; f < 4; ++f) w[1 + f] = (int)x.v[f];
+  for (int f = 0; f < 4; ++f) w[1 + f] = x.v[f];
 }
 
 // The exclusive segmented scan of one DevSums a thread, in thread order,
@@ -1336,11 +1345,99 @@ __device__ __forceinline__ DevRow dev_row(const uint64_t* keys, int j, int N,
   r.frac = share > kEps;
   r.opens = r.frac && share > partial + kEps;
   r.t.head = r.head;
-  r.t.v[0] = dev_term(dv.whole[r.row]) + (r.opens ? 1u : 0u);
-  r.t.v[1] = r.frac ? 1u : 0u;
-  r.t.v[2] = dv.rdma != nullptr ? dev_term(dv.rdma_req[r.row]) : 0u;
-  r.t.v[3] = dv.fpga != nullptr ? dev_term(dv.fpga_req[r.row]) : 0u;
+  r.t.v[0] = dv.whole[r.row] + (r.opens ? 1 : 0);
+  r.t.v[1] = r.frac ? 1 : 0;
+  r.t.v[2] = dv.rdma != nullptr ? dv.rdma_req[r.row] : 0;
+  r.t.v[3] = dv.fpga != nullptr ? dv.fpga_req[r.row] : 0;
   return r;
+}
+
+// XLA's CPU cumsum (chunks of 16, the chunk totals scanned the same way,
+// each chunk then offset by the scanned total of the chunks before) taken
+// one element at a time, in order: each level keeps its open chunk's
+// inner sum and the cumsum at its latest element, and a chunk that closes
+// moves its total up a level after the element's cumsum is taken. The
+// same float adds as series_cumsum, so the same bits.
+struct WalkCumsum {
+  int n;                    // levels above the base (ScanLevels.n)
+  int len[kMaxLevels];
+  float acc[kMaxLevels];    // the open chunk's running sum, each level
+  float last[kMaxLevels];   // the cumsum at the latest element, levels >= 1
+
+  __device__ __forceinline__ void init(const ScanLevels& lv) {
+    n = lv.n;
+    for (int l = 0; l < kMaxLevels; ++l) {
+      len[l] = lv.len[l];
+      acc[l] = last[l] = 0.0f;
+    }
+  }
+
+  // element k of the base with value v; returns the cumsum there
+  __device__ __forceinline__ float push(int k, float v) {
+    float base_cum = 0.0f;
+    for (int l = 0;; ++l) {
+      acc[l] = k % kScanBase == 0 ? v : acc[l] + v;
+      const bool up = l < n;
+      const float cum = up && k / kScanBase > 0 ? acc[l] + last[l + 1] : acc[l];
+      if (l == 0) base_cum = cum;
+      else last[l] = cum;
+      if (!up || !(k % kScanBase == kScanBase - 1 || k == len[l] - 1)) break;
+      v = acc[l];
+      k /= kScanBase;
+    }
+    return base_cum;
+  }
+};
+
+// The acceptance of a wide batch (device_prep.cu), in the reference's
+// float order: one thread walks the four series (the whole GPUs plus the
+// slot a share opens, the share count, RDMA, FPGA) over every sorted row,
+// takes each row's segment prefix as the cumsum less the cumsum before
+// the segment (_segment_prefix_sums), and clears kDevOk where the row
+// fails a test. Each row's word and segment are written first. A serial
+// walk: such a batch asks for more than 2^24 GPUs, NICs or FPGAs, which
+// no cluster holds. The whole block calls it.
+__device__ __noinline__ void device_walk(const uint64_t* keys, int P, int N, int* d_info,
+                                         int* d_seg, const RoundDevices dv) {
+  int j0, j1;
+  dev_span(P, j0, j1);
+  for (int j = j0; j < j1; ++j) {
+    const DevRow r = dev_row(keys, j, N, dv);
+    const bool ok = (d_info[j] & kDevOk) != 0 && r.node < N;
+    d_info[j] = r.row | (ok ? kDevOk : 0) | (r.opens ? kDevOpens : 0);
+    d_seg[j] = r.node;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const ScanLevels lv = scan_levels(P);
+    WalkCumsum w[4];
+    float prev[4], base[4];
+    for (int f = 0; f < 4; ++f) {
+      w[f].init(lv);
+      prev[f] = base[f] = 0.0f;
+    }
+    for (int j = 0; j < P; ++j) {
+      const int info = d_info[j], row = info & kDevRowMask, node = d_seg[j];
+      const int g = min(node, N - 1);
+      const bool head = j == 0 || d_seg[j - 1] != node;
+      const bool frac = dv.share[row] > kEps;
+      const float x[4] = {(float)dv.whole[row] + ((info & kDevOpens) ? 1.0f : 0.0f),
+                          frac ? 1.0f : 0.0f, (float)dv.rdma_req[row], (float)dv.fpga_req[row]};
+      float seg[4];
+      for (int f = 0; f < 4; ++f) {
+        const float cum = w[f].push(j, x[f]);
+        if (head) base[f] = j > 0 ? prev[f] : 0.0f;
+        prev[f] = cum;
+        seg[f] = cum - base[f];
+      }
+      bool ok = seg[0] <= dv.stats[(size_t)g * koord_device::kStats] + kEps;
+      ok = ok && (!frac || seg[1] - x[1] < 0.5f);
+      if (dv.rdma != nullptr) ok = ok && seg[2] <= dv.rdma[g] + kEps;
+      if (dv.fpga != nullptr) ok = ok && seg[3] <= dv.fpga[g] + kEps;
+      if (!ok) d_info[j] = info & ~kDevOk;
+    }
+  }
+  __syncthreads();
 }
 
 // The device acceptance (solver.py:1246-1274) on the rows' fit acceptance
@@ -1351,11 +1448,15 @@ __device__ __forceinline__ DevRow dev_row(const uint64_t* keys, int j, int N,
 // free counts. The four running sums are whole numbers, so they are a
 // segmented scan of integers: each thread takes a span of rows in order,
 // sums it, the block scans the spans' sums, and each row then holds its
-// own prefixes against the node's round-start stats and counts. The whole
-// block calls it.
+// own prefixes against the node's round-start stats and counts. A wide
+// batch takes device_walk instead. The whole block calls it.
 __device__ __noinline__ void device_accept(const uint64_t* keys, int P, int N, int* d_info,
                                            int* d_seg, int* d_scan, const RoundDevices dv) {
   __syncthreads();  // every row's fit acceptance is in
+  if (dv.wide[0] != 0) {
+    device_walk(keys, P, N, d_info, d_seg, dv);
+    return;
+  }
   int j0, j1;
   dev_span(P, j0, j1);
   DevSums run = dev_none();
@@ -1377,29 +1478,65 @@ __device__ __noinline__ void device_accept(const uint64_t* keys, int P, int N, i
   __syncthreads();
 }
 
+// One node's device charges: slot_commit of its winners' whole GPUs and
+// share winner onto its slot row, the RDMA and FPGA off the free counts,
+// and its stats row refreshed.
+__device__ __forceinline__ void dev_apply(const RoundDevices& dv, int node, float whole,
+                                          float frac, bool opens, float rdma, float fpga) {
+  float* row = dv.slots + (size_t)node * dv.G;
+  koord_device::slot_commit_row(row, dv.G, whole, frac, opens);
+  if (dv.rdma != nullptr) dv.rdma[node] = dv.rdma[node] - rdma;
+  if (dv.fpga != nullptr) dv.fpga[node] = dv.fpga[node] - fpga;
+  koord_device::slot_stats_row(row, dv.G, dv.stats + (size_t)node * koord_device::kStats);
+}
+
 // The device charges (solver.py:1386-1416) of the final winners (kDevFinal
 // in d_info): the same segmented scan sums each segment's winners' whole
 // GPUs, RDMA and FPGA (whole numbers, exact in any order) and finds its
 // one share winner; the thread of the segment's last row applies
 // slot_commit to the node's slot row, subtracts the sums from the free
-// counts and refreshes the node's stats row. Nodes without a winner are
-// not touched (slot_commit and `free - 0` leave them as they are). The
-// whole block calls it.
+// counts and refreshes the node's stats row. In a wide batch the thread of
+// the segment's first row sums the winners in row order as floats
+// (segment_sum's order, from 0). Nodes without a winner are not touched
+// (slot_commit and `free - 0` leave them as they are). The whole block
+// calls it.
 __device__ __noinline__ void device_charge(int P, int N, const int* d_info, const int* d_seg,
                                            int* d_scan, const RoundDevices dv) {
   int j0, j1;
   dev_span(P, j0, j1);
+  if (dv.wide[0] != 0) {
+    for (int j = j0; j < j1; ++j) {
+      const int node = d_seg[j];
+      if ((j > 0 && d_seg[j - 1] == node) || node >= N) continue;
+      float whole = 0.0f, frac = 0.0f, rdma = 0.0f, fpga = 0.0f;
+      bool any = false, opens = false;
+      for (int k = j; k < P && d_seg[k] == node; ++k) {
+        const int info = d_info[k];
+        if (!(info & kDevFinal)) continue;
+        const int row = info & kDevRowMask;
+        any = true;
+        whole = whole + (float)dv.whole[row];
+        if (dv.share[row] > kEps) frac = frac + dv.share[row];
+        opens = opens || (info & kDevOpens) != 0;
+        rdma = rdma + (float)dv.rdma_req[row];
+        fpga = fpga + (float)dv.fpga_req[row];
+      }
+      if (any) dev_apply(dv, node, whole, frac, opens, rdma, fpga);
+    }
+    __syncthreads();
+    return;
+  }
   auto terms = [&](int j) {
     const int info = d_info[j];
     DevSums t = dev_none();
     t.head = j == 0 || d_seg[j - 1] != d_seg[j];
     if (info & kDevFinal) {
       const int row = info & kDevRowMask;
-      t.v[0] = dev_term(dv.whole[row]);
-      t.v[1] = dev_term(dv.rdma_req[row]);
-      t.v[2] = dev_term(dv.fpga_req[row]);
+      t.v[0] = dv.whole[row];
+      t.v[1] = dv.rdma_req[row];
+      t.v[2] = dv.fpga_req[row];
       // bit 0: a winner; above it, the share winner's sorted row + 1
-      t.v[3] = 1u | (dv.share[row] > kEps ? (uint32_t)(j + 1) << 1 : 0u);
+      t.v[3] = 1 | (dv.share[row] > kEps ? (j + 1) << 1 : 0);
     }
     return t;
   };
@@ -1409,7 +1546,7 @@ __device__ __noinline__ void device_charge(int P, int N, const int* d_info, cons
   for (int j = j0; j < j1; ++j) {
     run = dev_then<true>(run, terms(j));
     const int node = d_seg[j];
-    if ((j + 1 < P && d_seg[j + 1] == node) || node >= N || !(run.v[3] & 1u)) continue;
+    if ((j + 1 < P && d_seg[j + 1] == node) || node >= N || !(run.v[3] & 1)) continue;
     float frac = 0.0f;
     bool opens = false;
     if (run.v[3] >> 1) {
@@ -1417,11 +1554,7 @@ __device__ __noinline__ void device_charge(int P, int N, const int* d_info, cons
       frac = dv.share[info & kDevRowMask];
       opens = (info & kDevOpens) != 0;
     }
-    float* row = dv.slots + (size_t)node * dv.G;
-    koord_device::slot_commit_row(row, dv.G, (float)run.v[0], frac, opens);
-    if (dv.rdma != nullptr) dv.rdma[node] = dv.rdma[node] - (float)run.v[1];
-    if (dv.fpga != nullptr) dv.fpga[node] = dv.fpga[node] - (float)run.v[2];
-    koord_device::slot_stats_row(row, dv.G, dv.stats + (size_t)node * koord_device::kStats);
+    dev_apply(dv, node, (float)run.v[0], frac, opens, (float)run.v[1], (float)run.v[2]);
   }
   __syncthreads();
 }
@@ -1471,7 +1604,7 @@ __device__ __noinline__ void zone_charge_apart(const bool (&ok)[R], const int (&
 // gathered from shared memory after the sort; node rows are read with
 // vector loads, once, and the charges start from the values the tests
 // read.
-template <int D, int R, bool kQuota, bool kZone, bool kGlobal>
+template <int D, int R, bool kQuota, bool kZone, bool kGlobal, bool kDev>
 __global__ void __launch_bounds__(kThreads)
 round_tail_kernel(const float* __restrict__ top_cost,
                   const int* __restrict__ top_idx,
@@ -1519,7 +1652,7 @@ round_tail_kernel(const float* __restrict__ top_cost,
   int* d_info = (int*)((char*)z_bits + (kZone ? zone_bytes(P, zn.DN) : 0));
   int* d_seg = d_info + P;
   int* d_scan = d_seg + P;
-  const bool devices = dv.slots != nullptr;
+  const bool devices = kDev && dv.slots != nullptr;
   const int tid = threadIdx.x, T = blockDim.x;
   // the rows present: the loops with a barrier run over these only (above
   // 4 rows a thread; up to 4 they unroll over R)
@@ -1981,14 +2114,15 @@ inline Config smem_config(int P, int D, int R, bool quota, int Q, int L, bool zo
 }
 
 // Bytes of the device-memory working set of a round (kGlobal): every dim
-// in one pass, pods staged, kGlobalRows rows a thread.
-inline size_t big_bytes(int P, int D, bool quota, int Q, int L, bool zone, int DN, bool dev) {
-  const size_t qbytes = quota ? quota_layout(P, D, Q, L, kGlobalRows).total : 0;
+// in one pass, pods staged, R rows a thread.
+inline size_t big_bytes(int P, int D, int R, bool quota, int Q, int L, bool zone, int DN,
+                        bool dev) {
+  const size_t qbytes = quota ? quota_layout(P, D, Q, L, R).total : 0;
   return round_smem_bytes(P, D, D, 1, qbytes,
                           (zone ? zone_bytes(P, DN) : 0) + (dev ? dev_bytes(P) : 0));
 }
 
-template <int D, int R, bool kQuota, bool kZone, bool kGlobal>
+template <int D, int R, bool kQuota, bool kZone, bool kGlobal, bool kDev>
 cudaError_t launch(const Args& a, int threads) {
   // One block holds the whole round: in shared memory at the widest layout
   // that fits (a round that fits in none is refused), or (kGlobal) in the
@@ -2006,9 +2140,9 @@ cudaError_t launch(const Args& a, int threads) {
     G = c.G, staged = c.staged, smem = c.smem, qbytes = c.qbytes;
     static size_t configured = 48 * 1024 - sizeof(ScanLevels) - kWarps * sizeof(int);
     if (smem > configured) {
-      cudaError_t err = cudaFuncSetAttribute(round_tail_kernel<D, R, kQuota, kZone, kGlobal>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)smem);
+      cudaError_t err = cudaFuncSetAttribute(
+          round_tail_kernel<D, R, kQuota, kZone, kGlobal, kDev>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) {
         cudaGetLastError();  // clear it, so the next launch's check is clean
         return err;
@@ -2016,7 +2150,7 @@ cudaError_t launch(const Args& a, int threads) {
       configured = smem;
     }
   }
-  round_tail_kernel<D, R, kQuota, kZone, kGlobal><<<1, threads, smem, a.stream>>>(
+  round_tail_kernel<D, R, kQuota, kZone, kGlobal, kDev><<<1, threads, smem, a.stream>>>(
       a.top_cost, a.top_idx, a.req, a.est, a.is_prod, a.cpu_bind, a.cpu_amp,
       a.alloc, a.fresh, a.thr, a.pthr, a.requested, a.est_used, a.prod_used,
       a.assigned, a.active, a.state, a.round_quantum, a.P, a.N, a.K, G, staged, a.chain,
@@ -2039,8 +2173,10 @@ inline int smem_rows(int P, int D, bool quota, bool zone) {
 inline int threads_of(int P, int R) { return R == 1 ? max(32, (P + 31) / 32 * 32) : kThreads; }
 
 // Which kernel takes a round: 0 the shared-memory kernels (round.cu, or
-// round_zone.cu with zones), 1 the device-memory kernel (round_big.cu,
-// with `bytes` of scratch), -1 none (above kGlobalRows * kThreads pods).
+// round_zone.cu with zones; with devices round_dev.cu, round_zone_dev.cu), 1 the device-memory kernel (round_big.cu,
+// with `bytes` of scratch), 2 the device-memory kernel of the rounds above
+// kGlobalRows * kThreads pods (round_huge.cu), -1 none (above
+// kHugeRows * kThreads pods).
 // Shared memory takes a round when it fits and, with quotas, when each
 // level's 32-bit sort key (quota << position bits | position) does.
 inline int round_route(int P, int D, bool quota, int Q, int L, bool zone, int DN, bool dev,
@@ -2049,9 +2185,10 @@ inline int round_route(int P, int D, bool quota, int Q, int L, bool zone, int DN
   const int R = smem_rows(P, D, quota, zone);
   const bool key32 = !quota || (((unsigned long long)Q + 1) << pos_bits(P)) < (1ull << 32);
   if (R > 0 && key32 && smem_config(P, D, R, quota, Q, L, zone, DN, dev).G > 0) return 0;
-  if (P > kGlobalRows * kThreads) return -1;
-  *bytes = big_bytes(P, D, quota, Q, L, zone, DN, dev);
-  return 1;
+  if (P > kHugeRows * kThreads) return -1;
+  const int rows = P > kGlobalRows * kThreads ? kHugeRows : kGlobalRows;
+  *bytes = big_bytes(P, D, rows, quota, Q, L, zone, DN, dev);
+  return rows == kHugeRows ? 2 : 1;
 }
 
 // op.template run<D>() for a run-time D in 1..8.
@@ -2081,7 +2218,7 @@ inline cudaError_t check_args(const Args& a) {
     return cudaErrorInvalidValue;
   if (a.devices.slots != nullptr &&
       (a.devices.G < 1 || a.devices.G > koord_device::kMaxSlots || a.P > kDevRowMask + 1 ||
-       a.devices.stats == nullptr))
+       a.devices.stats == nullptr || a.devices.wide == nullptr))
     return cudaErrorInvalidValue;
   const uintptr_t align = a.D % 4 == 0 ? 16 : a.D % 2 == 0 ? 8 : 4;
   for (const void* p : {(const void*)a.req, (const void*)a.est, (const void*)a.alloc,
@@ -2118,10 +2255,67 @@ inline RoundZones make_zones(void* zone_free, const void* zone_cap, const void* 
 
 inline RoundDevices make_devices(void* slots, void* stats, void* rdma, void* fpga,
                                  const void* whole, const void* share, const void* rdma_req,
-                                 const void* fpga_req, int G) {
+                                 const void* fpga_req, const void* wide, int G) {
   return RoundDevices{(float*)slots, (float*)stats, (float*)rdma, (float*)fpga,
                       (const int*)whole, (const float*)share, (const int*)rdma_req,
-                      (const int*)fpga_req, G};
+                      (const int*)fpga_req, (const int*)wide, G};
+}
+
+// The shared-memory round (round.cu, round_zone.cu; with devices
+// round_dev.cu, round_zone_dev.cu): the instantiation for the rows a
+// thread the round takes.
+template <int D, bool kQuota, bool kZone, bool kDev>
+cudaError_t launch_rows(const Args& a) {
+  const int R = smem_rows(a.P, D, kQuota, kZone);
+  if (R == 1) return launch<D, 1, kQuota, kZone, false, kDev>(a, threads_of(a.P, 1));
+  if (R == 4) return launch<D, 4, kQuota, kZone, false, kDev>(a, kThreads);
+  if constexpr (D <= 3 && !kQuota && !kZone) {
+    if (R == kBigRows) return launch<D, kBigRows, kQuota, kZone, false, kDev>(a, kThreads);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <bool kQuota, bool kZone, bool kDev>
+struct SmemLaunch {
+  const Args& a;
+  template <int D>
+  cudaError_t run() const { return launch_rows<D, kQuota, kZone, kDev>(a); }
+};
+
+// One shared-memory entry's call: zones exactly when kZone, devices
+// exactly when kDev, each level's 32-bit sort key (quota << position bits
+// | position) in range.
+template <bool kZone, bool kDev>
+cudaError_t launch_shared_memory(const Args& a) {
+  if ((a.zones.free != nullptr) != kZone || (a.devices.slots != nullptr) != kDev)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = check_args(a);
+  if (err != cudaSuccess) return err;
+  if (a.chain != nullptr && ((unsigned long long)a.Q + 1) << pos_bits(a.P) >= (1ull << 32))
+    return cudaErrorInvalidValue;
+  return a.chain != nullptr ? with_d(a.D, SmemLaunch<true, kZone, kDev>{a})
+                            : with_d(a.D, SmemLaunch<false, kZone, kDev>{a});
+}
+
+// The device-memory round at R rows a thread, for each of its
+// instantiations (the device phase a run-time branch of each).
+template <int R, bool kQuota, bool kZone>
+struct BigLaunch {
+  const Args& a;
+  template <int D>
+  cudaError_t run() const { return launch<D, R, kQuota, kZone, true, true>(a, kThreads); }
+};
+
+template <int R>
+cudaError_t launch_device_memory(const Args& a) {
+  if (a.P > R * kThreads || a.scratch == nullptr) return cudaErrorInvalidValue;
+  const cudaError_t err = check_args(a);
+  if (err != cudaSuccess) return err;
+  const bool quota = a.chain != nullptr, zone = a.zones.free != nullptr;
+  if (quota && zone) return with_d(a.D, BigLaunch<R, true, true>{a});
+  if (quota) return with_d(a.D, BigLaunch<R, true, false>{a});
+  if (zone) return with_d(a.D, BigLaunch<R, false, true>{a});
+  return with_d(a.D, BigLaunch<R, false, false>{a});
 }
 
 }  // namespace

@@ -49,21 +49,39 @@ _F = ctypes.c_float
 SIGNATURES: dict[str, dict[str, list]] = {
     "nominate": {
         "koord_nominate": [_P] * 15 + [_I] * 5 + [_F, _I, _I] + [_P] * 12 + [_I] * 3
-        + [_P] * 9 + [_I, _I, _P],
-        "koord_nominate_chunk": [_I] * 6 + [ctypes.POINTER(_I)],
+        + [_P] * 9 + [_I, _I, _P, _P],
+        "koord_nominate_chunk": [_I] * 8 + [ctypes.POINTER(_I)],
+    },
+    "nominate_terms": {
+        "koord_nominate": [_P] * 15 + [_I] * 5 + [_F, _I, _I] + [_P] * 12 + [_I] * 3
+        + [_P] * 9 + [_I, _I, _P, _P],
+        "koord_nominate_chunk": [_I] * 8 + [ctypes.POINTER(_I)],
+        "koord_pod_order": [_P] * 6 + [_I, _P, _P],
     },
     "round": {
         "koord_round_tail": [_P] * 17 + [_F, _I, _I, _I, _I] + [_P] * 4 + [_I, _I]
-        + [_P] * 8 + [_I, _P],
+        + [_P] * 9 + [_I, _P],
+    },
+    "round_dev": {
+        "koord_round_tail": [_P] * 17 + [_F, _I, _I, _I, _I] + [_P] * 4 + [_I, _I]
+        + [_P] * 9 + [_I, _P],
     },
     "round_zone": {
         "koord_round_tail_zone": [_P] * 17 + [_F, _I, _I, _I, _I] + [_P] * 4 + [_I, _I]
-        + [_P] * 6 + [_I, _I] + [_P] * 8 + [_I, _P],
+        + [_P] * 6 + [_I, _I] + [_P] * 9 + [_I, _P],
+    },
+    "round_zone_dev": {
+        "koord_round_tail_zone": [_P] * 17 + [_F, _I, _I, _I, _I] + [_P] * 4 + [_I, _I]
+        + [_P] * 6 + [_I, _I] + [_P] * 9 + [_I, _P],
     },
     "round_big": {
         "koord_round_tail_big": [_P] * 17 + [_F, _I, _I, _I, _I] + [_P] * 4 + [_I, _I]
-        + [_P] * 6 + [_I, _I] + [_P] * 8 + [_I, _P, _P],
+        + [_P] * 6 + [_I, _I] + [_P] * 9 + [_I, _P, _P],
         "koord_round_route": [_I] * 8 + [ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_longlong)],
+    },
+    "round_huge": {
+        "koord_round_tail_huge": [_P] * 17 + [_F, _I, _I, _I, _I] + [_P] * 4 + [_I, _I]
+        + [_P] * 6 + [_I, _I] + [_P] * 9 + [_I, _P, _P],
     },
     "gangs": {
         "koord_enforce_gangs": [_P] * 11 + [_I, _I, _I] + [_P] * 2 + [_I, _I] + [_P] * 2
@@ -85,7 +103,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "koord_zone_prep": [_P] * 5 + [_I] * 3 + [_P],
     },
     "device_prep": {
-        "koord_device_prep": [_P] * 2 + [_I] * 2 + [_P],
+        "koord_device_prep": [_P] * 2 + [_I] * 2 + [_P] * 3 + [_I, _P, _P],
     },
     "cost_full": {
         "koord_cost_full": [_P] * 15 + [_I] * 3 + [_P] * 9 + [_I] * 3 + [_P] * 9 + [_I, _P],

@@ -5,7 +5,8 @@ Port of what a round of ``koordinator_tpu/ops/solver.py:assign`` does
 after nomination, LoadAware branch (:1204-1452) with the quota commit and
 the NUMA zone selection (:1275-1332, :1417-1432). :func:`round_tail`
 launches the hand-written kernel of ``csrc/round.cuh`` (entries
-``round.cu``, ``round_zone.cu``, ``round_big.cu``) on CUDA tensors and
+``round.cu``, ``round_zone.cu``, with devices ``round_dev.cu``,
+``round_zone_dev.cu``, and ``round_big.cu``, ``round_huge.cu``) on CUDA tensors and
 runs :func:`round_tail_plain` (:func:`_choose`, :func:`_commit_inputs`,
 :func:`commit_plain`, :func:`zone_phase_plain`, :func:`zone_charge_plain`
 and the carry update) on CPU tensors.
@@ -409,8 +410,8 @@ _ROUND_DTYPES = (_F32, _I32, _F32, _F32, _BOOL, _BOOL, _F32, _F32, _BOOL, _F32,
                  _F32, _F32, _F32, _F32, _I32, _BOOL, _I32)
 
 
-#: the most pods a round takes (``kGlobalRows * kThreads`` in ``csrc/round.cuh``)
-MAX_ROUND_PODS = 32_768
+#: the most pods a round takes (``kHugeRows * kThreads`` in ``csrc/round.cuh``)
+MAX_ROUND_PODS = 131_072
 
 
 @functools.lru_cache(maxsize=256)
@@ -419,8 +420,11 @@ def route(index: int, p: int, d: int, q_cap: int, levels: int, dn: int, dev: boo
     """Which kernel takes a round of ``p`` pods at width ``d`` on device
     ``index`` (``koord_round_route``; ``q_cap`` 0 without quotas, ``dn``
     0 without zones, ``dev`` with devices): ("round" or "round_zone", 0)
-    for the shared-memory kernels, ("round_big", bytes of scratch) for the
-    device-memory one, ("round_big", 0) for a round none takes (more than
+    for the shared-memory kernels (with devices "round_dev" or
+    "round_zone_dev", their instantiations with the device phase),
+    ("round_big", bytes of scratch) for the
+    device-memory one up to 32,768 pods, ("round_huge", bytes of scratch)
+    above, ("round_big", 0) for a round none takes (more than
     :data:`MAX_ROUND_PODS`), which that entry then refuses."""
     lib = kernels.library("round_big")
     where, nbytes = ctypes.c_int(0), ctypes.c_longlong(0)
@@ -429,32 +433,39 @@ def route(index: int, p: int, d: int, q_cap: int, levels: int, dn: int, dev: boo
                                                  int(dn > 0), dn, int(dev),
                                                  ctypes.byref(where),
                                                  ctypes.byref(nbytes)), "round route")
+    if where.value == 2:
+        return "round_huge", nbytes.value
     if where.value != 0:
         return "round_big", nbytes.value
-    return ("round_zone" if dn else "round"), 0
+    return ("round_zone" if dn else "round") + ("_dev" if dev else ""), 0
 
 
 def checked_round_devices(dev, like, p: int, n: int) -> list:
     """The round tail's device arguments after the checks: the slot
     table, the stats table, the free RDMA and FPGA counts (null: not
-    tracked), the sorted pods' whole GPUs, share, RDMA and FPGA, then G;
-    null pointers and 0 without ``dev`` (a :class:`.device.DeviceTerms`)."""
+    tracked), the sorted pods' whole GPUs, share, RDMA and FPGA, the
+    batch's wide flag, then G; null pointers and 0 without ``dev`` (a
+    :class:`.device.DeviceTerms`)."""
     from .device import MAX_SLOTS, STATS
 
     if dev is None:
-        return [None] * 8 + [0]
+        return [None] * 9 + [0]
     g = dev.slots.shape[1]
     if not 1 <= g <= MAX_SLOTS or dev.slots.shape[0] != n:
         raise kernels.KernelArgumentError(
             f"round_tail: the slot table must be [N={n}, G] with G in 1..{MAX_SLOTS}"
         )
+    if dev.wide is None:
+        raise kernels.KernelArgumentError(
+            "round_tail: the device terms need their batch's wide flag (DeviceTerms.batch_start)"
+        )
     f32, i32 = torch.float32, torch.int32
     return kernels.checked_ptrs(
         "round_tail",
         (like, dev.slots, dev.stats, dev.rdma, dev.fpga, dev.whole, dev.share, dev.rdma_req,
-         dev.fpga_req),
-        (f32, f32, f32, f32, f32, i32, f32, i32, i32),
-        (like.numel(), n * g, n * STATS, n, n, p, p, p, p),
+         dev.fpga_req, dev.wide),
+        (f32, f32, f32, f32, f32, i32, f32, i32, i32, i32),
+        (like.numel(), n * g, n * STATS, n, n, p, p, p, p, 1),
     )[1:] + [g]
 
 
@@ -473,10 +484,12 @@ def round_tail(
     ``quota_commit_sorted``; with ``zone`` the zone selection and charges,
     counted also as ``zone_phase``; with ``dev`` the device acceptance and
     charges, counted also as ``device_phase``. The kernel is
-    ``csrc/round.cu``'s (or with zones ``round_zone.cu``'s) while the round
-    fits in shared memory, else ``round_big.cu``'s, its working set in a
-    device buffer of this launch's own (:func:`route`; counted also as
-    ``round_tail_big``); up to :data:`MAX_ROUND_PODS` pods."""
+    ``csrc/round.cu``'s (or with zones ``round_zone.cu``'s; with devices
+    ``round_dev.cu``'s or ``round_zone_dev.cu``'s) while the round
+    fits in shared memory, else ``round_big.cu``'s (up to 32,768 pods) or
+    ``round_huge.cu``'s, its working set in a device buffer of this
+    launch's own (:func:`route`; counted also as ``round_tail_big``); up to
+    :data:`MAX_ROUND_PODS` pods."""
     args = (top_cost, top_idx, req, est, is_prod, cpu_bind, cpu_amp,
             alloc, fresh, thr, pthr, requested, est_used, prod_used,
             assigned, active, state)
@@ -522,20 +535,21 @@ def round_tail(
     lib = kernels.library(name)
     stream = kernels.stream_of(top_cost)
     common = (*ptrs, ctypes.c_float(round_quantum), p, n, d, k, *q_ptrs, q_cap, levels)
-    if name == "round":
+    if name in ("round", "round_dev"):
         code = lib.koord_round_tail(*common, *d_args, stream)
-    elif name == "round_zone":
+    elif name in ("round_zone", "round_zone_dev"):
         code = lib.koord_round_tail_zone(*common, *z_args, *d_args, stream)
     else:
         # the launch's own working set, from the caching allocator on its
         # stream: inside a capture it comes from that graph's pool, so no
         # two graphs or streams share one
         buf = torch.empty(nbytes, dtype=torch.uint8, device=top_cost.device) if nbytes else None
-        code = lib.koord_round_tail_big(*common, *(z_args or [None] * 6 + [0, 0]), *d_args,
-                                        None if buf is None else buf.data_ptr(), stream)
+        entry = lib.koord_round_tail_huge if name == "round_huge" else lib.koord_round_tail_big
+        code = entry(*common, *(z_args or [None] * 6 + [0, 0]), *d_args,
+                     None if buf is None else buf.data_ptr(), stream)
     kernels.check(lib, code, "round_tail")
     kernels.count("round_tail")
-    if name == "round_big":
+    if name in ("round_big", "round_huge"):
         kernels.count("round_tail_big")
     if dev is not None:
         kernels.count("device_phase")

@@ -204,30 +204,62 @@ def slot_exists_of(cap_total, g: int):
             < (cap_total / 100.0)[:, None])
 
 
-def device_prep_plain(slot_free):
+#: float32 holds every integer up to this one exactly
+EXACT_INTS = 1 << 24
+
+
+def sums_wide_plain(whole, rdma_req, fpga_req) -> torch.Tensor:
+    """The plain version of ``csrc/device_prep.cu``'s wide flag: [1] int32,
+    1 where the batch's pods' absolute whole GPUs (plus one each, for the
+    slot a share may open), RDMA or FPGA asks sum past :data:`EXACT_INTS`.
+    Below it every partial sum of the round tail's device prefix sums
+    (``solver.py:1246-1274``) is an integer float32 holds, so the kernel's
+    integer scans give the reference's float walk; a wide batch takes the
+    float walk itself (``csrc/round.cuh``: ``device_accept``)."""
+    wide = ((whole.long().abs().sum() + whole.numel() > EXACT_INTS)
+            | (rdma_req.long().abs().sum() > EXACT_INTS)
+            | (fpga_req.long().abs().sum() > EXACT_INTS))
+    return wide.to(torch.int32).reshape(1)
+
+
+def device_prep_plain(slot_free, asks=None):
     """The plain version of ``csrc/device_prep.cu``: the stats table
     [N, 4] float32 of :func:`slot_stats` (full count, best partial,
-    largest slot, total)."""
-    return torch.stack(slot_stats(slot_free), dim=1).contiguous()
+    largest slot, total); with ``asks`` (:func:`device_prep`'s) also the
+    batch's wide flag: (stats, wide)."""
+    stats = torch.stack(slot_stats(slot_free), dim=1).contiguous()
+    return stats if asks is None else (stats, sums_wide_plain(*asks))
 
 
-def device_prep(slot_free):
+def device_prep(slot_free, asks=None):
     """A batch's stats table (:func:`device_prep_plain`) on the tensors'
     device: one launch of ``csrc/device_prep.cu`` for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. With ``asks`` = (whole, rdma_req,
+    fpga_req), the priority-sorted pods' [P] int32 asks, the same launch
+    also raises the batch's wide flag (:func:`sums_wide_plain`), and the
+    result is (stats, wide)."""
     if slot_free.is_cpu:
-        return device_prep_plain(slot_free)
+        return device_prep_plain(slot_free, asks)
     n, g = slot_free.shape
     if not 1 <= g <= MAX_SLOTS:
         raise kernels.KernelArgumentError(f"device_prep: G={g} must be in 1..{MAX_SLOTS}")
     stats = torch.empty((n, STATS), dtype=torch.float32, device=slot_free.device)
     ptrs = kernels.checked_ptrs("device_prep", (slot_free, stats),
                                 (torch.float32, torch.float32), (n * g, n * STATS))
+    p, wide, ask_ptrs = 0, None, [None] * 3
+    if asks is not None:
+        p = asks[0].numel()
+        wide = torch.empty(1, dtype=torch.int32, device=slot_free.device)
+        ask_ptrs = kernels.checked_ptrs("device_prep", (slot_free, *asks),
+                                        (torch.float32,) + (torch.int32,) * 3,
+                                        (n * g, p, p, p))[1:]
     lib = kernels.library("device_prep")
-    kernels.check(lib, lib.koord_device_prep(*ptrs, n, g, kernels.stream_of(slot_free)),
+    kernels.check(lib, lib.koord_device_prep(*ptrs, n, g, *ask_ptrs, p,
+                                             None if wide is None else wide.data_ptr(),
+                                             kernels.stream_of(slot_free)),
                   "device_prep")
     kernels.count("device_prep")
-    return stats
+    return stats if asks is None else (stats, wide)
 
 
 @dataclass
@@ -240,8 +272,12 @@ class DeviceTerms:
     of the nodes it charges); ``cap`` [N] (the score's capacity, None
     without); the priority-sorted pods' ``whole`` [P] int32, ``share`` [P],
     ``rdma_req`` / ``fpga_req`` [P] int32 and ``units`` [P] (100 per whole
-    GPU plus the share, the score's demand); and ``scoring`` (0 off, 1
-    LeastAllocated, 2 MostAllocated)."""
+    GPU plus the share, the score's demand); ``scoring`` (0 off, 1
+    LeastAllocated, 2 MostAllocated); ``wide`` [1] int32, the batch's
+    flag of :func:`sums_wide_plain`, which the round tail reads; and
+    ``order`` [P] int32, the order the nomination kernel takes the pods in
+    (:func:`.nominate.pod_order`, set by the solver's full-axis route;
+    None: in place)."""
 
     slots: torch.Tensor
     stats: torch.Tensor
@@ -254,6 +290,8 @@ class DeviceTerms:
     fpga_req: torch.Tensor
     units: torch.Tensor
     scoring: int = 0
+    wide: "torch.Tensor | None" = None
+    order: "torch.Tensor | None" = None
 
     @classmethod
     def batch_start(cls, slots, rdma, fpga, cap, spods, scoring: int = 0) -> "DeviceTerms":
@@ -263,9 +301,10 @@ class DeviceTerms:
         if scoring and cap is None:
             raise ValueError("device_scoring needs DeviceState.cap_total")
         _, units = device_consumption(spods.gpu_whole, spods.gpu_share)
-        return cls(slots=slots, stats=device_prep(slots), rdma=rdma, fpga=fpga, cap=cap,
+        stats, wide = device_prep(slots, (spods.gpu_whole, spods.rdma, spods.fpga))
+        return cls(slots=slots, stats=stats, rdma=rdma, fpga=fpga, cap=cap,
                    whole=spods.gpu_whole, share=spods.gpu_share, rdma_req=spods.rdma,
-                   fpga_req=spods.fpga, units=units, scoring=scoring)
+                   fpga_req=spods.fpga, units=units, scoring=scoring, wide=wide)
 
     def fit_and_cost(self, clamp: bool = False):
         """The [P, N] device fit (``solver.py:900-919``: the fit against

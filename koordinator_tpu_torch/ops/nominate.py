@@ -2,8 +2,9 @@
 
 Port of ``koordinator_tpu/ops/solver.py:_full_nominate`` (:1121-1156) with
 ``full_feas_cost`` (:864-947). :func:`nominate` launches the hand-written
-kernel ``csrc/nominate.cu`` on CUDA tensors and runs :func:`nominate_plain`
-on CPU tensors; there is no fallback from one to the other. With the
+kernel on CUDA tensors (``csrc/nominate.cu``, or ``csrc/nominate_terms.cu``
+with NUMA zones or devices) and runs :func:`nominate_plain` on CPU
+tensors; there is no fallback from one to the other. With the
 candidate shortlist on it is the round's full-axis fallback, run only when
 the shortlist round sets its trigger word (``trigger=``).
 
@@ -187,14 +188,15 @@ _DTYPES = (_F32, _F32, _BOOL, _BOOL, _BOOL, _F32, _F32, _F32, _F32, _BOOL, _BOOL
 def launch(lib, ptrs, p: int, n: int, d: int, k: int, nomination_jitter: float,
            approx_topk: bool, chunk: int, device, state_ptr=None, trigger_ptr=None,
            out=None, mask_ptrs=(None, None), zone_args=(None,) * 4 + (0, 0, 0),
-           dev_args=(None,) * 9 + (0,)):
+           dev_args=(None,) * 9 + (0,), order_ptr=None):
     """One ``koord_nominate`` call of ``lib`` on checked pointers, each
     block walking ``chunk`` nodes; with ``state_ptr`` (a round loop's state
     word) the kernels return at once once its ``done`` is set, with
     ``trigger_ptr`` (a shortlist round's word) while its trigger is clear;
     ``mask_ptrs`` are the node mask's table and rows (:func:`checked_mask`),
     ``zone_args`` the NUMA terms' (:func:`.numa.checked_zones`), ``dev_args``
-    the device terms' (:func:`.device.checked_devices`).
+    the device terms' (:func:`.device.checked_devices`), ``order_ptr`` the
+    term kernels' pod order (:func:`pod_order`; null: in place).
     Writes into ``out`` (cost, node) when given, checked buffers of
     [P, k]. Returns (cost [P, k], node [P, k], the C entry's error code)."""
     chunks = -(-n // chunk)
@@ -212,7 +214,7 @@ def launch(lib, ptrs, p: int, n: int, d: int, k: int, nomination_jitter: float,
         int(nomination_jitter > 0.0), int(approx_topk),
         part_cost.data_ptr(), part_idx.data_ptr(),
         out_cost.data_ptr(), out_idx.data_ptr(), state_ptr, trigger_ptr, *mask_ptrs,
-        *zone_args, *dev_args, 0, kernels.stream_of(out_cost),
+        *zone_args, *dev_args, 0, order_ptr, kernels.stream_of(out_cost),
     )
     return out_cost, out_idx, code
 
@@ -249,15 +251,68 @@ def checked(args, k: int) -> list:
     )
 
 
+def pod_order_plain(cpu_bind, zones=None, devices=None) -> torch.Tensor:
+    """The order in which ``csrc/nominate_terms.cu`` takes a batch's
+    priority-sorted pods, [P] int32: a stable sort of a small key — with
+    ``zones`` 3 times 0 for a pod that wants no alignment, 1 for a
+    cpuset-bound one, 2 for a required one, and with ``devices`` plus 0
+    for a pod that asks for no device, 1 for RDMA or FPGA alone, 2 for
+    GPUs — so that whole blocks of 64 pods that need no term skip it.
+    Each pod keeps its own row of the nomination, so the order changes no
+    bit. The plain version of ``pod_order_kernel``."""
+    key = torch.zeros(cpu_bind.shape, dtype=torch.int32, device=cpu_bind.device)
+    if zones is not None:
+        key = torch.where(zones.required, 2, torch.where(cpu_bind, 1, 0)).to(torch.int32) * 3
+    if devices is not None:
+        gpu = (devices.whole != 0) | (devices.share > EPS)
+        other = (devices.rdma_req != 0) | (devices.fpga_req != 0)
+        key = key + torch.where(gpu, 2, torch.where(other, 1, 0)).to(torch.int32)
+    return torch.sort(key, stable=True).indices.to(torch.int32)
+
+
+def pod_order(cpu_bind, zones=None, devices=None) -> torch.Tensor:
+    """:func:`pod_order_plain` on the tensors' device: one launch of
+    ``csrc/nominate_terms.cu``'s ``pod_order_kernel`` for CUDA tensors, the
+    plain version for CPU tensors. The solver's full-axis route works it
+    out once a batch and keeps it as the terms' ``order`` (the devices',
+    else the zones'), which :func:`nominate` passes on."""
+    if cpu_bind.is_cpu:
+        order = pod_order_plain(cpu_bind, zones, devices)
+    else:
+        p = cpu_bind.shape[0]
+        order = torch.empty(p, dtype=torch.int32, device=cpu_bind.device)
+        i32 = torch.int32
+        tensors = (order, cpu_bind, None if zones is None else zones.required)
+        dtypes = (i32, torch.bool, torch.bool)
+        if devices is not None:
+            tensors += (devices.whole, devices.share, devices.rdma_req, devices.fpga_req)
+            dtypes += (i32, torch.float32, i32, i32)
+        ptrs = kernels.checked_ptrs("pod_order", tensors, dtypes, (p,) * len(tensors))
+        dev = ptrs[3:] if devices is not None else [None] * 4
+        lib = kernels.library("nominate_terms")
+        kernels.check(lib, lib.koord_pod_order(ptrs[1], ptrs[2], *dev, p, ptrs[0],
+                                               kernels.stream_of(order)), "pod_order")
+        kernels.count("pod_order")
+    return order
+
+
+def library_of(mode: int):
+    """The library of an instantiation ``mode`` (0 LoadAware only, 1 with a
+    node mask: ``csrc/nominate.cu``; 2 with NUMA zones, 3 with devices, 4
+    with both: ``csrc/nominate_terms.cu``)."""
+    return kernels.library("nominate_terms" if mode >= 2 else "nominate")
+
+
 @functools.lru_cache(maxsize=256)
-def chunk_of(lib, p: int, n: int, d: int, k: int, index: int, mode: int = 0) -> int:
+def chunk_of(lib, p: int, n: int, d: int, k: int, index: int, mode: int = 0, z: int = 0,
+             dn: int = 0) -> int:
     """Nodes each block of ``lib``'s kernel walks at this shape on device
     ``index`` (``koord_nominate_chunk``: one wave of resident blocks), for
-    its instantiation ``mode``: 0 LoadAware only, 1 with a node mask, 2
-    with NUMA zones, 3 with devices, 4 with devices and NUMA zones."""
+    its instantiation ``mode`` (:func:`library_of`) and, with zones, the
+    zone table's [Z, DN]."""
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     chunk = ctypes.c_int(0)
-    kernels.check(lib, lib.koord_nominate_chunk(p, n, d, k, sms, int(mode),
+    kernels.check(lib, lib.koord_nominate_chunk(p, n, d, k, sms, int(mode), z, dn,
                                                 ctypes.byref(chunk)),
                   "nominate chunk")
     return chunk.value
@@ -290,7 +345,9 @@ def nominate(
     (a :class:`.numa.ZoneTerms`) adds the NUMA fit and, with its scoring,
     the aligned score (the kernel's NUMA instantiation, D <= 8); ``devices``
     (a :class:`.device.DeviceTerms`) the device fit and score (its device
-    instantiations, D <= 8)."""
+    instantiations, D <= 8). The term instantiations take the pods in the
+    terms' ``order`` (the devices', else the zones'; :func:`pod_order`)
+    where it is set, else in place: the same result either way."""
     args = (req, est, is_prod, cpu_bind, gate, alloc, requested, est_used,
             prod_used, fresh, sched, cpu_amp, thr, pthr, weights)
     if req.is_cpu:
@@ -304,7 +361,6 @@ def nominate(
         "nominate", (req, state, trigger) + (out or (None, None)),
         (_F32, torch.int32, torch.int32, _F32, torch.int32), (p * d, 2, 4, p * k, p * k),
     )
-    lib = kernels.library("nominate")
     if devices is not None:
         mode = 4 if zones is not None else 3
     else:
@@ -313,11 +369,19 @@ def nominate(
         raise kernels.KernelArgumentError(
             f"nominate: D={d} with NUMA zones or devices must be in 1..8"
         )
-    chunk = chunk_of(lib, p, n, d, k, req.get_device(), mode)
+    lib = library_of(mode)
+    z, dn = zones.cap.shape[1:] if zones is not None else (0, 0)
+    chunk = chunk_of(lib, p, n, d, k, req.get_device(), mode, z, dn)
+    order = None
+    held = (devices if devices is not None else zones) if mode >= 2 else None
+    if held is not None and held.order is not None:
+        order = kernels.checked_ptrs("nominate", (req, held.order), (_F32, torch.int32),
+                                     (p * d, p))[1]
     out_cost, out_idx, code = launch(
         lib, ptrs, p, n, d, k, nomination_jitter, approx_topk, chunk, req.device,
         extra[1], extra[2], out, checked_mask("nominate", mask, p, n),
         checked_zones("nominate", zones, p, n, d), checked_devices("nominate", devices, p, n),
+        order,
     )
     kernels.check(lib, code, "nominate")
     kernels.count("nominate")

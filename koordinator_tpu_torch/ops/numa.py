@@ -188,8 +188,11 @@ class ZoneTerms:
     priority-sorted pods' ``required`` flags [P] bool, the aligned score's
     strategy (``scoring``: 0 off, 1 LeastAllocated, 2 MostAllocated) and,
     for the kernels, the nodes' side table (``side`` [N, 1 + DN + Z]
-    int32, :func:`zone_prep`). A pod wants alignment when it is
-    cpuset-bound or required (``solver.py:755-770``)."""
+    int32, :func:`zone_prep`) and, without devices, the order the
+    nomination kernel takes the pods in (``order`` [P] int32,
+    :func:`.nominate.pod_order`, set by the solver's full-axis route; None:
+    in place). A pod wants alignment when it is cpuset-bound or required
+    (``solver.py:755-770``)."""
 
     free: torch.Tensor        # [N, Z, DN]
     cap: torch.Tensor         # [N, Z, DN]
@@ -197,6 +200,7 @@ class ZoneTerms:
     required: torch.Tensor    # [P] bool, sorted pods
     scoring: int = 0
     side: torch.Tensor = None
+    order: "torch.Tensor | None" = None
 
     @classmethod
     def batch_start(cls, zone_free, zone_cap, policy, required, scoring: int = 0) -> "ZoneTerms":

@@ -674,6 +674,12 @@ def _assign_(
         # one word a trip: trip t is round t while the loop runs
         words = torch.zeros((max_rounds, shortlist_ops.WORD), dtype=torch.int32, device=dev)
         fallbacks = torch.zeros((2,), dtype=torch.int32, device=dev)
+    elif terms is not None or dterms is not None:
+        # the full axis every round: the term kernels take the pods in
+        # the batch's order (the shortlist's rare fallback takes them in
+        # place)
+        held = dterms if dterms is not None else terms
+        held.order = nominate_ops.pod_order(bind_mask, terms, dterms)
     for t in range(max_rounds):
         if state.is_cpu and bool(state[0]):
             break

@@ -227,10 +227,10 @@ def test_round_tail_refuses_misaligned_rows(cuda):
 
 
 def test_commit_refuses_a_round_too_large_for_one_block(cuda):
-    """One block takes up to 32,768 pods (32 rows a thread in device
+    """One block takes up to 131,072 pods (128 rows a thread in device
     memory); a larger round is refused, never solved some other way."""
-    dev = [torch.from_numpy(a).to(cuda) for a in round_inputs(1, 32_769, 100, 8)]
-    with pytest.raises(ValueError, match="32768"):
+    dev = [torch.from_numpy(a).to(cuda) for a in round_inputs(1, 131_073, 100, 8)]
+    with pytest.raises(ValueError, match="131072"):
         tcommit.round_tail(*dev, 0.35)
 
 
@@ -1101,6 +1101,112 @@ def test_pricing_kernels_with_devices_match_plain(cuda, p, n, d, g, rdma, pad, s
         np.testing.assert_array_equal(bits(a), bits(b), err_msg=str(i))
 
 
+@pytest.mark.parametrize("p", [1, 100, 512, 5000, 70_000])
+@pytest.mark.parametrize("zones, devices", [(True, False), (False, True), (True, True)])
+def test_pod_order_kernel_matches_plain(cuda, p, zones, devices):
+    """The batch's pod order for the term kernels (``pod_order_kernel``,
+    one block, spans of pods a thread): the stable sort of the 9-valued
+    key, equal to ``pod_order_plain`` at 1 to 70,000 pods."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(p)
+    host = dict(bind=rng.random(p) < 0.2, required=rng.random(p) < 0.2,
+                whole=rng.choice([0, 0, 1, -1, 4], p).astype(np.int32),
+                share=rng.choice([0.0, 0.0005, 30.0], p).astype(np.float32),
+                rdma_req=rng.choice([0, 0, 1], p).astype(np.int32),
+                fpga_req=rng.choice([0, 0, 0, 1], p).astype(np.int32))
+    outs = []
+    for device in (cuda, "cpu"):
+        t = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        z = SimpleNamespace(required=t["required"]) if zones else None
+        v = SimpleNamespace(**{k: t[k] for k in ("whole", "share", "rdma_req", "fpga_req")}) \
+            if devices else None
+        before = kernels.launches["pod_order"]
+        outs.append(tnom.pod_order(t["bind"], z, v))
+        if device == cuda:
+            assert kernels.launches["pod_order"] == before + 1
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(outs[0].cpu().numpy(), outs[1].numpy())
+
+
+def term_fixture(cuda, kind):
+    """The kernel checks' fixtures of ``csrc/nominate_terms.cu``'s
+    instantiations, on the card: (nodes, flat pods, params, NumaState or
+    None, DeviceState or None)."""
+    from koordinator_tpu_torch.ops.numa import NumaState
+
+    if kind == "zones Z=2":
+        nodes, pods, params = chip_smoke.rich_fixture(1, chip_smoke.N_NODES, 8 * chip_smoke.BATCH)
+        pods, numa = chip_smoke.binpack_numa(nodes, pods)
+        nodes_t, pods_t, params_t = chip_smoke.port_inputs(torch, nodes, pods, params, cuda)
+        return nodes_t, pods_t, params_t, NumaState.create(**numa, device=cuda), None
+    if kind == "zones Z=4":
+        return chip_smoke.numa_port_inputs(torch, cuda) + (None,)
+    if kind.startswith("devices"):
+        nodes_t, pods_t, params_t, dev_t = chip_smoke.device_port_inputs(
+            torch, cuda, rdma="untracked" not in kind)
+        return nodes_t, pods_t, params_t, None, dev_t
+    return chip_smoke.dev_numa_port_inputs(torch, cuda)
+
+
+@pytest.mark.parametrize("p", [512, 4096])
+@pytest.mark.parametrize("kind", ["zones Z=4", "zones Z=2", "devices", "devices, RDMA untracked",
+                                  "both"])
+@pytest.mark.parametrize("mask", [False, True])
+def test_nominate_term_instantiations_match_plain(cuda, p, kind, mask):
+    """``csrc/nominate_terms.cu``'s instantiations (the terms staged with the
+    node tile, the zone loops unrolled at Z = 4 and 2, the warps' votes)
+    bitwise equal to ``nominate_plain`` on the kernel checks' fixtures at
+    the main path's P = 512 and the JAX scheduler's bucket of 4,096, under
+    each scoring, approx and exact: zones (``zone_tables``' Z = 4, and
+    ``binpack_numa``'s Z = 2, the seam's two sockets), devices (G = 16,
+    and G = 8 with RDMA untracked), both; with a node mask whose every
+    seventh row is all false, and none; the pods in place and in the
+    batch's pod order."""
+    from koordinator_tpu_torch.ops.numa import ZoneTerms
+
+    nodes_t, pods_t, params_t, numa_t, dev_t = term_fixture(cuda, kind)
+    n = nodes_t.allocatable.shape[0]
+    batch = T.tree_map(lambda a: a[:p], pods_t)
+    order, spods, bind, thr, pthr = T._round_setup(batch, nodes_t, params_t,
+                                                   numa=numa_t is not None,
+                                                   devices=dev_t is not None)
+    args = (spods.requests, spods.estimate, spods.is_prod, bind, spods.valid,
+            nodes_t.allocatable, nodes_t.requested, nodes_t.estimated_used, nodes_t.prod_used,
+            nodes_t.metric_fresh, nodes_t.schedulable, nodes_t.cpu_amp, thr, pthr,
+            params_t.score_weights)
+    m = None
+    if mask:
+        _, constrained, zone = chip_smoke.quota_draws(2, 2, p)
+        table = torch.from_numpy(chip_smoke.node_mask_np(constrained, zone, n)).to(cuda)
+        table[::7] = False
+        m = (table, order)
+    for scoring in (0, 1, 2):
+        z = v = None
+        if numa_t is not None:
+            z = ZoneTerms.batch_start(numa_t.zone_free, numa_t.zone_cap, numa_t.policy,
+                                      spods.numa_required, scoring)
+        if dev_t is not None:
+            v = tdev.DeviceTerms.batch_start(
+                dev_t.slot_free.clone(), None if dev_t.rdma_free is None else dev_t.rdma_free.clone(),
+                dev_t.fpga_free.clone(), dev_t.cap_total, spods, scoring)
+        for approx in (False, True):
+            # exact: the pods in place (the shortlist's fallback); approx:
+            # in the batch's pod order (the full-axis route)
+            (v if v is not None else z).order = tnom.pod_order(bind, z, v) if approx else None
+            before = kernels.launches["nominate"]
+            got = tnom.nominate(*args, 4, 4.0, approx, mask=m, zones=z, devices=v)
+            want = tnom.nominate_plain(*args, 4, 4.0, approx, mask=m, zones=z, devices=v)
+            torch.cuda.synchronize()
+            assert kernels.launches["nominate"] == before + 1
+            gc, gi, wc, wi = (t.cpu().numpy() for t in (*got, *want))
+            fin = np.isfinite(wc)
+            np.testing.assert_array_equal(np.isfinite(gc), fin)
+            np.testing.assert_array_equal(bits(gc[fin]), bits(wc[fin]))
+            np.testing.assert_array_equal(gi[fin], wi[fin])
+            assert fin.mean() > 0.5
+
+
 @pytest.mark.parametrize("p", [1, 17, 512, 4096, 8192])
 @pytest.mark.parametrize("g, rdma", [(8, True), (16, True), (8, False)])
 @pytest.mark.parametrize("quota, zones", [(False, False), (True, False), (False, True),
@@ -1164,6 +1270,45 @@ def test_round_tail_device_phase_crowded_matches_plain(cuda, p, both):
     assert ((plain_nd[14] >= 0) & (host[14] < 0)).any()
 
 
+@pytest.mark.parametrize("p, both", [(512, False), (4096, False), (8192, True),
+                                     (65_536, False)])
+@pytest.mark.parametrize("case", chip_smoke.DOMAIN_CASES)
+def test_round_tail_device_domain_matches_plain(cuda, p, both, case):
+    """The device sums at the edges of their domain
+    (``chip_smoke.device_domain_case`` on the crowded rounds): negative
+    asks inside a segment, free RDMA and FPGA counts of 2^24 and more, and
+    a segment whose RDMA and FPGA cumsums pass 2^24 ahead of the others,
+    which makes the batch wide (``csrc/device_prep.cu``'s flag) and the
+    round take the reference's float walk: the kernel's tables equal the
+    plain round's, in shared and device memory."""
+    args, terms, q, z = chip_smoke.crowded_round_inputs(torch, cuda, p, quota=both, zones=both,
+                                                        domain=case)
+    assert int(terms.wide[0]) == (case == "sum_2_24")
+    pairs, host, _, _ = chip_smoke.device_round_both(torch, args, terms, q, z)
+    torch.cuda.synchronize()
+    for name, a, b in pairs:
+        np.testing.assert_array_equal(bits(a.cpu().numpy()), bits(b.numpy()), err_msg=name)
+    assert (host[14] >= 0).any()
+
+
+@pytest.mark.parametrize("p, d, q, zones", [
+    (32_769, 1, 0, False), (65_536, 4, 1057, True), (65_536, 4, 21, False),
+    (65_536, 8, 0, True), (131_072, 2, 0, False)])
+def test_round_tail_above_32768_pods_matches_plain(cuda, p, d, q, zones):
+    """Rounds of 32,769 to 131,072 pods (a gang of 32,769 padded to 65,536
+    by the JAX scheduler, and the most a round takes) in the device-memory
+    round tail at 128 rows a thread (``csrc/round_huge.cu``): without
+    quotas, with the sorted tree and with the one-hot one (its group
+    positions past 16 bits), with and without zones."""
+    assert tcommit.route(0, p, d, q, 4 if q else 0, min(2, d) if zones else 0)[0] == "round_huge"
+    big_round_matches_plain(cuda, p, d, q, zones)
+
+
+@pytest.mark.parametrize("q", [1, 1057])
+def test_enforce_gangs_at_65536_pods_matches_plain(cuda, q):
+    big_rollback_matches_plain(cuda, 65_536, q)
+
+
 @pytest.mark.parametrize("p, n", [(17, 5), (512, 64), (1000, 300), (16_384, 2000)])
 @pytest.mark.parametrize("g, cap", [(8, True), (16, False), (32, True)])
 def test_enforce_gangs_device_refund_matches_plain(cuda, p, n, g, cap):
@@ -1202,7 +1347,13 @@ def test_round_tail_at_32768_pods_matches_plain(cuda, d, q, zones):
     """A round of 32,768 pods (a gang larger than the JAX scheduler's
     bucket, padded) in the device-memory round tail, 32 rows a thread:
     without quotas and with the sorted tree, with and without zones."""
-    p = 32_768
+    big_round_matches_plain(cuda, 32_768, d, q, zones)
+
+
+def big_round_matches_plain(cuda, p, d, q, zones):
+    """A round of ``p`` pods (route ``round_big`` or ``round_huge``)
+    against the plain round on the CPU: without quotas or with a tree of
+    ``q`` quotas, with or without zones."""
     n = 4096
     arrays = round_inputs(p + d + q, p, n, d)
     arrays[16] = np.array([0, 2], np.int32)
@@ -1239,7 +1390,13 @@ def test_round_tail_at_32768_pods_matches_plain(cuda, d, q, zones):
 
 @pytest.mark.parametrize("q", [1, 1057])
 def test_enforce_gangs_at_32768_pods_matches_plain(cuda, q):
-    p, n = 32_768, 4096
+    big_rollback_matches_plain(cuda, 32_768, q)
+
+
+def big_rollback_matches_plain(cuda, p, q):
+    """The rollback of ``p`` pods, every gang short, with a tree of ``q``
+    quotas (1: none), in device memory, against the plain one."""
+    n = 4096
     result, pods = gang_inputs(p + q, p, n, 4, "all short")
     pods["quota_chain"] = quota_inputs(p + q, p, q, 4, fill=1.0)[0]
     outs = []
@@ -1289,6 +1446,47 @@ def test_device_stream_full_on_card_matches_plain_and_golden(cuda):
                     np.testing.assert_array_equal(o.cpu().numpy(), gold[f"{key}_{name}"])
             for name, t in zip(("slot_free", "rdma_free", "fpga_free"), tabs):
                 np.testing.assert_array_equal(bits(t.cpu().numpy()), bits(gold[f"{key}_{name}"]))
+
+
+@pytest.mark.parametrize("quota", [False, True])
+def test_bigbatch_65536_golden_on_card(cuda, quota):
+    """``assign`` on the batch of a Strict gang of 32,769 members (65,536
+    pods: the round tail in ``csrc/round_huge.cu``, the rollback in device
+    memory) gives the JAX package's digests."""
+    gold = np.load(chip_smoke.GOLDEN_BIGBATCH_64K)
+    pods_t, nodes_t, params_t, quotas = chip_smoke.big_port_inputs(
+        torch, chip_smoke.HUGE_PODS, quota, cuda)
+    res = to_numpy(T.assign(pods_t, nodes_t, params_t, quotas=quotas, **chip_smoke.SOLVE))
+    key = "quota" if quota else "plain"
+    assert int(res["rounds_used"]) == int(gold[f"{key}_rounds"])
+    assert int((res["assignment"] >= 0).sum()) == int(gold[f"{key}_placed"])
+    for f, g in (("assignment", "assignment"), ("node_requested", "requested"),
+                 ("node_estimated_used", "estimated_used"), ("node_prod_used", "prod_used")) + (
+            (("quota_used", "quota_used"),) if quota else ()):
+        assert chip_smoke.array_digest(res[f]) == str(gold[f"{key}_{g}_sha256"]), f
+
+
+def test_scheduler_with_a_gang_of_32769_matches_the_jax_scheduler(cuda):
+    """``BatchScheduler.schedule`` with one Strict gang of 32,769 members
+    (``make_torch_golden.GANG_CASE`` on the seam's small recipe): the gang
+    is a chunk of its own, padded to 65,536 pods, whose rounds run on the
+    card in ``csrc/round_huge.cu``. The cycle's digest of bindings and
+    annotations equals the JAX scheduler's (``torch_golden_gang.npz``)."""
+    from tools import make_torch_golden
+
+    gold = np.load(chip_smoke.GOLDEN_GANG)
+    mods = chip_smoke.port_modules()
+    n_nodes, n_pods, bucket = make_torch_golden.SEAM_SMALL
+    sched = chip_smoke.production_scheduler(mods, n_nodes, n_pods, bucket, device=cuda)
+    kernels.reset_launches()
+    out = sched.schedule(chip_smoke.production_pods(mods, n_pods, **make_torch_golden.GANG_CASE))
+    assert sched._fallback_level == 0 and not sched._cycle_solver_failed
+    assert kernels.launches["round_tail_big"] > 0
+    got = make_torch_golden.seam_digest_arrays(
+        "gang", chip_smoke.seam_digest(chip_smoke.seam_outcome(mods.extension, out)))
+    assert sorted(got) == sorted(gold.files)
+    for k, v in got.items():
+        np.testing.assert_array_equal(gold[k], v, err_msg=k)
 
 
 @pytest.mark.parametrize("quota", [False, True])

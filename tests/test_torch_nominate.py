@@ -211,3 +211,32 @@ def test_nominate_rows_with_few_feasible_nodes(approx):
         assert idx[one, 0] == idx[one, 1] == 17
     else:
         assert sorted(n_finite) == [0, 0, 1, 2, 2, 4]
+
+
+def test_pod_order_groups_pods_by_the_terms_they_need():
+    """``pod_order``, the order ``csrc/nominate_terms.cu`` takes a batch's
+    pods in: a permutation that puts the pods wanting no alignment first,
+    then the cpuset-bound, then the required ones, each by what it asks
+    of the devices, ties in priority order; the full-axis route's terms
+    hold it as their ``order`` (the devices', else the zones'). The order
+    changes no result: each pod's nomination is its own row."""
+    import chip_smoke
+
+    nodes_t, pods_t, params_t, numa_t, dev_t = chip_smoke.dev_numa_port_inputs(
+        torch, torch.device("cpu"), n_pods=512)
+    _, nom_args, zt, dt = chip_smoke.dev_numa_round_case(
+        torch, pods_t, nodes_t, numa_t, T._dev_carry0(dev_t, nodes_t.allocatable.shape[0]),
+        dev_t, params_t, 1)
+    bind = nom_args[3]
+    order = tnom.pod_order(bind, zt, dt)
+    assert sorted(order.tolist()) == list(range(512))
+    numa_key = torch.where(zt.required, 2, torch.where(bind, 1, 0))
+    gpu = (dt.whole != 0) | (dt.share > 1e-3)
+    dev_key = torch.where(gpu, 2, torch.where((dt.rdma_req != 0) | (dt.fpga_req != 0), 1, 0))
+    key = (numa_key * 3 + dev_key)[order.long()]
+    assert bool((key[1:] >= key[:-1]).all())
+    same = key[1:] == key[:-1]
+    assert bool((order[1:][same] > order[:-1][same]).all())
+    assert len(set(key.tolist())) > 4
+    assert zt.order is None and torch.equal(dt.order, order)
+    assert torch.equal(tnom.pod_order(bind.clone(), zt, dt), order)

@@ -23,8 +23,11 @@
   NonStrict one), without quotas and with ``chip_smoke.bigbatch_quotas``'
   tree (Q = 1,057): assignments, rounds and the final node and quota
   tables;
-- ``tests/data/torch_golden_bigbatch_32768.npz``: the same at P = 32,768
-  (the largest round the round tail takes);
+- ``tests/data/torch_golden_bigbatch_32768.npz``: the same at P = 32,768;
+- ``tests/data/torch_golden_bigbatch_65536.npz``: the same on the batch of
+  a Strict gang of 32,769 members (65,536 pods, as the JAX scheduler pads
+  it), kept as the sha256 of the assignments and tables, the rounds and
+  the placed count;
 - ``tests/data/torch_golden_numa.npz``: the NUMA streams. On
   ``rich_fixture(7, 2000, 1024)`` with ``chip_smoke.zone_tables``' zones,
   ``solve_stream_full(numa=...)`` for each of ``chip_smoke.NUMA_SCORINGS``
@@ -58,6 +61,9 @@
   20,480 pods, then two waves of 4,608 on the leftovers); ``transform``,
   one full-size cycle of 8,192 pods with :func:`seam_transform_jax`
   registered (about a minute on the CPU);
+- ``tests/data/torch_golden_gang.npz``: the seam's digest of one cycle of
+  ``SEAM_SMALL`` with one Strict gang of 32,769 members (``GANG_CASE``),
+  a chunk the JAX scheduler pads to 65,536 pods;
 - ``tests/data/torch_golden_sequential.npz``: the exact sequential
   solver and the scoring programs. ``assign_sequential`` on
   ``rich_fixture(7, 2000, 512)`` with no quota tree and with each of
@@ -76,6 +82,7 @@
     python tools/make_torch_golden.py --numa       # the NUMA file only
     python tools/make_torch_golden.py --device     # the device file only
     python tools/make_torch_golden.py --seam       # the seam file only
+    python tools/make_torch_golden.py --gang       # the gang file only
     python tools/make_torch_golden.py --sequential # the sequential file only
 
 The NUMA file's final zone tables come from a copy of
@@ -321,8 +328,45 @@ BIGBATCH_32K_PATH = chip_smoke.GOLDEN_BIGBATCH_32K
 
 def bigbatch_32k_arrays() -> dict:
     """:func:`bigbatch_arrays` at P = 32,768 (a gang larger than the JAX
-    scheduler's bucket, padded: the round tail's largest batch)."""
+    scheduler's bucket, padded)."""
     return bigbatch_arrays(4 * chip_smoke.BIG_PODS)
+
+
+BIGBATCH_64K_PATH = chip_smoke.GOLDEN_BIGBATCH_64K
+#: the outputs of the 65,536-pod golden, each kept as its sha256
+BIGBATCH_64K_OUTPUTS = ("assignment", "requested", "estimated_used", "prod_used")
+
+
+def bigbatch_64k_arrays() -> dict:
+    """:func:`bigbatch_arrays` on the batch of a gang of 32,769 members
+    (``chip_smoke.bigbatch_fixture(HUGE_PODS, gang=HUGE_GANG)``: 65,536
+    pods, as the JAX scheduler pads it), kept as the sha256 of each of
+    :data:`BIGBATCH_64K_OUTPUTS` (and the quota table), the rounds and
+    the placed count (a minute and a few GB on the CPU)."""
+    import jax.numpy as jnp
+
+    from koordinator_tpu.ops.solver import NodeState, PodBatch, QuotaState, SolverParams, assign
+
+    nodes, pods, params = chip_smoke.bigbatch_fixture(chip_smoke.HUGE_PODS,
+                                                      gang=chip_smoke.HUGE_GANG)
+    q_pods, (runtime, used) = chip_smoke.bigbatch_quotas(pods)
+    out = dict(fixture_sha256=np.array(chip_smoke.fixture_digest(nodes, q_pods, params)))
+    for key, batch, quotas in (
+        ("plain", pods, None),
+        ("quota", q_pods, QuotaState(runtime=jnp.asarray(runtime), used=jnp.asarray(used))),
+    ):
+        res = assign(PodBatch.create(**batch), NodeState.create(**nodes),
+                     SolverParams(**{k: jnp.asarray(v) for k, v in params.items()}),
+                     quotas=quotas, **chip_smoke.SOLVE)
+        asg = np.asarray(res.assignment)
+        out.update({f"{key}_rounds": np.asarray(res.rounds_used),
+                    f"{key}_placed": np.array(int((asg >= 0).sum()))})
+        for name, field in zip(BIGBATCH_64K_OUTPUTS, ("assignment", "node_requested",
+                                                      "node_estimated_used", "node_prod_used")):
+            out[f"{key}_{name}_sha256"] = np.array(digest(getattr(res, field)))
+        if quotas is not None:
+            out[f"{key}_quota_used_sha256"] = np.array(digest(res.quota_used))
+    return out
 
 
 NUMA_PATH = chip_smoke.GOLDEN_NUMA
@@ -583,6 +627,10 @@ def device_arrays() -> dict:
 
 #: the small seam case: nodes, pods and the batch bucket
 SEAM_SMALL = (64, 200, 64)
+#: the gang case: the small seam case with one Strict gang of 32,769
+#: members, a chunk of its own that the JAX scheduler pads to 65,536 pods
+GANG_CASE = dict(gang=32_769)
+GANG_PATH = chip_smoke.GOLDEN_GANG
 #: and its recipe's options: every fifth GPU pod held to ``zone=b`` nodes
 #: (the scanned path's stacked mask) and a Strict gang of 70 that rolls back
 SEAM_SMALL_CASE = dict(selectors=True, gang=70)
@@ -635,6 +683,19 @@ def seam_arrays() -> dict:
                                            waves=0, transform=seam_transform_jax)
     out.update(seam_digest_arrays("transform", chip_smoke.seam_digest(outcome)))
     return out
+
+
+def gang_arrays() -> dict:
+    """The JAX scheduler's :func:`chip_smoke.seam_digest` of one cycle of
+    the small seam case with :data:`GANG_CASE`'s gang (the gang rolls
+    back: 64 nodes hold 64 of its 16-CPU members; about 20 s on the
+    CPU)."""
+    mods = reference_modules()
+    n_nodes, n_pods, bucket = SEAM_SMALL
+    sched = chip_smoke.production_scheduler(mods, n_nodes, n_pods, bucket)
+    outcome = chip_smoke.seam_outcome(mods.extension, sched.schedule(
+        chip_smoke.production_pods(mods, n_pods, **GANG_CASE)))
+    return seam_digest_arrays("gang", chip_smoke.seam_digest(outcome))
 
 
 SEQUENTIAL_PATH = chip_smoke.GOLDEN_SEQUENTIAL
@@ -730,9 +791,12 @@ def main() -> None:
     files = [(PATH, golden_arrays), (SHORTLIST_PATH, shortlist_golden_arrays),
              (QUOTA_PATH, lambda: {**quota_small_arrays(), **quota_full_arrays()}),
              (BIGBATCH_PATH, bigbatch_arrays), (BIGBATCH_32K_PATH, bigbatch_32k_arrays),
+             (BIGBATCH_64K_PATH, bigbatch_64k_arrays), (GANG_PATH, gang_arrays),
              (NUMA_PATH, numa_arrays), (DEVICE_PATH, device_arrays),
              (SEAM_PATH, seam_arrays), (SEQUENTIAL_PATH, sequential_arrays)]
-    only = {"--quota": [QUOTA_PATH], "--bigbatch": [BIGBATCH_PATH, BIGBATCH_32K_PATH],
+    only = {"--quota": [QUOTA_PATH],
+            "--bigbatch": [BIGBATCH_PATH, BIGBATCH_32K_PATH, BIGBATCH_64K_PATH],
+            "--gang": [GANG_PATH],
             "--numa": [NUMA_PATH], "--device": [DEVICE_PATH], "--seam": [SEAM_PATH],
             "--sequential": [SEQUENTIAL_PATH]}
     picked = [path for a in sys.argv[1:] if a in only for path in only[a]]

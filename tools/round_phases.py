@@ -2,7 +2,7 @@
 """Where the round-tail kernel spends its cycles, phase by phase.
 
     python3 tools/round_phases.py [--pods 512 4096] [--quota none onehot sorted] [--zones]
-                                  [--devices]
+                                  [--devices] [--built] [--tree DIR]
 
 Builds a copy of the round tail (``koordinator_tpu_torch/csrc/round.cuh``
 with the entry of ``round.cu``, or with ``--zones`` of ``round_zone.cu``)
@@ -25,8 +25,13 @@ batches). ``--devices`` runs the rounds with devices
 pricing, after 3 batches; phases "D." and "7d." are the device
 acceptance and charges), without quotas. The quota commit's and the zone phase's cycles are also given by
 sub-phase ("// q1. ...", "// z1. ...": the cycles from there to the next
-mark, summed over the chain's levels). Needs a CUDA device and ``nvcc``;
-the copy is built under ``koordinator_tpu_torch/build/``.
+mark, summed over the chain's levels). ``--built`` times the tree's own
+round tail instead (``commit.round_tail``, no instrumentation): the
+CUDA-event time of a call and the ``torch.profiler`` device time of the
+round tail kernel. ``--tree DIR`` runs another tree's package and smoke
+(a commit unpacked with ``git archive``): run OLD NEW NEW OLD in one call
+to compare two trees. Needs a CUDA device and ``nvcc``; the copy is built
+under the tree's ``koordinator_tpu_torch/build/``.
 """
 
 from __future__ import annotations
@@ -104,7 +109,12 @@ def main() -> int:
                     default=["none"], help="the rounds to run: without quotas, or a tree")
     ap.add_argument("--zones", action="store_true", help="the rounds with NUMA zones")
     ap.add_argument("--devices", action="store_true", help="the rounds with devices")
+    ap.add_argument("--built", action="store_true",
+                    help="time the tree's built round tail, not the instrumented copy")
+    ap.add_argument("--tree", type=Path, default=ROOT,
+                    help="the tree whose package, kernels and smoke run (default: this one)")
     args = ap.parse_args()
+    sys.path.insert(0, str(args.tree.resolve()))
 
     import numpy as np
     import torch
@@ -119,22 +129,25 @@ def main() -> int:
         print("FAIL: CUDA is not available", file=sys.stderr)
         return 1
     entry = "round_zone" if args.zones else "round"
-    header = (kernels.CSRC / "round.cuh").read_text()
-    src, names, sub_names = instrumented(
-        (kernels.CSRC / f"{entry}.cu").read_text().replace('#include "round.cuh"', header))
-    kernels.BUILD.mkdir(parents=True, exist_ok=True)
-    cu = kernels.BUILD / "round_phases.cu"
-    so = kernels.BUILD / "libround_phases.so"
-    cu.write_text(src)
-    build = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
-                            "-o", str(so), str(cu)],
-                           capture_output=True, text=True)
-    if build.returncode != 0:
-        print(build.stdout + build.stderr, file=sys.stderr)
-        return 1
-    lib = ctypes.CDLL(str(so))
-    fn = getattr(lib, f"koord_{entry.replace('round', 'round_tail')}")
-    fn.argtypes = kernels.SIGNATURES[entry][fn.__name__]
+    if args.devices and (kernels.CSRC / f"{entry}_dev.cu").exists():
+        entry += "_dev"  # the instantiations with the device phase
+    if not args.built:
+        header = (kernels.CSRC / "round.cuh").read_text()
+        src, names, sub_names = instrumented(
+            (kernels.CSRC / f"{entry}.cu").read_text().replace('#include "round.cuh"', header))
+        kernels.BUILD.mkdir(parents=True, exist_ok=True)
+        cu = kernels.BUILD / "round_phases.cu"
+        so = kernels.BUILD / "libround_phases.so"
+        cu.write_text(src)
+        build = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
+                                "-o", str(so), str(cu)],
+                               capture_output=True, text=True)
+        if build.returncode != 0:
+            print(build.stdout + build.stderr, file=sys.stderr)
+            return 1
+        lib = ctypes.CDLL(str(so))
+        fn = getattr(lib, "koord_round_tail_zone" if args.zones else "koord_round_tail")
+        fn.argtypes = kernels.SIGNATURES[entry][fn.__name__]
     dev = torch.device("cuda")
     fixture = chip_smoke.rich_fixture(1, chip_smoke.N_NODES, 16 * chip_smoke.BATCH)
     zone_case = None
@@ -243,10 +256,35 @@ def main() -> int:
                     rdma=None if terms.rdma is None else next(rest),
                     fpga=None if terms.fpga is None else next(rest))
 
-            commit_ops.round_tail(
-                *want[:17], 0.35, quota=None if quota is None else (quota[0], quota[1], *want[17:]),
-                zone=None if zone is None else (want[17],) + zone[1:5] + (want[18],),
-                dev=dev_of(want))
+            def built(work):
+                commit_ops.round_tail(
+                    *work[:17], 0.35,
+                    quota=None if quota is None else (quota[0], quota[1], *work[17:]),
+                    zone=None if zone is None else (work[17],) + zone[1:5] + (work[18],),
+                    dev=dev_of(work))
+
+            built(want)
+            if args.built:
+                copies = [[t.clone() for t in rt] for _ in range(101)]
+                built(copies[0])
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for work in copies[1:]:
+                    built(work)
+                end.record()
+                torch.cuda.synchronize()
+                # each call on fresh copies (the copies' kernels are not counted)
+                device = chip_smoke.device_ms(torch, lambda: built([t.clone() for t in rt]), 50,
+                                              "round_tail_kernel")
+                print(json.dumps({
+                    "tree": str(args.tree), "pods": p, "quota": tree,
+                    "zones": zone is not None, "devices": dev_case is not None, "card": smi,
+                    "event_ms_per_call": start.elapsed_time(end) / 100,
+                    "device_ms_per_call": device,
+                }), flush=True)
+                continue
             n, d = nom_args[5].shape
             q_cap, levels = (0, 0) if quota is None else (quota[1].shape[0], quota[0].shape[1])
 
