@@ -491,6 +491,57 @@ def quota_draws(orgs: int, teams: int, n_pods: int):
     return chain, constrained, zone
 
 
+#: the quota commit's edge cases (``commit_case``), for the card tests and
+#: the CPU tests against the JAX package: the two trees, whose root every
+#: pod reaches; every pod in one quota; quotas at two levels of different
+#: pods' chains; a level no pod reaches; and quota ids at the round tail's
+#: split limit (4,096 bins) and one past it, where its sort runs.
+COMMIT_CASES = ("tree 4x4", "tree 32x32", "one quota 21", "one quota 1057", "two levels 21",
+                "two levels 1057", "open level 21", "open level 1057", "bins 4095", "bins 4096")
+
+
+def commit_case(kind: str, requests):
+    """One of ``COMMIT_CASES`` over ``requests`` [P, D] float32: (chain [P,
+    4] int32, runtime, used [Q, D] float32), binding at every level it
+    names. Trees are ``quota_tree``'s (the 4 x 4 tree's over a quarter of
+    the requests) with ``quota_draws``' chains (team, org, root, open);
+    "two levels" swaps the team and org levels of every other pod; "open
+    level" opens the org level of every pod; "one quota" puts every pod in
+    quota 5 at the first level, others open; "bins" draws each level from
+    all Q ids (a tenth open) under tight runtimes."""
+    p, d = requests.shape
+    rng = np.random.default_rng(QUOTA_SEED + p)
+    what, size = kind.rsplit(" ", 1)
+    if what == "tree":
+        orgs, teams = map(int, size.split("x"))
+    elif what in ("two levels", "open level"):
+        orgs, teams = {"21": (4, 4), "1057": (32, 32)}[size]
+    if what in ("tree", "two levels", "open level"):
+        chain = quota_draws(orgs, teams, p)[0]
+        # the small tree at a quarter of the pods' demand: a round's
+        # node-accepted pods (a third or more of the batch) bind its root
+        share = np.float32(0.25 if orgs * teams <= 16 else 1.0)
+        runtime, used = quota_tree(orgs, teams, share * requests)
+        if what == "two levels":
+            chain[1::2, :2] = chain[1::2, 1::-1]
+        elif what == "open level":
+            chain[:, 1] = -1
+        return chain, runtime, used
+    q = int(size)
+    demand = requests.sum(0)
+    if what == "one quota":
+        chain = np.full((p, 4), -1, np.int32)
+        chain[:, 0] = 5
+        runtime = np.full((q, d), np.inf, np.float32)
+        runtime[5] = 0.15 * demand
+        return chain, runtime, np.zeros((q, d), np.float32)
+    chain = rng.integers(0, q, (p, 4)).astype(np.int32)
+    chain[rng.random((p, 4)) < 0.1] = -1
+    runtime = (demand / p * rng.uniform(0.5, 2.5, (q, d))).astype(np.float32)
+    used = (runtime * rng.uniform(0.0, 0.8, (q, d))).astype(np.float32)
+    return chain, runtime, used
+
+
 def node_mask_np(constrained, zone, n_nodes: int):
     """[P, N] bool: pod p may use node n unless it is constrained to a
     zone node n is not in."""
@@ -1085,6 +1136,109 @@ def round_tail_bytes(torch, args, n: int, quota=None) -> int:
     won = int((after[0] != args[11]).any(dim=1).sum())
     return (p * k * 8 + p * (2 * d * 4 + 2) + p * (1 + 4) * 2 + 8 * 2
             + touched * (6 * d * 4 + 1 + 4) + won * 3 * d * 4)
+
+
+#: the serial floor's probe (phase 7): one thread adds ``b`` onto ``x``
+#: ``n`` times, a chain of n dependent fp32 adds, built with the kernels'
+#: flags (no fast math: no add is merged or reordered)
+FADD_CHAIN_CU = r"""
+#include <cuda_runtime.h>
+
+__global__ void fadd_chain_kernel(float* out, float x, float b, int n) {
+  float acc = x;
+#pragma unroll 16
+  for (int i = 0; i < n; ++i) acc = acc + b;
+  *out = acc;
+}
+
+extern "C" int koord_fadd_chain(void* out, float x, float b, int n, void* stream) {
+  fadd_chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((float*)out, x, b, n);
+  return (int)cudaGetLastError();
+}
+"""
+#: chains a floor's timed launch holds (the launch's own cost, less an
+#: empty launch's, is spread over them)
+FADD_CHAINS = 64
+
+
+def fadd_chain_probe(torch, dev):
+    """The ms of ``adds`` dependent fp32 adds on one thread of the card, as
+    a function of ``adds``: ``FADD_CHAIN_CU`` built with ``nvcc`` into the
+    kernels' build directory, then, for each call, the CUDA-event time of a
+    launch over ``FADD_CHAINS`` such chains less that of an empty launch,
+    over ``FADD_CHAINS``. Fails if the chain's sum is not its count."""
+    import ctypes
+
+    from koordinator_tpu_torch import kernels
+
+    digest = hashlib.sha256((FADD_CHAIN_CU + " ".join(kernels.NVCC_FLAGS)).encode())
+    so = kernels.BUILD / f"libfadd_chain-{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        kernels.BUILD.mkdir(parents=True, exist_ok=True)
+        cu = so.with_suffix(".cu")
+        cu.write_text(FADD_CHAIN_CU)
+        built = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", str(so), str(cu)],
+                               capture_output=True, text=True, check=False)
+        if built.returncode != 0:
+            fail(f"the serial floor's probe did not build:\n{built.stdout}{built.stderr}")
+    lib = ctypes.CDLL(str(so))
+    lib.koord_fadd_chain.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
+                                     ctypes.c_int, ctypes.c_void_p]
+    lib.koord_fadd_chain.restype = ctypes.c_int
+    out = torch.zeros(1, dtype=torch.float32, device=dev)
+
+    def launch(n):
+        def run():
+            if lib.koord_fadd_chain(out.data_ptr(), 0.0, 1.0, n, kernels.stream_of(out)) != 0:
+                fail("the serial floor's probe did not launch")
+        return run
+
+    def floor_ms(adds: int) -> float:
+        n = FADD_CHAINS * adds
+        full = cuda_ms(torch, launch(n), 10)
+        if float(out.item()) != float(n):
+            fail(f"the serial floor's probe summed {out.item()}, not {n}")
+        return (full - cuda_ms(torch, launch(0), 10)) / FADD_CHAINS
+
+    return floor_ms
+
+
+def cumsum_depth(m: int) -> int:
+    """Dependent adds of XLA's chunked cumsum over m elements (chunks of
+    16 summed in order, the chunk totals scanned the same way, then one
+    offset add)."""
+    if m <= 16:
+        return max(m - 1, 0)
+    return 15 + cumsum_depth(-(-m // 16)) + 1
+
+
+def quota_chain_adds(torch, args, quota) -> int:
+    """The longest chain of dependent adds ``_quota_commit``'s order
+    forces on a round (``round_tail_args`` and (chain, runtime, used,
+    gate)): one level's chunked cumsum over the round, then the largest
+    quota's charges, one add for each of its final pods at each level of
+    its chain (the plain round gives the final pods)."""
+    from koordinator_tpu_torch.ops import commit as commit_ops
+
+    host = [t.cpu().clone() for t in args]
+    hq = tuple(t.cpu().clone() for t in quota)
+    commit_ops.round_tail_plain(*host, 0.35, quota=hq)
+    final = (host[14] >= 0) & (args[14].cpu() < 0)
+    chain = hq[0][final]
+    ids = chain[chain >= 0].long()
+    most = int(torch.bincount(ids).max()) if ids.numel() else 0
+    return cumsum_depth(args[2].shape[0]) + most
+
+
+def split_passes(q: int) -> int:
+    """Passes of the round tail's radix split over quota ids 0..q, 6 bits
+    a pass (``csrc/round.cuh:split_passes``); in shared memory it orders a
+    level's keys when they are at most 2, the bitonic sort otherwise."""
+    passes = 0
+    while q > 0:
+        passes += 1
+        q >>= 6
+    return passes
 
 
 def round_tail_ops(args) -> int:
@@ -1977,7 +2131,10 @@ def phase_quota_kernels(torch, dev, report):
     refund (``csrc/gangs.cu``) against their plain versions on CPU copies
     at P=512 (round 0 of the first batch, and after ``QUOTA_LATER`` batches,
     where the quotas refuse pods the nodes accept) and P=4,096; the three pricing kernels with a node mask
-    (some rows all false) against theirs; then their times."""
+    (some rows all false) against theirs; then their times, each commit
+    branch's at P=512 and (under ``p4096``) 4,096 beside its byte bound and
+    its serial floor (``quota_chain_adds`` dependent adds, timed on the card
+    by ``fadd_chain_probe``)."""
     from koordinator_tpu_torch import kernels
     from koordinator_tpu_torch.ops import commit as commit_ops
     from koordinator_tpu_torch.ops import nominate as nominate_ops
@@ -2072,6 +2229,8 @@ def phase_quota_kernels(torch, dev, report):
             refunds.append(dict(tree=tree, at=label, rolled_back=rolled, quotas_refunded=changed))
             if label == f"after {QUOTA_LATER} batches":
                 timing[tree] = (spods, nom_args, smask, quota, args, pre, pods_b)
+            elif label == "P=4096":
+                timing[tree, label] = (quota, args)
         if all(v["placed"] == v["node_accepted"] for k, v in refused.items() if k.startswith(tree)):
             fail(f"round_tail with quotas ({tree}): no check had a node-accepted pod refused "
                  "by its quotas")
@@ -2134,39 +2293,70 @@ def phase_quota_kernels(torch, dev, report):
             library_device_ms=None, bytes=nbytes, operations=nops,
         ))
 
+    chain_ms = fadd_chain_probe(torch, dev)
     for tree in QUOTA_TREES:
         spods, nom_args_t, smask_t, quota, args, pre, pods_b = timing[tree]
-        p, d = spods.requests.shape
-        q_cap, levels = quota[1].shape[0], quota[0].shape[1]
+        d = spods.requests.shape[1]
         n = nom_args_t[5].shape[0]
-        iters = 200
-        copies = iter([([t.clone() for t in args[ROUND_MUTABLE]], quota[2].clone(),
-                        quota[3].clone()) for _ in range(2 * iters + 2)])
-        fixed = args[:ROUND_MUTABLE.start]
+        rows = []
+        # the round tail with quotas after QUOTA_LATER batches (P=512), then
+        # eight batches as one round (P=4,096)
+        for quota_r, args_r, iters in ((quota, args, 200), (*timing[tree, "P=4096"], 60)):
+            p = args_r[2].shape[0]
+            levels = quota_r[0].shape[1]
+            copies = iter([([t.clone() for t in args_r[ROUND_MUTABLE]], quota_r[2].clone(),
+                            quota_r[3].clone()) for _ in range(2 * iters + 2)])
+            fixed = args_r[:ROUND_MUTABLE.start]
 
-        def t_commit():
-            mut, used_c, gate_c = next(copies)
-            commit_ops.round_tail(*fixed, *mut, 0.35, quota=(quota[0], quota[1], used_c, gate_c))
+            def t_commit(fixed=fixed, copies=copies, quota_r=quota_r):
+                mut, used_c, gate_c = next(copies)
+                commit_ops.round_tail(*fixed, *mut, 0.35,
+                                      quota=(quota_r[0], quota_r[1], used_c, gate_c))
 
-        def t_commit_plain():
-            commit_ops.round_tail_plain(
-                *fixed, *[t.clone() for t in args[ROUND_MUTABLE]], 0.35,
-                quota=(quota[0], quota[1], quota[2].clone(), quota[3].clone()))
+            def t_commit_plain(fixed=fixed, args_r=args_r, quota_r=quota_r):
+                commit_ops.round_tail_plain(
+                    *fixed, *[t.clone() for t in args_r[ROUND_MUTABLE]], 0.35,
+                    quota=(quota_r[0], quota_r[1], quota_r[2].clone(), quota_r[3].clone()))
 
-        # bound: the round tail's bytes (as phase 3 counts them) plus the
-        # quota phase's: chains read, each named quota row of the runtime
-        # and used tables read once, the used rows and the gate written
+            # bound: the round tail's bytes (as phase 3 counts them) plus the
+            # quota phase's: chains read, each named quota row of the
+            # runtime and used tables read once, the used rows and the gate
+            # written
+            named = int(torch.unique(quota_r[0][quota_r[0] >= 0]).numel())
+            q_bytes = p * levels * 4 + named * d * 4 * 3 + p
+            commit_bytes = round_tail_bytes(torch, args_r, n, quota_r) + q_bytes
+            # operations: per level a sum and a test a pod and dim, and the
+            # charges; and the level's order: in shared memory with the
+            # quota ids in two 6-bit digits, the radix split's passes (a
+            # digit and a place a pod, the [64][P/32] count table's scan),
+            # else the bitonic sort's comparators; on the levels that name
+            # a quota
+            named_levels = int((quota_r[0] >= 0).any(dim=0).sum())
+            passes = split_passes(quota_r[1].shape[0])
+            if passes <= 2:
+                order_ops = passes * (2 * p + 64 * -(-p // 32))
+            else:
+                sort_len = 1 << max(p - 1, 0).bit_length()
+                lg = sort_len.bit_length() - 1
+                order_ops = (sort_len // 2) * lg * (lg + 1) // 2
+            q_ops = named_levels * (p * d * 4 + order_ops)
+            add_row(f"quota_commit_{tree}", "koordinator_tpu_torch/csrc/round.cu",
+                    "koordinator_tpu/ops/solver.py:504", t_commit, t_commit_plain,
+                    "round_tail_kernel", commit_bytes, round_tail_ops(args_r) + q_ops, iters)
+            row = report["kernels"].pop()
+            chain_adds = quota_chain_adds(torch, args_r, quota_r)
+            row.update(serial_floor_ms=chain_ms(chain_adds), serial_floor_adds=chain_adds,
+                       serial_floor=f"one thread's chain of {chain_adds} dependent fp32 adds "
+                       "(the chunked cumsum's depth and the largest quota's charges), timed "
+                       f"over {FADD_CHAINS} chains less an empty launch")
+            rows.append(row)
+        rows[0]["p4096"] = {k: rows[1][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes", "operations",
+            "serial_floor_ms", "serial_floor_adds")}
+        report["kernels"].append(rows[0])
+        p = spods.requests.shape[0]
+        levels = quota[0].shape[1]
         named = int(torch.unique(quota[0][quota[0] >= 0]).numel())
-        q_bytes = p * levels * 4 + named * d * 4 * 3 + p
-        commit_bytes = round_tail_bytes(torch, args, n, quota) + q_bytes
-        # operations: per level a sum and a test a pod and dim, and the
-        # charges; the sorted branch also sorts every level
-        sort_len = 1 << max(p - 1, 0).bit_length()
-        lg = sort_len.bit_length() - 1
-        q_ops = levels * (p * d * 4 + (sort_len // 2) * lg * (lg + 1) // 2)
-        add_row(f"quota_commit_{tree}", "koordinator_tpu_torch/csrc/round.cu",
-                "koordinator_tpu/ops/solver.py:504", t_commit, t_commit_plain,
-                "round_tail_kernel", commit_bytes, round_tail_ops(args) + q_ops, iters)
         if tree != "onehot":
             continue
         gate_out = torch.empty_like(spods.valid)

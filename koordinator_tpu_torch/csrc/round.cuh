@@ -65,14 +65,20 @@
 // - The quota commit (quota_commit below, its own instantiation: the round
 //   without quotas keeps its registers) runs between the node acceptance
 //   and the charges, in the shared memory of the node sort's keys and the
-//   area, by priority position: per chain level a stable sort of
-//   (quota, position) keys; the one-hot branch's per-column cumsum in XLA's
-//   chunked order from chunk groups (a thread a quota's pods in one chunk
-//   of 16) and one thread a quota scanning its chunk totals (ChunkScan);
-//   the sorted branch's segmented prefix through the same cumsum machinery
-//   as the node commit; then the final pods' requests onto the quota table
-//   in the order XLA's CPU backend gives the reference's chain of adds
-//   (ops/quota.py:charge_folds), a thread a quota, no float atomics.
+//   area, by priority position: per chain level the (quota, position) keys
+//   in order, by a stable radix split on the quota id (integer counts by
+//   warp, one block scan a pass; the comparison sort above 4,096 quota
+//   ids and in device memory); the one-hot branch's per-column cumsum in
+//   XLA's chunked order from chunk groups (a thread a quota's pods in one
+//   chunk of 16), the chunk totals in runs of at most 16 (a thread a run)
+//   and the runs' totals (a thread a quota, at most P / 256); the sorted
+//   branch's segmented prefix through the same cumsum machinery as the
+//   node commit; then the final pods' requests onto the quota table in the
+//   order XLA's CPU backend gives the reference's chain of adds
+//   (ops/quota.py:charge_folds): each level's final pods packed by a block
+//   scan, then a thread a (quota, dim) streams its run, the loads ahead of
+//   the adds (at 128 rows a thread, a thread a quota walks its rows), no
+//   float atomics.
 // - The zone phase (kZone, its own instantiation: the rounds without NUMA
 //   keep their registers) replaces the zone selection of :1275-1332 and
 //   the zone charges of :1417-1432. It runs on the node acceptance of the
@@ -496,14 +502,43 @@ __host__ __device__ inline int pos_bits(int P) {
   return b;
 }
 
+// The stable split of q1: the rounds in shared memory sort a level's keys
+// (quota << pb | position, arriving in position order) by a radix split
+// on the quota id, kSplitBits a pass, while the ids fit kSplitPasses
+// passes; above that (and in device memory, 64-bit keys) the comparison
+// sort of sort_rows runs.
+constexpr int kSplitBits = 6;
+constexpr int kSplitBins = 1 << kSplitBits;
+constexpr int kSplitPasses = 2;
+
+// Passes of the split over quota ids 0..Q (Q keys the pods that do not
+// take part); more than kSplitPasses: the sort runs instead.
+__host__ __device__ inline int split_passes(int Q) {
+  int passes = 0;
+  for (long long top = Q; top > 0; top >>= kSplitBits) ++passes;
+  return passes;
+}
+
+__host__ __device__ inline bool split_fits(int Q, int R) {
+  return R <= 4 && split_passes(Q) <= kSplitPasses;
+}
+
+// Bytes of the split's count table: kSplitBins digits x one slice of 32
+// rows each, 16-bit counts.
+__host__ __device__ inline size_t split_table_bytes(int P) {
+  return (size_t)kSplitBins * ((P + 31) / 32) * sizeof(uint16_t);
+}
+
 // The quota phase's shared memory: it takes the node sort's keys and the
 // area after them (the keys are read no more once each row knows whether
 // it ends its node's segment). flags [P] int by priority position; the
 // sorted keys of every level [L][P] (QuotaKey, kept for the charges); the
-// sort's second buffer [P] at one row a thread; the requests [P, D] by
-// priority position; then, one-hot, each chunk group's total and then its
-// chunk offset [P, D] at the group's first row and each row's group start
-// and each group's end [P] uint16, or, sorted, D cumsum series.
+// sort's second buffer [P] at one row a thread where the sort runs; the
+// requests [P, D] by priority position; then `ext`: one-hot, each chunk
+// group's total and then its chunk offset [P, D] at the group's first row,
+// or, sorted, D cumsum series; in turn the split's count table and, for
+// the charges, a level's packed requests, D runs of P floats; then, one-hot,
+// each row's group start and each group's end [P] uint16.
 struct QuotaLayout {
   size_t flags, lkey, buf1, sreq, ext, gs, gend, total;
 };
@@ -519,12 +554,16 @@ __host__ __device__ inline QuotaLayout quota_layout(int P, int D, int Q, int L, 
   at = (at + 7) / 8 * 8;
   q.lkey = at;
   at += (size_t)L * P * kb;
+  const bool split = split_fits(Q, R);
   q.buf1 = at;
-  if (R == 1) at += (size_t)P * kb;
+  if (R == 1 && !split) at += (size_t)P * kb;
   q.sreq = at;
   at += (size_t)P * D * sizeof(float);
   q.ext = at;
-  at += onehot ? (size_t)P * D * sizeof(float) : (size_t)D * scan_levels(P).total * sizeof(float);
+  size_t ext = onehot ? (size_t)P * D * sizeof(float)
+                      : (size_t)D * scan_levels(P).total * sizeof(float);
+  if (split && split_table_bytes(P) > ext) ext = split_table_bytes(P);
+  at += (ext + 3) / 4 * 4;
   const size_t pos = R > kGlobalRows ? sizeof(uint32_t) : sizeof(uint16_t);  // QuotaPos<R>
   q.gs = at;
   if (onehot) at += (size_t)P * pos;
@@ -590,62 +629,13 @@ __device__ void sort_rows(KeyT (&k)[R], int P, KeyT* sk, KeyT* buf1) {
 // elements (y, the chunk; v, its total) arrive in increasing y: push adds
 // one, query returns the cumsum at an index no element before it passes.
 // Adding XLA's zeros of absent elements changes no bit, so only the
-// elements are summed, in the reference's grouping. Rounds of up to 4,096
-// pods (lv.n <= 2) have at most one level above the chunk totals, so the
-// state fits in registers: level 1 holds the totals of the current chunk
-// of 16 chunk totals, level 2 (the top, a plain running sum) the totals
-// of level 1's chunks before it.
-template <int D>
-struct ChunkScan {
-  bool chunked;  // level 1 is cut into chunks of 16 (lv.n == 2)
-  int ch;
-  bool has1, has2;
-  float acc1[D], acc2[D];
-
-  __device__ __forceinline__ void init(int levels) {
-    chunked = levels >= 2;
-    has1 = has2 = false;
-    ch = 0;
-  }
-
-  // level 1's chunk before chunk c is complete: its total moves up
-  __device__ __forceinline__ void close_before(int c) {
-    if (!has1 || ch == c) return;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc2[d] = has2 ? acc2[d] + acc1[d] : acc1[d];
-    has2 = true;
-    has1 = false;
-  }
-
-  // element y (a chunk total) of level 1
-  __device__ __forceinline__ void push(int y, const float (&v)[D]) {
-    const int c = chunked ? y / kScanBase : 0;
-    close_before(c);
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc1[d] = has1 ? acc1[d] + v[d] : v[d];
-    has1 = true;
-    ch = c;
-  }
-
-  // level 1's cumsum at x: the sum inside x's chunk plus the top's
-  __device__ __forceinline__ void query(int x, float (&out)[D]) {
-    const int c = chunked ? x / kScanBase : 0;
-    close_before(c);
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const float inner = has1 ? acc1[d] : 0.0f;
-      out[d] = c > 0 ? inner + (has2 ? acc2[d] : 0.0f) : inner;
-    }
-  }
-};
-
-// ChunkScan for any number of levels (the device-memory round: 32,768
-// pods have three levels above the base). Level k of 1..n (n = lv.n) is
-// cut into chunks of 16 below the top, level n, a plain running sum. Each
-// level keeps its open chunk's sum; when an element of a later chunk
-// arrives, the open chunks it passes move up, the highest first, so each
-// level receives its elements in increasing order and sums them in the
-// reference's grouping.
+// elements are summed, in the reference's grouping. For the device-memory
+// round (32,768 pods have three levels above the base), any number of
+// levels: level k of 1..n (n = lv.n) is cut into chunks of 16 below the
+// top, level n, a plain running sum. Each level keeps its open chunk's
+// sum; when an element of a later chunk arrives, the open chunks it
+// passes move up, the highest first, so each level receives its elements
+// in increasing order and sums them in the reference's grouping.
 template <int D>
 struct ChunkScanDeep {
   int n;
@@ -749,6 +739,80 @@ __device__ __forceinline__ int segment_end(const KeyT* sk, int i, int P, KeyT q,
   return lo;
 }
 
+// Sorts the P unique keys k[r] (row tid + r * T, in position order on
+// entry) as sort_rows does, by a stable LSD radix split on the quota id:
+// each pass, every warp's 32 rows (a slice) count their digits by
+// __match_any_sync into `table` [digit][slice]; one exclusive block scan
+// of the table in (digit, slice) order gives each (digit, slice) its first
+// place; a row goes to that place plus the rows of its digit in the lanes
+// before it. Integer counts only; the order is the rows' own. The whole
+// block calls it.
+template <class KeyT, int R>
+__device__ void split_rows(KeyT (&k)[R], int P, int pb, int Q, KeyT* sk, uint16_t* table,
+                           int* warp_sums) {
+  const int tid = threadIdx.x, T = blockDim.x, lane = tid & 31;
+  const int S = (P + 31) / 32, E = kSplitBins * S;
+  const int per = (E + T - 1) / T, e0 = min(tid * per, E), e1 = min(e0 + per, E);
+  const unsigned before = (1u << lane) - 1u;
+  const int passes = split_passes(Q);
+  for (int pass = 0; pass < passes; ++pass) {
+    const int shift = pb + pass * kSplitBits;
+    for (int e = tid; e < E; e += T) table[e] = 0;
+    __syncthreads();
+    int dig[R];
+    unsigned peers[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      // rows past P take a digit of their own
+      const int i = tid + r * T;
+      dig[r] = i < P ? (int)(k[r] >> shift) & (kSplitBins - 1) : kSplitBins;
+      peers[r] = __match_any_sync(kFull, dig[r]);
+      if (i < P && (peers[r] & before) == 0)
+        table[dig[r] * S + i / 32] = (uint16_t)__popc(peers[r]);
+    }
+    __syncthreads();
+    int sum = 0;
+    for (int e = e0; e < e1; ++e) sum += table[e];
+    int carry = 0;
+    int at = block_scan(sum, warp_sums, carry, Add()) - sum;
+    for (int e = e0; e < e1; ++e) {
+      const int c = table[e];
+      table[e] = (uint16_t)at;
+      at += c;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = tid + r * T;
+      if (i < P) sk[table[dig[r] * S + i / 32] + __popc(peers[r] & before)] = k[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (tid + r * T < P) k[r] = sk[tid + r * T];
+  }
+}
+
+// The reference's chain of adds over one dim's n packed values v[0, n) of
+// a quota: onto `run` one at a time (fold), or summed first and the sum
+// added to `run`. The sum starts from -0, the additive identity, so it is
+// v0 + v1 + ... bit for bit. Whole batches of B load before their adds,
+// so only the adds' chain is serial.
+template <int B>
+__device__ __forceinline__ float charge_stream(const float* v, int n, float run, bool fold) {
+  float acc = fold ? run : -0.0f;
+  int j = 0;
+  for (; j + B <= n; j += B) {
+    float x[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) x[u] = v[j + u];
+#pragma unroll
+    for (int u = 0; u < B; ++u) acc = acc + x[u];
+  }
+  for (; j < n; ++j) acc = acc + v[j];
+  return fold ? acc : run + acc;
+}
+
 // _quota_commit on the round's node acceptance: ok[r] (row tid + r * T of
 // the node sort, pod key[r] & 0xFFFFFFFF) is cleared where the pod fails a
 // level of its chain, counting the node-accepted pods of its quota before
@@ -756,12 +820,15 @@ __device__ __forceinline__ int segment_end(const KeyT* sk, int i, int P, KeyT q,
 // the shared memory from the node sort's keys on (quota_layout), free
 // from here to the charges. The whole block calls it.
 //
-// Costs: a sort of P keys a level; the one-hot branch's chunk sums (a
-// thread a group of at most 16) and one thread a quota walking its groups;
-// the sorted branch's series cumsum; and the charges, one thread a quota
-// adding its final pods in order — a serial chain as long as the largest
-// quota's share of the round (the root's: every pod), read from shared
-// memory.
+// Costs: a split (one or two passes of a few barriers) or a sort of P keys
+// a level; the one-hot branch's chunk sums (a thread a group of at most
+// 16), its offsets (a thread a run of at most 16 groups, then a thread a
+// quota over at most P / 256 runs; in device memory a thread a quota
+// walking its groups); the sorted branch's series cumsum; and the charges:
+// a block scan a level, then the reference's chain of adds, as long as the
+// largest quota's final pods at the level (the root's: every final pod),
+// streamed from packed values — the floor this order leaves (at 128 rows
+// a thread, a thread a quota walks its sorted rows instead).
 template <int D, int R>
 __device__ void quota_commit(bool (&ok)[R], const uint64_t (&key)[R], int P, char* qarea,
                              const ScanLevels& lv, int* warp_sums,
@@ -793,8 +860,9 @@ __device__ void quota_commit(bool (&ok)[R], const uint64_t (&key)[R], int P, cha
   // open top level, admits and charges nothing: it is skipped)
   unsigned long long live = 0;
   for (int l = 0; l < L; ++l) {
-    // q1. The level's stable sort: (quota << pb | position), the pods that
-    // do not take part keyed Q
+    // q1. The level's stable split on the quota id: (quota << pb |
+    // position), the pods that do not take part keyed Q (split_rows, or
+    // the sort where the split does not fit)
     KeyT* sk = lkeys + (size_t)l * P;
     KeyT k[R];
     bool part = false;
@@ -813,7 +881,10 @@ __device__ void quota_commit(bool (&ok)[R], const uint64_t (&key)[R], int P, cha
       if (!__syncthreads_or(part)) continue;
       live |= 1ull << l;
     }
-    sort_rows<KeyT, R>(k, P, sk, buf1);
+    if (split_fits(Q, R))
+      split_rows<KeyT, R>(k, P, pb, Q, sk, (uint16_t*)ext, warp_sums);
+    else
+      sort_rows<KeyT, R>(k, P, sk, buf1);
 
     if (onehot) {
       // q2. One-hot, each quota column's cumsum along P in XLA's order:
@@ -839,23 +910,86 @@ __device__ void quota_commit(bool (&ok)[R], const uint64_t (&key)[R], int P, cha
         for (int d = 0; d < D; ++d) ext[(size_t)i * D + d] = tot[d];
       }
       __syncthreads();
-      // q3. (b) a thread a quota: the chunk totals' scan, each group's
-      // offset (its total read first, then overwritten)
+      // q3. (b) each group's chunk offset, the column's cumsum at the chunk
+      // before it. In shared memory (at most two levels above the chunks)
+      // the chunk totals of a quota fall into runs of at most 16 (one
+      // chunk of level 1): a thread a run sums its groups in order, each
+      // non-first group keeping the sum of those before it and its run's
+      // first row, the first group the run's total and last row; then a
+      // thread a quota takes its runs' totals in order (the top level, at
+      // most P / 256 of them), each run's first group keeping the total
+      // of the runs before it, which is its offset; then each other group
+      // with runs before it adds that to its own. In device memory a
+      // thread a quota walks its groups (walk_groups).
       if (lv.n > 0) {
-#pragma unroll (R <= 4 ? R : 1)
-        for (int r = 0; r < R; ++r) {
-          const int i = tid + r * T;
-          if (i >= P) continue;
-          const KeyT q = k[r] >> pb;
-          if ((long long)q >= Q || (i > 0 && (sk[i - 1] >> pb) == q)) continue;
-          if constexpr (R > 4) {
+        if constexpr (R > 4) {
+#pragma unroll 1
+          for (int r = 0; r < R; ++r) {
+            const int i = tid + r * T;
+            if (i >= P) continue;
+            const KeyT q = k[r] >> pb;
+            if ((long long)q >= Q || (i > 0 && (sk[i - 1] >> pb) == q)) continue;
             ChunkScanDeep<D> scan;
             scan.init(lv.n);
             walk_groups<D>(scan, i, q, P, pb, pmask, sk, gend, ext);
-          } else {
-            ChunkScan<D> scan;
-            scan.init(lv.n);
-            walk_groups<D>(scan, i, q, P, pb, pmask, sk, gend, ext);
+          }
+        } else {
+          // a row's run: (quota, level-1 chunk)
+          auto run_of = [&](KeyT kk) {
+            return ((kk >> pb) << 8) | (KeyT)((int)(kk & pmask) >> 8);
+          };
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int i = tid + r * T;
+            if (i >= P || (int)(k[r] >> pb) >= Q || (i > 0 && run_of(sk[i - 1]) == run_of(k[r])))
+              continue;
+            float acc[D];
+#pragma unroll
+            for (int d = 0; d < D; ++d) acc[d] = ext[(size_t)i * D + d];
+            int last = gend[i];
+            for (int g = last + 1; g < P && run_of(sk[g]) == run_of(k[r]); g = last + 1) {
+              last = gend[g];
+#pragma unroll
+              for (int d = 0; d < D; ++d) {
+                const float tot = ext[(size_t)g * D + d];
+                ext[(size_t)g * D + d] = acc[d];
+                acc[d] = acc[d] + tot;
+              }
+              gend[g] = (PosT)i;
+            }
+#pragma unroll
+            for (int d = 0; d < D; ++d) ext[(size_t)i * D + d] = acc[d];
+            gend[i] = (PosT)last;
+          }
+          __syncthreads();
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int i = tid + r * T;
+            const KeyT q = k[r] >> pb;
+            if (i >= P || (int)q >= Q || (i > 0 && (sk[i - 1] >> pb) == q)) continue;
+            float top[D];
+            bool has = false;
+            for (int h = i; h < P && (sk[h] >> pb) == q; h = gend[h] + 1) {
+#pragma unroll
+              for (int d = 0; d < D; ++d) {
+                const float tot = ext[(size_t)h * D + d];
+                ext[(size_t)h * D + d] = has ? top[d] : 0.0f;
+                top[d] = has ? top[d] + tot : tot;
+              }
+              has = true;
+            }
+          }
+          __syncthreads();
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int i = tid + r * T;
+            if (i >= P || i == 0 || (int)(k[r] >> pb) >= Q || ((int)(k[r] & pmask) >> 8) == 0 ||
+                (sk[i - 1] >> 4) == (k[r] >> 4) || run_of(sk[i - 1]) != run_of(k[r]))
+              continue;
+            const int h = gend[i];
+#pragma unroll
+            for (int d = 0; d < D; ++d)
+              ext[(size_t)i * D + d] = ext[(size_t)i * D + d] + ext[(size_t)h * D + d];
           }
         }
         __syncthreads();
@@ -926,8 +1060,13 @@ __device__ void quota_commit(bool (&ok)[R], const uint64_t (&key)[R], int P, cha
   // a level is folded (added row by row onto the running table) when the
   // table is not a scatter's result, or merged into that scatter (its rows
   // after the scatter's) while the merged rows stay fewer than Q; else its
-  // sum is taken first (0 + v0 + v1 + ...) and added whole
-  // (ops/quota.py:charge_folds)
+  // sum is taken first (v0 + v1 + ...) and added whole
+  // (ops/quota.py:charge_folds). Each live level's final pods are packed
+  // first: an exclusive block scan of the take flags over the level's
+  // sorted rows gives each its place, where its key goes in the level's
+  // key array and its requests in D dim-major runs of P floats in `ext`;
+  // then one thread a (quota, dim) streams its run (charge_stream). At
+  // 128 rows a thread a thread a quota walks its sorted rows instead.
   bool scatter = false;
   int rows = 0;
   for (int l = 0; l < L; ++l) {
@@ -942,37 +1081,78 @@ __device__ void quota_commit(bool (&ok)[R], const uint64_t (&key)[R], int P, cha
       rows = P;
     }
     if (l < 64 && !((live >> l) & 1)) continue;  // nothing charged at this level
-    const KeyT* sk = lkeys + (size_t)l * P;
-#pragma unroll (R <= 4 ? R : 1)
-    for (int r = 0; r < R; ++r) {
-      const int i = tid + r * T;
-      if (i >= P) continue;
-      const KeyT q = sk[i] >> pb;
-      if ((long long)q >= Q || (i > 0 && (sk[i - 1] >> pb) == q)) continue;
-      const int end = segment_end<KeyT>(sk, i, P, q, pb);
-      float run[D], sum[D];
-      bool any = false;
+    KeyT* sk = lkeys + (size_t)l * P;
+    if constexpr (R > kGlobalRows) {
+      // at 128 rows a thread the packing's R block scans a level cost more
+      // than they save (PERF.md section 6): a thread a quota walks its
+      // sorted rows, summing those its level takes
+#pragma unroll 1
+      for (int r = 0; r < R; ++r) {
+        const int i = tid + r * T;
+        if (i >= P) continue;
+        const KeyT q = sk[i] >> pb;
+        if ((long long)q >= Q || (i > 0 && (sk[i - 1] >> pb) == q)) continue;
+        const int end = segment_end<KeyT>(sk, i, P, q, pb);
+        float run[D], sum[D];
+        bool any = false;
 #pragma unroll
-      for (int d = 0; d < D; ++d) run[d] = sum[d] = qused[(size_t)q * D + d];
+        for (int d = 0; d < D; ++d) run[d] = sum[d] = qused[(size_t)q * D + d];
 #pragma unroll 4
-      for (int j = i; j < end; ++j) {
-        const int pj = (int)(sk[j] & pmask);
-        const bool take = !(flags[pj] & kRefused);
-        const float* v = sreq + (size_t)pj * D;
+        for (int j = i; j < end; ++j) {
+          const int pj = (int)(sk[j] & pmask);
+          const bool take = !(flags[pj] & kRefused);
+          const float* v = sreq + (size_t)pj * D;
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-          if (fold) run[d] = take ? run[d] + v[d] : run[d];
-          else sum[d] = take ? (any ? sum[d] + v[d] : v[d]) : sum[d];
+          for (int d = 0; d < D; ++d) {
+            if (fold) run[d] = take ? run[d] + v[d] : run[d];
+            else sum[d] = take ? (any ? sum[d] + v[d] : v[d]) : sum[d];
+          }
+          any = any || take;
         }
-        any = any || take;
-      }
-      if (any) {
+        if (any) {
 #pragma unroll
-        for (int d = 0; d < D; ++d)
-          qused[(size_t)q * D + d] = fold ? run[d] : run[d] + sum[d];
+          for (int d = 0; d < D; ++d)
+            qused[(size_t)q * D + d] = fold ? run[d] : run[d] + sum[d];
+        }
       }
+      __syncthreads();
+    } else {
+      KeyT kt[R];
+      int at[R];
+      int taken = 0;
+#pragma unroll (R <= 4 ? R : 1)
+      for (int r = 0; r < R; ++r) {
+        const int i = tid + r * T;
+        bool take = false;
+        kt[r] = 0;
+        if (i < P) {
+          kt[r] = sk[i];
+          take = (long long)(kt[r] >> pb) < Q && !(flags[(int)(kt[r] & pmask)] & kRefused);
+        }
+        const int place = block_scan(take ? 1 : 0, warp_sums, taken, Add()) - 1;
+        at[r] = take ? place : -1;
+      }
+      // every row read its key before the scans' last barrier
+#pragma unroll (R <= 4 ? R : 1)
+      for (int r = 0; r < R; ++r) {
+        if (at[r] < 0) continue;
+        const int pos = (int)(kt[r] & pmask);
+        sk[at[r]] = kt[r];
+#pragma unroll
+        for (int d = 0; d < D; ++d) ext[(size_t)d * P + at[r]] = sreq[(size_t)pos * D + d];
+      }
+      __syncthreads();
+      for (int t = tid; t < taken * D; t += T) {
+        const int j = t / D, d = t - j * D;
+        const KeyT q = sk[j] >> pb;
+        if (j > 0 && (sk[j - 1] >> pb) == q) continue;
+        float* u = qused + (size_t)q * D + d;
+        const float run = *u;  // its latency overlaps the search
+        const int end = segment_end<KeyT>(sk, j, taken, q, pb);
+        *u = charge_stream<16>(ext + (size_t)d * P + j, end - j, run, fold);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
   // q7. A node-accepted pod refused by a quota is not accepted
@@ -1693,7 +1873,10 @@ round_tail_kernel(const float* __restrict__ top_cost,
     key[r] = UINT64_MAX;
     if (i < P) {
       key[r] = choice_key(m, rank, i, N);
-      keys[i] = key[r];
+      // one row a thread sorts from the register, and its sort's first
+      // store may land on this row's word before this store would (no
+      // barrier between): only the shared-memory network reads keys here
+      if (R > 1) keys[i] = key[r];
     }
   }
   const ScanLevels& lv = s_lv;  // written before block_scan's barriers

@@ -1868,3 +1868,76 @@ def test_a_refused_launch_fails_the_sequential_solve_and_the_scores(cuda, monkey
         tnuma.numa_alignment_cost(torch.from_numpy(fix["pod_req"]).to(cuda),
                                   tnuma.NumaState(zf, zf, torch.zeros(20, dtype=torch.int8,
                                                                       device=cuda)))
+
+
+# ---------------------------------------------- the quota commit's edges (slice 12)
+
+
+def quota_commit_case(p, kind, d=2):
+    """A round tail's arguments and ``chip_smoke.commit_case``'s quota
+    tree for ``kind`` over its requests; (arrays, (chain, runtime, used))."""
+    arrays = round_inputs(p * 3 + 1, p, max(3, p // 8), d)
+    arrays[16] = np.array([0, 2], np.int32)
+    return arrays, chip_smoke.commit_case(kind, arrays[2])
+
+
+@pytest.mark.parametrize("p", [512, 4096])
+@pytest.mark.parametrize("kind", chip_smoke.COMMIT_CASES)
+def test_round_tail_quota_commit_edges_match_plain(cuda, p, kind):
+    """The quota commit's split, chunk offsets and packed charges on
+    ``chip_smoke.COMMIT_CASES``: tree chains whose root takes every pod
+    (the one-hot offsets in runs of 16 chunks, one chain of charges as long
+    as the round), every pod in one quota, a quota at two levels of
+    different pods' chains, a level no pod reaches, and quota ids at the
+    split's limit (Q + 1 = 4,096 bins) and one past it (the sort). Tables,
+    loop state, quota table and gate bitwise equal to the plain round; the
+    quotas refuse pods their nodes accept."""
+    arrays, quota = quota_commit_case(p, kind)
+    branch = "quota_commit_onehot" if quota[1].shape[0] * 2 <= 1024 else "quota_commit_sorted"
+    before = kernels.launches[branch]
+    dev, host = quota_round_both(cuda, arrays, quota)
+    assert kernels.launches[branch] == before + 1
+    assert_round_equal(dev[11:], host[11:])
+    free = [torch.from_numpy(a.copy()) for a in arrays]
+    tcommit.round_tail_plain(*free, 0.35)
+    assert int((host[14] >= 0).sum()) < int((free[14] >= 0).sum())
+
+
+@pytest.mark.parametrize("p", [512, 4096])
+@pytest.mark.parametrize("kind", ["tree 4x4", "tree 32x32"])
+@pytest.mark.parametrize("zones, devices", [(True, False), (False, True), (True, True)])
+def test_round_tail_quota_commit_with_zones_and_devices_matches_plain(cuda, p, kind, zones,
+                                                                      devices):
+    """Both commit branches (the 4 x 4 tree one-hot, the 32 x 32 tree
+    sorted) in the zone and device instantiations (``round_zone.cu``,
+    ``round_dev.cu``, ``round_zone_dev.cu``): tables, loop state, quota
+    table, gate, zone table and picks, slot and stats tables, RDMA and
+    FPGA bitwise equal to the plain round."""
+    d = 2
+    arrays, (chain, runtime, used) = quota_commit_case(p, kind, d)
+    n = arrays[7].shape[0]
+    demand = device_demand(p * 5 + 1, p, n, 8) if devices else None
+    nodes = dict(allocatable=arrays[7], estimated_used=arrays[12])
+    _, numa, required = chip_smoke.zone_tables(p + 2, nodes, p)
+    outs = []
+    for device in (cuda, "cpu"):
+        args = [torch.from_numpy(a.copy()).to(device) for a in arrays]
+        q = tuple(torch.from_numpy(a.copy()).to(device) for a in (chain, runtime, used)) + (
+            torch.zeros(p, dtype=torch.bool, device=device),)
+        v = device_terms(*demand, device) if devices else None
+        z = None
+        if zones:
+            z = (torch.from_numpy(np.ascontiguousarray(numa["zone_free"][:, :2])).to(device),
+                 torch.from_numpy(np.ascontiguousarray(numa["zone_cap"][:, :2])).to(device),
+                 torch.from_numpy(numa["policy"]).to(device),
+                 torch.from_numpy(numa["zone_most"]).to(device),
+                 torch.from_numpy(required).to(device),
+                 torch.full((p,), -1, dtype=torch.int32, device=device))
+        fn = tcommit.round_tail if device == cuda else tcommit.round_tail_plain
+        fn(*args, 0.35, quota=q, zone=z, dev=v)
+        outs.append(args[11:] + list(q[2:]) + ([] if z is None else [z[0], z[5]])
+                    + ([] if v is None else [v.slots, v.stats] + [t for t in (v.rdma, v.fpga)
+                                                                 if t is not None]))
+    torch.cuda.synchronize()
+    assert_round_equal(*outs)
+

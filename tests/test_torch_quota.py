@@ -119,6 +119,26 @@ def test_commit_matches_reference(seed, p, q, d):
     assert 0 < int(tf.sum()) < int(case[0].sum())
 
 
+@pytest.mark.parametrize("kind", chip_smoke.COMMIT_CASES)
+def test_commit_edge_cases_match_reference(kind):
+    """The card tests' quota commit fixtures (``chip_smoke.commit_case``) at
+    4,096 pods against the reference: the two trees, whose root every pod
+    reaches, a quota at two levels of different pods' chains, every pod in
+    one quota, an open middle level and Q = 4,095 and 4,096, on both
+    branches."""
+    p = 4096
+    rng = np.random.default_rng(12)
+    req = (rng.choice([250.0, 500.0, 1000.0, 4000.0], (p, 2))
+           * rng.uniform(0.5, 1.7, (p, 2))).astype(np.float32)
+    accepted = rng.random(p) < 0.8
+    case = (accepted, req, *chip_smoke.commit_case(kind, req))
+    jf, ju = jax_commit(*case)
+    tf, tu = TQ.quota_commit_plain(*torch_of(*case))
+    assert_bits_equal(jf, tf.numpy(), "final")
+    assert_bits_equal(ju, tu.numpy(), "new_used")
+    assert 0 < int(tf.sum()) < int(accepted.sum())
+
+
 def test_branches_split_at_qd_1024():
     """Q·D = 1,024 takes the one-hot branch and 1,026 the sorted one; each
     matches the reference on the same pods (their float order differs)."""

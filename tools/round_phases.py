@@ -2,7 +2,8 @@
 """Where the round-tail kernel spends its cycles, phase by phase.
 
     python3 tools/round_phases.py [--pods 512 4096] [--quota none onehot sorted] [--zones]
-                                  [--devices] [--built] [--tree DIR]
+                                  [--devices] [--big] [--built] [--tree DIR]
+    python3 tools/round_phases.py --ptxas [--tree DIR]
 
 Builds a copy of the round tail (``koordinator_tpu_torch/csrc/round.cuh``
 with the entry of ``round.cu``, or with ``--zones`` of ``round_zone.cu``)
@@ -23,15 +24,24 @@ is then the quota commit). ``--zones`` runs the rounds with NUMA zones
 batches). ``--devices`` runs the rounds with devices
 (``chip_smoke.device_port_inputs``: G = 16, RDMA and FPGA; LeastAllocated
 pricing, after 3 batches; phases "D." and "7d." are the device
-acceptance and charges), without quotas. The quota commit's and the zone phase's cycles are also given by
-sub-phase ("// q1. ...", "// z1. ...": the cycles from there to the next
-mark, summed over the chain's levels). ``--built`` times the tree's own
+acceptance and charges), without quotas. ``--big`` runs round 0 of
+the big batch (``chip_smoke.big_port_inputs``, D = 4, ``--pods`` 8,192
+to 32,768, ``--quota`` none or sorted) in ``round_big.cu``, as phase 10
+of the smoke sets it up; with ``--built`` also 65,536 (the round tail
+routes it to ``round_huge.cu``). The quota commit's and the zone phase's cycles
+are also given by sub-phase ("// q1. ...", "// z1. ...": the cycles from
+there to the next mark, summed over the chain's levels, kept in shared
+memory so that a mark costs a few cycles). Only the width the fixture
+uses is instantiated in the copy. ``--built`` times the tree's own
 round tail instead (``commit.round_tail``, no instrumentation): the
 CUDA-event time of a call and the ``torch.profiler`` device time of the
 round tail kernel. ``--tree DIR`` runs another tree's package and smoke
 (a commit unpacked with ``git archive``): run OLD NEW NEW OLD in one call
-to compare two trees. Needs a CUDA device and ``nvcc``; the copy is built
-under the tree's ``koordinator_tpu_torch/build/``.
+to compare two trees. ``--ptxas`` builds the tree's round sources and
+prints the registers and spill bytes of every ``round_tail_kernel``
+instantiation and of the quota commit's own frame. Needs a CUDA device
+and ``nvcc``; the copy is built under the tree's
+``koordinator_tpu_torch/build/``.
 """
 
 from __future__ import annotations
@@ -50,21 +60,33 @@ sys.path.insert(0, str(ROOT))
 MARK = "if (threadIdx.x == 0) koord_phase_clock[{}] = clock64();"
 
 
+#: a sub-phase mark: thread 0 adds the cycles since the last mark to the
+#: current sub-phase's sum, in shared memory (a few cycles, where a
+#: device-memory sum would stall the thread on its loads); the sums reach
+#: device memory when the state word is written
 QUOTA_MARK = ("if (threadIdx.x == 0) {{ const long long t_ = clock64(); "
-              "koord_quota_cycles[koord_quota_cur] += t_ - koord_quota_t; "
-              "koord_quota_t = t_; koord_quota_cur = {}; }}")
+              "koord_qs_cycles[koord_qs_cur] += t_ - koord_qs_t; "
+              "koord_qs_t = t_; koord_qs_cur = {}; }}")
 
 
-def instrumented(src: str) -> "tuple[str, list[str], list[str]]":
+def instrumented(src: str, keep_d: "int | None" = None) -> "tuple[str, list[str], list[str]]":
     """The source with a clock read before each numbered phase comment of
     the kernel and before the state word's write, and, inside the quota
     commit, cycles summed over its levels by each lettered sub-phase
     comment ("// q1. ...": the cycles from there to the next mark); and
-    the marks' and the sub-phases' names."""
+    the marks' and the sub-phases' names. With ``keep_d`` only that width
+    is instantiated (``with_d``'s other cases go), which cuts the build."""
+    if keep_d is not None:
+        src = re.sub(r"\n\s*case (\d): return op\.template run<\d>\(\);",
+                     lambda m: m.group(0) if int(m.group(1)) == keep_d else "", src)
     head = ("__device__ long long koord_phase_clock[32];\n"
             "__device__ long long koord_quota_cycles[16];\n"
-            "__device__ long long koord_quota_t;\n"
-            "__device__ int koord_quota_cur;\n")
+            "__shared__ long long koord_qs_cycles[16];\n"
+            "__shared__ long long koord_qs_t;\n"
+            "__shared__ int koord_qs_cur;\n")
+    # the marks' shared words come out of the round's own shared memory
+    src = src.replace("max_smem() - sizeof(ScanLevels) - kWarps * sizeof(int);",
+                      "max_smem() - sizeof(ScanLevels) - kWarps * sizeof(int) - 256;")
     quota_at = src.index("__device__ void quota_commit(")
     body_at = src.index("round_tail_kernel(")
     sub_names, out_q = ["outside"], []
@@ -86,11 +108,13 @@ def instrumented(src: str) -> "tuple[str, list[str], list[str]]":
             out.append(line)
             out.append("  " + MARK.format(0) + "\n")
             out.append("  if (threadIdx.x == 0) { for (int i_ = 0; i_ < 16; ++i_) "
-                       "koord_quota_cycles[i_] = 0; koord_quota_t = clock64(); "
-                       "koord_quota_cur = 0; }\n")
+                       "koord_qs_cycles[i_] = 0; koord_qs_t = clock64(); "
+                       "koord_qs_cur = 0; }\n")
             continue
         if line.startswith("    state[1] = state[1] + 1;"):
             out.append("    " + MARK.format(k) + "\n")
+            out.append("    for (int i_ = 0; i_ < 16; ++i_) koord_quota_cycles[i_] = "
+                       "koord_qs_cycles[i_];\n")
             names.append("state written")
         out.append(line)
     read = ('\nextern "C" int koord_phase_read(long long* out) {\n'
@@ -102,6 +126,72 @@ def instrumented(src: str) -> "tuple[str, list[str], list[str]]":
             names, sub_names)
 
 
+def big_round(torch, chip_smoke, solver, nominate_ops, p: int, tree, dev):
+    """Round 0 of the big batch of ``p`` pods (``chip_smoke.big_port_inputs``,
+    with the sorted tree when ``tree``), set up as phase 10 of the smoke
+    sets it: the round tail's arguments and (chain, runtime, used, gate)
+    or None."""
+    from koordinator_tpu_torch.ops import quota as quota_ops
+
+    pods_t, nodes_t, params_t, quotas = chip_smoke.big_port_inputs(torch, p, bool(tree), dev)
+    _, spods, bind, thr, pthr = solver._round_setup(pods_t, nodes_t, params_t,
+                                                    quota=bool(tree))
+    gate = spods.valid.clone()
+    nom_args = (spods.requests, spods.estimate, spods.is_prod, bind, gate,
+                nodes_t.allocatable, nodes_t.requested, nodes_t.estimated_used,
+                nodes_t.prod_used, nodes_t.metric_fresh, nodes_t.schedulable,
+                nodes_t.cpu_amp, thr, pthr, params_t.score_weights)
+    quota = None
+    if tree:
+        quota_ops.quota_gate_plain(spods.valid, spods.requests, spods.quota_chain,
+                                   quotas.runtime, quotas.used, gate)
+        quota = (spods.quota_chain, quotas.runtime, quotas.used.clone(), gate.clone())
+    top = nominate_ops.nominate(*nom_args, 4, 4.0, True)
+    return chip_smoke.round_tail_args(torch, spods, nom_args, *top), quota
+
+
+#: the round tail's sources, each a set of its instantiations
+ROUND_SOURCES = ("round", "round_zone", "round_dev", "round_zone_dev", "round_big", "round_huge")
+
+
+def ptxas(kernels) -> dict:
+    """Registers and spill bytes (stores and loads) of every instantiation
+    of ``round_tail_kernel`` and of the quota commit's own frame
+    (``quota_commit_apart``) in each round source's ``-Xptxas -v`` log,
+    the sources built first (all at once): ``<D,R,flags>`` with the flags
+    of the template (quota, zone, device memory, devices)."""
+    kernels.build(list(ROUND_SOURCES))
+    flags = ("quota", "zone", "device memory", "devices")
+    out = {}
+    for src in ROUND_SOURCES:
+        rows, entry = {}, None
+        for line in kernels.build_log(src).splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)",
+                          line)
+            if m:
+                name = m.group(1)
+                k = re.search(r"round_tail_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                              name)
+                a = re.search(r"quota_commit_apartILi(\d+)ELi(\d+)E", name)
+                entry = None
+                if k:
+                    on = [f for f, b in zip(flags, k.groups()[2:]) if b == "1"]
+                    entry = f"<{k.group(1)},{k.group(2)}{''.join(',' + f for f in on)}>"
+                elif a:
+                    entry = f"quota_commit_apart<{a.group(1)},{a.group(2)}>"
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                rows.setdefault(entry, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rows.setdefault(entry, {})["registers"] = int(m.group(1))
+        out[src] = rows
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pods", type=int, nargs="+", default=[512, 4096])
@@ -109,6 +199,11 @@ def main() -> int:
                     default=["none"], help="the rounds to run: without quotas, or a tree")
     ap.add_argument("--zones", action="store_true", help="the rounds with NUMA zones")
     ap.add_argument("--devices", action="store_true", help="the rounds with devices")
+    ap.add_argument("--big", action="store_true",
+                    help="the big batch's round 0 (chip_smoke.big_port_inputs, D=4) in "
+                         "round_big.cu; --quota none or sorted")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="only print every round tail instantiation's registers and spills")
     ap.add_argument("--built", action="store_true",
                     help="time the tree's built round tail, not the instrumented copy")
     ap.add_argument("--tree", type=Path, default=ROOT,
@@ -128,13 +223,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: CUDA is not available", file=sys.stderr)
         return 1
+    if args.ptxas:
+        print(json.dumps({"tree": str(args.tree), **ptxas(kernels)}), flush=True)
+        return 0
     entry = "round_zone" if args.zones else "round"
     if args.devices and (kernels.CSRC / f"{entry}_dev.cu").exists():
         entry += "_dev"  # the instantiations with the device phase
+    if args.big:
+        entry = "round_big"
+        if args.zones or args.devices or "onehot" in args.quota:
+            print("FAIL: --big runs without zones or devices, --quota none or sorted",
+                  file=sys.stderr)
+            return 1
     if not args.built:
         header = (kernels.CSRC / "round.cuh").read_text()
         src, names, sub_names = instrumented(
-            (kernels.CSRC / f"{entry}.cu").read_text().replace('#include "round.cuh"', header))
+            (kernels.CSRC / f"{entry}.cu").read_text().replace('#include "round.cuh"', header),
+            4 if args.big else 2)
         kernels.BUILD.mkdir(parents=True, exist_ok=True)
         cu = kernels.BUILD / "round_phases.cu"
         so = kernels.BUILD / "libround_phases.so"
@@ -146,7 +251,8 @@ def main() -> int:
             print(build.stdout + build.stderr, file=sys.stderr)
             return 1
         lib = ctypes.CDLL(str(so))
-        fn = getattr(lib, "koord_round_tail_zone" if args.zones else "koord_round_tail")
+        fn = getattr(lib, "koord_round_tail_big" if args.big else
+                     "koord_round_tail_zone" if args.zones else "koord_round_tail")
         fn.argtypes = kernels.SIGNATURES[entry][fn.__name__]
     dev = torch.device("cuda")
     fixture = chip_smoke.rich_fixture(1, chip_smoke.N_NODES, 16 * chip_smoke.BATCH)
@@ -189,7 +295,9 @@ def main() -> int:
             print("FAIL: --zones and --devices each run without quotas, and not together",
                   file=sys.stderr)
             return 1
-        if tree:
+        if args.big:
+            pass
+        elif tree:
             pods_s, nodes_t, params_t, quotas, mask = chip_smoke.quota_port_inputs(
                 torch, tree, fixture, dev)
             _, nodes_t, _, later = solver.solve_stream(
@@ -201,10 +309,9 @@ def main() -> int:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, check=False).stdout.strip()
         for p in args.pods:
-            batch = solver.tree_map(
-                lambda a: a[: max(1, p // chip_smoke.BATCH)].reshape((-1,) + a.shape[2:]), pods_s
-            )
-            if tree:
+            if args.big:
+                rt, quota = big_round(torch, chip_smoke, solver, nominate_ops, p, tree, dev)
+            elif tree:
                 # the batch after the later state; above 512 pods, the first
                 # P / 512 batches as one round, as the smoke checks them
                 b = max(1, p // chip_smoke.BATCH)
@@ -234,9 +341,13 @@ def main() -> int:
                     torch, batch, nodes_z, zf, numa_z, params_z, 1)
                 top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True, zones=terms)
             else:
+                batch = solver.tree_map(
+                    lambda a: a[: max(1, p // chip_smoke.BATCH)].reshape((-1,) + a.shape[2:]),
+                    pods_s)
                 spods, nom_args = chip_smoke.round_inputs(batch, nodes_t, params_t)
                 top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True)
-            rt = chip_smoke.round_tail_args(torch, spods, nom_args, top_cost, top_idx)
+            if not args.big:
+                rt = chip_smoke.round_tail_args(torch, spods, nom_args, top_cost, top_idx)
             if quota is not None:
                 rt += [quota[2], quota[3]]  # the used table and the gate, updated in place
             if zone is not None:
@@ -279,13 +390,13 @@ def main() -> int:
                 device = chip_smoke.device_ms(torch, lambda: built([t.clone() for t in rt]), 50,
                                               "round_tail_kernel")
                 print(json.dumps({
-                    "tree": str(args.tree), "pods": p, "quota": tree,
+                    "tree": str(args.tree), "pods": p, "quota": tree, "big": args.big,
                     "zones": zone is not None, "devices": dev_case is not None, "card": smi,
                     "event_ms_per_call": start.elapsed_time(end) / 100,
                     "device_ms_per_call": device,
                 }), flush=True)
                 continue
-            n, d = nom_args[5].shape
+            n, d = rt[7].shape
             q_cap, levels = (0, 0) if quota is None else (quota[1].shape[0], quota[0].shape[1])
 
             def call(work):
@@ -297,11 +408,20 @@ def main() -> int:
                     zone[3].data_ptr(), zone[4].data_ptr(), work[18].data_ptr(),
                     zone[1].shape[1], zone[1].shape[2]]
                 d_args = commit_ops.checked_round_devices(dev_of(work), work[0], p, n)
+                big = []
+                if args.big:
+                    _, nbytes = commit_ops.route(work[0].get_device(), p, d, q_cap, levels, 0,
+                                                 False)
+                    scratch.append(torch.empty(nbytes, dtype=torch.uint8, device=dev))
+                    z_args = [None] * 6 + [0, 0]
+                    big = [scratch[-1].data_ptr()]
                 code = fn(*[t.data_ptr() for t in work[:17]], ctypes.c_float(0.35), p, n, d, 4,
-                          *q_ptrs, q_cap, levels, *z_args, *d_args, kernels.stream_of(work[0]))
+                          *q_ptrs, q_cap, levels, *z_args, *d_args, *big,
+                          kernels.stream_of(work[0]))
                 if code != 0:
                     raise RuntimeError(f"round_phases: CUDA error {code}")
 
+            scratch = []  # each call's working set, kept until the calls end
             clocks, sub = [], []
             for _ in range(20):
                 work = [t.clone() for t in rt]
@@ -334,7 +454,8 @@ def main() -> int:
             end.record()
             torch.cuda.synchronize()
             print(json.dumps({
-                "pods": p, "quota": tree, "zones": zone is not None, "card": smi,
+                "pods": p, "quota": tree, "big": args.big, "zones": zone is not None,
+                "card": smi,
                 "cycles_from_start": {name: int(v) for name, v in zip(names, cycles)},
                 **({"quota_cycles_by_subphase": {name: int(v) for name, v in
                                                  zip(sub_names[1:], sub_cycles[1:])

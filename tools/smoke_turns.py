@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py`` of two trees in turns and compare their passes.
 
-    python3 tools/smoke_turns.py --tree OLD NEW [--logs DIR] [--timeout S]
+    python3 tools/smoke_turns.py --tree OLD NEW [--phase NAME ...] [--logs DIR] [--timeout S]
 
 Each tree (this checkout, or another commit unpacked with ``git archive``)
 first builds its kernels, both trees at once; then each tree's
@@ -12,8 +12,11 @@ the run's exit code and the median of the timed passes of each stream
 line the smoke prints (the headline and shortlist streams, the quota,
 NUMA and device streams, s a pass on the card), with its rounds and
 placed pods. Two versions are
-compared only inside one call on one card (PERF.md). Needs a CUDA device;
-the smoke's own checks decide whether a run passed.
+compared only inside one call on one card (PERF.md). With ``--phase``
+each turn runs only the named phases of the tree's smoke (for example
+``phase_quota_streams``: the four quota streams with their golden and
+plain checks), in order, in one process. Needs a CUDA device; the smoke's
+own checks decide whether a run passed.
 """
 
 from __future__ import annotations
@@ -58,6 +61,8 @@ def main() -> int:
     ap.add_argument("--tree", type=Path, nargs=2, required=True)
     ap.add_argument("--logs", type=Path, default=ROOT / "smoke_turns")
     ap.add_argument("--timeout", type=int, default=1100)
+    ap.add_argument("--phase", nargs="+", default=None,
+                    help="run only these phase functions of chip_smoke.py (phase_...)")
     args = ap.parse_args()
     args.logs.mkdir(parents=True, exist_ok=True)
     trees = [t.resolve() for t in args.tree]
@@ -75,7 +80,13 @@ def main() -> int:
         log = args.logs / f"turn{i}_{tree.name}.log"
         t0 = time.perf_counter()
         with log.open("w") as f:
-            rc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree, stdout=f,
+            cmd = [sys.executable, "chip_smoke.py"]
+            if args.phase:
+                cmd = [sys.executable, "-c",
+                       "import sys, torch, chip_smoke; dev = torch.device('cuda'); "
+                       "report = {'kernels': []}\n"
+                       f"for name in {args.phase!r}: getattr(chip_smoke, name)(torch, dev, report)"]
+            rc = subprocess.run(cmd, cwd=tree, stdout=f,
                                 stderr=subprocess.STDOUT, timeout=args.timeout).returncode
         print(json.dumps({"turn": i, "tree": str(tree), "rc": rc,
                           "seconds": round(time.perf_counter() - t0, 1)}), flush=True)
