@@ -1252,6 +1252,30 @@ def round_tail_ops(args) -> int:
             + p * d * (3 * 2 + 20) + p * d * 3)
 
 
+def zone_phase_work(torch, args, zone, n: int) -> "tuple[int, int]":
+    """Bytes and operations the zone phase adds to a round-tail launch on
+    ``args`` with ``zone`` (the round tail's zone tuple): each nominated
+    node's side word, most flag and zone rows (free read and written, zone
+    0's capacity), each pod's required flag and pick; a word a row for the
+    candidate bits and the rank scan, and the picks and charges of each
+    segment's first four zone candidates (the rows that can take a zone)."""
+    from koordinator_tpu_torch.ops import commit as commit_ops
+    from koordinator_tpu_torch.ops.numa import POLICY_SINGLE_NUMA_NODE
+
+    p = args[0].shape[0]
+    _, z, dn = zone[1].shape
+    _, node_key = commit_ops._choose(args[0], args[1], args[15], n)
+    real = node_key < n
+    node = node_key.clamp(max=n - 1).long()
+    has_zones = (zone[1].sum(dim=-1) > 0).any(dim=-1)
+    cand = real & has_zones[node] & ((zone[2] == POLICY_SINGLE_NUMA_NODE)[node] | args[5]
+                                     | zone[4])
+    touched = int(torch.unique(node_key[real]).numel())
+    listed = int(torch.bincount(node[cand], minlength=n).clamp(max=4).sum())
+    nbytes = touched * (4 + 1 + z * dn * 4 * 2 + z * 4) + p * (1 + 4)
+    return nbytes, p * 4 + listed * (z * (dn + 4) + 2 * dn)
+
+
 #: the arguments ``round_tail`` updates in place (tables and loop state)
 ROUND_MUTABLE = slice(11, 17)
 
@@ -2651,7 +2675,8 @@ def numa_round_case(torch, pods_b, state, zone_free, numa_t, params_t, scoring: 
     terms.order = nominate_ops.pod_order(bind, terms)
     p = spods.requests.shape[0]
     zone = (zone_free.clone(), numa_t.zone_cap, numa_t.policy, numa_t.zone_most,
-            spods.numa_required, torch.full((p,), -1, dtype=torch.int32, device=zone_free.device))
+            spods.numa_required, torch.full((p,), -1, dtype=torch.int32, device=zone_free.device),
+            terms.side)
     return spods, nom_args, terms, zone
 
 
@@ -2739,7 +2764,8 @@ def phase_numa_kernels(torch, dev, report):
 
     nodes_t, pods_t, params_t, numa_t = numa_port_inputs(torch, dev)
     checks = {k: 0.0 for k in ("nominate_numa", "shortlist_build_numa", "shortlist_round_numa",
-                               "round_tail_zone", "zone_refund", "zone_prep")}
+                               "round_tail_zone", "round_tail_zone_crowded", "zone_refund",
+                               "zone_prep")}
     seen, timing = [], {}
     pods_s = solver.tree_map(lambda a: a.reshape((-1, BATCH) + a.shape[1:]), pods_t)
     # a later state: three batches committed, the zone table carried
@@ -2802,7 +2828,7 @@ def phase_numa_kernels(torch, dev, report):
             top = nominate_ops.nominate(*nom_args, 4, 4.0, True, zones=terms)
             args = round_tail_args(torch, spods, nom_args, *top)
             work = [t.clone() for t in args]
-            wz = (zone[0].clone(),) + zone[1:5] + (zone[5].clone(),)
+            wz = (zone[0].clone(),) + zone[1:5] + (zone[5].clone(),) + zone[6:]
             commit_ops.round_tail(*work, 0.35, zone=wz)
             host = [t.cpu().clone() for t in args]
             hz = tuple(t.cpu().clone() for t in zone)
@@ -2852,6 +2878,29 @@ def phase_numa_kernels(torch, dev, report):
             timing["gangs"] = (pre, pods_b)
     checks["shortlist_build_numa"] = max(checks["shortlist_build_numa"],
                                          wide_build_check(torch, dev, "numa"))
+    # the crowded zone rounds: every pod on four SINGLE_NUMA_NODE nodes
+    for p_c, quota in ((512, False), (4096, False), (8192, True)):
+        c_args, c_q, c_z = crowded_zone_inputs(torch, dev, p_c, quota=quota)
+        work = [t.clone() for t in c_args]
+        wq = None if c_q is None else (c_q[0], c_q[1], c_q[2].clone(), c_q[3].clone())
+        wz = (c_z[0].clone(),) + c_z[1:5] + (c_z[5].clone(),) + c_z[6:]
+        commit_ops.round_tail(*work, 0.35, quota=wq, zone=wz)
+        host = [t.cpu().clone() for t in c_args]
+        hq = None if c_q is None else tuple(t.cpu().clone() for t in c_q)
+        hz = tuple(t.cpu().clone() for t in c_z)
+        commit_ops.round_tail_plain(*host, 0.35, quota=hq, zone=hz)
+        names = ("requested", "estimated_used", "prod_used", "assigned", "active", "state")
+        label = f"crowded, P={p_c}" + (", quotas" if quota else "")
+        checks["round_tail_zone_crowded"] = max(checks["round_tail_zone_crowded"], check_equal(
+            f"round_tail with zones ({label})",
+            [(nm, a, b) for nm, a, b in zip(names, work[ROUND_MUTABLE], host[ROUND_MUTABLE])]
+            + [("zone_free", wz[0], hz[0]), ("pod_zone", wz[5], hz[5])]
+            + ([] if c_q is None else [("quota_used", wq[2], hq[2]), ("gate", wq[3], hq[3])])))
+        per_node = torch.bincount(host[14][host[14] >= 0])
+        if int(per_node.max()) > 4 or int((hz[5] >= 0).sum()) == 0:
+            fail(f"round_tail with zones ({label}): at most four zone winners a node, some")
+        seen.append(dict(at=label, zone_picks=int((hz[5] >= 0).sum()),
+                         winners_per_node=per_node[per_node > 0].tolist()))
     print(f"numa checks: bitwise equal to the plain versions {json.dumps(checks)}; "
           f"{json.dumps(seen)}", flush=True)
 
@@ -2927,19 +2976,37 @@ def phase_numa_kernels(torch, dev, report):
 
     def t_round():
         mut, zf, pz = next(copies)
-        commit_ops.round_tail(*fixed, *mut, 0.35, zone=(zf,) + zone[1:5] + (pz,))
+        commit_ops.round_tail(*fixed, *mut, 0.35, zone=(zf,) + zone[1:5] + (pz,) + zone[6:])
 
     def t_round_plain():
         commit_ops.round_tail_plain(*fixed, *[t.clone() for t in args[ROUND_MUTABLE]], 0.35,
-                                    zone=(zone[0].clone(),) + zone[1:5] + (zone[5].clone(),))
+                                    zone=(zone[0].clone(),) + zone[1:5] + (zone[5].clone(),)
+                                    + zone[6:])
 
-    _, node_key = commit_ops._choose(args[0], args[1], args[15], n)
-    touched = int(torch.unique(node_key[node_key < n]).numel())
-    zp_bytes = round_tail_bytes(torch, args, n) + touched * (z * dn * 4 * 3 + 2) + p * 5
-    zp_ops = round_tail_ops(args) + p * (z * (dn * 3 + 4) + dn * 2)
+    z_bytes, z_ops = zone_phase_work(torch, args, zone, n)
     add_row("round_tail_zone", "koordinator_tpu_torch/csrc/round_zone.cu",
             "koordinator_tpu/ops/solver.py:1306", t_round, t_round_plain, "round_tail_kernel",
-            zp_bytes, zp_ops, iters)
+            round_tail_bytes(torch, args, n) + z_bytes, round_tail_ops(args) + z_ops, iters)
+    # the crowded zone round at 4,096 pods (segments of ~1,000 candidates)
+    c_args, _, c_zone = crowded_zone_inputs(torch, dev, 4096)
+    c_copies = iter([([t.clone() for t in c_args[ROUND_MUTABLE]], c_zone[0].clone(),
+                      c_zone[5].clone()) for _ in range(2 * 60 + 2)])
+
+    def t_crowded():
+        mut, zf, pz = next(c_copies)
+        commit_ops.round_tail(*c_args[:ROUND_MUTABLE.start], *mut, 0.35,
+                              zone=(zf,) + c_zone[1:5] + (pz,) + c_zone[6:])
+
+    def t_crowded_plain():
+        commit_ops.round_tail_plain(
+            *c_args[:ROUND_MUTABLE.start], *[t.clone() for t in c_args[ROUND_MUTABLE]], 0.35,
+            zone=(c_zone[0].clone(),) + c_zone[1:5] + (c_zone[5].clone(),) + c_zone[6:])
+
+    cz_bytes, cz_ops = zone_phase_work(torch, c_args, c_zone, n)
+    add_row("round_tail_zone_crowded", "koordinator_tpu_torch/csrc/round_zone.cu",
+            "koordinator_tpu/ops/solver.py:1306", t_crowded, t_crowded_plain,
+            "round_tail_kernel", round_tail_bytes(torch, c_args, n) + cz_bytes,
+            round_tail_ops(c_args) + cz_ops, 60)
     pre, pods_b = timing["gangs"]
     gang_copies = iter([solver.tree_map(lambda a: a.clone(), pre) for _ in range(402)])
     after = solver.enforce_gangs(pre, pods_b)
@@ -3265,7 +3332,7 @@ def phase_numa_streams(torch, dev, report):
             print(json.dumps({"numa_stream": {name: lines[name]}}), flush=True)
             for row in report["kernels"]:
                 nm = row["name"]
-                if nm == "round_tail_zone":
+                if nm in ("round_tail_zone", "round_tail_zone_crowded"):
                     row["launches"] = row["launches"] or launches.get("zone_phase")
                 elif nm in ("zone_refund", "zone_prep"):
                     row["launches"] = row["launches"] or launches.get(nm)
@@ -3428,7 +3495,7 @@ def crowded_round_inputs(torch, dev, p: int, quota: bool = False, zones: bool = 
     ``dev``."""
     from koordinator_tpu_torch.ops import quota as quota_ops
     from koordinator_tpu_torch.ops import solver
-    from koordinator_tpu_torch.ops.numa import NumaState
+    from koordinator_tpu_torch.ops.numa import NumaState, zone_prep
 
     nodes_t, pods_t, params_t, dev_t = device_port_inputs(torch, dev, n_pods=max(p, 16 * BATCH),
                                                           domain=domain)
@@ -3467,10 +3534,79 @@ def crowded_round_inputs(torch, dev, p: int, quota: bool = False, zones: bool = 
                             estimated_used=nodes_t.estimated_used.cpu().numpy()),
             pods_t.requests.shape[0])
         numa_t = NumaState.create(**numa, device=dev)
+        _, side = zone_prep(numa_t.zone_free, numa_t.zone_cap, numa_t.policy)
         z = (numa_t.zone_free.clone(), numa_t.zone_cap, numa_t.policy, numa_t.zone_most,
              torch.from_numpy(required[:p]).to(dev)[order],
-             torch.full((p,), -1, dtype=torch.int32, device=dev))
+             torch.full((p,), -1, dtype=torch.int32, device=dev), side)
     return args, terms, q, z
+
+
+#: the zone phase's crowded rounds (the card tests and ``tools/round_phases.py
+#: --crowded``): pods, 512 and 4,096 in shared memory, 8,192 and 32,768 in
+#: device memory
+CROWDED_ZONE_PODS = (512, 4096, 8192, 32_768)
+
+
+def crowded_zone_inputs(torch, dev, p: int, quota: bool = False):
+    """A round of ``p`` pods that all nominate one of four
+    SINGLE_NUMA_NODE nodes (a NUMA fleet filling up), on the NUMA kernel
+    checks' fixture (``rich_fixture(1)`` with ``zone_tables(NUMA_SEED)``):
+    two of the nodes with two zones and two with four, two MostAllocated;
+    their allocatable raised to 1e7 so that the node fit holds and every
+    row is a zone candidate of its segment (about p / 4 rows, so mostly
+    candidates past the fourth), and their zones' free capacity cut to
+    1-8% so that some of the first four find no zone and are refused.
+    The pods keep the fixture's cpuset-bound (a fifth), required (a
+    fifth) and unconstrained pods. With ``quota`` the one-hot tree's
+    chains at a third of its runtime. Returns the round tail's arguments,
+    the quota tuple (None when off) and the zone tuple (the table, the
+    capacities, policies, MostAllocated flags, the sorted pods' required
+    flags, their picks (-1) and the nodes' side table,
+    ``ops/numa.py:zone_prep``), on ``dev``."""
+    from koordinator_tpu_torch.ops import quota as quota_ops
+    from koordinator_tpu_torch.ops import solver
+    from koordinator_tpu_torch.ops.numa import NumaState, zone_prep
+
+    n_pods = max(p, 16 * BATCH)
+    nodes, pods, params = rich_fixture(1, N_NODES, n_pods)
+    nodes, numa, required = zone_tables(NUMA_SEED, nodes, n_pods)
+    cap = numa["zone_cap"]
+    count = (cap > 0).any(axis=2).sum(axis=1)
+    whole = (cap[:, :, 1] > 0).sum(axis=1) == count                  # every zone has both dims
+    two = np.flatnonzero((count == 2) & whole)[:2]
+    four = np.flatnonzero((count == 4) & whole)[:2]
+    crowd = np.concatenate([two, four])
+    rng = np.random.default_rng(NUMA_SEED + p)
+    numa["zone_free"][crowd] = (cap[crowd] * rng.uniform(0.01, 0.08, (4, 4, 1))).astype(np.float32)
+    numa["policy"][crowd] = 3
+    numa["zone_most"][crowd] = np.array([True, False, True, False])
+    nodes["allocatable"] = nodes["allocatable"].copy()
+    nodes["allocatable"][crowd] = 1e7
+    nodes_t, pods_t, params_t = port_inputs(torch, nodes, dict(pods, numa_required=required),
+                                            params, dev)
+    pods_b = solver.tree_map(lambda a: a[:p], pods_t)
+    spods, nom_args = round_inputs(pods_b, nodes_t, params_t)
+    cost = np.sort(rng.integers(-100, 0, (p, 4)), axis=1).astype(np.float32)
+    idx = rng.choice(crowd, (p, 4)).astype(np.int32)
+    args = round_tail_args(torch, spods, nom_args, torch.from_numpy(cost).to(dev),
+                           torch.from_numpy(idx).to(dev))
+    order = solver._priority_order(pods_b)
+    q = None
+    if quota:
+        runtime, used = quota_tree(*QUOTA_TREES["onehot"], pods_t.requests.cpu().numpy())
+        chain, _, _ = quota_draws(*QUOTA_TREES["onehot"], n_pods)
+        chain = torch.from_numpy(chain).to(dev)[:p][order]
+        runtime = torch.from_numpy(runtime * np.float32(0.3)).to(dev)
+        gate = torch.empty_like(spods.valid)
+        used = torch.from_numpy(used).to(dev)
+        quota_ops.quota_gate_plain(spods.valid, spods.requests, chain, runtime, used, gate)
+        q = (chain, runtime, used, gate)
+    numa_t = NumaState.create(**numa, device=dev)
+    _, side = zone_prep(numa_t.zone_free, numa_t.zone_cap, numa_t.policy)
+    z = (numa_t.zone_free.clone(), numa_t.zone_cap, numa_t.policy, numa_t.zone_most,
+         torch.from_numpy(required[:p]).to(dev)[order],
+         torch.full((p,), -1, dtype=torch.int32, device=dev), side)
+    return args, q, z
 
 
 def device_round_both(torch, args, terms, q, z):
@@ -3485,7 +3621,7 @@ def device_round_both(torch, args, terms, q, z):
     work = [t.clone() for t in args]
     wd = device_terms_copy(terms)
     wq = None if q is None else (q[0], q[1], q[2].clone(), q[3].clone())
-    wz = None if z is None else (z[0].clone(),) + z[1:5] + (z[5].clone(),)
+    wz = None if z is None else (z[0].clone(),) + z[1:5] + (z[5].clone(),) + z[6:]
     kernels.reset_launches()
     commit_ops.round_tail(*work, 0.35, quota=wq, zone=wz, dev=wd)
     if kernels.launches.get("device_phase", 0) != 1:
@@ -3529,7 +3665,7 @@ def phase_device_kernels(torch, dev, report):
     from koordinator_tpu_torch.ops import quota as quota_ops
     from koordinator_tpu_torch.ops import shortlist as sl
     from koordinator_tpu_torch.ops import solver
-    from koordinator_tpu_torch.ops.numa import NumaState
+    from koordinator_tpu_torch.ops.numa import NumaState, zone_prep
 
     checks = {k: 0.0 for k in ("device_prep", "nominate_device", "nominate_dev_numa",
                                "pod_order", "shortlist_build_device", "shortlist_round_device",
@@ -3634,7 +3770,8 @@ def phase_device_kernels(torch, dev, report):
                     if "zones" in mode:
                         z = (numa_t.zone_free.clone(), numa_t.zone_cap, numa_t.policy,
                              numa_t.zone_most, torch.from_numpy(required[:p_b]).to(dev)[order],
-                             torch.full((p_b,), -1, dtype=torch.int32, device=dev))
+                             torch.full((p_b,), -1, dtype=torch.int32, device=dev),
+                             zone_prep(numa_t.zone_free, numa_t.zone_cap, numa_t.policy)[1])
                     pairs, host, hd, plain_nd = device_round_both(torch, args, terms, q, z)
                     checks["round_tail_device"] = max(checks["round_tail_device"], check_equal(
                         f"round_tail with devices ({label}, {mode})", pairs))

@@ -387,6 +387,64 @@ struct Pod {
   }
 };
 
+// A pair's node columns as pair_cost reads them: each from its table
+// where the arithmetic first needs it, behind the tests before it.
+template <int D>
+struct TableCols {
+  const Nodes& t;
+  const bool* mask;
+  int n;
+  __device__ __forceinline__ bool fresh() const { return t.fresh[n]; }
+  __device__ __forceinline__ bool sched() const { return t.sched[n]; }
+  __device__ __forceinline__ bool allowed() const { return mask == nullptr || mask[n]; }
+  __device__ __forceinline__ float cpu_amp() const { return t.cpu_amp[n]; }
+  __device__ __forceinline__ float alloc(int d) const { return t.alloc[(size_t)n * D + d]; }
+  __device__ __forceinline__ float requested(int d) const {
+    return t.requested[(size_t)n * D + d];
+  }
+  __device__ __forceinline__ float est_used(int d) const { return t.est_used[(size_t)n * D + d]; }
+  __device__ __forceinline__ float thr(int d) const { return t.thr[(size_t)n * D + d]; }
+  __device__ __forceinline__ float pthr(int d) const { return t.pthr[(size_t)n * D + d]; }
+  __device__ __forceinline__ float prod_used(int d) const {
+    return t.prod_used[(size_t)n * D + d];
+  }
+};
+
+// The same columns in registers, every load issued at once before any of
+// the arithmetic (a pricing latency-bound on its chain of loads).
+template <int D>
+struct LoadedCols {
+  bool fresh_, sched_, allowed_;
+  float amp_, alloc_[D], requested_[D], est_used_[D], thr_[D], pthr_[D], prod_used_[D];
+
+  __device__ __forceinline__ LoadedCols(const Nodes& t, const bool* mask, int n) {
+    fresh_ = t.fresh[n];
+    sched_ = t.sched[n];
+    allowed_ = mask == nullptr || mask[n];
+    amp_ = t.cpu_amp[n];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const size_t at = (size_t)n * D + d;
+      alloc_[d] = t.alloc[at];
+      requested_[d] = t.requested[at];
+      est_used_[d] = t.est_used[at];
+      thr_[d] = t.thr[at];
+      pthr_[d] = t.pthr[at];
+      prod_used_[d] = t.prod_used[at];
+    }
+  }
+  __device__ __forceinline__ bool fresh() const { return fresh_; }
+  __device__ __forceinline__ bool sched() const { return sched_; }
+  __device__ __forceinline__ bool allowed() const { return allowed_; }
+  __device__ __forceinline__ float cpu_amp() const { return amp_; }
+  __device__ __forceinline__ float alloc(int d) const { return alloc_[d]; }
+  __device__ __forceinline__ float requested(int d) const { return requested_[d]; }
+  __device__ __forceinline__ float est_used(int d) const { return est_used_[d]; }
+  __device__ __forceinline__ float thr(int d) const { return thr_[d]; }
+  __device__ __forceinline__ float pthr(int d) const { return pthr_[d]; }
+  __device__ __forceinline__ float prod_used(int d) const { return prod_used_[d]; }
+};
+
 // The masked, jittered LoadAware cost of `pod` on node n, +inf where the
 // pair is infeasible (full_feas_cost :864-947 and shortlist_feas_cost
 // :1017-1086 for one pair): schedulable and the pod gate, fit, amplified
@@ -397,27 +455,27 @@ struct Pod {
 // NUMA fit (:898-899, :1072-1073) another, the aligned score (zwsum its
 // denominator) added to the cost before the jitter (:923-924, :1076-1077);
 // with kDev the device fit another (:900-919, :1052-1068), its score added
-// after the NUMA one (:929-940, :1078-1084).
-template <int D, bool kNuma = false, bool kDev = false>
-__device__ __forceinline__ float pair_cost(const Pod<D>& pod, bool gate, int n, const Nodes& t,
-                                           const float (&w)[D], float wsum, float jitter_scale,
-                                           bool jitter_on, const Zones* zones = nullptr,
-                                           float zwsum = 0.0f, const Devices* dev = nullptr) {
-  const bool fresh = t.fresh[n];
-  bool feas = gate && t.sched[n] && (pod.mask == nullptr || pod.mask[n]);
+// after the NUMA one (:929-940, :1078-1084). The node's columns come from
+// `col` (TableCols or LoadedCols: the same values, the same arithmetic).
+template <int D, bool kNuma, bool kDev, class Cols>
+__device__ __forceinline__ float pair_cost_of(const Pod<D>& pod, bool gate, int n, const Cols& col,
+                                              const float (&w)[D], float wsum, float jitter_scale,
+                                              bool jitter_on, const Zones* zones, float zwsum,
+                                              const Devices* dev) {
+  const bool fresh = col.fresh();
+  bool feas = gate && col.sched() && col.allowed();
   float a[D], fe[D], after[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    const size_t at = (size_t)n * D + d;
-    a[d] = t.alloc[at];
-    fe[d] = free_eps(a[d], t.requested[at]);
+    a[d] = col.alloc(d);
+    fe[d] = free_eps(a[d], col.requested(d));
     feas = feas & (pod.req[d] <= fe[d]);
-    after[d] = t.est_used[at] + pod.est[d];
+    after[d] = col.est_used(d) + pod.est[d];
   }
-  feas = feas & (!pod.bind | (pod.req[0] * amp_of(t.cpu_amp[n]) <= fe[0]));
+  feas = feas & (!pod.bind | (pod.req[0] * amp_of(col.cpu_amp()) <= fe[0]));
   if (!feas) return CUDART_INF_F;
   if constexpr (kNuma) {
-    if (!numa_fit<D>(pod.req, pod.bind, pod.required, t.cpu_amp[n], n, *zones))
+    if (!numa_fit<D>(pod.req, pod.bind, pod.required, col.cpu_amp(), n, *zones))
       return CUDART_INF_F;
   }
   if constexpr (kDev) {
@@ -427,15 +485,14 @@ __device__ __forceinline__ float pair_cost(const Pod<D>& pod, bool gate, int n, 
   if (fresh) {
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      const float thr = t.thr[(size_t)n * D + d];
+      const float thr = col.thr(d);
       if (thr > 0.0f && usage_percent(after[d], a[d]) > thr) return CUDART_INF_F;
     }
     if (pod.prod) {
 #pragma unroll
       for (int d = 0; d < D; ++d) {
-        const size_t at = (size_t)n * D + d;
-        const float thr = t.pthr[at];
-        if (thr > 0.0f && usage_percent(t.prod_used[at] + pod.est[d], a[d]) > thr)
+        const float thr = col.pthr(d);
+        if (thr > 0.0f && usage_percent(col.prod_used(d) + pod.est[d], a[d]) > thr)
           return CUDART_INF_F;
       }
     }
@@ -456,6 +513,16 @@ __device__ __forceinline__ float pair_cost(const Pod<D>& pod, bool gate, int n, 
     if (dev->scoring != 0) c = c + device_score(pod.dev, n, *dev);
   }
   return jitter_on ? add_jitter(c, pod.hash, n, jitter_scale) : c;
+}
+
+// pair_cost_of with each column read from its table where it is needed.
+template <int D, bool kNuma = false, bool kDev = false>
+__device__ __forceinline__ float pair_cost(const Pod<D>& pod, bool gate, int n, const Nodes& t,
+                                           const float (&w)[D], float wsum, float jitter_scale,
+                                           bool jitter_on, const Zones* zones = nullptr,
+                                           float zwsum = 0.0f, const Devices* dev = nullptr) {
+  return pair_cost_of<D, kNuma, kDev>(pod, gate, n, TableCols<D>{t, pod.mask, n}, w, wsum,
+                                      jitter_scale, jitter_on, zones, zwsum, dev);
 }
 
 // op.template run<D>() for a run-time D in 1..8: the loops over dims unroll.

@@ -83,21 +83,28 @@
 //   keep their registers) replaces the zone selection of :1275-1332 and
 //   the zone charges of :1417-1432. It runs on the node acceptance of the
 //   fit tests alone, as the reference's does (the threshold and quantum
-//   tests come after it there; all are ANDed): one thread a node segment
-//   walks its rows in sorted order, counting the zone candidates
-//   (SINGLE_NUMA_NODE node, cpuset-bound or required pod, a node with
-//   zones); the fifth and later are refused this round; each of the first
-//   four still accepted takes the strategy-ordered zone of zone_pick
-//   (numa.py:48-75) against a copy of the node's zone rows that the ranks
-//   before it charged — the ranks one after another, as the reference's
-//   fori_loop runs them — and a candidate that must align and finds no
-//   zone is refused. After the quota commit the same thread takes the
-//   final winners' requests off their zones, each zone's charges summed
-//   first in row order and then subtracted (`zone_free - segment_sum`,
-//   the order XLA's CPU backend gives the reference), and each winner's
-//   pick is written to its pod. The zone rows are Z x DN floats a node;
-//   the phase's per-row flags, picks, ends and requests take P (3 + DN)
-//   words after the flags.
+//   tests come after it there; all are ANDed). Each row's candidate and
+//   strict bits come from one load, its node's side word (zone_prep.cu
+//   writes it once a batch from the capacities and policies, which the
+//   rounds do not change): a zone candidate is a row on a node with zones
+//   that is SINGLE_NUMA_NODE, or whose pod is cpuset-bound or required.
+//   The candidates' ranks are a block-wide segmented integer scan (the
+//   reference's float cumsum of 0/1 flags is exact below 2^24 pods, so
+//   the same ranks); the fifth and later are refused this round, and each
+//   of the first four enters a four-slot list at its segment's first row.
+//   Only those rows can take a zone, so the thread of the segment's first
+//   row loads the node's zone rows into registers once and takes its
+//   listed rows in rank order: each still accepted takes the
+//   strategy-ordered zone of zone_pick (numa.py:48-75) against the rows
+//   the ranks before it charged, and a candidate that must align and
+//   finds no zone is refused. After the quota commit the same thread sums
+//   each zone's charges over its listed rows that are final winners, in
+//   row order, and subtracts them (`zone_free - segment_sum`, the order
+//   XLA's CPU backend gives the reference); each winner's pick is written
+//   to its pod. The depth no longer grows with the longest segment. The
+//   zone rows are Z x DN floats a node, compiled for (Z, DN) = (2, 2) and
+//   (4, 2); the phase's per-row words take P (3 + DN) words after the
+//   flags in shared memory (5 + DN in device memory).
 // - Above 4,096 pods, or where shared memory is short, or with quotas
 //   whose 32-bit level keys would overflow, the round runs with 32 rows a
 //   thread and its whole working set (the keys, the cumsum series, the
@@ -174,7 +181,6 @@ constexpr int kHugeRows = 128;
 constexpr int kMaxZones = 8;
 constexpr int kMaxZoneDims = 4;
 constexpr int kZoneWinners = 4;       // solver.ZONE_WINNERS_PER_ROUND
-constexpr int kPolicySingleNuma = 3;  // numa.POLICY_SINGLE_NUMA_NODE
 // bits of a sorted row in the zone phase
 constexpr int kZoneCand = 1, kZoneStrict = 2, kZoneFit = 4;
 constexpr int kZoneRefused = -2;  // a row's result: refused (-1: no zone)
@@ -1180,10 +1186,22 @@ __host__ __device__ inline size_t area_bytes(int P, int D, int G, int staged, si
   return most > quota ? most : quota;
 }
 
-// The zone phase's words: each sorted row's bits, result and (at a
-// segment's first row) the segment's end, then its zone request [P, DN].
-__host__ __device__ inline size_t zone_bytes(int P, int DN) {
-  return (size_t)P * (3 + DN) * sizeof(int);
+// Thread t's span of the sorted rows: C = ceil(P / T) in a row from t * C.
+__device__ __forceinline__ void dev_span(int P, int& j0, int& j1) {
+  const int c = (P + blockDim.x - 1) / blockDim.x;
+  j0 = min(P, (int)threadIdx.x * c);
+  j1 = min(P, j0 + c);
+}
+
+// The zone phase's words: each sorted row's bits and segment start (then,
+// from the ranks on, its result in the same word), the four-slot list of
+// its segment's first zone candidates (used at a segment's first row;
+// 16-bit entries in shared memory, where a round has at most 4,096 rows,
+// 32-bit in device memory), then its zone request [P, DN].
+constexpr int kZoneListSlots = 4;  // kZoneWinners rows a segment
+__host__ __device__ inline size_t zone_bytes(int P, int DN, bool global) {
+  return (size_t)P * (sizeof(int) + kZoneListSlots * (global ? sizeof(int) : sizeof(uint16_t)) +
+                      DN * sizeof(float));
 }
 
 size_t round_smem_bytes(int P, int D, int G, int staged, size_t qbytes, size_t zbytes = 0) {
@@ -1192,37 +1210,76 @@ size_t round_smem_bytes(int P, int D, int G, int staged, size_t qbytes, size_t z
 }
 
 // The NUMA zones of a round: the carried table [N, Z, DN] (charged in
-// place), the capacities, the nodes' policies and MostAllocated flags, the
-// priority-sorted pods' required flags and zone picks [P] (-1: none).
+// place), the capacities, the nodes' MostAllocated flags, the
+// priority-sorted pods' required flags and zone picks [P] (-1: none), and
+// the nodes' side table [N, 1 + DN + Z] (zone_prep.cu, once a batch: its
+// first word's bits say whether the node has zones, is SINGLE_NUMA_NODE
+// and which zones have some capacity; only the capacities and policies
+// decide them, and the rounds change neither).
 struct RoundZones {
   float* free;
   const float* cap;
-  const int8_t* policy;
   const bool* most;
   const bool* required;
   int* pod_zone;
+  const uint32_t* side;
   int Z, DN;
 };
 
+// bits of a side row's first word (loadaware.cuh's kSideHasZones,
+// kSideSingle, kSideReal)
+constexpr uint32_t kSideHasZones = 1u << 4, kSideSingle = 1u << 5;
+constexpr int kSideReal = 8;  // bit 8 + z: zone z has some capacity
+
+// A segment's zone rows in registers: the round-start free values and
+// zone 0's capacity of each zone, at compile-time (ZC, DNC) where they are
+// (2, 2) or (4, 2), else at run time (ZC = DNC = 0, the arrays in local
+// memory). DN = 2 rows move as float2.
+template <int ZC, int DNC>
+struct ZoneRows {
+  static constexpr int kZ = ZC ? ZC : kMaxZones, kDN = DNC ? DNC : kMaxZoneDims;
+  float f[kZ][kDN];
+  float cap0[kZ];
+
+  __device__ __forceinline__ void load(const RoundZones& zn, int node, bool caps) {
+    const int Z = ZC ? ZC : zn.Z, DN = DNC ? DNC : zn.DN;
+    const size_t at = (size_t)node * Z * DN;
+#pragma unroll
+    for (int z = 0; z < kZ; ++z) {
+      if (z >= Z) break;
+      if constexpr (DNC == 2) {
+        const float2 v = reinterpret_cast<const float2*>(zn.free + at)[z];
+        f[z][0] = v.x, f[z][1] = v.y;
+      } else {
+#pragma unroll
+        for (int d = 0; d < kDN; ++d)
+          if (d < DN) f[z][d] = zn.free[at + z * DN + d];
+      }
+      if (caps) cap0[z] = zn.cap[at + z * DN];
+    }
+  }
+};
+
 // zone_pick (numa.py:48-75) of one request against a node's zone rows zf
-// (the copy the ranks before charged) and capacities cp: the zone where it
-// fits within 1e-3 in every dim, among zones with some capacity, of least
-// (cap0 - free0 + 1) / (cap0 + 1), or of greatest under MostAllocated; the
-// first on ties. -1 when none fits.
-__device__ __forceinline__ int zone_pick(const float (&zf)[kMaxZones][kMaxZoneDims],
-                                         const float* cp, const float* req, bool most, int Z,
-                                         int DN) {
+// (the copy the ranks before charged): the zone where it fits within 1e-3
+// in every dim, among zones with some capacity (the side word's bits), of
+// least (cap0 - free0 + 1) / (cap0 + 1), or of greatest under
+// MostAllocated; the first on ties. -1 when none fits.
+template <int ZC, int DNC>
+__device__ __forceinline__ int zone_pick(const ZoneRows<ZC, DNC>& zr, uint32_t info,
+                                         const float* req, bool most, int Z, int DN) {
   int best = -1;
   float best_key = CUDART_INF_F;
-  for (int z = 0; z < Z; ++z) {
-    bool fit = true, real = false;
-    for (int d = 0; d < DN; ++d) {
-      fit = fit && zf[z][d] >= req[d] - 1e-3f;
-      real = real || cp[z * DN + d] > 0.0f;
-    }
-    if (!(fit && real)) continue;
-    const float used0 = cp[z * DN] - zf[z][0];
-    const float util = (used0 + 1.0f) / (cp[z * DN] + 1.0f);
+#pragma unroll
+  for (int z = 0; z < ZoneRows<ZC, DNC>::kZ; ++z) {
+    if (z >= Z) break;
+    bool fit = true;
+#pragma unroll
+    for (int d = 0; d < ZoneRows<ZC, DNC>::kDN; ++d)
+      if (d < DN) fit = fit && zr.f[z][d] >= req[d] - 1e-3f;
+    if (!(fit && ((info >> (kSideReal + z)) & 1u))) continue;
+    const float used0 = zr.cap0[z] - zr.f[z][0];
+    const float util = (used0 + 1.0f) / (zr.cap0[z] + 1.0f);
     const float key = most ? -util : util;
     if (best < 0 || key < best_key) {
       best = z;
@@ -1232,25 +1289,195 @@ __device__ __forceinline__ int zone_pick(const float (&zf)[kMaxZones][kMaxZoneDi
   return best;
 }
 
+// A row's entry in its segment's list: the sorted row and its bits (above
+// bit 13 of a 16-bit entry, bit 24 of a 32-bit one; all ones: an empty
+// slot). The picks and charges take them as 32-bit words, -1 empty.
+constexpr int kZoneEntryShift = 24;
+constexpr int kZoneRowMask = (1 << kZoneEntryShift) - 1;
+
+template <class E>
+__device__ __forceinline__ E zone_entry(int j, int bits) {
+  return (E)(j | bits << (sizeof(E) == 2 ? 13 : kZoneEntryShift));
+}
+
+template <class E>
+__device__ __forceinline__ int zone_entry_word(E e) {
+  if (e == (E)-1) return -1;
+  if constexpr (sizeof(E) == 2) return (e & ((1 << 13) - 1)) | (e >> 13) << kZoneEntryShift;
+  return (int)e;
+}
+
+// A segment's list, from the slots at its first row i.
+template <class E>
+__device__ __forceinline__ void zone_list_load(const E* z_list, int i,
+                                               int (&list)[kZoneListSlots]) {
+#pragma unroll
+  for (int k = 0; k < kZoneListSlots; ++k)
+    list[k] = zone_entry_word(z_list[(size_t)i * kZoneListSlots + k]);
+}
+
+// The picks of one node's listed candidates (at most four, in rank order,
+// which is row order): the node's zone rows loaded once, each fitting
+// candidate's strategy-ordered zone against the rows the ranks before it
+// charged; a strict candidate with no zone is refused. Each listed row's
+// result goes to z_res.
+template <int ZC, int DNC>
+__device__ __forceinline__ void zone_segment_picks(const int (&list)[kZoneListSlots], int node,
+                                                   int* z_res, const float* z_req,
+                                                   const RoundZones& zn) {
+  const int Z = ZC ? ZC : zn.Z, DN = DNC ? DNC : zn.DN;
+  ZoneRows<ZC, DNC> zr;
+  zr.load(zn, node, true);
+  const uint32_t info = zn.side[(size_t)node * (1 + DN + Z)];
+  const bool most = zn.most[node];
+#pragma unroll
+  for (int k = 0; k < kZoneListSlots; ++k) {
+    const int e = list[k];
+    if (e < 0) break;
+    const int j = e & kZoneRowMask, bits = e >> kZoneEntryShift;
+    int res = -1;
+    if (bits & kZoneFit) {
+      float req[ZoneRows<ZC, DNC>::kDN];
+#pragma unroll
+      for (int d = 0; d < ZoneRows<ZC, DNC>::kDN; ++d)
+        if (d < DN) req[d] = z_req[(size_t)j * DN + d];
+      const int pick = zone_pick(zr, info, req, most, Z, DN);
+      if (pick >= 0) {
+        res = pick;
+#pragma unroll
+        for (int z = 0; z < ZoneRows<ZC, DNC>::kZ; ++z)
+          if (z == pick) {
+#pragma unroll
+            for (int d = 0; d < ZoneRows<ZC, DNC>::kDN; ++d)
+              if (d < DN) zr.f[z][d] = zr.f[z][d] - req[d];
+          }
+      } else if (bits & kZoneStrict) {
+        res = kZoneRefused;
+      }
+    }
+    z_res[j] = res;
+  }
+}
+
+// The charges of one node's listed rows that are final winners (z_res: a
+// winner's zone, else < 0): each zone's charges summed in row order (from
+// the first, 0 + v0 + v1 + ...), then subtracted from the table, the zones
+// no winner took left as they are.
+template <int ZC, int DNC>
+__device__ __forceinline__ void zone_segment_charges(const int (&list)[kZoneListSlots], int node,
+                                                     const int* z_res, const float* z_req,
+                                                     const RoundZones& zn) {
+  const int Z = ZC ? ZC : zn.Z, DN = DNC ? DNC : zn.DN;
+  constexpr int kZ = ZoneRows<ZC, DNC>::kZ, kDN = ZoneRows<ZC, DNC>::kDN;
+  float sum[kZ][kDN];
+  bool any[kZ];
+#pragma unroll
+  for (int z = 0; z < kZ; ++z) any[z] = false;
+#pragma unroll
+  for (int k = 0; k < kZoneListSlots; ++k) {
+    const int e = list[k];
+    if (e < 0) break;
+    const int j = e & kZoneRowMask;
+    const int zz = z_res[j];
+    if (zz < 0) continue;
+#pragma unroll
+    for (int z = 0; z < kZ; ++z) {
+      if (z != zz) continue;
+#pragma unroll
+      for (int d = 0; d < kDN; ++d) {
+        if (d >= DN) continue;
+        const float v = z_req[(size_t)j * DN + d];
+        sum[z][d] = any[z] ? sum[z][d] + v : v;
+      }
+      any[z] = true;
+    }
+  }
+  ZoneRows<ZC, DNC> zr;
+  zr.load(zn, node, false);
+  const size_t at = (size_t)node * Z * DN;
+#pragma unroll
+  for (int z = 0; z < kZ; ++z) {
+    if (z >= Z || !any[z]) continue;
+#pragma unroll
+    for (int d = 0; d < kDN; ++d)
+      if (d < DN) zn.free[at + z * DN + d] = zr.f[z][d] - sum[z][d];
+  }
+}
+
+// A segment-packed count: the head bit (a segment starts in the span it
+// covers) and the zone candidates since the latest head.
+constexpr int kZoneHead = 1 << 30;
+
+__device__ __forceinline__ int zone_then(int l, int r) { return (r & kZoneHead) ? r : l + r; }
+
+// One int of a block-wide segmented scan: its shuffle, and its word in
+// the scan's area.
+__device__ __forceinline__ int seg_shfl_up(int x, int off) { return __shfl_up_sync(kFull, x, off); }
+__device__ __forceinline__ void seg_store(int* area, int w, int x) { area[w] = x; }
+__device__ __forceinline__ int seg_load(const int* area, int w, int) { return area[w]; }
+
+// The exclusive segmented scan of one T a thread, in thread order, across
+// the block: warp shuffles, then the warps' totals through `area` (read
+// until the caller's next barrier). then(l, r) joins l and the r after it
+// (r restarts at a segment's head); T{} is its identity. The whole block
+// calls it.
+template <class T, class Then>
+__device__ T seg_block_scan(T x, int* area, Then then) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const T y = seg_shfl_up(x, off);
+    if (lane >= off) x = then(y, x);
+  }
+  T before = seg_shfl_up(x, 1);
+  if (lane == 0) before = T{};
+  if (lane == 31) seg_store(area, warp, x);
+  __syncthreads();
+  if (warp == 0) {
+    T t = lane < nwarps ? seg_load(area, lane, T{}) : T{};
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const T y = seg_shfl_up(t, off);
+      if (lane >= off) t = then(y, t);
+    }
+    if (lane < nwarps) seg_store(area, lane, t);
+  }
+  __syncthreads();
+  if (warp > 0) before = then(seg_load(area, warp - 1, T{}), before);
+  return before;
+}
+
+// Sorted row j's term in the rank scan: its segment's head and whether it
+// is a zone candidate, from its word (start << 4 | bits).
+__device__ __forceinline__ int zone_term(int w, int j) {
+  return ((w >> 4) == j ? kZoneHead : 0) | ((w & kZoneCand) ? 1 : 0);
+}
+
 // The zone selection (solver.py:1275-1332) on the rows' fit acceptance
-// ok[r]: each row's bits and zone request (its first DN dims, CPU already
-// amplified for cpuset-bound pods) go to z_bits / z_req; the thread of
-// each node segment's first row walks the segment in sorted order with a
-// copy of the node's zone rows, ranks the candidates, refuses the fifth
-// and later, picks a zone for each of the first four still accepted (the
-// pick charged to the copy before the next rank's) and refuses a strict
-// candidate with none; then each row reads its result: ok[r] cleared when
-// refused, zsel[r] the pick (-1 none). It also notes each segment's end
-// for the charges. The whole block calls it.
-template <int D, int R>
+// ok[r]. z1: each row's bits (candidate: its node has zones, is
+// SINGLE_NUMA_NODE or its pod cpuset-bound or required; strict: the node
+// SINGLE_NUMA_NODE or the pod required; fit) from its node's side word,
+// its segment start and its zone request (its first DN dims, CPU already
+// amplified for cpuset-bound pods) go to the working set; each segment's
+// first row clears its list. z2: the candidates' ranks, a block-wide
+// segmented integer scan over spans of rows a thread (the reference takes
+// the float cumsum of 0/1 flags, exact below 2^24 pods, so the same
+// ranks); rank 4 and up is refused, ranks 0-3 enter their segment's list.
+// z3: the thread of each segment's first row picks zones for its listed
+// rows only (zone_segment_picks). z4: each row reads its result: ok[r]
+// cleared when refused, zsel[r] the pick (-1 none). The whole block calls
+// it.
+template <int D, int R, class E>
 __device__ void zone_select(bool (&ok)[R], int (&zsel)[R], const uint64_t (&key)[R],
                             const int (&start)[R], const float (&rq)[R][D],
-                            const bool (&bound)[R], int P, int N, const uint64_t* keys,
-                            int* z_bits, int* z_res, int* z_end, float* z_req,
-                            const RoundZones& zn) {
+                            const bool (&bound)[R], int P, int N, int* z_bits, E* z_list,
+                            float* z_req, int* area, const RoundZones& zn) {
+  int* z_res = z_bits;  // a row's result takes its bits' word once the ranks are in
   const int tid = threadIdx.x, T = blockDim.x;
-  const int Z = zn.Z, DN = zn.DN;
-  // z1. Each row's bits (candidate, strict, fit) and zone request
+  const int Z = zn.Z, DN = zn.DN, W = 1 + DN + Z;
+  // z1. Each row's bits (candidate, strict, fit), segment start and zone
+  // request
 #pragma unroll (R <= 4 ? R : 1)
   for (int r = 0; r < R; ++r) {
     const int i = tid + r * T;
@@ -1259,63 +1486,63 @@ __device__ void zone_select(bool (&ok)[R], int (&zsel)[R], const uint64_t (&key)
     int bits = 0;
     if (node < N) {
       const int row = (int)(key[r] & 0xFFFFFFFFu);
-      const bool single = zn.policy[node] == kPolicySingleNuma;
+      const uint32_t info = zn.side[(size_t)node * W];
+      const bool single = (info & kSideSingle) != 0;
       const bool required = zn.required[row];
-      // node_has_zones: a zone whose capacities sum (over DN, in order) > 0
-      bool has_zones = false;
-      for (int z = 0; z < Z; ++z) {
-        float s = 0.0f;
-        for (int d = 0; d < DN; ++d) s = d == 0 ? zn.cap[((size_t)node * Z + z) * DN]
-                                                : s + zn.cap[((size_t)node * Z + z) * DN + d];
-        has_zones = has_zones || s > 0.0f;
-      }
-      if ((single || bound[r] || required) && has_zones) bits |= kZoneCand;
+      if ((single || bound[r] || required) && (info & kSideHasZones)) bits |= kZoneCand;
       if (single || required) bits |= kZoneStrict;
       if (ok[r]) bits |= kZoneFit;
     }
-    z_bits[i] = bits;
+    z_bits[i] = start[r] << 4 | bits;
+    if (start[r] == i) {
+#pragma unroll
+      for (int k = 0; k < kZoneListSlots; ++k) z_list[(size_t)i * kZoneListSlots + k] = (E)-1;
+    }
     constexpr int DZ = D < kMaxZoneDims ? D : kMaxZoneDims;
 #pragma unroll
     for (int d = 0; d < DZ; ++d)
       if (d < DN) z_req[(size_t)i * DN + d] = rq[r][d];
   }
   __syncthreads();
-  // z2. A thread a node segment: the candidates' ranks and zone picks
+  // z2. The candidates' ranks by a segmented scan: the fifth and later
+  // refused, the first four listed at their segment's first row
+  int j0, j1;
+  dev_span(P, j0, j1);
+  int run = 0;
+  for (int j = j0; j < j1; ++j) run = zone_then(run, zone_term(z_bits[j], j));
+  run = seg_block_scan(run, area, [](int l, int r) { return zone_then(l, r); });
+  for (int j = j0; j < j1; ++j) {
+    const int w = z_bits[j];
+    run = zone_then(run, zone_term(w, j));
+    int res = -1;
+    if (w & kZoneCand) {
+      const int rank = (run & ~kZoneHead) - 1;
+      if (rank < kZoneWinners)
+        z_list[(size_t)(w >> 4) * kZoneListSlots + rank] = zone_entry<E>(j, w & 7);
+      else
+        res = kZoneRefused;
+    }
+    z_res[j] = res;  // this thread's row: its bits were read above
+  }
+  __syncthreads();
+  // z3. A thread a segment with a candidate: its listed rows' picks
 #pragma unroll (R <= 4 ? R : 1)
   for (int r = 0; r < R; ++r) {
     const int i = tid + r * T;
     const int node = (int)(key[r] >> 32);
     if (i >= P || start[r] != i || node >= N) continue;
-    const float* cp = zn.cap + (size_t)node * Z * DN;
-    float zf[kMaxZones][kMaxZoneDims];
-    for (int z = 0; z < Z; ++z)
-      for (int d = 0; d < DN; ++d) zf[z][d] = zn.free[((size_t)node * Z + z) * DN + d];
-    const bool most = zn.most[node];
-    int rank = 0, j = i;
-    for (; j < P && (int)(keys[j] >> 32) == node; ++j) {
-      const int bits = z_bits[j];
-      int res = -1;
-      if (bits & kZoneCand) {
-        if (rank >= kZoneWinners) {
-          res = kZoneRefused;
-        } else if (bits & kZoneFit) {
-          const float* req = z_req + (size_t)j * DN;
-          const int pick = zone_pick(zf, cp, req, most, Z, DN);
-          if (pick >= 0) {
-            res = pick;
-            for (int d = 0; d < DN; ++d) zf[pick][d] = zf[pick][d] - req[d];
-          } else if (bits & kZoneStrict) {
-            res = kZoneRefused;
-          }
-        }
-        ++rank;
-      }
-      z_res[j] = res;
-    }
-    z_end[i] = j;
+    int list[kZoneListSlots];
+    zone_list_load(z_list, i, list);
+    if (list[0] < 0) continue;
+    if (Z == 2 && DN == 2)
+      zone_segment_picks<2, 2>(list, node, z_res, z_req, zn);
+    else if (Z == 4 && DN == 2)
+      zone_segment_picks<4, 2>(list, node, z_res, z_req, zn);
+    else
+      zone_segment_picks<0, 0>(list, node, z_res, z_req, zn);
   }
   __syncthreads();
-  // z3. Each row reads its result
+  // z4. Each row reads its result
 #pragma unroll (R <= 4 ? R : 1)
   for (int r = 0; r < R; ++r) {
     const int i = tid + r * T;
@@ -1330,49 +1557,40 @@ __device__ void zone_select(bool (&ok)[R], int (&zsel)[R], const uint64_t (&key)
 }
 
 // The round's zone charges (:1417-1432): each final winner's zone request
-// off its picked zone, zone_free - segment_sum(...): the thread of each
-// node segment's first row sums each zone's charges in row order (from
-// the first, 0 + v0 + v1 + ...), then subtracts the sums from the table.
-// The whole block calls it.
-template <int D, int R>
+// off its picked zone, zone_free - segment_sum(...). z5: each row with a
+// pick writes its final zone (-1 when it lost at a later test); z6: the
+// thread of each segment's first row sums its listed rows' charges and
+// subtracts them (zone_segment_charges): only a listed row can hold a
+// pick. The whole block calls it.
+template <int D, int R, class E>
 __device__ void zone_charge(const bool (&ok)[R], const int (&zsel)[R], const uint64_t (&key)[R],
-                            const int (&start)[R], int P, int N, int* z_res, const int* z_end,
+                            const int (&start)[R], int P, int N, const E* z_list, int* z_res,
                             const float* z_req, const RoundZones& zn) {
   const int tid = threadIdx.x, T = blockDim.x;
   const int Z = zn.Z, DN = zn.DN;
-  // z4. Each row's final zone
+  // z5. Each row with a pick: its final zone
 #pragma unroll (R <= 4 ? R : 1)
   for (int r = 0; r < R; ++r) {
     const int i = tid + r * T;
-    if (i < P) z_res[i] = ok[r] ? zsel[r] : -1;
+    if (i < P && zsel[r] >= 0) z_res[i] = ok[r] ? zsel[r] : -1;
   }
   __syncthreads();
-  // z5. A thread a node segment: the charges summed, then subtracted
+  // z6. A thread a segment with a candidate: the charges summed, then
+  // subtracted
 #pragma unroll (R <= 4 ? R : 1)
   for (int r = 0; r < R; ++r) {
     const int i = tid + r * T;
     const int node = (int)(key[r] >> 32);
     if (i >= P || start[r] != i || node >= N) continue;
-    float sum[kMaxZones][kMaxZoneDims];
-    bool any[kMaxZones];
-    for (int z = 0; z < Z; ++z) any[z] = false;
-    const int end = z_end[i];
-    for (int j = i; j < end; ++j) {
-      const int z = z_res[j];
-      if (z < 0) continue;
-      for (int d = 0; d < DN; ++d) {
-        const float v = z_req[(size_t)j * DN + d];
-        sum[z][d] = any[z] ? sum[z][d] + v : v;
-      }
-      any[z] = true;
-    }
-    for (int z = 0; z < Z; ++z) {
-      if (!any[z]) continue;
-      for (int d = 0; d < DN; ++d) {
-        const size_t at = ((size_t)node * Z + z) * DN + d;
-        zn.free[at] = zn.free[at] - sum[z][d];
-      }
-    }
+    int list[kZoneListSlots];
+    zone_list_load(z_list, i, list);
+    if (list[0] < 0) continue;
+    if (Z == 2 && DN == 2)
+      zone_segment_charges<2, 2>(list, node, z_res, z_req, zn);
+    else if (Z == 4 && DN == 2)
+      zone_segment_charges<4, 2>(list, node, z_res, z_req, zn);
+    else
+      zone_segment_charges<0, 0>(list, node, z_res, z_req, zn);
   }
   __syncthreads();
 }
@@ -1435,7 +1653,7 @@ __device__ __forceinline__ DevSums dev_then(const DevSums& l, const DevSums& r) 
   return o;
 }
 
-__device__ __forceinline__ DevSums dev_shfl_up(const DevSums& x, int off) {
+__device__ __forceinline__ DevSums seg_shfl_up(const DevSums& x, int off) {
   DevSums y;
 #pragma unroll
   for (int f = 0; f < 4; ++f) y.v[f] = __shfl_up_sync(kFull, x.v[f], off);
@@ -1443,66 +1661,27 @@ __device__ __forceinline__ DevSums dev_shfl_up(const DevSums& x, int off) {
   return y;
 }
 
-// The inclusive scan of a warp's DevSums, in lane order.
-template <bool kCharge>
-__device__ __forceinline__ DevSums dev_warp_scan(DevSums x) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const DevSums y = dev_shfl_up(x, off);
-    if (lane >= off) x = dev_then<kCharge>(y, x);
-  }
-  return x;
-}
-
-__device__ __forceinline__ DevSums dev_load(const int* w) {
+// A warp's total in the scan area: kDevScanWords words.
+__device__ __forceinline__ DevSums seg_load(const int* area, int w, const DevSums&) {
+  const int* a = area + w * kDevScanWords;
   DevSums x;
-  x.head = w[0] != 0;
+  x.head = a[0] != 0;
 #pragma unroll
-  for (int f = 0; f < 4; ++f) x.v[f] = w[1 + f];
+  for (int f = 0; f < 4; ++f) x.v[f] = a[1 + f];
   return x;
 }
 
-__device__ __forceinline__ void dev_store(int* w, const DevSums& x) {
-  w[0] = x.head;
+__device__ __forceinline__ void seg_store(int* area, int w, const DevSums& x) {
+  int* a = area + w * kDevScanWords;
+  a[0] = x.head;
 #pragma unroll
-  for (int f = 0; f < 4; ++f) w[1 + f] = x.v[f];
-}
-
-// The exclusive segmented scan of one DevSums a thread, in thread order,
-// across the block: warp shuffles, then the warps' totals through `area`
-// (kWarps * kDevScanWords words of the working set). The whole block
-// calls it.
-template <bool kCharge>
-__device__ DevSums dev_block_scan(const DevSums x, int* area) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const DevSums inc = dev_warp_scan<kCharge>(x);
-  DevSums before = dev_shfl_up(inc, 1);
-  if (lane == 0) before = dev_none();
-  if (lane == 31) dev_store(area + warp * kDevScanWords, inc);
-  __syncthreads();
-  if (warp == 0) {
-    const DevSums t = dev_warp_scan<kCharge>(
-        lane < nwarps ? dev_load(area + lane * kDevScanWords) : dev_none());
-    if (lane < nwarps) dev_store(area + lane * kDevScanWords, t);
-  }
-  __syncthreads();
-  if (warp > 0) before = dev_then<kCharge>(dev_load(area + (warp - 1) * kDevScanWords), before);
-  return before;
+  for (int f = 0; f < 4; ++f) a[1 + f] = x.v[f];
 }
 
 // Two words a row, the device word and the segment word, then the scan
 // area.
 __host__ __device__ inline size_t dev_bytes(int P) {
   return ((size_t)P * 2 + kWarps * kDevScanWords) * sizeof(int);
-}
-
-// Thread t's span of the sorted rows: C = ceil(P / T) in a row from t * C.
-__device__ __forceinline__ void dev_span(int P, int& j0, int& j1) {
-  const int c = (P + blockDim.x - 1) / blockDim.x;
-  j0 = min(P, (int)threadIdx.x * c);
-  j1 = min(P, j0 + c);
 }
 
 // Sorted row j's terms in the acceptance: its node, whether its segment
@@ -1641,7 +1820,8 @@ __device__ __noinline__ void device_accept(const uint64_t* keys, int P, int N, i
   dev_span(P, j0, j1);
   DevSums run = dev_none();
   for (int j = j0; j < j1; ++j) run = dev_then<false>(run, dev_row(keys, j, N, dv).t);
-  run = dev_block_scan<false>(run, d_scan);
+  run = seg_block_scan(run, d_scan,
+                       [](const DevSums& l, const DevSums& r) { return dev_then<false>(l, r); });
   for (int j = j0; j < j1; ++j) {
     const DevRow r = dev_row(keys, j, N, dv);
     run = dev_then<false>(run, r.t);
@@ -1722,7 +1902,8 @@ __device__ __noinline__ void device_charge(int P, int N, const int* d_info, cons
   };
   DevSums run = dev_none();
   for (int j = j0; j < j1; ++j) run = dev_then<true>(run, terms(j));
-  run = dev_block_scan<true>(run, d_scan);
+  run = seg_block_scan(run, d_scan,
+                       [](const DevSums& l, const DevSums& r) { return dev_then<true>(l, r); });
   for (int j = j0; j < j1; ++j) {
     run = dev_then<true>(run, terms(j));
     const int node = d_seg[j];
@@ -1761,18 +1942,17 @@ template <int D, int R>
 __device__ __noinline__ void zone_select_apart(bool (&ok)[R], int (&zsel)[R],
                                                const uint64_t (&key)[R], const int (&start)[R],
                                                const float (&rq)[R][D], const bool (&bound)[R],
-                                               int P, int N, const uint64_t* keys, int* z_bits,
-                                               int* z_res, int* z_end, float* z_req,
-                                               const RoundZones& zn) {
-  zone_select<D, R>(ok, zsel, key, start, rq, bound, P, N, keys, z_bits, z_res, z_end, z_req, zn);
+                                               int P, int N, int* z_bits, int* z_list,
+                                               float* z_req, int* area, const RoundZones& zn) {
+  zone_select<D, R>(ok, zsel, key, start, rq, bound, P, N, z_bits, z_list, z_req, area, zn);
 }
 
 template <int D, int R>
 __device__ __noinline__ void zone_charge_apart(const bool (&ok)[R], const int (&zsel)[R],
                                                const uint64_t (&key)[R], const int (&start)[R],
-                                               int P, int N, int* z_res, const int* z_end,
+                                               int P, int N, const int* z_list, int* z_res,
                                                const float* z_req, const RoundZones& zn) {
-  zone_charge<D, R>(ok, zsel, key, start, P, N, z_res, z_end, z_req, zn);
+  zone_charge<D, R>(ok, zsel, key, start, P, N, z_list, z_res, z_req, zn);
 }
 
 // R rows a thread: row i = tid + r * blockDim.x. A row's values stay in
@@ -1821,15 +2001,16 @@ round_tail_kernel(const float* __restrict__ top_cost,
   int* st_bits = (int*)(st_est + (size_t)P * D);        // [P]
   int* st_asg = st_bits + P;                            // [P]
   int* s_flags = (int*)((char*)keys2 + area_bytes(P, D, G, staged, qbytes));  // [P]
-  // the zone phase's words (kZone): bits, result, segment end [P] each,
-  // then the zone requests [P, DN]
+  // the zone phase's words (kZone): bits, then result [P], the segments'
+  // lists [P, 4] (16-bit entries in shared memory), then the zone
+  // requests [P, DN]
+  using ZoneEntryT = std::conditional_t<kGlobal, int, uint16_t>;
   int* z_bits = s_flags + P;
-  int* z_res = z_bits + P;
-  int* z_end = z_res + P;
-  float* z_req = (float*)(z_end + P);
+  ZoneEntryT* z_list = (ZoneEntryT*)(z_bits + P);
+  float* z_req = (float*)(z_list + (size_t)P * kZoneListSlots);
   // the device phase's words (devices): each sorted row's device word and
   // segment word [P] each, after the zone phase's
-  int* d_info = (int*)((char*)z_bits + (kZone ? zone_bytes(P, zn.DN) : 0));
+  int* d_info = (int*)((char*)z_bits + (kZone ? zone_bytes(P, zn.DN, kGlobal) : 0));
   int* d_seg = d_info + P;
   int* d_scan = d_seg + P;
   const bool devices = kDev && dv.slots != nullptr;
@@ -2075,10 +2256,10 @@ round_tail_kernel(const float* __restrict__ top_cost,
   int zsel[R];
   if constexpr (kZone) {
     if constexpr (kGlobal)
-      zone_select_apart<D, R>(ok, zsel, key, start, rq, bound, P, N, keys, z_bits, z_res, z_end,
-                              z_req, zn);
+      zone_select_apart<D, R>(ok, zsel, key, start, rq, bound, P, N, z_bits, z_list, z_req,
+                              warp_sums, zn);
     else
-      zone_select<D, R>(ok, zsel, key, start, rq, bound, P, N, keys, z_bits, z_res, z_end, z_req,
+      zone_select<D, R>(ok, zsel, key, start, rq, bound, P, N, z_bits, z_list, z_req, warp_sums,
                         zn);
 #pragma unroll (R <= 4 ? R : 1)
     for (int r = 0; r < R; ++r) ok[r] = ok[r] && qok[r];
@@ -2187,9 +2368,9 @@ round_tail_kernel(const float* __restrict__ top_cost,
 
   // 7z. With zones, the final winners' zone charges (:1417-1432)
   if constexpr (kZone && kGlobal)
-    zone_charge_apart<D, R>(ok, zsel, key, start, P, N, z_res, z_end, z_req, zn);
+    zone_charge_apart<D, R>(ok, zsel, key, start, P, N, z_list, z_bits, z_req, zn);
   else if constexpr (kZone)
-    zone_charge<D, R>(ok, zsel, key, start, P, N, z_res, z_end, z_req, zn);
+    zone_charge<D, R>(ok, zsel, key, start, P, N, z_list, z_bits, z_req, zn);
 
   // 7d. With devices, the final winners' device charges (:1386-1416) and
   // the charged nodes' stats
@@ -2287,7 +2468,7 @@ inline Config smem_config(int P, int D, int R, bool quota, int Q, int L, bool zo
                           bool dev) {
   const size_t most = (size_t)max_smem() - sizeof(ScanLevels) - kWarps * sizeof(int);
   const size_t qbytes = quota ? quota_layout(P, D, Q, L, R).total : 0;
-  const size_t zbytes = (zone ? zone_bytes(P, DN) : 0) + (dev ? dev_bytes(P) : 0);
+  const size_t zbytes = (zone ? zone_bytes(P, DN, false) : 0) + (dev ? dev_bytes(P) : 0);
   for (int staged = 1; staged >= 0; --staged)
     for (int g = D; g >= 1; --g) {
       const size_t smem = round_smem_bytes(P, D, g, staged, qbytes, zbytes);
@@ -2302,7 +2483,7 @@ inline size_t big_bytes(int P, int D, int R, bool quota, int Q, int L, bool zone
                         bool dev) {
   const size_t qbytes = quota ? quota_layout(P, D, Q, L, R).total : 0;
   return round_smem_bytes(P, D, D, 1, qbytes,
-                          (zone ? zone_bytes(P, DN) : 0) + (dev ? dev_bytes(P) : 0));
+                          (zone ? zone_bytes(P, DN, true) : 0) + (dev ? dev_bytes(P) : 0));
 }
 
 template <int D, int R, bool kQuota, bool kZone, bool kGlobal, bool kDev>
@@ -2397,7 +2578,7 @@ inline cudaError_t check_args(const Args& a) {
   if (a.chain != nullptr && (a.Q < 1 || a.L < 1)) return cudaErrorInvalidValue;
   if (a.zones.free != nullptr &&
       (a.zones.Z < 1 || a.zones.Z > kMaxZones || a.zones.DN < 1 || a.zones.DN > kMaxZoneDims ||
-       a.zones.DN > a.D))
+       a.zones.DN > a.D || a.zones.side == nullptr))
     return cudaErrorInvalidValue;
   if (a.devices.slots != nullptr &&
       (a.devices.G < 1 || a.devices.G > koord_device::kMaxSlots || a.P > kDevRowMask + 1 ||
@@ -2429,11 +2610,11 @@ inline Args make_args(const void* top_cost, const void* top_idx, const void* req
               (char*)scratch, (cudaStream_t)stream};
 }
 
-inline RoundZones make_zones(void* zone_free, const void* zone_cap, const void* policy,
+inline RoundZones make_zones(void* zone_free, const void* zone_cap, const void* side,
                              const void* most, const void* required, void* pod_zone, int Z,
                              int DN) {
-  return RoundZones{(float*)zone_free, (const float*)zone_cap, (const int8_t*)policy,
-                    (const bool*)most, (const bool*)required, (int*)pod_zone, Z, DN};
+  return RoundZones{(float*)zone_free, (const float*)zone_cap, (const bool*)most,
+                    (const bool*)required, (int*)pod_zone, (const uint32_t*)side, Z, DN};
 }
 
 inline RoundDevices make_devices(void* slots, void* stats, void* rdma, void* fpga,

@@ -7,10 +7,11 @@
 #include "round.cuh"
 
 // koord_round_tail's arguments, then the zones: the carried table
-// [N, Z, DN] float32 (charged in place), the capacities, the policies [N]
-// int8, the MostAllocated flags [N] bool, the sorted pods' required flags
-// [P] bool and zone picks [P] int32 (written for each winner); then the
-// devices as koord_round_tail takes them.
+// [N, Z, DN] float32 (charged in place), the capacities, the nodes' side
+// table [N, 1 + DN + Z] int32 (zone_prep.cu), the MostAllocated flags [N]
+// bool, the sorted pods' required flags [P] bool and zone picks [P] int32
+// (written for each winner); then the devices as koord_round_tail takes
+// them.
 extern "C" int koord_round_tail_zone(
     const void* top_cost, const void* top_idx, const void* req,
     const void* est, const void* is_prod, const void* cpu_bind,
@@ -19,7 +20,7 @@ extern "C" int koord_round_tail_zone(
     void* prod_used, void* assigned, void* active, void* state,
     float round_quantum, int P, int N, int D, int K, const void* chain,
     const void* runtime, void* qused, void* gate, int Q, int L, void* zone_free,
-    const void* zone_cap, const void* policy, const void* most, const void* required,
+    const void* zone_cap, const void* side, const void* most, const void* required,
     void* pod_zone, int Z, int DN,
     void* dev_slots, void* dev_stats, void* rdma_free, void* fpga_free, const void* gpu_whole,
     const void* gpu_share, const void* rdma_req, const void* fpga_req, const void* dev_wide,
@@ -28,7 +29,7 @@ extern "C" int koord_round_tail_zone(
   const Args a = make_args(top_cost, top_idx, req, est, is_prod, cpu_bind, cpu_amp, alloc, fresh,
                            thr, pthr, requested, est_used, prod_used, assigned, active, state,
                            round_quantum, P, N, D, K, chain, runtime, qused, gate, Q, L,
-                           make_zones(zone_free, zone_cap, policy, most, required, pod_zone, Z,
+                           make_zones(zone_free, zone_cap, side, most, required, pod_zone, Z,
                                       DN),
                            make_devices(dev_slots, dev_stats, rdma_free, fpga_free, gpu_whole,
                                         gpu_share, rdma_req, fpga_req, dev_wide, G),

@@ -349,10 +349,13 @@ def round_tail_plain(
     ``gate`` becomes the next round's: active pods with quota headroom.
 
     ``zone`` = (zone_free [N, Z, DN], zone_cap [N, Z, DN], policy [N]
-    int8, zone_most [N] bool, required [P] bool, pod_zone [P] int32) turns
-    on the zone selection (:func:`zone_phase_plain`): the winners' zone
-    charges come off ``zone_free`` in place and each winner's pick is
-    written into ``pod_zone`` (priority-sorted, -1 = none, :1432).
+    int8, zone_most [N] bool, required [P] bool, pod_zone [P] int32[,
+    side]) turns on the zone selection (:func:`zone_phase_plain`): the
+    winners' zone charges come off ``zone_free`` in place and each
+    winner's pick is written into ``pod_zone`` (priority-sorted, -1 =
+    none, :1432). ``side``, the nodes' side table of
+    :func:`.numa.zone_prep`, is what the kernel reads of the capacities
+    and policies; this version works them out from those.
 
     ``dev`` (a :class:`.device.DeviceTerms` of the batch) turns on the
     device acceptance and charges (:func:`device_accept_plain`,
@@ -481,7 +484,8 @@ def round_tail(
     host. With ``quota`` the quota commit (the branch ``_quota_commit``
     takes for the table's shape) and the next round's gate are phases of
     the same launch, counted also as ``quota_commit_onehot`` or
-    ``quota_commit_sorted``; with ``zone`` the zone selection and charges,
+    ``quota_commit_sorted``; with ``zone`` (its side table, ``zone[6]``,
+    required here) the zone selection and charges,
     counted also as ``zone_phase``; with ``dev`` the device acceptance and
     charges, counted also as ``device_phase``. The kernel is
     ``csrc/round.cu``'s (or with zones ``round_zone.cu``'s; with devices
@@ -517,16 +521,21 @@ def round_tail(
     z_args = []
     dn = 0
     if zone is not None:
-        zone_free, zone_cap, policy, zone_most, required, pod_zone = zone
+        if len(zone) != 7:
+            raise kernels.KernelArgumentError(
+                "round_tail: on the card the zones need the nodes' side table (zone[6], "
+                "ops/numa.py:zone_prep)"
+            )
+        zone_free, zone_cap, _, zone_most, required, pod_zone, side = zone
         _, nz, dn = zone_cap.shape
         if not (1 <= nz <= 8 and 1 <= dn <= min(4, d)) or zone_free.shape != zone_cap.shape:
             raise kernels.KernelArgumentError(
                 f"round_tail: zones [N, Z={nz}, DN={dn}] need Z <= 8, DN <= min(4, D)"
             )
         z_args = kernels.checked_ptrs(
-            "round_tail", (top_cost, zone_free, zone_cap, policy, zone_most, required, pod_zone),
-            (_F32, _F32, _F32, torch.int8, _BOOL, _BOOL, _I32),
-            (pk, n * nz * dn, n * nz * dn, n, n, p, p),
+            "round_tail", (top_cost, zone_free, zone_cap, side, zone_most, required, pod_zone),
+            (_F32, _F32, _F32, _I32, _BOOL, _BOOL, _I32),
+            (pk, n * nz * dn, n * nz * dn, n * (1 + dn + nz), n, p, p),
         )[1:] + [nz, dn]
     d_args = checked_round_devices(dev, top_cost, p, n)
     if p > MAX_ROUND_PODS:

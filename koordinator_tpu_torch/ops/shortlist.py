@@ -40,7 +40,8 @@ MAX_SHORTLIST = 1024
 #: the largest nomination fan-out k the round kernel takes
 MAX_K = 8
 #: int32 words a round's word holds: trigger, bound flag, exhausted flag
-#: and the round kernel's block ticket
+#: and a fourth the kernels do not use (``nominate`` takes the word as 16
+#: bytes)
 WORD = 4
 
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
@@ -141,10 +142,11 @@ def shortlist_round_plain(
     table gathered at each pod's candidates, ``solver.py:1001-1008``);
     ``devices`` the device terms at each candidate, from the round-start
     stats (:1052-1081, the score LeastAllocated's: the shortlist is off
-    under MostAllocated). Sets ``word`` [4] int32 (the
-    round's, zero before it) to (any unsafe pod — the fallback trigger;
-    any unsafe pod with a finite candidate; any without) and adds the last
-    two to ``counts`` [2]. Returns the nomination (cost [P, k], node
+    under MostAllocated). ORs into ``word`` [4] int32 (the
+    round's, zero before it) (any unsafe pod — the fallback trigger;
+    any unsafe pod with a finite candidate; any without) and adds one to
+    ``counts`` [2] for each of the last two it finds clear: once a round.
+    Returns the nomination (cost [P, k], node
     [P, k]). While the round loop's ``state`` has ``done`` set it changes
     nothing and returns unwritten buffers, as the kernel does."""
     p = req.shape[0]
@@ -187,8 +189,8 @@ def shortlist_round_plain(
     flags = torch.stack(
         [unsafe.any(), (unsafe & cand_any).any(), (unsafe & ~cand_any).any()]
     ).to(_I32)
+    counts += flags[1:] & (word[1:3] == 0).to(_I32)
     word[:3] |= flags
-    counts += flags[1:]
     return nomination_vector(top_cost, top_idx, approx_topk)
 
 

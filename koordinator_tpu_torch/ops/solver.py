@@ -655,7 +655,8 @@ def _assign_(
         zone_free, zone_cap, policy, zone_most, scoring = zones
         terms = ZoneTerms.batch_start(zone_free, zone_cap, policy, spods.numa_required, scoring)
         azone = torch.full((p,), -1, dtype=torch.int32, device=dev)
-        round_zone = (zone_free, zone_cap, policy, zone_most, spods.numa_required, azone)
+        round_zone = (zone_free, zone_cap, policy, zone_most, spods.numa_required, azone,
+                      terms.side)
     dterms = None
     if devs is not None:
         dterms = DeviceTerms.batch_start(*devs[:4], spods, devs[4])

@@ -543,6 +543,101 @@ def test_shortlist_round_kernel_matches_plain(cuda, p, n, d, sk, k, approx, boun
         assert pw[0] == 1
 
 
+#: the shortlist round's geometry cases: (pods, nodes, K) — pods off the
+#: block's four, K = 64 (a candidate a lane of two warps), K below 32
+#: (lanes and a whole warp with no candidate) and K = 96 (two a lane)
+ROUND_GEOMETRY = [(37, 3000, 64), (510, 10_000, 64), (13, 2000, 20), (130, 4000, 31),
+                  (6, 500, 8), (21, 1000, 96)]
+
+
+def shortlist_round_terms(p, n, terms, device, numa, required, devices, demand):
+    kw = {}
+    if terms in ("zones", "both"):
+        kw["zones"] = tnuma.ZoneTerms.batch_start(
+            torch.from_numpy(numa["zone_free"]).to(device),
+            torch.from_numpy(numa["zone_cap"]).to(device),
+            torch.from_numpy(numa["policy"]).to(device),
+            torch.from_numpy(required).to(device), 1)
+    if terms in ("devices", "both"):
+        kw["devices"] = device_terms(devices, demand, device, 1)
+    return kw
+
+
+@pytest.mark.parametrize("terms", ["plain", "zones", "devices", "both"])
+@pytest.mark.parametrize("p, n, sk", ROUND_GEOMETRY)
+def test_shortlist_round_geometry_matches_plain(cuda, terms, p, n, sk):
+    """The shortlist round's geometry (two warps a pod, four pods a block,
+    the warps' lists merged) at k = 1..8: pods off the block's four, K = 64,
+    K below 32 and above 64, with zones, devices and both; half the pods'
+    bounds lowered so that the round falls back: nomination, word and
+    counts equal the plain version's."""
+    arrays, numa, required = zone_inputs(p * 5 + n + sk, p, n, 2, 2)
+    devices, demand = device_demand(p + n + 1, p, n, 16, True)
+    cpu_kw = shortlist_round_terms(p, n, terms, "cpu", numa, required, devices, demand)
+    cand, bound = tsl.shortlist_build_plain(
+        *[torch.from_numpy(a) for a in arrays[:4] + arrays[5:]], sk, 4.0, **cpu_kw)
+    bound = torch.where(torch.arange(p) % 2 == 0, bound - 200.0, bound)
+    for k in range(1, min(8, sk) + 1):
+        outs = []
+        for device in (cuda, "cpu"):
+            args = [torch.from_numpy(a).to(device) for a in arrays]
+            kw = shortlist_round_terms(p, n, terms, device, numa, required, devices, demand)
+            word = torch.zeros(tsl.WORD, dtype=torch.int32, device=device)
+            counts = torch.tensor([2, 3], dtype=torch.int32, device=device)
+            state = torch.zeros(2, dtype=torch.int32, device=device)
+            top = tsl.shortlist_round(*args, cand.to(device), bound.to(device), k, 4.0, k % 2 == 0,
+                                      word, counts, state, **kw)
+            outs.append([t.cpu() for t in (*top, word[:3], counts)])
+        torch.cuda.synchronize()
+        for name, a, b in zip(("cost", "node", "word", "counts"), *outs):
+            np.testing.assert_array_equal(bits(a.numpy()), bits(b.numpy()), err_msg=f"k={k} {name}")
+
+
+@pytest.mark.parametrize("terms", ["plain", "zones", "devices", "both"])
+def test_shortlist_round_counts_over_rounds_match_plain(cuda, terms):
+    """A sequence of rounds, each with its own word and the batch's counts
+    (the solver's use): rounds that fall back with a finite candidate, with
+    none (requests no candidate holds), both, and none at all, then a round
+    after the fixed point; after each round the word and the counts equal
+    the plain version's, and each count is the rounds with its flag."""
+    p, n, sk = 77, 3000, 64
+    arrays, numa, required = zone_inputs(p + n, p, n, 2, 2)
+    devices, demand = device_demand(p + n + 2, p, n, 16, True)
+    cpu_kw = shortlist_round_terms(p, n, terms, "cpu", numa, required, devices, demand)
+    cand, bound = tsl.shortlist_build_plain(
+        *[torch.from_numpy(a) for a in arrays[:4] + arrays[5:]], sk, 4.0, **cpu_kw)
+    odd = torch.arange(p) % 2 == 1
+    rounds = [(bound, False), (bound - 500.0, False), (bound, True),
+              (torch.where(odd, bound - 500.0, bound), True), (bound - 500.0, False)]
+    sides = []
+    for device in (cuda, "cpu"):
+        kw = shortlist_round_terms(p, n, terms, device, numa, required, devices, demand)
+        sides.append(dict(kw=kw, counts=torch.zeros(2, dtype=torch.int32, device=device),
+                          state=torch.zeros(2, dtype=torch.int32, device=device)))
+    seen = []
+    for r, (b, starve) in enumerate(rounds + [(bound, False)]):
+        got = []
+        for device, side in zip((cuda, "cpu"), sides):
+            a = [x.copy() for x in arrays]
+            if starve:  # every even pod asks for more than any node holds
+                a[0][::2] = 1e9
+            args = [torch.from_numpy(x).to(device) for x in a]
+            if r == len(rounds):
+                side["state"][0] = 1  # after the fixed point: nothing counted
+            word = torch.zeros(tsl.WORD, dtype=torch.int32, device=device)
+            tsl.shortlist_round(*args, cand.to(device), b.to(device), 4, 4.0, True, word,
+                                side["counts"], side["state"], **side["kw"])
+            got.append((word[:3].cpu(), side["counts"].cpu().clone()))
+        torch.cuda.synchronize()
+        (wk, ck), (wp, cp) = got
+        np.testing.assert_array_equal(wk.numpy(), wp.numpy(), err_msg=f"round {r} word")
+        np.testing.assert_array_equal(ck.numpy(), cp.numpy(), err_msg=f"round {r} counts")
+        seen.append(got[1][0].tolist())
+    counts = sides[1]["counts"].tolist()
+    assert counts == [sum(w[1] for w in seen), sum(w[2] for w in seen)]
+    assert min(counts) > 0 and seen[-1] == [0, 0, 0]
+
+
 def test_shortlist_fallback_fires_on_card(cuda):
     """The contention fixture's rounds fall back on the card, as on the
     CPU, with the same decisions and counts."""
@@ -788,6 +883,12 @@ def test_quota_stream_full_on_card_matches_plain_and_golden(cuda):
 from koordinator_tpu_torch.ops import numa as tnuma  # noqa: E402
 
 
+def with_side(zone):
+    """A round tail's zone tuple with the nodes' side table (``zone_prep``),
+    which the kernel reads for the capacities and policies."""
+    return tuple(zone) + (tnuma.zone_prep(zone[0], zone[1], zone[2])[1],)
+
+
 @pytest.mark.parametrize("p", [4097, 8192, 16_384])
 @pytest.mark.parametrize("d", [1, 4, 8])
 @pytest.mark.parametrize("q", [0, 21, 1057, 300_000])
@@ -935,6 +1036,7 @@ def test_round_tail_zone_phase_matches_plain(cuda, p, d, zones, quota):
                 torch.from_numpy(numa["zone_most"]).to(device),
                 torch.from_numpy(required).to(device),
                 torch.full((p,), -1, dtype=torch.int32, device=device))
+        zone = with_side(zone)
         q = None
         if quota:
             chain, runtime, used = (torch.from_numpy(a).to(device)
@@ -1240,6 +1342,7 @@ def test_round_tail_device_phase_matches_plain(cuda, p, g, rdma, quota, zones):
                  torch.from_numpy(numa["zone_most"]).to(device),
                  torch.from_numpy(required).to(device),
                  torch.full((p,), -1, dtype=torch.int32, device=device))
+            z = with_side(z)
         if device == cuda:
             before = kernels.launches["device_phase"]
             tcommit.round_tail(*args, 0.35, quota=q, zone=z, dev=v)
@@ -1268,6 +1371,38 @@ def test_round_tail_device_phase_crowded_matches_plain(cuda, p, both):
     for name, a, b in pairs:
         np.testing.assert_array_equal(bits(a.cpu().numpy()), bits(b.numpy()), err_msg=name)
     assert ((plain_nd[14] >= 0) & (host[14] < 0)).any()
+
+
+@pytest.mark.parametrize("quota", [False, True])
+@pytest.mark.parametrize("p", chip_smoke.CROWDED_ZONE_PODS)
+def test_round_tail_zone_phase_crowded_matches_plain(cuda, p, quota):
+    """The zone phase's long segments: every pod of a round nominates one
+    of four SINGLE_NUMA_NODE nodes (``chip_smoke.crowded_zone_inputs``:
+    two and four zones, two MostAllocated, segments of about P / 4 zone
+    candidates, most past the fourth, some of the first four finding no
+    zone), in shared memory (512 and 4,096 pods) and device memory (8,192
+    and 32,768), without and with quotas: the kernel's tables, picks and
+    loop state equal the plain round's."""
+    args, q, z = chip_smoke.crowded_zone_inputs(torch, cuda, p, quota=quota)
+    outs = []
+    for device in (cuda, "cpu"):
+        work = [t.to(device).clone() for t in args]
+        qq = None if q is None else (q[0].to(device), q[1].to(device), q[2].to(device).clone(),
+                                     q[3].to(device).clone())
+        zz = tuple(t.to(device).clone() for t in z)
+        before = kernels.launches["zone_phase"]
+        fn = tcommit.round_tail if device == cuda else tcommit.round_tail_plain
+        fn(*work, 0.35, quota=qq, zone=zz)
+        if device == cuda:
+            torch.cuda.synchronize()
+            assert kernels.launches["zone_phase"] == before + 1
+        outs.append(work[11:] + [zz[0], zz[5]] + ([] if qq is None else list(qq[2:])))
+    assert_round_equal(*outs)
+    picks, assigned = outs[1][7], outs[1][3]
+    # each node takes at most four zone winners; some segments fewer
+    per_node = np.bincount(assigned[assigned >= 0].numpy())
+    assert per_node.max() <= 4 and (picks >= 0).sum() == (assigned >= 0).sum()
+    assert ((per_node > 0) & (per_node < 4)).any()
 
 
 @pytest.mark.parametrize("p, both", [(512, False), (4096, False), (8192, True),
@@ -1376,6 +1511,7 @@ def big_round_matches_plain(cuda, p, d, q, zones):
                  torch.from_numpy(numa["zone_most"]).to(device),
                  torch.from_numpy(required).to(device),
                  torch.full((p,), -1, dtype=torch.int32, device=device))
+            z = with_side(z)
         if device == cuda:
             before = kernels.launches["round_tail_big"]
             tcommit.round_tail(*args, 0.35, quota=qq, zone=z)
@@ -1933,6 +2069,7 @@ def test_round_tail_quota_commit_with_zones_and_devices_matches_plain(cuda, p, k
                  torch.from_numpy(numa["zone_most"]).to(device),
                  torch.from_numpy(required).to(device),
                  torch.full((p,), -1, dtype=torch.int32, device=device))
+            z = with_side(z)
         fn = tcommit.round_tail if device == cuda else tcommit.round_tail_plain
         fn(*args, 0.35, quota=q, zone=z, dev=v)
         outs.append(args[11:] + list(q[2:]) + ([] if z is None else [z[0], z[5]])

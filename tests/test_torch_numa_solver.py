@@ -137,6 +137,58 @@ def test_solve_stream_full_with_numa_matches_reference(scoring, k):
     assert (got[1].numpy()[1:] >= 0).sum() > 0
 
 
+def crowded_zone_case(p=48, seed=9):
+    """A scaled-down crowded zone round (``chip_smoke.crowded_zone_inputs``
+    at a few dozen pods): six nodes of which four are schedulable,
+    SINGLE_NUMA_NODE, with room for every pod (so every row of their
+    segments is a zone candidate, about p / 4 a segment) and small zones,
+    two with two zones and two with four, two MostAllocated; the fixture's
+    cpuset-bound and required pods among the others; no gangs. Returns the
+    JAX and port inputs as :func:`numa_case`."""
+    nodes, pods, params = chip_smoke.rich_fixture(seed, 6, p, batch=p)
+    rng = np.random.default_rng(seed)
+    pods["gang_id"] = np.full(p, -1, np.int32)
+    nodes["schedulable"] = np.array([True] * 4 + [False] * 2)
+    nodes["allocatable"] = nodes["allocatable"].copy()
+    nodes["allocatable"][:4] = 1e6
+    cap = np.zeros((6, 4, 2), np.float32)
+    cap[[0, 1, 4, 5], :2] = (8000.0, 32000.0)
+    cap[2:4] = (4000.0, 16000.0)
+    numa = dict(zone_free=(cap * rng.uniform(0.2, 0.7, (6, 4, 1))).astype(np.float32),
+                zone_cap=cap, policy=np.array([3, 3, 3, 3, 0, 0], np.int8),
+                zone_most=np.array([True, False, True, False, False, False]))
+    required = rng.random(p) < 0.2
+    jp = J.PodBatch.create(**dict(pods, numa_required=required))
+    jn = J.NodeState.create(**nodes)
+    jpar = J.SolverParams(**{k: jnp.asarray(v) for k, v in params.items()})
+    jnuma = JN.NumaState(**{k: jnp.asarray(v) for k, v in numa.items()})
+    port = (from_jax(T.PodBatch, jp, device="cpu"), from_jax(T.NodeState, jn, device="cpu"),
+            from_jax(T.SolverParams, jpar, device="cpu"), from_jax(TN.NumaState, jnuma,
+                                                                   device="cpu"))
+    return (jp, jn, jpar, jnuma), port
+
+
+@pytest.mark.parametrize("rounds", [1, 3])
+@pytest.mark.parametrize("scoring", [None, "LeastAllocated"])
+def test_crowded_zone_round_matches_reference(rounds, scoring):
+    """Every pod on four SINGLE_NUMA_NODE nodes (:func:`crowded_zone_case`):
+    the round tail's zone phase refuses each segment's candidates past the
+    fourth, and those of the first four that find no zone; the port's
+    rounds equal the reference's, tables and picks bitwise."""
+    (jp, jn, jpar, jnuma), (tp, tn, tpar, tnuma) = crowded_zone_case()
+    kw = dict(numa_scoring=scoring, max_rounds=rounds, approx_topk=True)
+    want = J.assign(jp, jn, jpar, numa=jnuma, **kw)
+    got = T.assign(tp, tn, tpar, numa=tnuma, **kw)
+    for f in RESULT_FIELDS:
+        assert_bits_equal(getattr(want, f), getattr(got, f).numpy(), f)
+    if rounds == 1:
+        per_node = np.bincount(got.assignment.numpy()[got.assignment.numpy() >= 0], minlength=4)
+        # the rank cut (segments of ~12 candidates, 4 winners at most) and
+        # a strict candidate of the first four refused for want of a zone
+        assert per_node.max() == 4 and per_node[:4].min() < 4
+        assert (got.pod_zone.numpy() >= 0).sum() == (got.assignment.numpy() >= 0).sum()
+
+
 # -------------------------------------------------------------- the golden
 
 NUMA_KEYS = [f"{(s or 'none').lower()}_k{k or 0}" for s in chip_smoke.NUMA_SCORINGS

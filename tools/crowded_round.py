@@ -70,7 +70,7 @@ def main() -> int:
         def fresh():
             return ([t.clone() for t in args_t[mut]], smoke.device_terms_copy(terms),
                     None if q is None else (q[0], q[1], q[2].clone(), q[3].clone()),
-                    None if z is None else (z[0].clone(),) + z[1:5] + (z[5].clone(),))
+                    None if z is None else (z[0].clone(),) + z[1:5] + (z[5].clone(),) + z[6:])
 
         copies = iter([fresh() for _ in range(4 * args.iters + 8)])
 

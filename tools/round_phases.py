@@ -2,7 +2,7 @@
 """Where the round-tail kernel spends its cycles, phase by phase.
 
     python3 tools/round_phases.py [--pods 512 4096] [--quota none onehot sorted] [--zones]
-                                  [--devices] [--big] [--built] [--tree DIR]
+                                  [--crowded] [--devices] [--big] [--built] [--tree DIR]
     python3 tools/round_phases.py --ptxas [--tree DIR]
 
 Builds a copy of the round tail (``koordinator_tpu_torch/csrc/round.cuh``
@@ -12,35 +12,43 @@ each phase comment of ``round_tail_kernel`` ("// 1. ...", "// 4-5. ...",
 "// Z. ...", "// 7d. ...") and before the state word is written, then runs it on
 the card on round 0 of ``chip_smoke.py``'s kernel-check fixture (batch 0,
 and the first P / 512 batches as one round for P > 512, N = 10,000,
-D = 2). Each run's tables, assignments, active flags and state word (and
-quota and zone tables) must equal the built kernel's (``round_tail``); the
-script prints, for each P, the median over 15 runs of the SM cycles from
-the kernel's start to each mark, and the CUDA-event time of a call.
+D = 2), through the tree's own ``commit.round_tail`` with the copy loaded
+in place of the entry's library. Each run's tables, assignments, active
+flags and state word (and quota and zone tables) must equal the built
+kernel's; the script prints, for each P, the median over 15 runs of the
+SM cycles from the kernel's start to each mark, and the CUDA-event time
+of a call.
 ``--quota`` names the rounds to run: ``none`` (the default), or a tree of
 ``chip_smoke.QUOTA_TREES`` (its chains, and the tables and quota state
 after ``chip_smoke.QUOTA_LATER`` batches, where the quotas bind; phase 6
 is then the quota commit). ``--zones`` runs the rounds with NUMA zones
 (``chip_smoke.numa_port_inputs``, LeastAllocated pricing, after 3
-batches). ``--devices`` runs the rounds with devices
+batches); with ``--crowded`` instead this checkout's
+``chip_smoke.crowded_zone_inputs`` (every pod nominating one of four
+SINGLE_NUMA_NODE nodes: segments of about P / 4 zone candidates).
+``--devices`` runs the rounds with devices
 (``chip_smoke.device_port_inputs``: G = 16, RDMA and FPGA; LeastAllocated
 pricing, after 3 batches; phases "D." and "7d." are the device
-acceptance and charges), without quotas. ``--big`` runs round 0 of
-the big batch (``chip_smoke.big_port_inputs``, D = 4, ``--pods`` 8,192
-to 32,768, ``--quota`` none or sorted) in ``round_big.cu``, as phase 10
-of the smoke sets it up; with ``--built`` also 65,536 (the round tail
-routes it to ``round_huge.cu``). The quota commit's and the zone phase's cycles
-are also given by sub-phase ("// q1. ...", "// z1. ...": the cycles from
-there to the next mark, summed over the chain's levels, kept in shared
-memory so that a mark costs a few cycles). Only the width the fixture
-uses is instantiated in the copy. ``--built`` times the tree's own
-round tail instead (``commit.round_tail``, no instrumentation): the
-CUDA-event time of a call and the ``torch.profiler`` device time of the
-round tail kernel. ``--tree DIR`` runs another tree's package and smoke
-(a commit unpacked with ``git archive``): run OLD NEW NEW OLD in one call
-to compare two trees. ``--ptxas`` builds the tree's round sources and
-prints the registers and spill bytes of every ``round_tail_kernel``
-instantiation and of the quota commit's own frame. Needs a CUDA device
-and ``nvcc``; the copy is built under the tree's
+acceptance and charges), without quotas. ``--big`` runs the device-memory
+entry, ``round_big.cu``: round 0 of the big batch
+(``chip_smoke.big_port_inputs``, D = 4, ``--pods`` 8,192 to 32,768,
+``--quota`` none or sorted) as phase 10 of the smoke sets it up, or with
+``--zones`` the zone rounds of 8,192 to 32,768 pods; with ``--built``
+also 65,536 (the round tail routes it to ``round_huge.cu``). The quota
+commit's and the zone phase's cycles are also given by sub-phase ("//
+q1. ...", "// z1. ...": the cycles from there to the next mark, summed
+over the chain's levels, kept in shared memory so that a mark costs a few
+cycles). Only the width the fixture uses is instantiated in the copy.
+``--built`` times the tree's own round tail instead
+(``commit.round_tail``, no instrumentation): the CUDA-event time of a
+call and the ``torch.profiler`` device time of the round tail kernel.
+``--tree DIR`` runs another tree's package and smoke (a commit unpacked
+with ``git archive``; the crowded rounds come from this checkout's
+smoke): run OLD NEW NEW OLD in one call to compare two trees.
+``--ptxas`` builds the tree's round sources and prints the registers and
+spill bytes of every ``round_tail_kernel`` instantiation and of the
+quota commit's and the zone phase's own frames. Needs a CUDA device and
+``nvcc``; the copy is built under the tree's
 ``koordinator_tpu_torch/build/``.
 """
 
@@ -156,8 +164,8 @@ ROUND_SOURCES = ("round", "round_zone", "round_dev", "round_zone_dev", "round_bi
 
 def ptxas(kernels) -> dict:
     """Registers and spill bytes (stores and loads) of every instantiation
-    of ``round_tail_kernel`` and of the quota commit's own frame
-    (``quota_commit_apart``) in each round source's ``-Xptxas -v`` log,
+    of ``round_tail_kernel`` and of the phases' own frames (``*_apart``:
+    the quota commit, the zone phase) in each round source's ``-Xptxas -v`` log,
     the sources built first (all at once): ``<D,R,flags>`` with the flags
     of the template (quota, zone, device memory, devices)."""
     kernels.build(list(ROUND_SOURCES))
@@ -172,13 +180,13 @@ def ptxas(kernels) -> dict:
                 name = m.group(1)
                 k = re.search(r"round_tail_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
                               name)
-                a = re.search(r"quota_commit_apartILi(\d+)ELi(\d+)E", name)
+                a = re.search(r"\d+([a-z][a-z_]*_apart)ILi(\d+)ELi(\d+)E", name)
                 entry = None
                 if k:
                     on = [f for f, b in zip(flags, k.groups()[2:]) if b == "1"]
                     entry = f"<{k.group(1)},{k.group(2)}{''.join(',' + f for f in on)}>"
                 elif a:
-                    entry = f"quota_commit_apart<{a.group(1)},{a.group(2)}>"
+                    entry = f"{a.group(1)}<{a.group(2)},{a.group(3)}>"
                 continue
             if entry is None:
                 continue
@@ -192,16 +200,26 @@ def ptxas(kernels) -> dict:
     return out
 
 
+def zone_tuple(zone, free, picks, side_abi: bool) -> tuple:
+    """The round tail's zone argument over a working copy's table and
+    picks: the tree's own form (with the side table when its round tail
+    takes one)."""
+    return (free,) + tuple(zone[1:5]) + (picks,) + (tuple(zone[6:7]) if side_abi else ())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pods", type=int, nargs="+", default=[512, 4096])
     ap.add_argument("--quota", choices=["none", "onehot", "sorted"], nargs="+",
                     default=["none"], help="the rounds to run: without quotas, or a tree")
     ap.add_argument("--zones", action="store_true", help="the rounds with NUMA zones")
+    ap.add_argument("--crowded", action="store_true",
+                    help="with --zones: the crowded zone rounds (chip_smoke.crowded_zone_inputs)")
     ap.add_argument("--devices", action="store_true", help="the rounds with devices")
     ap.add_argument("--big", action="store_true",
-                    help="the big batch's round 0 (chip_smoke.big_port_inputs, D=4) in "
-                         "round_big.cu; --quota none or sorted")
+                    help="the device-memory entry round_big.cu: the big batch's round 0 "
+                         "(chip_smoke.big_port_inputs, D=4; --quota none or sorted) or with "
+                         "--zones the zone rounds")
     ap.add_argument("--ptxas", action="store_true",
                     help="only print every round tail instantiation's registers and spills")
     ap.add_argument("--built", action="store_true",
@@ -210,6 +228,9 @@ def main() -> int:
                     help="the tree whose package, kernels and smoke run (default: this one)")
     args = ap.parse_args()
     sys.path.insert(0, str(args.tree.resolve()))
+
+    import importlib.util
+    import inspect
 
     import numpy as np
     import torch
@@ -226,20 +247,31 @@ def main() -> int:
     if args.ptxas:
         print(json.dumps({"tree": str(args.tree), **ptxas(kernels)}), flush=True)
         return 0
+    if args.crowded and not args.zones:
+        print("FAIL: --crowded runs the zone rounds: give --zones", file=sys.stderr)
+        return 1
+    # the crowded rounds come from this checkout's smoke, whatever the tree
+    spec = importlib.util.spec_from_file_location("smoke_fixture", ROOT / "chip_smoke.py")
+    fixtures = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = fixtures
+    spec.loader.exec_module(fixtures)
+    # a tree whose round tail reads the nodes' side table takes it in the zone tuple
+    side_abi = "pod_zone, side = zone" in inspect.getsource(commit_ops.round_tail)
     entry = "round_zone" if args.zones else "round"
     if args.devices and (kernels.CSRC / f"{entry}_dev.cu").exists():
         entry += "_dev"  # the instantiations with the device phase
     if args.big:
         entry = "round_big"
-        if args.zones or args.devices or "onehot" in args.quota:
-            print("FAIL: --big runs without zones or devices, --quota none or sorted",
+        if args.devices or "onehot" in args.quota or (args.zones and args.quota != ["none"]):
+            print("FAIL: --big runs without devices, --quota none or sorted (none with --zones)",
                   file=sys.stderr)
             return 1
+    lib = None
     if not args.built:
         header = (kernels.CSRC / "round.cuh").read_text()
         src, names, sub_names = instrumented(
             (kernels.CSRC / f"{entry}.cu").read_text().replace('#include "round.cuh"', header),
-            4 if args.big else 2)
+            4 if args.big and not args.zones else 2)
         kernels.BUILD.mkdir(parents=True, exist_ok=True)
         cu = kernels.BUILD / "round_phases.cu"
         so = kernels.BUILD / "libround_phases.so"
@@ -251,15 +283,19 @@ def main() -> int:
             print(build.stdout + build.stderr, file=sys.stderr)
             return 1
         lib = ctypes.CDLL(str(so))
-        fn = getattr(lib, "koord_round_tail_big" if args.big else
-                     "koord_round_tail_zone" if args.zones else "koord_round_tail")
-        fn.argtypes = kernels.SIGNATURES[entry][fn.__name__]
+        for name, argtypes in kernels.SIGNATURES[entry].items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+        lib.koord_error_string.argtypes = [ctypes.c_int]
+        lib.koord_error_string.restype = ctypes.c_char_p
     dev = torch.device("cuda")
     fixture = chip_smoke.rich_fixture(1, chip_smoke.N_NODES, 16 * chip_smoke.BATCH)
     zone_case = None
-    if args.zones:
+    if args.zones and not args.crowded:
         # the NUMA kernel check's state: three batches committed
-        nodes_z, pods_z, params_z, numa_z = chip_smoke.numa_port_inputs(torch, dev)
+        extra = max(args.pods) if args.big else 16 * chip_smoke.BATCH
+        nodes_z, pods_z, params_z, numa_z = chip_smoke.numa_port_inputs(
+            torch, dev, n_pods=max(16 * chip_smoke.BATCH, 3 * chip_smoke.BATCH + extra))
         pods_zs = solver.tree_map(lambda a: a.reshape((-1, chip_smoke.BATCH) + a.shape[1:]),
                                   pods_z)
         zf = numa_z.zone_free
@@ -291,11 +327,11 @@ def main() -> int:
         tree = None if mode == "none" else mode
         quota = None
         zone = None
-        if sum(map(bool, (tree, zone_case, dev_case))) > 1:
+        if sum(map(bool, (tree, args.zones, dev_case))) > 1:
             print("FAIL: --zones and --devices each run without quotas, and not together",
                   file=sys.stderr)
             return 1
-        if args.big:
+        if args.big or args.zones:
             pass
         elif tree:
             pods_s, nodes_t, params_t, quotas, mask = chip_smoke.quota_port_inputs(
@@ -303,13 +339,16 @@ def main() -> int:
             _, nodes_t, _, later = solver.solve_stream(
                 solver.tree_map(lambda a: a[:chip_smoke.QUOTA_LATER], pods_s), nodes_t, params_t,
                 quotas=quotas, **chip_smoke.SOLVE)
-        else:
+        elif not dev_case:
             nodes_t, pods_t, params_t = chip_smoke.port_inputs(torch, *fixture, dev)
             pods_s = solver.tree_map(lambda a: a.reshape((-1, chip_smoke.BATCH) + a.shape[1:]), pods_t)
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, check=False).stdout.strip()
         for p in args.pods:
-            if args.big:
+            rt = None
+            if args.crowded:
+                rt, _, zone = fixtures.crowded_zone_inputs(torch, dev, p)
+            elif args.big and not args.zones:
                 rt, quota = big_round(torch, chip_smoke, solver, nominate_ops, p, tree, dev)
             elif tree:
                 # the batch after the later state; above 512 pods, the first
@@ -339,6 +378,8 @@ def main() -> int:
                                         pods_zs)
                 spods, nom_args, terms, zone = chip_smoke.numa_round_case(
                     torch, batch, nodes_z, zf, numa_z, params_z, 1)
+                if len(zone) < 7:
+                    zone = tuple(zone) + (terms.side,)
                 top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True, zones=terms)
             else:
                 batch = solver.tree_map(
@@ -346,7 +387,7 @@ def main() -> int:
                     pods_s)
                 spods, nom_args = chip_smoke.round_inputs(batch, nodes_t, params_t)
                 top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True)
-            if not args.big:
+            if rt is None:
                 rt = chip_smoke.round_tail_args(torch, spods, nom_args, top_cost, top_idx)
             if quota is not None:
                 rt += [quota[2], quota[3]]  # the used table and the gate, updated in place
@@ -371,7 +412,7 @@ def main() -> int:
                 commit_ops.round_tail(
                     *work[:17], 0.35,
                     quota=None if quota is None else (quota[0], quota[1], *work[17:]),
-                    zone=None if zone is None else (work[17],) + zone[1:5] + (work[18],),
+                    zone=None if zone is None else zone_tuple(zone, work[17], work[18], side_abi),
                     dev=dev_of(work))
 
             built(want)
@@ -389,39 +430,36 @@ def main() -> int:
                 # each call on fresh copies (the copies' kernels are not counted)
                 device = chip_smoke.device_ms(torch, lambda: built([t.clone() for t in rt]), 50,
                                               "round_tail_kernel")
+                extra = {}
+                if zone is not None:
+                    # the same round without zones: the zone phase's own
+                    # time is the difference
+                    def bare():
+                        commit_ops.round_tail(*[t.clone() for t in rt[:17]], 0.35)
+
+                    extra["device_ms_without_zones"] = chip_smoke.device_ms(
+                        torch, bare, 50, "round_tail_kernel")
                 print(json.dumps({
                     "tree": str(args.tree), "pods": p, "quota": tree, "big": args.big,
-                    "zones": zone is not None, "devices": dev_case is not None, "card": smi,
+                    "zones": zone is not None, "crowded": args.crowded,
+                    "devices": dev_case is not None, "card": smi,
                     "event_ms_per_call": start.elapsed_time(end) / 100,
-                    "device_ms_per_call": device,
+                    "device_ms_per_call": device, **extra,
                 }), flush=True)
                 continue
-            n, d = rt[7].shape
-            q_cap, levels = (0, 0) if quota is None else (quota[1].shape[0], quota[0].shape[1])
 
             def call(work):
-                q_ptrs = ([None] * 4 if quota is None else
-                          [quota[0].data_ptr(), quota[1].data_ptr(), work[17].data_ptr(),
-                           work[18].data_ptr()])
-                z_args = [] if zone is None else [
-                    work[17].data_ptr(), zone[1].data_ptr(), zone[2].data_ptr(),
-                    zone[3].data_ptr(), zone[4].data_ptr(), work[18].data_ptr(),
-                    zone[1].shape[1], zone[1].shape[2]]
-                d_args = commit_ops.checked_round_devices(dev_of(work), work[0], p, n)
-                big = []
-                if args.big:
-                    _, nbytes = commit_ops.route(work[0].get_device(), p, d, q_cap, levels, 0,
-                                                 False)
-                    scratch.append(torch.empty(nbytes, dtype=torch.uint8, device=dev))
-                    z_args = [None] * 6 + [0, 0]
-                    big = [scratch[-1].data_ptr()]
-                code = fn(*[t.data_ptr() for t in work[:17]], ctypes.c_float(0.35), p, n, d, 4,
-                          *q_ptrs, q_cap, levels, *z_args, *d_args, *big,
-                          kernels.stream_of(work[0]))
-                if code != 0:
-                    raise RuntimeError(f"round_phases: CUDA error {code}")
+                # the tree's own wrapper, with the copy in place of the entry's library
+                saved = kernels._libs.get(entry)
+                kernels._libs[entry] = lib
+                try:
+                    built(work)
+                finally:
+                    if saved is None:
+                        kernels._libs.pop(entry, None)
+                    else:
+                        kernels._libs[entry] = saved
 
-            scratch = []  # each call's working set, kept until the calls end
             clocks, sub = [], []
             for _ in range(20):
                 work = [t.clone() for t in rt]
@@ -454,8 +492,8 @@ def main() -> int:
             end.record()
             torch.cuda.synchronize()
             print(json.dumps({
-                "pods": p, "quota": tree, "big": args.big, "zones": zone is not None,
-                "card": smi,
+                "tree": str(args.tree), "pods": p, "quota": tree, "big": args.big,
+                "zones": zone is not None, "crowded": args.crowded, "card": smi,
                 "cycles_from_start": {name: int(v) for name, v in zip(names, cycles)},
                 **({"quota_cycles_by_subphase": {name: int(v) for name, v in
                                                  zip(sub_names[1:], sub_cycles[1:])

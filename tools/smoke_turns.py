@@ -15,7 +15,9 @@ placed pods. Two versions are
 compared only inside one call on one card (PERF.md). With ``--phase``
 each turn runs only the named phases of the tree's smoke (for example
 ``phase_quota_streams``: the four quota streams with their golden and
-plain checks), in order, in one process. Needs a CUDA device; the smoke's
+plain checks), in order, in one process; ``phase_stream`` needs
+``phase_kernels`` before it and ``phase_shortlist_stream`` needs
+``phase_stream``, as ``chip_smoke.main`` runs them. Needs a CUDA device; the smoke's
 own checks decide whether a run passed.
 """
 
@@ -82,10 +84,16 @@ def main() -> int:
         with log.open("w") as f:
             cmd = [sys.executable, "chip_smoke.py"]
             if args.phase:
+                # the headline stream takes phase_kernels' trip inputs, the
+                # shortlist stream the headline's result, as main() hands them
                 cmd = [sys.executable, "-c",
                        "import sys, torch, chip_smoke; dev = torch.device('cuda'); "
-                       "report = {'kernels': []}\n"
-                       f"for name in {args.phase!r}: getattr(chip_smoke, name)(torch, dev, report)"]
+                       "report = {'kernels': []}; out = {}\n"
+                       f"for name in {args.phase!r}:\n"
+                       "    extra = {'phase_stream': ('phase_kernels',),\n"
+                       "             'phase_shortlist_stream': ('phase_stream',)}.get(name, ())\n"
+                       "    out[name] = getattr(chip_smoke, name)(torch, dev, report,\n"
+                       "                                          *(out[e] for e in extra))"]
             rc = subprocess.run(cmd, cwd=tree, stdout=f,
                                 stderr=subprocess.STDOUT, timeout=args.timeout).returncode
         print(json.dumps({"turn": i, "tree": str(tree), "rc": rc,
