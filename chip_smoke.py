@@ -15,9 +15,14 @@ Phases (any failure exits non-zero and prints no result line):
    cpuset-bound pods, prod pods and gangs: nomination indices and finite
    costs bitwise equal; the round tail's tables, assignments, active flags
    and state word bitwise equal to ``round_tail_plain`` on CPU copies at
-   round 0, after 15 batches and at P=4,096 (the JAX scheduler's batch
-   bucket); gang rollback (with real rollbacks, one node refunded twice or
-   more) bitwise equal to ``enforce_gangs_plain``; the shortlist build and
+   round 0, after 15 batches, at P=4,096 (the JAX scheduler's batch
+   bucket) and on the crowded rounds without zones at P=512 and 4,096
+   (every pod nominating one of four nodes: node segments of ~P / 4 rows,
+   winners and refusals mixed); gang rollback (with real rollbacks, one
+   node refunded twice or more, and a batch where nothing rolls back)
+   bitwise equal to ``enforce_gangs_plain``, each rollback row with its
+   serial floor (its longest ordered sum as one thread's chain of adds,
+   ``fadd_chain_probe``); the shortlist build and
    round at K=64 bitwise equal to their plain versions at round 0 and
    after 15 batches (the round also with a bound below every cost), and
    the contention fixture (384 pods × 32 nodes, K=4) run trip by trip
@@ -1098,6 +1103,70 @@ def round_tail_args(torch, spods, nom_args, top_cost, top_idx):
     ]
 
 
+#: the crowded rounds without zones (phase 3): P, the first P / 512
+#: batches of the kernel checks' fixture as one round
+CROWDED_PLAIN_PODS = (512, 4096)
+
+
+def crowded_plain_inputs(torch, pods_s, nodes_t, params_t, p: int):
+    """Round 0 of the first ``p`` pods of the kernel checks' batches
+    ``pods_s`` at node state ``nodes_t`` with every pod nominating one of
+    four schedulable, fresh nodes (a drawn nomination): each node's segment
+    about p / 4 rows long, which its room fills part way, so winners and
+    refused pods mix in it. The round tail's arguments."""
+    from koordinator_tpu_torch.ops import solver
+
+    batch = solver.tree_map(lambda a: a[: max(1, p // BATCH)].reshape((-1,) + a.shape[2:]),
+                            pods_s)
+    spods, nom_args = round_inputs(batch, nodes_t, params_t)
+    ok = (nodes_t.schedulable & nodes_t.metric_fresh
+          & (nodes_t.allocatable > 0).all(dim=1)).cpu().numpy()
+    rng = np.random.default_rng(p)
+    crowd = rng.choice(np.flatnonzero(ok), 4, replace=False)
+    dev = spods.requests.device
+    cost = np.sort(rng.integers(-100, 0, (p, 4)), axis=1).astype(np.float32)
+    idx = rng.choice(crowd, (p, 4)).astype(np.int32)
+    return round_tail_args(torch, spods, nom_args, torch.from_numpy(cost).to(dev),
+                           torch.from_numpy(idx).to(dev))
+
+
+def gang_chain_adds(torch, pre, pods, exists=None) -> int:
+    """The longest ordered sum of a rollback (``enforce_gangs`` on
+    ``pre``): the rolled-back rows of one node, or of one quota at one
+    level of their chains."""
+    from koordinator_tpu_torch.ops import solver
+
+    after = solver.enforce_gangs(pre, pods, exists)
+    rolled = (pre.assignment >= 0) & (after.assignment < 0)
+    if not bool(rolled.any()):
+        return 0
+    most = int(torch.bincount(pre.assignment[rolled].long()).max())
+    used = pre.quota_used
+    if used is not None and used.shape[0] > 1:
+        chain = pods.quota_chain[rolled]
+        for level in range(chain.shape[1]):
+            ids = chain[:, level]
+            ids = ids[(ids >= 0) & (ids < used.shape[0])].long()
+            if ids.numel():
+                most = max(most, int(torch.bincount(ids).max()))
+    return most
+
+
+_FLOOR_PROBE = []
+
+
+def gang_floor(torch, dev, pre, pods, exists=None) -> dict:
+    """A rollback row's serial floor: one thread's chain of dependent fp32
+    adds as long as the rollback's longest ordered sum (gang_chain_adds),
+    timed on the card by ``fadd_chain_probe`` (built once)."""
+    if not _FLOOR_PROBE:
+        _FLOOR_PROBE.append(fadd_chain_probe(torch, dev))
+    adds = gang_chain_adds(torch, pre, pods, exists)
+    return dict(serial_floor_ms=_FLOOR_PROBE[0](adds) if adds else 0.0, serial_floor_adds=adds,
+                serial_floor=f"one thread's chain of {adds} dependent fp32 adds (the longest "
+                             "ordered sum: one node's or one quota's rolled-back rows)")
+
+
 def setup_bytes_per_batch(pods_stacked) -> int:
     """Bytes one batch of ``solve_stream`` moves outside the kernels, in
     its PyTorch ops: the gather of the pods' fields the solve reads from
@@ -1489,15 +1558,18 @@ def phase_kernels(torch, dev, report):
     _, later, _, _ = solver.solve_stream(
         solver.tree_map(lambda a: a[:15], pods_s), nodes_t, params_t, **SOLVE
     )
-    checks = {"nominate": 0.0, "round_tail": 0.0, "enforce_gangs": 0.0}
+    checks = {"nominate": 0.0, "round_tail": 0.0, "enforce_gangs": 0.0,
+              "round_tail_crowded": 0.0, "enforce_gangs_r0": 0.0}
     rollbacks = []
     timing_inputs = None
 
-    def check_round_tail(label, spods, nom_args):
-        """The round tail on the kernel's own nomination of round 0 against
-        round_tail_plain on CPU copies; returns its arguments."""
-        top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True)
-        args = round_tail_args(torch, spods, nom_args, top_cost, top_idx)
+    def check_round_tail(label, spods, nom_args, args=None, check="round_tail"):
+        """The round tail on the kernel's own nomination of round 0 (or on
+        ``args``) against round_tail_plain on CPU copies; returns its
+        arguments."""
+        if args is None:
+            top_cost, top_idx = nominate_ops.nominate(*nom_args, 4, 4.0, True)
+            args = round_tail_args(torch, spods, nom_args, top_cost, top_idx)
         host = [t.cpu() for t in args]
         work = [t.clone() for t in args]
         commit_ops.round_tail(*work, 0.35)
@@ -1507,7 +1579,7 @@ def phase_kernels(torch, dev, report):
         for name, tk, tp in zip(names, work[ROUND_MUTABLE], host[ROUND_MUTABLE]):
             if not bits_equal(tk.cpu().numpy(), tp.numpy()):
                 fail(f"round_tail ({label}): {name} differs from round_tail_plain")
-            checks["round_tail"] = max(checks["round_tail"], max_abs(tk.cpu().numpy(), tp.numpy()))
+            checks[check] = max(checks[check], max_abs(tk.cpu().numpy(), tp.numpy()))
         if int((work[14] >= 0).sum()) == 0:
             fail(f"round_tail ({label}): the check needs a round that places pods")
         return args
@@ -1552,9 +1624,40 @@ def phase_kernels(torch, dev, report):
     # the JAX scheduler's batch bucket: 4,096 pods in one round
     big = solver.tree_map(lambda a: a[:8].reshape((-1,) + a.shape[2:]), pods_s)
     check_round_tail("P=4096", *round_inputs(big, nodes_t, params_t))
+    # the crowded rounds without zones: segments of ~P / 4 rows, winners
+    # and refusals mixed
+    crowded = []
+    for p_c in CROWDED_PLAIN_PODS:
+        c_args = crowded_plain_inputs(torch, pods_s, nodes_t, params_t, p_c)
+        before = c_args[14].clone()
+        check_round_tail(f"crowded, P={p_c}", None, None, c_args, "round_tail_crowded")
+        host = [t.cpu().clone() for t in c_args]
+        commit_ops.round_tail_plain(*host, 0.35)
+        placed = int((host[14] >= 0).sum() - (before >= 0).sum())
+        chose = int(torch.bincount(c_args[1][:, 0].cpu().long()).max())
+        if not 0 < placed < p_c // 2:
+            fail(f"round_tail (crowded, P={p_c}): the check needs winners and refusals "
+                 f"mixed; {placed} of {p_c} placed")
+        crowded.append(dict(pods=p_c, placed=placed, longest_first_choice=chose))
+        if p_c == CROWDED_PLAIN_PODS[-1]:
+            crowded_args = c_args
+    # a batch where nothing rolls back: what each of the streams' launches
+    # costs where no gang falls short (R = 0)
+    pods_r0 = solver.tree_map(lambda a: a[0], pods_s)
+    pods_r0 = dataclasses.replace(pods_r0, gang_id=torch.full_like(pods_r0.gang_id, -1))
+    pre_r0 = gang_check_inputs(pods_r0, nodes_t, params_t)
+    got = solver.enforce_gangs(pre_r0, pods_r0)
+    want = solver.enforce_gangs_plain(solver.tree_map(lambda a: a.cpu(), pre_r0),
+                                      solver.tree_map(lambda a: a.cpu(), pods_r0))
+    for f in ("assignment", "node_requested", "node_estimated_used", "node_prod_used"):
+        if not bits_equal(getattr(got, f).cpu().numpy(), getattr(want, f).numpy()):
+            fail(f"enforce_gangs (R = 0): {f} differs from enforce_gangs_plain")
+    if not torch.equal(got.assignment, pre_r0.assignment):
+        fail("enforce_gangs (R = 0): a pod was rolled back")
     print(f"kernel checks: bitwise equal to the plain versions {json.dumps(checks)} "
-          f"(round tail at round 0, after 15 batches and at P=4096); "
-          f"gang rollbacks {json.dumps(rollbacks)}", flush=True)
+          f"(round tail at round 0, after 15 batches, at P=4096 and crowded at P="
+          f"{', '.join(map(str, CROWDED_PLAIN_PODS))} {json.dumps(crowded)}); "
+          f"gang rollbacks {json.dumps(rollbacks)} and one with none (R = 0)", flush=True)
 
     nom_args, rt_args, spods, pre, pods_b = timing_inputs
     p, d = spods.requests.shape
@@ -1605,6 +1708,25 @@ def phase_kernels(torch, dev, report):
     def t_index_add():
         torch.zeros((n, 3 * d), device=dev).index_add_(0, ids_l, vals_l)
 
+    c_iters = 60
+    c_copies = iter([[t.clone() for t in crowded_args[ROUND_MUTABLE]]
+                     for _ in range(2 * c_iters + 2)])
+
+    def t_crowded():
+        commit_ops.round_tail(*crowded_args[:ROUND_MUTABLE.start], *next(c_copies), 0.35)
+
+    def t_crowded_plain():
+        commit_ops.round_tail_plain(*crowded_args[:ROUND_MUTABLE.start],
+                                    *[t.clone() for t in crowded_args[ROUND_MUTABLE]], 0.35)
+
+    r0_copies = iter([solver.tree_map(lambda a: a.clone(), pre_r0) for _ in range(402)])
+
+    def t_gangs_r0():
+        solver._enforce_gangs_(next(r0_copies), pods_r0)
+
+    def t_gangs_r0_plain():
+        solver.enforce_gangs_plain(pre_r0, pods_r0)
+
     # operation and byte counts from these inputs (see PERF.md)
     valid = spods.valid
     fresh_nodes = int(nom_args[9].sum())
@@ -1625,7 +1747,8 @@ def phase_kernels(torch, dev, report):
     # kernels a wrapper call launches: nomination adds a merge kernel when
     # the node axis is cut into chunks
     nom_chunk = nominate_ops.chunk_of(kernels.library("nominate"), p, n, d, 4, dev.index or 0)
-    per_call = {"nominate": 1 if nom_chunk >= n else 2, "round_tail": 1, "enforce_gangs": 1}
+    per_call = {"nominate": 1 if nom_chunk >= n else 2, "round_tail": 1, "enforce_gangs": 1,
+                "round_tail_crowded": 1, "enforce_gangs_r0": 1}
 
     rows = []
     for name, source, replaces, fn, plain, lib_fn, kname, nbytes, nops, err, iters in (
@@ -1638,6 +1761,13 @@ def phase_kernels(torch, dev, report):
         ("enforce_gangs", "koordinator_tpu_torch/csrc/gangs.cu",
          "koordinator_tpu/ops/solver.py:1858", t_gangs, t_gangs_plain, t_index_add,
          "enforce_gangs_kernel", gang_bytes, gang_ops, checks["enforce_gangs"], gang_iters),
+        ("round_tail_crowded", "koordinator_tpu_torch/csrc/round.cu",
+         "koordinator_tpu/ops/solver.py:1204", t_crowded, t_crowded_plain, None,
+         "round_tail_kernel", round_tail_bytes(torch, crowded_args, n),
+         round_tail_ops(crowded_args), checks["round_tail_crowded"], c_iters),
+        ("enforce_gangs_r0", "koordinator_tpu_torch/csrc/gangs.cu",
+         "koordinator_tpu/ops/solver.py:1858", t_gangs_r0, t_gangs_r0_plain, None,
+         "enforce_gangs_kernel", p * (4 * 4 + 1), p * 4, checks["enforce_gangs_r0"], gang_iters),
     ):
         b_ms, b_by = bound_of(nbytes, nops)
         rows.append(dict(
@@ -1655,6 +1785,8 @@ def phase_kernels(torch, dev, report):
                 "the refund scatter only, not the rollback (counting members, deciding "
                 "gangs, unassigning)"))),
         ))
+    rows[2].update(gang_floor(torch, dev, pre, pods_b))
+    rows[4].update(gang_floor(torch, dev, pre_r0, pods_r0))
     report["kernels"] = rows
     report["rollbacks"] = rollbacks
     kernels.reset_launches()
@@ -1782,9 +1914,12 @@ def phase_stream(torch, dev, report, trip_inputs):
         **profile,
     )
     print(json.dumps({"stream": report["stream"]}), flush=True)
+    # the crowded round and the rollback with nothing to roll back are
+    # the same kernels' launches on the headline path
+    of = {"round_tail_crowded": "round_tail", "enforce_gangs_r0": "enforce_gangs"}
     for row in report["kernels"]:
-        if row["name"] in launches:
-            row["launches"] = launches[row["name"]]
+        if of.get(row["name"], row["name"]) in launches:
+            row["launches"] = launches[of.get(row["name"], row["name"])]
     return args, out, rounds_np
 
 
@@ -2417,6 +2552,7 @@ def phase_quota_kernels(torch, dev, report):
         add_row("quota_refund", "koordinator_tpu_torch/csrc/gangs.cu",
                 "koordinator_tpu/ops/solver.py:1963", t_refund, t_refund_plain,
                 "enforce_gangs_kernel", refund_bytes, refund_ops, 200)
+        report["kernels"][-1].update(gang_floor(torch, dev, pre, pods_b))
         # the pricing kernels with the node mask: phase 3's counts plus the
         # mask, a byte a pair (the round and the build) or a candidate
         gate = nom_args_t[4]
@@ -3021,6 +3157,7 @@ def phase_numa_kernels(torch, dev, report):
             lambda: solver._enforce_gangs_(next(gang_copies), pods_b),
             lambda: solver.enforce_gangs_plain(pre, pods_b), "enforce_gangs_kernel",
             zr_bytes, zr_ops, 200)
+    report["kernels"][-1].update(gang_floor(torch, dev, pre, pods_b))
     report["numa_checks"] = seen
     kernels.reset_launches()
 
@@ -3222,7 +3359,8 @@ def phase_bigbatch(torch, dev, report):
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             device_ms=device_ms(torch, lambda: solver._enforce_gangs_(next(gang_copies), pods_t),
                                 dev_iters, "enforce_gangs_kernel"),
-            library_device_ms=None, bytes=g_bytes, operations=g_ops))
+            library_device_ms=None, bytes=g_bytes, operations=g_ops,
+            **gang_floor(torch, dev, pre, pods_t)))
         launches = next(ln["launches"] for ln in lines if ln["at"] == label)
         report["kernels"][-2]["launches"] = launches.get("round_tail_big")
         # the rollback of 8,192 pods runs in shared memory, of 16,384 in
@@ -4035,6 +4173,7 @@ def phase_device_kernels(torch, dev, report):
             lambda: solver._enforce_gangs_(next(gang_copies), pods_g, exists),
             lambda: solver.enforce_gangs_plain(pre, pods_g, exists), "enforce_gangs_kernel",
             dr_bytes, dr_ops, 200)
+    report["kernels"][-1].update(gang_floor(torch, dev, pre, pods_g, exists))
     report["device_checks"] = seen
     kernels.reset_launches()
 

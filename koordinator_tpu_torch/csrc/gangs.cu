@@ -3,72 +3,119 @@
 // Replaces the LoadAware and quota parts of
 // koordinator_tpu/ops/solver.py:enforce_gangs (:1858-1987, the counts and
 // decisions at :1883-1894, the node-table refunds at :1896-1912 and
-// :1973-1978, the zone refund at :1941-1960, the quota refund at
-// :1963-1973): count each gang's placed members, roll back every pod of a
-// Strict gang below its minMember, take the rolled-back pods' request,
-// estimate and prod estimate off the node tables, with NUMA zones give
-// each rolled-back pod's zone charge back to its zone and clear its pick,
-// and with a quota tree take their requests off every quota of their
+// :1973-1978, the device refunds at :1913-1940, the zone refund at
+// :1941-1960, the quota refund at :1963-1973): count each gang's placed
+// members, roll back every pod of a Strict gang below its minMember, take
+// the rolled-back pods' request, estimate and prod estimate off the node
+// tables, with devices give their GPUs, RDMA and FPGA back, with NUMA zones
+// give each rolled-back pod's zone charge back to its zone and clear its
+// pick, and with a quota tree take their requests off every quota of their
 // chains.
 //
 // What bounds it on an H100: latency. A batch is a few hundred rows and a
-// few KB; the bytes it must move take nanoseconds. What costs is launches:
-// done in PyTorch ops it is ~20 launches and a stable sort a batch.
+// few KB; the bytes it must move take nanoseconds. What costs is the
+// chains of dependent steps: the barriers of the orders, and the ordered
+// sums, each as long as the rows of its node or quota (at the root quota,
+// every rolled-back row).
 //
-// Design: one block holds the batch in shared memory. Gang counts are
-// integer adds in shared memory (exact in any order). Rolled-back rows are
-// compacted into 64-bit keys (node << 32 | row), which a bitonic sort puts
-// in (node, row) order — the keys are unique, so the order does not depend
-// on the compaction's. One thread per touched node then sums its rows'
-// refunds 0 + v0 + v1 + ... in original row order, the order the plain
-// version (index_add_ on the CPU) sums in, and subtracts the sum from the
-// table in place. Rows with nothing to refund are not touched, which equals
-// the reference's `table - segment_sum(...)` bit for bit since x - 0 == x.
-// No float atomics. A batch without rollbacks skips the sort and the sums.
-// The quota refund, level by level (the reference's `used - segment_sum`
-// per level, not folded by XLA): the rolled-back rows keyed (quota << 32 |
-// row) and sorted again, one thread a quota sums 0 + v0 + v1 + ... in row
-// order and subtracts the sum. Q == 1 (the disabled sentinel) passes no
-// chain and refunds nothing. The zone refund, in the same node walk: the
-// node's rolled-back rows that hold a zone add their charge [DN] onto its
-// zone's row one after another in row order — the reference's
-// `node_zone_free + segment_sum(...)`, which XLA's CPU backend folds into
-// a scatter-add onto the table — and their picks are cleared after it.
-// The device refunds, in the same node walk (solver.py:1913-1940): the
-// node's rolled-back whole GPUs and shares, whole * 100 + share summed
-// 0 + v0 + v1 + ... in row order (a segment_sum onto zeros), are
-// water-filled back onto its slot row (device.cuh: slot_refund_row, the
-// emptiest slot first by a stable order, the headroom's running sum in
-// XLA's chunked order, padding slots past cap_total / 100 given none), and
-// their RDMA and FPGA added back to the free counts that are tracked.
-// A batch whose working set outgrows shared memory (above ~8,000 pods
-// with quotas) keeps it in a device-memory scratch buffer the caller
-// allocates once, through the same generic pointers.
+// Design: one block holds the batch in its working set (shared memory, or
+// above ~1,100 pods with a four-level quota tree and ~3,400 without, a
+// device-memory scratch buffer the caller allocates, through the same
+// pointers).
+// - Gang counts are integer adds in shared memory (exact in any order).
+//   A batch where nothing rolls back returns after them.
+// - The rolled-back rows are listed in row order by a block scan (a span
+//   of rows a thread), then put in (node, row) order by the stable radix
+//   split on the node (split.cuh): the rows arrive in row order, so the
+//   split keeps it within a node. No row bits in the key, no comparison
+//   sort.
+// - Their requests, estimates, prod flags, device asks and zone charges
+//   are gathered once, by the whole block, in that order into the working
+//   set.
+// - Every ordered sum is a chain of its own on a thread, its loads ahead
+//   of its adds (kAhead at a time): a (node, table, dim) sum 0 + v0 + v1 +
+//   ... in row order, the order the plain version (index_add_ on the CPU)
+//   sums in, then subtracted from the table in place (x - 0 == x for the
+//   rows not touched, so the reference's `table - segment_sum(...)` bit for
+//   bit); the device refunds (whole * 100 + share, RDMA, FPGA: a
+//   segment_sum onto zeros, then the shares water-filled by
+//   device.cuh:slot_refund_row, the emptiest slot first by a stable order,
+//   padding slots past cap_total / 100 given none); and a (node, zone, dim)
+//   fold of the node's rolled-back rows that hold that zone onto its row
+//   of the zone table, row by row — the reference's
+//   `node_zone_free + segment_sum(...)`, which XLA's CPU backend folds into
+//   a scatter-add onto the table. The picks are cleared after the gather
+//   read them.
+// - The quota refund (the reference's `used - segment_sum` per level, not
+//   folded by XLA): the rows of every chain level keyed (level, quota) in
+//   row order and split at once (a row past the table keyed Q and
+//   dropped, as segment_sum drops it); then level by level a (quota, dim)
+//   chain on a thread sums 0 + v0 + v1 + ... and subtracts it. Q == 1 (the
+//   disabled sentinel) passes no chain and refunds nothing.
+// No float atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "device.cuh"
+#include "split.cuh"
 
 namespace {
 
 constexpr int kThreads = 1024;
+constexpr int kAhead = 16;  // loads of a chain ahead of its adds
+constexpr uint64_t kLow = 0xFFFFFFFFull;
 
-__host__ __device__ inline int pow2_at_least(int x) {
-  int v = 1;
-  while (v < x) v <<= 1;
-  return v;
+inline size_t up8(size_t x) { return (x + 7) / 8 * 8; }
+
+// The working set of a batch of P pods, D dims, L quota levels (0: no
+// quota refund), with devices, with zones of DN dims (0: none). The split's
+// rows: the rolled-back rows for the node sort, L of them each for the
+// quota refund.
+struct GangLayout {
+  size_t asg, cnt, rows, inv, ka, kb, table, rq, es, fl, dvv, pz, zc, seg, qseg, total;
+};
+
+inline GangLayout gang_layout(int P, int D, int L, bool dev, int DN) {
+  GangLayout g{};
+  const size_t E = (size_t)P * (L > 1 ? L : 1);
+  size_t at = 0;
+  g.asg = at;   // [P] int: the assignment, then a rolled-back row's node (-1: kept)
+  at = up8(at + (size_t)P * 4);
+  g.cnt = at;   // [P] int: placed members a gang
+  at = up8(at + (size_t)P * 4);
+  g.rows = at;  // [P] int: the rolled-back rows in row order
+  at = up8(at + (size_t)P * 4);
+  g.inv = at;   // [P] int: each one's place in (node, row) order
+  at = up8(at + (size_t)P * 4);
+  g.ka = at;    // [E] u64: the split's rows, (key << 32 | payload)
+  at = up8(at + E * 8);
+  g.kb = at;    // [E] u64: its second buffer
+  at = up8(at + E * 8);
+  g.table = at;
+  at = up8(at + koord_split::table_bytes<uint32_t>((long long)E));
+  g.rq = at;    // [P, D] the rolled-back rows' requests, in (node, row) order
+  at = up8(at + (size_t)P * D * 4);
+  g.es = at;    // [P, D] their estimates
+  at = up8(at + (size_t)P * D * 4);
+  g.fl = at;    // [P] int: their prod flags
+  at = up8(at + (size_t)P * 4);
+  g.dvv = at;   // [P, 3] with devices: whole * 100 + share, RDMA, FPGA
+  if (dev) at = up8(at + (size_t)P * 3 * 4);
+  g.pz = at;    // [P] int with zones: their picks
+  if (DN > 0) at = up8(at + (size_t)P * 4);
+  g.zc = at;    // [P, DN] their zone charges
+  if (DN > 0) at = up8(at + (size_t)P * DN * 4);
+  g.seg = at;   // [P + 1] int: each node segment's first row, then R
+  at = up8(at + ((size_t)P + 1) * 4);
+  g.qseg = at;  // [E + 1] int: each (level, quota) segment's first row, then L R
+  if (L > 0) at = up8(at + (E + 1) * 4);
+  g.total = at;
+  return g;
 }
 
-// Shared layout: s_asg[P] int, s_count[P] int, s_rb (the rollback count)
-// and one int of padding, then keys[pow2(P)] uint64 (8-byte aligned) and,
-// with a quota tree, qkeys[pow2(P)] uint64.
-size_t gangs_smem_bytes(int P, bool quota) {
-  return ((size_t)2 * P + 2) * sizeof(int) +
-         (size_t)pow2_at_least(P) * sizeof(uint64_t) * (quota ? 2 : 1);
-}
-
-// The most shared memory a block may take on the current device.
+// The most shared memory a block may take on the current device, less the
+// kernel's static words.
 int max_smem() {
   static int bytes = 0;
   if (bytes == 0) {
@@ -76,28 +123,74 @@ int max_smem() {
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
-  return bytes;
+  return bytes - 256;
 }
 
-// Sorts keys[0, L) ascending (L a power of two), the whole block.
-__device__ void bitonic_sort(uint64_t* keys, int L) {
-  const int tid = threadIdx.x;
-  for (int k = 2; k <= L; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < L; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const uint64_t a = keys[i], b = keys[ixj];
-          const bool up = (i & k) == 0;
-          if (up ? a > b : a < b) {
-            keys[i] = b;
-            keys[ixj] = a;
-          }
-        }
+// 0 + v[s0] + v[s0 + 1] + ... + v[s1 - 1], each v[s] at v + s * stride;
+// with `flagged`, 0 + (fl[s] ? v[s] : 0) + ... (the prod estimates). The
+// loads of kAhead rows before their adds. Every node and device sum takes
+// this one path, so a warp's lanes on different tables do not diverge.
+__device__ __forceinline__ float chain_sum(const float* v, int stride, const int* fl,
+                                           bool flagged, int s0, int s1) {
+  float acc = 0.0f;
+  int s = s0;
+  for (; s + kAhead <= s1; s += kAhead) {
+    float x[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const float e = v[(size_t)(s + u) * stride];
+      x[u] = flagged && !fl[s + u] ? 0.0f : e;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) acc = acc + x[u];
+  }
+  for (; s < s1; ++s) acc = acc + (flagged && !fl[s] ? 0.0f : v[(size_t)s * stride]);
+  return acc;
+}
+
+// 0 + the requests of rows q[e0, e1) (each row's rank in row order in the
+// low word, its place in (node, row) order inv[rank]), dim d: the quota
+// sums. Each batch's places are loaded while the batch before adds, its
+// values ahead of its adds.
+__device__ __forceinline__ float quota_sum(const float* rq, const int* inv, const uint64_t* q,
+                                           int D, int d, int e0, int e1) {
+  float acc = 0.0f;
+  int e = e0;
+  if (e + kAhead <= e1) {
+    int s[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) s[u] = inv[q[e + u] & kLow];
+    for (; e + kAhead <= e1; e += kAhead) {
+      float x[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) x[u] = rq[(size_t)s[u] * D + d];
+      if (e + 2 * kAhead <= e1) {
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) s[u] = inv[q[e + kAhead + u] & kLow];
       }
-      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) acc = acc + x[u];
     }
   }
+  for (; e < e1; ++e) acc = acc + rq[(size_t)inv[q[e] & kLow] * D + d];
+  return acc;
+}
+
+// The heads of the runs of equal keys (row >> 32) of k[0, n) in order:
+// head[m] the first row of run m, head[runs] = n; returns the runs. A
+// block scan over a span of rows a thread. The whole block calls it.
+__device__ int run_heads(const uint64_t* k, int n, int* head, int* warp_sums) {
+  const int c = (n + blockDim.x - 1) / blockDim.x;
+  const int j0 = min(n, (int)threadIdx.x * c), j1 = min(n, j0 + c);
+  int mine = 0;
+  for (int j = j0; j < j1; ++j) mine += j == 0 || (k[j] >> 32) != (k[j - 1] >> 32);
+  int runs;
+  int at = koord_split::excl(mine, warp_sums, runs);
+  for (int j = j0; j < j1; ++j)
+    if (j == 0 || (k[j] >> 32) != (k[j - 1] >> 32)) head[at++] = j;
+  if (threadIdx.x == 0) head[runs] = n;
+  __syncthreads();
+  return runs;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -115,125 +208,203 @@ enforce_gangs_kernel(int* __restrict__ assignment,
                      const int* __restrict__ chain, float* __restrict__ quota_used,
                      int Q, int levels, float* __restrict__ zone_free,
                      const float* __restrict__ zone_charge, int Z, int DN,
-                     const koord_device::Refund dv, int* __restrict__ scratch) {
-  extern __shared__ int smem[];
-  // the working set: shared memory, or the device-memory scratch
-  int* s_asg = scratch != nullptr ? scratch : smem;
-  int* s_count = s_asg + P;
-  int* s_rb = s_count + P;
-  uint64_t* keys = (uint64_t*)(s_asg + 2 * P + 2);
-  const int tid = threadIdx.x;
+                     const koord_device::Refund dv, const GangLayout g,
+                     char* __restrict__ scratch) {
+  extern __shared__ uint64_t smem_u64[];
+  __shared__ int warp_sums[32];
+  // the working set (its layout from the host, gang_layout): shared
+  // memory, or the device-memory scratch
+  char* ws = scratch != nullptr ? scratch : (char*)smem_u64;
+  const bool devs = dv.slots != nullptr, zones = zone_free != nullptr;
+  const int L = chain != nullptr ? levels : 0;
+  int* s_asg = (int*)(ws + g.asg);
+  int* s_cnt = (int*)(ws + g.cnt);
+  int* s_rows = (int*)(ws + g.rows);
+  int* s_inv = (int*)(ws + g.inv);
+  uint64_t* ka = (uint64_t*)(ws + g.ka);
+  uint64_t* kb = (uint64_t*)(ws + g.kb);
+  uint32_t* table = (uint32_t*)(ws + g.table);
+  float* s_rq = (float*)(ws + g.rq);
+  float* s_es = (float*)(ws + g.es);
+  int* s_fl = (int*)(ws + g.fl);
+  float* s_dv = (float*)(ws + g.dvv);
+  int* s_pz = (int*)(ws + g.pz);
+  float* s_zc = (float*)(ws + g.zc);
+  int* s_seg = (int*)(ws + g.seg);
+  int* s_qseg = (int*)(ws + g.qseg);
+  const int tid = threadIdx.x, T = blockDim.x;
 
-  for (int i = tid; i < P; i += blockDim.x) {
-    s_asg[i] = assignment[i];
-    s_count[i] = 0;
-  }
-  if (tid == 0) *s_rb = 0;
+  // g1. Counts: placed members a gang (gid clipped to [0, P-1], as the
+  // reference), integer adds in shared memory
+  for (int i = tid; i < P; i += T) s_cnt[i] = 0;
   __syncthreads();
-  // placed members per gang (gid clipped to [0, P-1], as the reference)
-  for (int i = tid; i < P; i += blockDim.x) {
-    const int g = gang_id[i];
-    if (g >= 0 && s_asg[i] >= 0) atomicAdd(&s_count[min(g, P - 1)], 1);
+  for (int i = tid; i < P; i += T) {
+    const int a = assignment[i];
+    const int gi = gang_id[i];
+    s_asg[i] = a;
+    if (gi >= 0 && a >= 0) atomicAdd(&s_cnt[min(gi, P - 1)], 1);
   }
   __syncthreads();
-  for (int i = tid; i < P; i += blockDim.x) {
+  // g2. Decisions: a placed pod of a Strict gang below its minMember rolls
+  // back, and keeps its node here; a batch where none does returns
+  bool any = false;
+  for (int i = tid; i < P; i += T) {
     const int a = s_asg[i];
-    const int g = gang_id[i];
-    const int gid = min(max(g, 0), P - 1);
-    const bool gang_ok = s_count[gid] >= gang_min[gid] || gang_nonstrict[gid];
-    const bool placed = a >= 0;
-    const bool keep = placed && (g < 0 || gang_ok);
+    const int gi = gang_id[i];
+    const int gid = min(max(gi, 0), P - 1);
+    const bool gang_ok = s_cnt[gid] >= gang_min[gid] || gang_nonstrict[gid];
+    const bool keep = a >= 0 && (gi < 0 || gang_ok);
+    const bool back = a >= 0 && !keep;
     assignment[i] = keep ? a : -1;
-    if (placed && !keep) {
-      const uint64_t node = (uint64_t)min(max(a, 0), N - 1);
-      keys[atomicAdd(s_rb, 1)] = (node << 32) | (uint64_t)i;
-    }
+    s_asg[i] = back ? min(max(a, 0), N - 1) : -1;
+    any = any || back;
   }
-  __syncthreads();
-  const int R = *s_rb;
-  if (R == 0) return;
+  if (!__syncthreads_or(any)) return;
 
-  const int L = pow2_at_least(R);
-  for (int i = R + tid; i < L; i += blockDim.x) keys[i] = UINT64_MAX;
-  __syncthreads();
-  bitonic_sort(keys, L);
-
-  // one thread per touched node: ordered sums, subtracted in place
-  for (int s = tid; s < R; s += blockDim.x) {
-    const int node = (int)(keys[s] >> 32);
-    if (s > 0 && (int)(keys[s - 1] >> 32) == node) continue;
-    for (int d = 0; d < D; ++d) {
-      float r = 0.0f, e = 0.0f, pr = 0.0f;
-      for (int j = s; j < R && (int)(keys[j] >> 32) == node; ++j) {
-        const int row = (int)(keys[j] & 0xFFFFFFFFu);
-        const float est = estimate[(size_t)row * D + d];
-        r = r + requests[(size_t)row * D + d];
-        e = e + est;
-        pr = pr + (is_prod[row] ? est : 0.0f);
-      }
-      const size_t at = (size_t)node * D + d;
-      requested[at] = requested[at] - r;
-      est_used[at] = est_used[at] - e;
-      prod_used[at] = prod_used[at] - pr;
-    }
-    if (dv.slots != nullptr) {
-      // the device refunds: the shares summed in row order, then
-      // water-filled; RDMA and FPGA added back
-      float refund = 0.0f, rdma = 0.0f, fpga = 0.0f;
-      for (int j = s; j < R && (int)(keys[j] >> 32) == node; ++j) {
-        const int row = (int)(keys[j] & 0xFFFFFFFFu);
-        refund = refund + ((float)dv.whole[row] * 100.0f + dv.share[row]);
-        rdma = rdma + (float)dv.rdma_req[row];
-        fpga = fpga + (float)dv.fpga_req[row];
-      }
-      koord_device::slot_refund_row(dv.slots + (size_t)node * dv.G, dv.G, refund,
-                                    dv.cap != nullptr, dv.cap != nullptr ? dv.cap[node] : 0.0f);
-      if (dv.rdma != nullptr) dv.rdma[node] = dv.rdma[node] + rdma;
-      if (dv.fpga != nullptr) dv.fpga[node] = dv.fpga[node] + fpga;
-    }
-    if (zone_free == nullptr) continue;
-    // the zone refund: each row's charge onto its zone (clipped to Z - 1,
-    // as the reference's one-hot clips it), row by row
-    for (int j = s; j < R && (int)(keys[j] >> 32) == node; ++j) {
-      const int row = (int)(keys[j] & 0xFFFFFFFFu);
-      const int pz = pod_zone[row];
-      if (pz < 0) continue;
-      float* zrow = zone_free + ((size_t)node * Z + min(pz, Z - 1)) * DN;
-      for (int d = 0; d < DN; ++d) zrow[d] = zrow[d] + zone_charge[(size_t)row * DN + d];
-    }
-  }
-  if (pod_zone != nullptr) {
-    __syncthreads();  // the zone refund has read the picks
-    for (int s = tid; s < R; s += blockDim.x) pod_zone[(int)(keys[s] & 0xFFFFFFFFu)] = -1;
-  }
-  if (chain == nullptr) return;
-
-  // the quota refund, one chain level after another: rows keyed (quota <<
-  // 32 | row), rows without a quota at this level last
-  uint64_t* qkeys = keys + pow2_at_least(P);
-  for (int level = 0; level < levels; ++level) {
-    for (int s = tid; s < L; s += blockDim.x) {
-      uint64_t key = UINT64_MAX;
-      if (s < R) {
-        const int row = (int)(keys[s] & 0xFFFFFFFFu);
-        const int q = chain[(size_t)row * levels + level];
-        // a row past the table is dropped, as segment_sum drops it
-        key = ((uint64_t)(q >= 0 && q < Q ? q : Q) << 32) | (uint64_t)row;
-      }
-      qkeys[s] = key;
+  // g3. The rolled-back rows in row order, by a block scan (a span of rows
+  // a thread): each one's row, and its split row (node << 32 | rank)
+  int R;
+  {
+    const int c = (P + T - 1) / T, j0 = min(P, tid * c), j1 = min(P, j0 + c);
+    int mine = 0;
+    for (int j = j0; j < j1; ++j) mine += s_asg[j] >= 0;
+    int at = koord_split::excl(mine, warp_sums, R);
+    for (int j = j0; j < j1; ++j) {
+      const int node = s_asg[j];
+      if (node < 0) continue;
+      s_rows[at] = j;
+      ka[at] = ((uint64_t)node << 32) | (uint64_t)at;
+      ++at;
     }
     __syncthreads();
-    bitonic_sort(qkeys, L);
-    for (int s = tid; s < R; s += blockDim.x) {
-      const int q = (int)(qkeys[s] >> 32);
-      if (q >= Q || (s > 0 && (int)(qkeys[s - 1] >> 32) == q)) continue;
-      for (int d = 0; d < D; ++d) {
-        float r = 0.0f;
-        for (int j = s; j < R && (int)(qkeys[j] >> 32) == q; ++j)
-          r = r + requests[(size_t)(qkeys[j] & 0xFFFFFFFFu) * D + d];
-        const size_t at = (size_t)q * D + d;
-        quota_used[at] = quota_used[at] - r;
+  }
+
+  // g4. The node sort: the stable split on the node, (node, row) order
+  uint64_t* by_node = koord_split::sort(ka, kb, R, 32, N - 1, table, warp_sums);
+  uint64_t* other = by_node == ka ? kb : ka;
+
+  // g5. Gather: each rolled-back row's values in (node, row) order; with
+  // quotas each level's split row ((level, quota) << 32 | rank) in (level,
+  // row) order; then the node segments' heads
+  for (int s = tid; s < R; s += T) {
+    const int rank = (int)(by_node[s] & kLow);
+    const int row = s_rows[rank];
+    s_inv[rank] = s;
+    for (int d = 0; d < D; ++d) {
+      s_rq[(size_t)s * D + d] = requests[(size_t)row * D + d];
+      s_es[(size_t)s * D + d] = estimate[(size_t)row * D + d];
+    }
+    s_fl[s] = is_prod[row] ? 1 : 0;
+    if (devs) {
+      s_dv[(size_t)s * 3] = (float)dv.whole[row] * 100.0f + dv.share[row];
+      s_dv[(size_t)s * 3 + 1] = (float)dv.rdma_req[row];
+      s_dv[(size_t)s * 3 + 2] = (float)dv.fpga_req[row];
+    }
+    if (zones) {
+      s_pz[s] = pod_zone[row];
+      for (int d = 0; d < DN; ++d) s_zc[(size_t)s * DN + d] = zone_charge[(size_t)row * DN + d];
+    }
+    for (int l = 0; l < L; ++l) {
+      const int q = chain[(size_t)row * levels + l];
+      const long long key = (long long)l * (Q + 1) + (q >= 0 && q < Q ? q : Q);
+      other[(size_t)l * R + rank] = ((uint64_t)key << 32) | (uint64_t)rank;
+    }
+  }
+  __syncthreads();
+  const int nseg = run_heads(by_node, R, s_seg, warp_sums);
+  // the picks are cleared after the gather read them
+  if (pod_zone != nullptr)
+    for (int k = tid; k < R; k += T) pod_zone[s_rows[k]] = -1;
+
+  // g6. Node refunds: a thread a chain, W of them a node segment: (table,
+  // dim) sums subtracted, with devices the refund, RDMA and FPGA sums (the
+  // refund water-filled), with zones a (zone, dim) fold of the rows that
+  // hold the zone
+  {
+    const int W = 3 * D + (devs ? 3 : 0) + (zones ? Z * DN : 0);
+    // chain c is chain w = c / nseg of segment c % nseg: the lanes of a
+    // warp take one kind of chain (a table's, a device sum, a zone's) of
+    // consecutive segments, so a water-fill or a zone fold runs in as few
+    // warps as there are 32 segments
+    for (int c = tid; c < nseg * W; c += T) {
+      int w = c / nseg;
+      const int k = c - w * nseg;
+      const int s0 = s_seg[k], s1 = s_seg[k + 1];
+      const int node = (int)(by_node[s0] >> 32);
+      if (w < 3 * D) {
+        const int t = w / D, d = w - t * D;
+        float* tab = t == 0 ? requested : t == 1 ? est_used : prod_used;
+        const float sum = chain_sum((t == 0 ? s_rq : s_es) + d, D, s_fl, t == 2, s0, s1);
+        const size_t at = (size_t)node * D + d;
+        tab[at] = tab[at] - sum;
+        continue;
       }
+      w -= 3 * D;
+      if (devs && w < 3) {
+        const float sum = chain_sum(s_dv + w, 3, s_fl, false, s0, s1);
+        if (w == 0)
+          koord_device::slot_refund_row(dv.slots + (size_t)node * dv.G, dv.G, sum,
+                                        dv.cap != nullptr, dv.cap != nullptr ? dv.cap[node] : 0.0f);
+        else if (w == 1 && dv.rdma != nullptr)
+          dv.rdma[node] = dv.rdma[node] + sum;
+        else if (w == 2 && dv.fpga != nullptr)
+          dv.fpga[node] = dv.fpga[node] + sum;
+        continue;
+      }
+      if (devs) w -= 3;
+      // the zone fold: each rolled-back row that holds zone z (its pick
+      // clipped to Z - 1, as the reference's one-hot clips it) adds its
+      // charge, row by row; the others are selected away, not added
+      const int z = w / DN, d = w - z * DN;
+      float* cell = zone_free + ((size_t)node * Z + z) * DN + d;
+      float acc = *cell;
+      bool took = false;
+      int s = s0;
+      for (; s + kAhead <= s1; s += kAhead) {
+        int pz[kAhead];
+        float x[kAhead];
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) {
+          pz[u] = s_pz[s + u];
+          x[u] = s_zc[(size_t)(s + u) * DN + d];
+        }
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) {
+          const bool take = pz[u] >= 0 && min(pz[u], Z - 1) == z;
+          acc = take ? acc + x[u] : acc;
+          took = took || take;
+        }
+      }
+      for (; s < s1; ++s) {
+        const int pz = s_pz[s];
+        const bool take = pz >= 0 && min(pz, Z - 1) == z;
+        acc = take ? acc + s_zc[(size_t)s * DN + d] : acc;
+        took = took || take;
+      }
+      if (took) *cell = acc;
+    }
+  }
+  if (L == 0) return;
+
+  // g7. Quota order: every level's rows split at once on (level, quota),
+  // row order kept within each
+  __syncthreads();  // the node refunds have read by_node
+  const int E = L * R;
+  uint64_t* by_quota = koord_split::sort(other, by_node, E, 32, (long long)L * (Q + 1) - 1, table,
+                                         warp_sums);
+  const int nq = run_heads(by_quota, E, s_qseg, warp_sums);
+  // g8. Quota refunds, level by level: a thread a (quota, dim) chain, its
+  // sum subtracted; the rows keyed Q (no quota at the level, or past the
+  // table) dropped
+  for (int l = 0; l < L; ++l) {
+    for (int c = tid; c < nq * D; c += T) {
+      const int k = c / D, d = c - k * D;
+      const int e0 = s_qseg[k], e1 = s_qseg[k + 1];
+      const long long key = (long long)(by_quota[e0] >> 32);
+      const int lvl = (int)(key / (Q + 1)), q = (int)(key - (long long)lvl * (Q + 1));
+      if (lvl != l || q >= Q) continue;
+      const size_t at = (size_t)q * D + d;
+      quota_used[at] = quota_used[at] - quota_sum(s_rq, s_inv, by_quota, D, d, e0, e1);
     }
     __syncthreads();
   }
@@ -261,11 +432,18 @@ extern "C" int koord_enforce_gangs(void* assignment, const void* gang_id,
   if (zone_free != nullptr && (Z < 1 || DN < 1 || pod_zone == nullptr || zone_charge == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool quota = chain != nullptr && quota_used != nullptr && Q > 1;
+  // the split's keys: (level, quota) below 2^31, and every level's rows
+  // counted in an int
+  if (quota && (levels < 1 || (long long)levels * (Q + 1) >= (1ll << 31) ||
+                (long long)levels * P >= (1ll << 31)))
+    return (int)cudaErrorInvalidValue;
+  const GangLayout g = gang_layout(P, D, quota ? levels : 0, dev_slots != nullptr,
+                                   zone_free != nullptr ? DN : 0);
   // one block holds the whole batch, in shared memory or, where it does
   // not fit (koord_gangs_scratch), in the caller's scratch
-  const size_t smem = scratch != nullptr ? 0 : gangs_smem_bytes(P, quota);
+  const size_t smem = scratch != nullptr ? 0 : g.total;
   if (scratch == nullptr && smem > (size_t)max_smem()) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
+  if (smem > 48 * 1024 - 256) {
     cudaError_t err = cudaFuncSetAttribute(
         enforce_gangs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
@@ -284,16 +462,18 @@ extern "C" int koord_enforce_gangs(void* assignment, const void* gang_id,
       koord_device::Refund{(float*)dev_slots, (const float*)cap_total, (float*)rdma_free,
                            (float*)fpga_free, (const int*)gpu_whole, (const float*)gpu_share,
                            (const int*)rdma_req, (const int*)fpga_req, G},
-      (int*)scratch);
+      g, (char*)scratch);
   return (int)cudaGetLastError();
 }
 
-// The scratch a batch of P pods needs (with a quota refund when `quota`):
-// 0 while its working set fits in shared memory.
-extern "C" int koord_gangs_scratch(int P, int quota, long long* bytes) {
-  if (P < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = gangs_smem_bytes(P, quota != 0);
-  *bytes = smem > (size_t)max_smem() ? (long long)smem : 0;
+// The scratch a batch of P pods of D dims needs (with a quota refund over
+// `levels` levels when `quota`, devices when `dev`, zones of DN dims when
+// DN > 0): 0 while its working set fits in shared memory.
+extern "C" int koord_gangs_scratch(int P, int D, int quota, int levels, int dev, int DN,
+                                   long long* bytes) {
+  if (P < 0 || D < 1) return (int)cudaErrorInvalidValue;
+  const size_t need = gang_layout(P, D, quota ? levels : 0, dev != 0, DN).total;
+  *bytes = need > (size_t)max_smem() ? (long long)need : 0;
   return (int)cudaSuccess;
 }
 

@@ -35,11 +35,16 @@
 // has as many threads as pods.
 // - Integer scans (the active rank, the segment starts) are warp-shuffle
 //   scans with one shared word a warp.
-// - The stable sort is over unique keys (node_key << 32 | position,
-//   packed into 32 bits when N leaves room), which gives
-//   argsort(stable=True) exactly, pods keyed N last: a bitonic network of
-//   shuffles inside each warp, then merges of sorted runs by binary
-//   search, one barrier a merge.
+// - The stable sort is over unique keys (node_key << 32 | position),
+//   which gives argsort(stable=True) exactly, pods keyed N last. At one
+//   row a thread (packed into 32 bits when N leaves room) a bitonic
+//   network of shuffles inside each warp, then merges of sorted runs by
+//   binary search, one barrier a merge; above, the stable radix split of
+//   split.cuh on the node key (the keys arrive in position order): two
+//   passes of 7 bits at 10,000 nodes, integer counts a warp and one block
+//   scan a pass. The segments' first rows are numbered by one block scan
+//   over a span of sorted rows a thread; each row keeps its segment's
+//   index and start.
 // - The cumsums keep XLA's CPU order (sequential chunks of 16, chunk
 //   totals scanned the same way, then offset): a thread sums a chunk in
 //   registers (chunks padded in shared memory so their threads hit
@@ -50,8 +55,9 @@
 // - Every row is tested in parallel against the tables as they stood at
 //   the start of the round. The winners' charges land on the tables row by
 //   row in sorted order within each node — the scatter-add XLA folds
-//   `table + segment_sum(...)` into — one thread a node, from the table
-//   values its tests read. No float atomics. Compiled with -fmad=false and
+//   `table + segment_sum(...)` into — a thread a (segment, table, dim)
+//   chain from the round-start value, the rows' values and flags loaded
+//   ahead of its adds. No float atomics. Compiled with -fmad=false and
 //   IEEE division, so `quantum * alloc + EPS` and the percents round as the
 //   reference's do.
 // - One SM sends every scattered load and store of the round, a line a
@@ -59,9 +65,9 @@
 //   in priority order and gathered from shared memory after the sort; node
 //   rows move as float2 / float4.
 // - Above 1,024 pods (the JAX scheduler's batch bucket is 4,096) a thread
-//   holds 4 or 16 rows and the sort is a bitonic network in shared memory;
-//   where shared memory is short, fewer dims go through the cumsums at a
-//   time and the pods' columns are read from device memory instead.
+//   holds 4 or 16 rows; where shared memory is short, fewer dims go
+//   through the cumsums at a time and the pods' columns are read from
+//   device memory instead.
 // - The quota commit (quota_commit below, its own instantiation: the round
 //   without quotas keeps its registers) runs between the node acceptance
 //   and the charges, in the shared memory of the node sort's keys and the
@@ -155,6 +161,7 @@
 
 #include "device.cuh"
 #include "quota.cuh"
+#include "split.cuh"
 
 namespace {
 
@@ -168,7 +175,8 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 // flags of a sorted row, for the charge walk
 constexpr int kAcc = 1;   // accepted
 constexpr int kProd = 2;  // a prod pod
-constexpr int kLast = 4;  // the last row of its node's segment (with quotas)
+constexpr int kNodeShift = 3;  // the row's node above the flags
+constexpr int kAhead = 16;     // rows a charge chain loads ahead of its adds
 
 // rows a thread of the shared-memory round at D <= 3 (up to 16,384 pods)
 constexpr int kBigRows = 16;
@@ -302,6 +310,14 @@ struct Add {
 };
 struct Max {
   __device__ int operator()(int a, int b) const { return max(a, b); }
+};
+// A segment's start and the count of segments so far, (start << 16 |
+// count), for rounds of at most 1,024 rows: the start's max, the counts'
+// sum.
+struct StartCount {
+  __device__ int operator()(int a, int b) const {
+    return max(a >> 16, b >> 16) << 16 | ((a & 0xFFFF) + (b & 0xFFFF));
+  }
 };
 
 // Inclusive scan of one int a thread across the block, by warp shuffles
@@ -746,55 +762,46 @@ __device__ __forceinline__ int segment_end(const KeyT* sk, int i, int P, KeyT q,
 }
 
 // Sorts the P unique keys k[r] (row tid + r * T, in position order on
-// entry) as sort_rows does, by a stable LSD radix split on the quota id:
-// each pass, every warp's 32 rows (a slice) count their digits by
-// __match_any_sync into `table` [digit][slice]; one exclusive block scan
-// of the table in (digit, slice) order gives each (digit, slice) its first
-// place; a row goes to that place plus the rows of its digit in the lanes
-// before it. Integer counts only; the order is the rows' own. The whole
-// block calls it.
-template <class KeyT, int R>
-__device__ void split_rows(KeyT (&k)[R], int P, int pb, int Q, KeyT* sk, uint16_t* table,
-                           int* warp_sums) {
-  const int tid = threadIdx.x, T = blockDim.x, lane = tid & 31;
-  const int S = (P + 31) / 32, E = kSplitBins * S;
-  const int per = (E + T - 1) / T, e0 = min(tid * per, E), e1 = min(e0 + per, E);
-  const unsigned before = (1u << lane) - 1u;
-  const int passes = split_passes(Q);
-  for (int pass = 0; pass < passes; ++pass) {
-    const int shift = pb + pass * kSplitBits;
-    for (int e = tid; e < E; e += T) table[e] = 0;
-    __syncthreads();
-    int dig[R];
-    unsigned peers[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      // rows past P take a digit of their own
+// entry) as sort_rows does, by the stable radix split (split.cuh) on the
+// key k >> shift, at most top, in the passes of `pl`: each pass the rows
+// present (RN a thread) count their digits into `table`, one block scan,
+// then each row goes to its place in sk and is read back. The whole block
+// calls it; on return sk[0, P) holds the sorted keys.
+template <class KeyT, int R, class C>
+__device__ void split_rows(KeyT (&k)[R], int P, int RN, int shift, koord_split::Plan pl,
+                           KeyT* sk, C* table, int* warp_sums) {
+  const int tid = threadIdx.x, T = blockDim.x, S = (P + 31) / 32;
+  const KeyT mask = ((KeyT)1 << pl.bits) - 1;
+  constexpr int RR = R <= 4 ? R : 1;  // the digits kept in registers up to 4 rows
+  for (int pass = 0; pass < pl.passes; ++pass) {
+    const int sh = shift + pass * pl.bits;
+    koord_split::clear(table, P, pl.bits);
+    int dig[RR];
+    unsigned peers[RR];
+#pragma unroll (R <= 4 ? R : 1)
+    for (int r = 0; r < RN; ++r) {
       const int i = tid + r * T;
-      dig[r] = i < P ? (int)(k[r] >> shift) & (kSplitBins - 1) : kSplitBins;
-      peers[r] = __match_any_sync(kFull, dig[r]);
-      if (i < P && (peers[r] & before) == 0)
-        table[dig[r] * S + i / 32] = (uint16_t)__popc(peers[r]);
+      const int dg = i < P ? (int)((k[r] >> sh) & mask) : -1;
+      const unsigned pe = koord_split::count(dg, i >> 5, S, table);
+      if constexpr (R <= 4) dig[r] = dg, peers[r] = pe;
     }
-    __syncthreads();
-    int sum = 0;
-    for (int e = e0; e < e1; ++e) sum += table[e];
-    int carry = 0;
-    int at = block_scan(sum, warp_sums, carry, Add()) - sum;
-    for (int e = e0; e < e1; ++e) {
-      const int c = table[e];
-      table[e] = (uint16_t)at;
-      at += c;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
+    koord_split::scan(table, P, pl.bits, warp_sums);
+#pragma unroll (R <= 4 ? R : 1)
+    for (int r = 0; r < RN; ++r) {
       const int i = tid + r * T;
-      if (i < P) sk[table[dig[r] * S + i / 32] + __popc(peers[r] & before)] = k[r];
+      int dg;
+      unsigned pe;
+      if constexpr (R <= 4) {
+        dg = dig[r], pe = peers[r];
+      } else {
+        dg = i < P ? (int)((k[r] >> sh) & mask) : -1;
+        pe = __match_any_sync(kFull, dg);
+      }
+      if (i < P) sk[koord_split::place(dg, pe, i >> 5, S, table)] = k[r];
     }
     __syncthreads();
-#pragma unroll
-    for (int r = 0; r < R; ++r)
+#pragma unroll (R <= 4 ? R : 1)
+    for (int r = 0; r < RN; ++r)
       if (tid + r * T < P) k[r] = sk[tid + r * T];
   }
 }
@@ -888,7 +895,8 @@ __device__ void quota_commit(bool (&ok)[R], const uint64_t (&key)[R], int P, cha
       live |= 1ull << l;
     }
     if (split_fits(Q, R))
-      split_rows<KeyT, R>(k, P, pb, Q, sk, (uint16_t*)ext, warp_sums);
+      split_rows<KeyT, R>(k, P, R, pb, koord_split::plan(Q, kSplitBits), sk, (uint16_t*)ext,
+                          warp_sums);
     else
       sort_rows<KeyT, R>(k, P, sk, buf1);
 
@@ -1168,18 +1176,30 @@ __device__ void quota_commit(bool (&ok)[R], const uint64_t (&key)[R], int P, cha
   __syncthreads();
 }
 
+// The area's room for the node sort, before the staged columns: the
+// sort's second buffer of P keys at one row a thread, or the split's
+// count table (16-bit entries up to 65,536 rows, 32-bit above); then each
+// segment's first row, until the tests.
+__host__ __device__ inline size_t sort_room(int P) {
+  const size_t table = P > 65536 ? koord_split::table_bytes<uint32_t>(P)
+                                 : koord_split::table_bytes<uint16_t>(P);
+  const size_t keys = (size_t)P * sizeof(uint64_t);
+  return ((table > keys ? table : keys) + 15) / 16 * 16;
+}
+
 // Shared layout: keys[P] uint64, then one area used in turn, then
-// s_flags[P] int (a sorted row's accept and prod flags), then with zones
-// the zone phase's `zbytes` (zone_bytes). The area holds
-// - while choosing and sorting, the sort's second buffer of P keys and,
-//   when `staged`, the pods' columns in priority order: request [P, D],
+// s_flags[P] int (a sorted row's segment, then its accept and prod flags
+// and node), then with zones the zone phase's `zbytes` (zone_bytes). The
+// area holds
+// - while choosing and sorting, the sort's room (sort_room) and, when
+//   `staged`, the pods' columns in priority order: request [P, D],
 //   estimate [P, D], bits [P], assigned [P];
 // - from the tests on, 3 G series of lv.total floats (G dims a pass);
 // - with quotas, between the tests and the charges, the quota phase's
 //   `qbytes` (quota_layout), from the keys on: the keys and the area.
 __host__ __device__ inline size_t area_bytes(int P, int D, int G, int staged, size_t qbytes) {
   const size_t series = (size_t)3 * G * scan_levels(P).total * sizeof(float);
-  const size_t sorting = (size_t)P * (sizeof(uint64_t) + (staged ? 8 * D + 8 : 0));
+  const size_t sorting = sort_room(P) + (size_t)P * (staged ? 8 * D + 8 : 0);
   const size_t keys = (size_t)P * sizeof(uint64_t);
   const size_t quota = qbytes > keys ? qbytes - keys : 0;
   const size_t most = series > sorting ? series : sorting;
@@ -1957,13 +1977,12 @@ __device__ __noinline__ void zone_charge_apart(const bool (&ok)[R], const int (&
 
 // R rows a thread: row i = tid + r * blockDim.x. A row's values stay in
 // registers from its load to its last use; only what other rows read
-// (keys, cumsums, flags, the values the charge walk adds) goes through
+// (keys, cumsums, flags, the values the charge chains add) goes through
 // shared memory. A single SM sends the whole round's scattered loads and
 // stores, each warp instruction a line a lane, so the design keeps them
 // few: the pods' columns are read once, coalesced, in priority order and
 // gathered from shared memory after the sort; node rows are read with
-// vector loads, once, and the charges start from the values the tests
-// read.
+// vector loads, once.
 template <int D, int R, bool kQuota, bool kZone, bool kGlobal, bool kDev>
 __global__ void __launch_bounds__(kThreads)
 round_tail_kernel(const float* __restrict__ top_cost,
@@ -1994,9 +2013,9 @@ round_tail_kernel(const float* __restrict__ top_cost,
   __shared__ int warp_sums[kWarps];
   // the working set: shared memory, or (kGlobal) the device-memory scratch
   uint64_t* keys = kGlobal ? (uint64_t*)scratch : smem_u64;  // [P]
-  uint64_t* keys2 = keys + P;                           // [P], the area
+  uint64_t* keys2 = keys + P;                           // the area
   float* series = (float*)keys2;                        // [3 G, lv.total]
-  float* st_req = (float*)(keys2 + P);                  // [P, D] if staged
+  float* st_req = (float*)((char*)keys2 + sort_room(P));  // [P, D] if staged
   float* st_est = st_req + (size_t)P * D;               // [P, D]
   int* st_bits = (int*)(st_est + (size_t)P * D);        // [P]
   int* st_asg = st_bits + P;                            // [P]
@@ -2021,10 +2040,27 @@ round_tail_kernel(const float* __restrict__ top_cost,
   if (tid == 0) s_lv = scan_levels(P);
 
   // 1. The rank-modular choice (:1204-1213): rank is the inclusive count of
-  // active pods minus 1, an exact integer scan, tile by tile. The pods'
-  // columns are staged on the way, in priority order.
+  // active pods minus 1, an exact integer scan: at one row a thread a
+  // block scan of the rows' flags, above one block scan over a span of
+  // positions a thread (the flags read from device memory), the ranks
+  // noted in the sort's room. The pods' columns are staged on the way, in
+  // priority order.
   uint64_t key[R];
   int carry = 0;
+  int* s_rank = (int*)keys2;
+  if constexpr (R > 1) {
+    int j0, j1;
+    dev_span(P, j0, j1);
+    int mine = 0;
+    for (int j = j0; j < j1; ++j) mine += active[j] ? 1 : 0;
+    int total;
+    int at = koord_split::excl(mine, warp_sums, total);
+    for (int j = j0; j < j1; ++j) {
+      at += active[j] ? 1 : 0;
+      s_rank[j] = at - 1;
+    }
+    __syncthreads();
+  }
 #pragma unroll (R <= 4 ? R : 1)
   for (int r = 0; r < R; ++r) key[r] = UINT64_MAX;
 #pragma unroll (R <= 4 ? R : 1)
@@ -2041,7 +2077,11 @@ round_tail_kernel(const float* __restrict__ top_cost,
       sbits = (is_prod[i] ? kStagedProd : 0) | (cpu_bind[i] ? kStagedBind : 0);
       sasg = assigned[i];
     }
-    const int rank = block_scan(m.act ? 1 : 0, warp_sums, carry, Add()) - 1;
+    int rank;
+    if constexpr (R > 1)
+      rank = i < P ? s_rank[i] : 0;
+    else
+      rank = block_scan(m.act ? 1 : 0, warp_sums, carry, Add()) - 1;
     if (staged && i < P) {
 #pragma unroll
       for (int d = 0; d < D; ++d) {
@@ -2051,23 +2091,14 @@ round_tail_kernel(const float* __restrict__ top_cost,
       st_bits[i] = sbits | (m.act ? kStagedActive : 0);
       st_asg[i] = sasg;
     }
-    key[r] = UINT64_MAX;
-    if (i < P) {
-      key[r] = choice_key(m, rank, i, N);
-      // one row a thread sorts from the register, and its sort's first
-      // store may land on this row's word before this store would (no
-      // barrier between): only the shared-memory network reads keys here
-      if (R > 1) keys[i] = key[r];
-    }
+    key[r] = i < P ? choice_key(m, rank, i, N) : UINT64_MAX;
   }
   const ScanLevels& lv = s_lv;  // written before block_scan's barriers
 
-  // 2. The stable sort by node key (:1215): a bitonic network over the
-  // virtual power-of-two length L, every comparator putting the smaller
-  // key at the lower position (a flip, then half-cleaners); positions past
-  // P hold +inf and are never stored.
-  int L = 1;
-  while (L < P) L <<= 1;
+  // 2. The stable sort by node key (:1215): at one row a thread a sort of
+  // the keys in registers (block_sort); above, the stable radix split on
+  // the node key (split.cuh), the keys arriving in position order, its
+  // count table in the sort's room of the area.
   if (R == 1) {
     // one key a thread, in a register; packed into 32 bits (node key above
     // the position's bits) when N leaves room, which halves the shuffles
@@ -2085,51 +2116,60 @@ round_tail_kernel(const float* __restrict__ top_cost,
     __syncthreads();
     if (tid < P) keys[tid] = key[0];
   } else {
+    // n1. the split's passes (the ranks in the sort's room are read)
     __syncthreads();
-    for (int k = 2; k <= L; k <<= 1) {
-      for (int j = k >> 1; j > 0; j >>= 1) {
-        const bool flip = j == (k >> 1);
-        for (int t = tid; t < (L >> 1); t += T) {
-          const int lo = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-          const int hi = flip ? (lo ^ (k - 1)) : lo + j;
-          if (hi < P) {
-            const uint64_t a = keys[lo], b = keys[hi];
-            if (b < a) {
-              keys[lo] = b;
-              keys[hi] = a;
-            }
-          }
-        }
-        __syncthreads();
-      }
+    const koord_split::Plan pl = koord_split::plan(N);
+    bool wide = false;  // 32-bit counts above 65,536 rows
+    if constexpr (R > kGlobalRows) {
+      wide = P > 65536;
+      if (wide) split_rows<uint64_t, R>(key, P, RN, 32, pl, keys, (uint32_t*)keys2, warp_sums);
     }
-#pragma unroll (R <= 4 ? R : 1)
-    for (int r = 0; r < R; ++r) {
-      const int i = tid + r * T;
-      if (i < P) key[r] = keys[i];
-    }
+    if (!wide) split_rows<uint64_t, R>(key, P, RN, 32, pl, keys, (uint16_t*)keys2, warp_sums);
   }
   __syncthreads();
 
-  // 3. Each sorted row: its pod's columns (CPU x amp for cpu-bind pods,
-  // :1217-1229) and loop state, and its segment start (jax.lax.cummax of
-  // the start positions) by a max-scan.
-  float rq[R][D], es[R][D];
-  int start[R], asg[R];
-  bool prod[R], act[R], bound[R];
+  // 3. Each sorted row's node segment (jax.lax.cummax of the segments'
+  // start positions) and its index: at one row a thread one block scan of
+  // (start, count) pairs in the row loop; above, the segments' first rows
+  // numbered by one block scan over a span of rows a thread, each row
+  // noting its segment in s_flags and each first row its position in the
+  // sort's room. Then each row's pod's columns (CPU x amp for cpu-bind
+  // pods, :1217-1229) and loop state.
+  int nseg = 0;
+  if constexpr (R > 1) {
+    // n2. the segments
+    int* s_first = (int*)keys2;
+    int j0, j1;
+    dev_span(P, j0, j1);
+    int heads = 0;
+    for (int j = j0; j < j1; ++j) heads += j == 0 || (keys[j] >> 32) != (keys[j - 1] >> 32);
+    int at = koord_split::excl(heads, warp_sums, nseg) - 1;
+    for (int j = j0; j < j1; ++j) {
+      if (j == 0 || (keys[j] >> 32) != (keys[j - 1] >> 32)) s_first[++at] = j;
+      s_flags[j] = at;
+    }
+    __syncthreads();
+  }
+  // n3. the rows
   carry = 0;
+  float rq[R][D], es[R][D];
+  int start[R], seg[R], asg[R];
+  bool prod[R], act[R], bound[R];
 #pragma unroll (R <= 4 ? R : 1)
   for (int r = 0; r < RN; ++r) {
     const int i = tid + r * T;
-    int node = -1, prev = -1;
     prod[r] = act[r] = false;
     asg[r] = -1;
+    start[r] = seg[r] = 0;
 #pragma unroll
     for (int d = 0; d < D; ++d) rq[r][d] = es[r][d] = 0.0f;
     if (i < P) {
       const int row = (int)(key[r] & 0xFFFFFFFFu);
-      node = (int)(key[r] >> 32);
-      prev = i > 0 ? (int)(keys[i - 1] >> 32) : -1;
+      const int node = (int)(key[r] >> 32);
+      if constexpr (R > 1) {
+        seg[r] = s_flags[i];
+        start[r] = ((const int*)keys2)[seg[r]];
+      }
       bool bind;
       if (staged) {
 #pragma unroll
@@ -2155,8 +2195,15 @@ round_tail_kernel(const float* __restrict__ top_cost,
     } else {
       bound[r] = false;
     }
-    start[r] = block_scan(i < P && node != prev ? i : 0, warp_sums, carry, Max());
+    if constexpr (R == 1) {
+      const bool head = i < P && (i == 0 || (keys[i - 1] >> 32) != (key[r] >> 32));
+      const int x = block_scan(head ? i << 16 | 1 : 0, warp_sums, carry, StartCount());
+      start[r] = x >> 16;
+      seg[r] = (x & 0xFFFF) - 1;
+    }
   }
+  if constexpr (R == 1) nseg = carry & 0xFFFF;
+  __syncthreads();  // the segments' starts are read before the series take the area
 
   // 4-5. G dims a pass: the series (request, estimate, prod estimate) x G
   // of the sorted rows, their cumsums, and each row's tests against the
@@ -2207,7 +2254,9 @@ round_tail_kernel(const float* __restrict__ top_cost,
       }
     }
     __syncthreads();
+    // n4. the cumsums
     series_cumsum(series, 3 * gn, lv);
+    // n5. the tests
 #pragma unroll (R <= 4 ? R : 1)
     for (int r = 0; r < R; ++r) {
       const int i = tid + r * T;
@@ -2269,18 +2318,10 @@ round_tail_kernel(const float* __restrict__ top_cost,
 #pragma unroll (R <= 4 ? R : 1)
   for (int r = 0; r < R; ++r)
     ok[r] = ok[r] && !(node_fresh[r] && over[r]) && !(prod[r] && node_fresh[r] && pover[r]);
-  // 6. With quotas, the quota commit: each row first notes in its flags
-  // whether it ends its node's segment (the charges below need it; the
-  // quota phase then takes the keys' room), and only the pods that also
-  // clear their chains stay accepted (:1362-1370). The note goes to the
-  // working set, which the charges read anyway.
+  // 6. With quotas, the quota commit (it takes the keys' room: the
+  // charges below read the segments from registers): only the pods that
+  // also clear their chains stay accepted (:1362-1370).
   if constexpr (kQuota) {
-#pragma unroll (R <= 4 ? R : 1)
-    for (int r = 0; r < R; ++r) {
-      const int i = tid + r * T;
-      if (i < P)
-        s_flags[i] = i == P - 1 || (keys[i + 1] >> 32) != (key[r] >> 32) ? kLast : 0;
-    }
     if constexpr (kGlobal)
       quota_commit_apart<D, R>(ok, key, P, (char*)keys, lv, warp_sums, req, chain, runtime,
                                qused, Q, levels);
@@ -2292,18 +2333,21 @@ round_tail_kernel(const float* __restrict__ top_cost,
   for (int r = 0; r < R; ++r) {
     const int i = tid + r * T;
     if (i < P)
-      s_flags[i] = (kQuota ? s_flags[i] & kLast : 0) | (ok[r] ? kAcc : 0) | (prod[r] ? kProd : 0);
+      s_flags[i] = (ok[r] ? kAcc : 0) | (prod[r] ? kProd : 0) | (int)(key[r] >> 32) << kNodeShift;
   }
 
-  // 7. The winners' charges, G dims a pass: the thread of each segment's
-  // first row adds the segment's winners to its node's rows of the three
-  // tables, row by row in sorted order, from the values its tests read.
+  // 7. The winners' charges, G dims a pass: each node segment's winners
+  // onto its node's rows of the three tables, row by row in sorted order,
+  // from the round-start values (the scatter-add XLA folds `table +
+  // segment_sum(...)` into). A thread a (segment, table, dim) chain, the
+  // rows' flags and values loaded kAhead ahead of the adds, the next
+  // chain's round-start value loaded while this one adds; a non-winner's
+  // add is selected away, never added as zero (x + 0 turns -0 into +0).
+  // Each segment's first row is listed in the third series' room.
 #pragma unroll 1
   for (int d0 = 0; d0 < D; d0 += G) {
     const int gn = min(G, D - d0);
-    // raw values of the gn dims, and each segment's last row (written by
-    // that row, at the segment's first) in the third series' room
-    int* s_end = (int*)(series + 2 * gn * lv.total);
+    int* s_first = (int*)(series + 2 * gn * lv.total);
 #pragma unroll (R <= 4 ? R : 1)
     for (int r = 0; r < R; ++r) {
       const int i = tid + r * T;
@@ -2315,53 +2359,55 @@ round_tail_kernel(const float* __restrict__ top_cost,
           series[(1 * gn + d - d0) * lv.total + i] = es[r][d];
         }
       }
-      const bool ends = kQuota ? (s_flags[i] & kLast) != 0
-                               : i == P - 1 || (keys[i + 1] >> 32) != (key[r] >> 32);
-      if (ends) s_end[start[r]] = i;
+      if (start[r] == i) s_first[seg[r]] = i;
     }
     __syncthreads();
-#pragma unroll (R <= 4 ? R : 1)
-    for (int r = 0; r < R; ++r) {
-      const int i = tid + r * T;
-      const int node = (int)(key[r] >> 32);
-      if (i >= P || start[r] != i || node >= N) continue;
-      float tr[D], te[D], tp[D];
+    // n6. the chains
+    const int W = 3 * gn, chains = nseg * W;
+    // chain c's node (N: the unchosen pods' segment, no chain) and table
+    auto chain_node = [&](int c) { return s_flags[s_first[c / W]] >> kNodeShift; };
+    auto chain_table = [&](int c) {
+      const int t = (c % W) / gn;
+      return t == 0 ? requested : t == 1 ? est_used : prod_used;
+    };
+    float next = 0.0f;
+    if (tid < chains) {
+      const int node = chain_node(tid);
+      if (node < N) next = chain_table(tid)[(size_t)node * D + d0 + tid % gn];
+    }
+    for (int c = tid; c < chains; c += T) {
+      const float run = next;
+      if (c + T < chains) {
+        const int node = chain_node(c + T);
+        if (node < N) next = chain_table(c + T)[(size_t)node * D + d0 + (c + T) % gn];
+      }
+      const int k = c / W, w = c - k * W, t = w / gn, g = w - t * gn;
+      const int s0 = s_first[k], s1 = k + 1 < nseg ? s_first[k + 1] : P;
+      const int node = s_flags[s0] >> kNodeShift;
+      if (node >= N) continue;
+      const float* v = series + ((t == 0 ? 0 : gn) + g) * lv.total;
+      const int need = t == 2 ? (kAcc | kProd) : kAcc;
+      float acc = run;
+      bool took = false;
+      int j = s0;
+      for (; j + kAhead <= s1; j += kAhead) {
+        int f[kAhead];
+        float x[kAhead];
 #pragma unroll
-      for (int d = 0; d < D; ++d) tr[d] = rq0[r][d], te[d] = eu0[r][d], tp[d] = pu0[r][d];
-      // the adds are selected, not branched on, so the loads of later
-      // rows do not wait for the sums of earlier ones
-      bool any = false;
-      const int end = s_end[i];
-#pragma unroll 4
-      for (int j = i; j <= end; ++j) {
-        const int f = s_flags[j];
-        const bool take = (f & kAcc) != 0, take_prod = take && (f & kProd);
-        any = any || take;
+        for (int u = 0; u < kAhead; ++u) f[u] = s_flags[j + u], x[u] = v[j + u];
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-          if (d >= d0 && d < d0 + gn) {
-            const float v = series[(0 * gn + d - d0) * lv.total + j];
-            const float e = series[(1 * gn + d - d0) * lv.total + j];
-            tr[d] = take ? tr[d] + v : tr[d];
-            te[d] = take ? te[d] + e : te[d];
-            tp[d] = take_prod ? tp[d] + e : tp[d];
-          }
+        for (int u = 0; u < kAhead; ++u) {
+          const bool take = (f[u] & need) == need;
+          acc = take ? acc + x[u] : acc;
+          took = took || take;
         }
       }
-      if (!any) continue;
-      if (G == D) {
-        store_row<D>(requested, node, tr);
-        store_row<D>(est_used, node, te);
-        store_row<D>(prod_used, node, tp);
-      } else {
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          if (d >= d0 && d < d0 + gn) {
-            const size_t at = (size_t)node * D + d;
-            requested[at] = tr[d], est_used[at] = te[d], prod_used[at] = tp[d];
-          }
-        }
+      for (; j < s1; ++j) {
+        const bool take = (s_flags[j] & need) == need;
+        acc = take ? acc + v[j] : acc;
+        took = took || take;
       }
+      if (took) chain_table(c)[(size_t)node * D + d0 + g] = acc;
     }
     __syncthreads();
   }
@@ -2574,7 +2620,9 @@ cudaError_t with_d(int D, const Op& op) {
 // The arguments every entry checks: sizes, and rows read and written as
 // float2 / float4 where D allows.
 inline cudaError_t check_args(const Args& a) {
-  if (a.D < 1 || a.D > kMaxDims || a.N < 1 || a.K < 1 || a.K > kMaxK) return cudaErrorInvalidValue;
+  if (a.D < 1 || a.D > kMaxDims || a.N < 1 || a.N >= (1 << (31 - kNodeShift)) || a.K < 1 ||
+      a.K > kMaxK)
+    return cudaErrorInvalidValue;
   if (a.chain != nullptr && (a.Q < 1 || a.L < 1)) return cudaErrorInvalidValue;
   if (a.zones.free != nullptr &&
       (a.zones.Z < 1 || a.zones.Z > kMaxZones || a.zones.DN < 1 || a.zones.DN > kMaxZoneDims ||

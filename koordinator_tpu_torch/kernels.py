@@ -86,7 +86,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "gangs": {
         "koord_enforce_gangs": [_P] * 11 + [_I, _I, _I] + [_P] * 2 + [_I, _I] + [_P] * 2
         + [_I, _I] + [_P] * 8 + [_I, _P, _P],
-        "koord_gangs_scratch": [_I, _I, ctypes.POINTER(ctypes.c_longlong)],
+        "koord_gangs_scratch": [_I] * 6 + [ctypes.POINTER(ctypes.c_longlong)],
     },
     "shortlist_build": {
         "koord_shortlist_build": [_P] * 14 + [_I] * 4 + [_F, _I] + [_P] * 8 + [_I] * 3

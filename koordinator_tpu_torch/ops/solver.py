@@ -1222,13 +1222,16 @@ _GANG_DTYPES = (_I32, _I32, _I32, _BOOL, _F32, _F32, _BOOL, _F32, _F32, _F32, _I
 
 
 @functools.lru_cache(maxsize=64)
-def _gangs_scratch_bytes(index: int, p: int, quota: bool) -> int:
-    """Bytes of device memory the rollback of ``p`` pods needs on device
-    ``index`` (0 while it fits in shared memory)."""
+def _gangs_scratch_bytes(index: int, p: int, d: int, levels: int, dev: bool, dn: int) -> int:
+    """Bytes of device memory the rollback of ``p`` pods of ``d`` dims
+    needs on device ``index`` (a quota refund over ``levels`` levels, 0 for
+    none; devices; zones of ``dn`` dims, 0 for none): 0 while it fits in
+    shared memory."""
     lib = kernels.library("gangs")
     nbytes = ctypes.c_longlong(0)
     with torch.cuda.device(index):
-        kernels.check(lib, lib.koord_gangs_scratch(p, int(quota), ctypes.byref(nbytes)),
+        kernels.check(lib, lib.koord_gangs_scratch(p, d, int(levels > 0), levels, int(dev), dn,
+                                                   ctypes.byref(nbytes)),
                       "enforce_gangs scratch")
     return nbytes.value
 
@@ -1297,7 +1300,8 @@ def _enforce_gangs_(result: SolveResult, pods: PodBatch, slot_exists=None) -> No
             (p, n * g, n, n, n, p, p, p, p),
         )[1:] + [g]
     lib = kernels.library("gangs")
-    nbytes = _gangs_scratch_bytes(asg.get_device(), p, refund)
+    nbytes = _gangs_scratch_bytes(asg.get_device(), p, d, levels, slots is not None,
+                                  z_args[3])
     # the launch's own working set, as the round tail's (ops/commit.py)
     buf = torch.empty(nbytes, dtype=torch.uint8, device=asg.device) if nbytes else None
     code = lib.koord_enforce_gangs(*ptrs, p, n, d, *q_ptrs, q_cap, levels, *z_args, *d_args,

@@ -2078,3 +2078,125 @@ def test_round_tail_quota_commit_with_zones_and_devices_matches_plain(cuda, p, k
     torch.cuda.synchronize()
     assert_round_equal(*outs)
 
+
+
+def crowded(arrays, seed, nodes=4):
+    """The round's nomination cut to ``nodes`` nodes: each node segment
+    about P / nodes rows long, winners and refused pods mixed in it."""
+    rng = np.random.default_rng(seed)
+    n = arrays[7].shape[0]
+    arrays[1] = rng.choice(rng.choice(n, nodes, replace=False), arrays[1].shape).astype(np.int32)
+    return arrays
+
+
+#: rounds at each width of the node sort and charges: (rows a thread, P, D)
+#: — one row a thread (a block-wide sort in registers), four and 16 in
+#: shared memory, 32 and 128 in device memory (above 65,536 rows the
+#: split's counts are 32 bits)
+SPLIT_WIDTHS = [(1, 1000, 2), (4, 4096, 2), (16, 8000, 1), (32, 20_000, 2), (128, 70_000, 2)]
+
+
+@pytest.mark.parametrize("is_crowded", [False, True])
+@pytest.mark.parametrize("rows, p, d", SPLIT_WIDTHS)
+def test_round_tail_node_split_and_charges_match_plain(cuda, rows, p, d, is_crowded):
+    """The node sort (the stable radix split above one row a thread) and
+    the winners' charges (a thread a segment chain) at every width, on
+    ordinary and crowded rounds, bitwise equal to the plain round."""
+    arrays = round_inputs(p + rows, p, 10_000, d)
+    if is_crowded:
+        arrays = crowded(arrays, p + rows)
+    dev, host = round_tail_both(cuda, arrays)
+    assert_round_equal(dev, host)
+    assert (host[14].numpy() >= 0).sum() > 0
+    if is_crowded:
+        _, key = tcommit._choose(*(torch.from_numpy(arrays[i]) for i in (0, 1, 15)), 10_000)
+        key = key.numpy()
+        assert np.bincount(key[key < 10_000]).max() > p // 8
+
+
+@pytest.mark.parametrize("p", [1000, 4096, 20_000])
+def test_round_tail_node_split_at_its_most_passes_matches_plain(cuda, p):
+    """A node count whose key takes the split's most passes (22 bits: four
+    passes of 6), bitwise equal to the plain round."""
+    n = (1 << 21) + 5
+    dev, host = round_tail_both(cuda, round_inputs(p + 1, p, n, 2))
+    assert_round_equal(dev, host)
+
+
+def long_rollback_np(seed, p, n, d, refund):
+    """A solved batch whose rollback has long runs (numpy result fields,
+    PodBatch fields, and for ``refund`` "devices" the slot table's
+    cap_total): a quarter of the pods on node 3, all in Strict gang 0 (short
+    of its minMember) with half the others; with "quota" every chain's last
+    level the root quota 0 over four levels of 9 quotas (some -1 or past
+    the table); with "zones" picks (some past Z = 2) and charges; with
+    "devices" whole GPUs, shares, RDMA and FPGA."""
+    rng = np.random.default_rng(seed)
+    assignment = rng.integers(0, n, p)
+    assignment[rng.random(p) < 0.25] = 3
+    assignment[rng.random(p) < 0.08] = -1
+    gang_id = np.where((assignment == 3) | (rng.random(p) < 0.5), 0,
+                       np.where(rng.random(p) < 0.5, rng.integers(1, 6, p), -1))
+    gang_min = np.zeros(p, np.int32)
+    gang_min[:6] = rng.integers(2, 40, 6)
+    gang_min[0] = p + 1
+    req = (rng.uniform(100, 5000, (p, d)) * np.float32(0.85)).astype(np.float32)
+    pods = dict(requests=req, estimate=(req * np.float32(0.7)).astype(np.float32),
+                priority=rng.integers(5000, 9999, p).astype(np.int32),
+                is_prod=rng.random(p) < 0.4, gang_id=gang_id.astype(np.int32),
+                gang_min=gang_min, gang_nonstrict=np.arange(p) == 2)
+    result = dict(assignment=assignment.astype(np.int32),
+                  **{f: rng.uniform(1e4, 1e5, (n, d)).astype(np.float32)
+                     for f in ("node_requested", "node_estimated_used", "node_prod_used")})
+    extra = {}
+    if refund == "quota":
+        chain = rng.integers(-1, 11, (p, 4)).astype(np.int32)
+        chain[:, -1] = 0
+        pods["quota_chain"] = chain
+        extra["quota_used"] = rng.uniform(1e5, 1e6, (9, d)).astype(np.float32)
+    if refund == "zones":
+        extra["node_zone_free"] = rng.uniform(1e3, 1e4, (n, 2, 2)).astype(np.float32)
+        extra["pod_zone"] = np.where((assignment >= 0) & (rng.random(p) < 0.6),
+                                     rng.integers(0, 4, p), -1).astype(np.int32)
+        extra["pod_zone_charge"] = rng.uniform(10, 900, (p, 2)).astype(np.float32)
+    if refund == "devices":
+        pods.update(gpu_whole=rng.choice([0, 0, 1, 2], p).astype(np.int32),
+                    gpu_share=rng.choice([0.0, 0.0, 30.0, 50.0, 87.5], p).astype(np.float32),
+                    rdma=(rng.random(p) < 0.3).astype(np.int32),
+                    fpga=(rng.random(p) < 0.2).astype(np.int32))
+        extra["node_dev_slots"] = rng.choice([0.0, 12.5, 50.0, 100.0], (n, 8)).astype(np.float32)
+        extra["node_rdma_free"] = rng.integers(0, 4, n).astype(np.float32)
+        extra["node_fpga_free"] = rng.integers(0, 3, n).astype(np.float32)
+        extra["cap_total"] = (rng.integers(2, 9, n) * 100).astype(np.float32)
+    return result, pods, extra
+
+
+@pytest.mark.parametrize("refund", ["nodes", "quota", "zones", "devices"])
+@pytest.mark.parametrize("p", [512, 4096, 8192, 16_384, 32_768, 65_536])
+def test_enforce_gangs_long_runs_match_plain(cuda, p, refund):
+    """The rollback's chains at their longest — one node with a quarter of
+    the batch rolled back, one root quota over every rolled-back row — with
+    each refund, from 512 pods to 65,536 (device memory), bitwise equal to
+    the plain version."""
+    result, pods, extra = long_rollback_np(p + len(refund), p, 2000, 2, refund)
+    outs = []
+    for device in (cuda, "cpu"):
+        got = solve_result(result, device)
+        for name in ("quota_used", "node_zone_free", "pod_zone", "pod_zone_charge",
+                     "node_dev_slots", "node_rdma_free", "node_fpga_free"):
+            if name in extra:
+                setattr(got, name, torch.from_numpy(extra[name].copy()).to(device))
+        exists = None
+        if refund == "devices":
+            exists = tdev.slot_exists_of(torch.from_numpy(extra["cap_total"]).to(device), 8)
+        T._enforce_gangs_(got, from_numpy(T.PodBatch, device=device, **pods), exists)
+        outs.append(got)
+    torch.cuda.synchronize()
+    for f in ("assignment", "pod_zone", "node_requested", "node_estimated_used",
+              "node_prod_used", "quota_used", "node_zone_free", "node_dev_slots",
+              "node_rdma_free", "node_fpga_free"):
+        if getattr(outs[1], f) is not None:
+            np.testing.assert_array_equal(bits(getattr(outs[0], f).cpu().numpy()),
+                                          bits(getattr(outs[1], f).numpy()), err_msg=f)
+    rolled = (result["assignment"] >= 0) & (outs[1].assignment.numpy() < 0)
+    assert (rolled & (result["assignment"] == 3)).sum() >= 64

@@ -119,3 +119,76 @@ def test_in_place_form_equals_the_functional_one():
     T._enforce_gangs_(got, tp)
     for f in ("assignment", "pod_zone") + TABLES:
         np.testing.assert_array_equal(bits(getattr(want, f).numpy()), bits(getattr(got, f).numpy()))
+
+
+def long_rollback(seed, p=512, n=16, d=2, z=2, dn=2, g=8, q=9, levels=4):
+    """A solved batch whose rollback has long runs, with zones, devices and
+    a quota tree on: a quarter of the pods sit on node 3 and every one of
+    them is in Strict gang 0, which is short of its minMember, as are
+    half the others; every chain's last level is root quota 0 (so one
+    quota holds every rolled-back row), the levels below draw their quotas,
+    some -1 or past the table. Zone picks with some past Z (clipped),
+    charges; whole GPUs, shares, RDMA and FPGA. Returns the JAX package's
+    (result, pods, slot_exists)."""
+    rng = np.random.default_rng(seed)
+    assignment = rng.integers(0, n, p)
+    assignment[rng.random(p) < 0.25] = 3
+    assignment[rng.random(p) < 0.08] = -1
+    gang_id = np.where((assignment == 3) | (rng.random(p) < 0.5), 0,
+                       np.where(rng.random(p) < 0.5, rng.integers(1, 6, p), -1))
+    gang_min = np.zeros(p, np.int32)
+    gang_min[:6] = rng.integers(2, 40, 6)
+    gang_min[0] = p + 1
+    nonstrict = np.zeros(p, bool)
+    nonstrict[2] = True
+    chain = rng.integers(-1, q + 2, (p, levels)).astype(np.int32)
+    chain[:, -1] = 0
+    req = (rng.uniform(100, 5000, (p, d)) * np.float32(0.85)).astype(np.float32)
+    pods = J.PodBatch.create(
+        requests=req, estimate=(req * np.float32(0.7)).astype(np.float32),
+        priority=rng.integers(5000, 9999, p).astype(np.int32), is_prod=rng.random(p) < 0.4,
+        gang_id=gang_id.astype(np.int32), gang_min=gang_min, gang_nonstrict=nonstrict,
+        quota_chain=chain, gpu_whole=rng.choice([0, 0, 1, 2], p).astype(np.int32),
+        gpu_share=rng.choice([0.0, 0.0, 30.0, 50.0, 87.5], p).astype(np.float32),
+        rdma=(rng.random(p) < 0.3).astype(np.int32), fpga=(rng.random(p) < 0.2).astype(np.int32),
+    )
+    pod_zone = np.where((assignment >= 0) & (rng.random(p) < 0.6), rng.integers(0, z + 2, p), -1)
+    result = J.SolveResult(
+        assignment=jnp.asarray(assignment.astype(np.int32)),
+        **{name: jnp.asarray(rng.uniform(1e4, 1e5, (n, d)).astype(np.float32)) for name in TABLES},
+        quota_used=jnp.asarray(rng.uniform(1e5, 1e6, (q, d)).astype(np.float32)),
+        rounds_used=jnp.int32(1),
+        node_dev_slots=jnp.asarray(rng.choice([0.0, 12.5, 50.0, 100.0], (n, g)).astype(np.float32)),
+        node_rdma_free=jnp.asarray(rng.integers(0, 4, n).astype(np.float32)),
+        node_fpga_free=jnp.asarray(rng.integers(0, 3, n).astype(np.float32)),
+        node_zone_free=jnp.asarray(rng.uniform(1e3, 1e4, (n, z, dn)).astype(np.float32)),
+        pod_zone=jnp.asarray(pod_zone.astype(np.int32)),
+        pod_zone_charge=jnp.asarray(rng.uniform(10, 900, (p, dn)).astype(np.float32)),
+    )
+    exists = jnp.arange(g)[None, :] < jnp.asarray(rng.integers(2, g + 1, n))[:, None]
+    return result, pods, exists
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_enforce_gangs_plain_long_runs_match_reference(seed):
+    """The rollback the kernel's chains take longest on: one node with 64
+    or more rolled-back rows, one root quota over all of them, with the
+    zone, device and quota refunds on: bitwise equal to the reference."""
+    from koordinator_tpu_torch.ops.convert import from_jax
+
+    result, pods, exists = long_rollback(seed)
+    want = J.enforce_gangs(result, pods, exists)
+    got = T.enforce_gangs(from_jax(T.SolveResult, result, device="cpu"),
+                          from_jax(T.PodBatch, pods, device="cpu"),
+                          torch.from_numpy(np.array(exists)))
+    for f in ("assignment", "pod_zone", "quota_used", "node_zone_free", "node_dev_slots",
+              "node_rdma_free", "node_fpga_free") + TABLES:
+        np.testing.assert_array_equal(bits(getattr(want, f)), bits(getattr(got, f).numpy()),
+                                      err_msg=f)
+    before = np.asarray(result.assignment)
+    rolled = (before >= 0) & (got.assignment.numpy() < 0)
+    assert (rolled & (before == 3)).sum() >= 64
+    assert rolled.sum() > 200
+    # the root quota took every rolled-back row's request off
+    assert not np.array_equal(bits(result.quota_used)[0], bits(got.quota_used.numpy())[0])
+    assert (rolled & (np.asarray(result.pod_zone) >= 2)).any()  # picks past Z, clipped

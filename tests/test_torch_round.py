@@ -138,6 +138,29 @@ def test_round_tail_is_one_reference_round(seed, approx, jitter):
     assert state.tolist() == [int(not goes_on), 1]
 
 
+@pytest.mark.parametrize("p", [512, 4096])
+def test_crowded_round_tail_is_one_reference_round(p):
+    """A crowded round without zones: four nodes for every pod, so each
+    node's segment is about P / 4 rows long and holds winners and pods its
+    tests refuse (the charges' longest chains). Bitwise equal to one round
+    of the reference."""
+    nodes, pods, params = round_fixture(11, p=p, n=4)
+    order, args = first_round(nodes, pods, params, 4.0, True)
+    _, node_key = tcommit._choose(args[0], args[1], args[15], 4)
+    assert np.bincount(node_key.numpy()[node_key.numpy() < 4]).max() > p // 8
+    tcommit.round_tail(*args, 0.35)
+    requested, est_used, prod_used, assigned = args[11:15]
+    want = J.assign(*jax_inputs(nodes, pods, params), max_rounds=1, approx_topk=True)
+    got = torch.empty_like(assigned).scatter_(0, order, assigned)
+    np.testing.assert_array_equal(np.asarray(want.assignment), got.numpy())
+    for f, t in zip(TABLES, (requested, est_used, prod_used)):
+        np.testing.assert_array_equal(bits(getattr(want, f)), bits(t.numpy()), err_msg=f)
+    # winners and refusals mixed in the segments
+    placed = got.numpy()
+    mixed = [0 < (placed == node).sum() < (node_key.numpy() == node).sum() for node in range(4)]
+    assert sum(mixed) >= 2
+
+
 def test_round_tail_after_done_changes_nothing():
     nodes, pods, params = round_fixture(3)
     _, args = first_round(nodes, pods, params, 4.0, True)

@@ -3,6 +3,7 @@
 
     python3 tools/round_phases.py [--pods 512 4096] [--quota none onehot sorted] [--zones]
                                   [--crowded] [--devices] [--big] [--built] [--tree DIR]
+                                  [--variant split1]
     python3 tools/round_phases.py --ptxas [--tree DIR]
 
 Builds a copy of the round tail (``koordinator_tpu_torch/csrc/round.cuh``
@@ -25,7 +26,9 @@ is then the quota commit). ``--zones`` runs the rounds with NUMA zones
 (``chip_smoke.numa_port_inputs``, LeastAllocated pricing, after 3
 batches); with ``--crowded`` instead this checkout's
 ``chip_smoke.crowded_zone_inputs`` (every pod nominating one of four
-SINGLE_NUMA_NODE nodes: segments of about P / 4 zone candidates).
+SINGLE_NUMA_NODE nodes: segments of about P / 4 zone candidates), and
+``--crowded`` without ``--zones`` the same rounds with the zones off
+(segments of about P / 4 rows through the node commit).
 ``--devices`` runs the rounds with devices
 (``chip_smoke.device_port_inputs``: G = 16, RDMA and FPGA; LeastAllocated
 pricing, after 3 batches; phases "D." and "7d." are the device
@@ -35,10 +38,12 @@ entry, ``round_big.cu``: round 0 of the big batch
 ``--quota`` none or sorted) as phase 10 of the smoke sets it up, or with
 ``--zones`` the zone rounds of 8,192 to 32,768 pods; with ``--built``
 also 65,536 (the round tail routes it to ``round_huge.cu``). The quota
-commit's and the zone phase's cycles are also given by sub-phase ("//
-q1. ...", "// z1. ...": the cycles from there to the next mark, summed
-over the chain's levels, kept in shared memory so that a mark costs a few
-cycles). Only the width the fixture uses is instantiated in the copy.
+commit's, the zone phase's and the node commit's cycles are also given by
+sub-phase ("// q1. ...", "// z1. ...", "// n1. ...": the cycles from there
+to the next mark, summed over the chain's levels, kept in shared memory
+so that a mark costs a few cycles). Only the width the fixture uses is
+instantiated in the copy. ``--variant NAME`` builds the copy with a design
+of ``VARIANTS`` in place of the source's.
 ``--built`` times the tree's own round tail instead
 (``commit.round_tail``, no instrumentation): the CUDA-event time of a
 call and the ``torch.profiler`` device time of the round tail kernel.
@@ -88,8 +93,8 @@ def instrumented(src: str, keep_d: "int | None" = None) -> "tuple[str, list[str]
         src = re.sub(r"\n\s*case (\d): return op\.template run<\d>\(\);",
                      lambda m: m.group(0) if int(m.group(1)) == keep_d else "", src)
     head = ("__device__ long long koord_phase_clock[32];\n"
-            "__device__ long long koord_quota_cycles[16];\n"
-            "__shared__ long long koord_qs_cycles[16];\n"
+            "__device__ long long koord_quota_cycles[32];\n"
+            "__shared__ long long koord_qs_cycles[32];\n"
             "__shared__ long long koord_qs_t;\n"
             "__shared__ int koord_qs_cur;\n")
     # the marks' shared words come out of the round's own shared memory
@@ -106,6 +111,10 @@ def instrumented(src: str, keep_d: "int | None" = None) -> "tuple[str, list[str]
         out_q.append(line)
     names, out, k = ["start"], [], 1
     for line in src[body_at:].splitlines(keepends=True):
+        m = re.match(r"(\s+)// (n\d+)\. (.*)", line)
+        if m:
+            out.append(m.group(1) + QUOTA_MARK.format(len(sub_names)) + "\n")
+            sub_names.append(f"{m.group(2)}. {re.split(r' \(|:|,', m.group(3))[0]}")
         m = re.match(r"  // (\d+(?:-\d+)?[a-z]?|[A-Z])\. (.*)", line)
         if m:
             out.append("  " + MARK.format(k) + "\n")
@@ -115,20 +124,20 @@ def instrumented(src: str, keep_d: "int | None" = None) -> "tuple[str, list[str]
         if line.startswith("  if (state[0] != 0) return;"):
             out.append(line)
             out.append("  " + MARK.format(0) + "\n")
-            out.append("  if (threadIdx.x == 0) { for (int i_ = 0; i_ < 16; ++i_) "
+            out.append("  if (threadIdx.x == 0) { for (int i_ = 0; i_ < 32; ++i_) "
                        "koord_qs_cycles[i_] = 0; koord_qs_t = clock64(); "
                        "koord_qs_cur = 0; }\n")
             continue
         if line.startswith("    state[1] = state[1] + 1;"):
             out.append("    " + MARK.format(k) + "\n")
-            out.append("    for (int i_ = 0; i_ < 16; ++i_) koord_quota_cycles[i_] = "
+            out.append("    for (int i_ = 0; i_ < 32; ++i_) koord_quota_cycles[i_] = "
                        "koord_qs_cycles[i_];\n")
             names.append("state written")
         out.append(line)
     read = ('\nextern "C" int koord_phase_read(long long* out) {\n'
             "  return (int)cudaMemcpyFromSymbol(out, koord_phase_clock, sizeof(long long) * 32);\n}\n"
             'extern "C" int koord_quota_read(long long* out) {\n'
-            "  return (int)cudaMemcpyFromSymbol(out, koord_quota_cycles, sizeof(long long) * 16);\n}\n")
+            "  return (int)cudaMemcpyFromSymbol(out, koord_quota_cycles, sizeof(long long) * 32);\n}\n")
     first = src.index("namespace {")
     return (src[:first] + head + src[first:quota_at] + "".join(out_q) + "".join(out) + read,
             names, sub_names)
@@ -157,6 +166,14 @@ def big_round(torch, chip_smoke, solver, nominate_ops, p: int, tree, dev):
     top = nominate_ops.nominate(*nom_args, 4, 4.0, True)
     return chip_smoke.round_tail_args(torch, spods, nom_args, *top), quota
 
+
+#: designs measured against the source's own in the instrumented copy
+#: (``--variant``): a name and its (text, replacement) pairs
+VARIANTS = {
+    # the node sort at one row a thread by the radix split too, not the
+    # sort of the keys in registers
+    "split1": [("  if (R == 1) {\n    // one key a thread", "  if (R == 0) {\n    // one key a thread")],
+}
 
 #: the round tail's sources, each a set of its instantiations
 ROUND_SOURCES = ("round", "round_zone", "round_dev", "round_zone_dev", "round_big", "round_huge")
@@ -214,12 +231,15 @@ def main() -> int:
                     default=["none"], help="the rounds to run: without quotas, or a tree")
     ap.add_argument("--zones", action="store_true", help="the rounds with NUMA zones")
     ap.add_argument("--crowded", action="store_true",
-                    help="with --zones: the crowded zone rounds (chip_smoke.crowded_zone_inputs)")
+                    help="the crowded rounds (chip_smoke.crowded_zone_inputs; without --zones "
+                         "the same rounds with the zones off)")
     ap.add_argument("--devices", action="store_true", help="the rounds with devices")
     ap.add_argument("--big", action="store_true",
                     help="the device-memory entry round_big.cu: the big batch's round 0 "
                          "(chip_smoke.big_port_inputs, D=4; --quota none or sorted) or with "
                          "--zones the zone rounds")
+    ap.add_argument("--variant", choices=sorted(VARIANTS),
+                    help="the instrumented copy with this design in place of the source's")
     ap.add_argument("--ptxas", action="store_true",
                     help="only print every round tail instantiation's registers and spills")
     ap.add_argument("--built", action="store_true",
@@ -247,9 +267,6 @@ def main() -> int:
     if args.ptxas:
         print(json.dumps({"tree": str(args.tree), **ptxas(kernels)}), flush=True)
         return 0
-    if args.crowded and not args.zones:
-        print("FAIL: --crowded runs the zone rounds: give --zones", file=sys.stderr)
-        return 1
     # the crowded rounds come from this checkout's smoke, whatever the tree
     spec = importlib.util.spec_from_file_location("smoke_fixture", ROOT / "chip_smoke.py")
     fixtures = importlib.util.module_from_spec(spec)
@@ -269,9 +286,15 @@ def main() -> int:
     lib = None
     if not args.built:
         header = (kernels.CSRC / "round.cuh").read_text()
+        for text, repl in VARIANTS.get(args.variant, []):
+            if text not in header:
+                print(f"FAIL: the variant {args.variant} does not apply to this tree",
+                      file=sys.stderr)
+                return 1
+            header = header.replace(text, repl)
         src, names, sub_names = instrumented(
             (kernels.CSRC / f"{entry}.cu").read_text().replace('#include "round.cuh"', header),
-            4 if args.big and not args.zones else 2)
+            4 if args.big and not args.zones and not args.crowded else 2)
         kernels.BUILD.mkdir(parents=True, exist_ok=True)
         cu = kernels.BUILD / "round_phases.cu"
         so = kernels.BUILD / "libround_phases.so"
@@ -348,7 +371,8 @@ def main() -> int:
             rt = None
             if args.crowded:
                 rt, _, zone = fixtures.crowded_zone_inputs(torch, dev, p)
-            elif args.big and not args.zones:
+                zone = zone if args.zones else None
+            elif args.big and not args.zones and not args.crowded:
                 rt, quota = big_round(torch, chip_smoke, solver, nominate_ops, p, tree, dev)
             elif tree:
                 # the batch after the later state; above 512 pods, the first
@@ -474,7 +498,7 @@ def main() -> int:
                     print("FAIL: could not read the phase clocks")
                     return 1
                 clocks.append(list(buf)[: len(names)])
-                qbuf = (ctypes.c_longlong * 16)()
+                qbuf = (ctypes.c_longlong * 32)()
                 if lib.koord_quota_read(qbuf) != 0:
                     print("FAIL: could not read the quota sub-phase cycles")
                     return 1
@@ -494,7 +518,7 @@ def main() -> int:
             print(json.dumps({
                 "tree": str(args.tree), "pods": p, "quota": tree, "big": args.big,
                 "zones": zone is not None, "crowded": args.crowded, "card": smi,
-                "cycles_from_start": {name: int(v) for name, v in zip(names, cycles)},
+                "variant": args.variant, "cycles_from_start": {name: int(v) for name, v in zip(names, cycles)},
                 **({"quota_cycles_by_subphase": {name: int(v) for name, v in
                                                  zip(sub_names[1:], sub_cycles[1:])
                                                  if name.startswith("q")}}
@@ -503,6 +527,10 @@ def main() -> int:
                                                 zip(sub_names[1:], sub_cycles[1:])
                                                 if name.startswith("z")}}
                    if zone is not None else {}),
+                **({"node_cycles_by_subphase": {name: int(v) for name, v in
+                                                zip(sub_names[1:], sub_cycles[1:])
+                                                if name.startswith("n")}}
+                   if any(name.startswith("n") for name in sub_names) else {}),
                 "event_ms_per_call": start.elapsed_time(end) / 100,
             }), flush=True)
     return 0

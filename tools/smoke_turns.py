@@ -2,10 +2,12 @@
 """Run ``chip_smoke.py`` of two trees in turns and compare their passes.
 
     python3 tools/smoke_turns.py --tree OLD NEW [--phase NAME ...] [--logs DIR] [--timeout S]
+                                 [--turns 2]
 
 Each tree (this checkout, or another commit unpacked with ``git archive``)
 first builds its kernels, both trees at once; then each tree's
-``chip_smoke.py`` runs from its own root in turns, OLD NEW NEW OLD, each
+``chip_smoke.py`` runs from its own root in turns, OLD NEW NEW OLD (with
+``--turns 2`` OLD NEW, where a call has time for two), each
 run's output kept in ``DIR/turn<i>_<tree name>.log`` (default
 ``smoke_turns/`` in this checkout, git-ignored). For every run it prints
 the run's exit code and the median of the timed passes of each stream
@@ -63,6 +65,7 @@ def main() -> int:
     ap.add_argument("--tree", type=Path, nargs=2, required=True)
     ap.add_argument("--logs", type=Path, default=ROOT / "smoke_turns")
     ap.add_argument("--timeout", type=int, default=1100)
+    ap.add_argument("--turns", type=int, choices=[2, 4], default=4)
     ap.add_argument("--phase", nargs="+", default=None,
                     help="run only these phase functions of chip_smoke.py (phase_...)")
     args = ap.parse_args()
@@ -78,7 +81,7 @@ def main() -> int:
         if proc.returncode != 0:
             return 1
     worst = 0
-    for i, tree in enumerate((trees[0], trees[1], trees[1], trees[0]), 1):
+    for i, tree in enumerate((trees[0], trees[1], trees[1], trees[0])[: args.turns], 1):
         log = args.logs / f"turn{i}_{tree.name}.log"
         t0 = time.perf_counter()
         with log.open("w") as f:

@@ -21,7 +21,10 @@ one warm-up pass, then
   turns inside one call;
 - with ``--gaps``, the profiled pass's idle time on the device between
   consecutive kernels, summed by the pair of kernel names around each gap
-  (the ten largest sums): where a pass's wall time exceeds its busy time.
+  (the ten largest sums): where a pass's wall time exceeds its busy time;
+  and its busy time by kernel: for each name the device ms, the launches,
+  and those of them shorter than ``SHORT_US`` (a trip after the fixed
+  point returns at once) with their ms.
 
 Prints one JSON line with the card's name and power limit. Needs a CUDA
 device.
@@ -39,6 +42,10 @@ import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+
+#: a launch shorter than this many microseconds counts as one that
+#: returned at once (an empty trip after a batch's fixed point)
+SHORT_US = 2.5
 
 HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
                  "cudaLaunchKernelExC", "cuLaunchKernelEx")
@@ -126,8 +133,16 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False,
     ).stdout.strip()
-    gaps, gap_ms = {}, 0.0
+    gaps, gap_ms, by_kernel = {}, 0.0, {}
     if args.gaps:
+        for start, end, name in intervals:
+            row = by_kernel.setdefault(name, [0.0, 0, 0, 0.0])
+            row[0] += (end - start) / 1e3
+            row[1] += 1
+            if end - start < SHORT_US:
+                row[2] += 1
+                row[3] += (end - start) / 1e3
+        by_kernel = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12])
         intervals.sort()
         for (_, end, before), (start, _, after) in zip(intervals, intervals[1:]):
             if start > end:
@@ -141,7 +156,8 @@ def main() -> int:
         device_kernels=device_kernels, device_copies=copies,
         device_busy_ms=busy_us / 1e3, host_launch_calls=host_launches,
         host_syncs=syncs, sync_pass_seconds=seconds, pass_seconds=passes,
-        **({"gap_ms_by_kernels": gaps, "gap_ms": gap_ms} if args.gaps else {}),
+        **({"gap_ms_by_kernels": gaps, "gap_ms": gap_ms,
+            "busy_by_kernel_ms_launches_short_short_ms": by_kernel} if args.gaps else {}),
     )), flush=True)
     return 0
 
