@@ -866,6 +866,14 @@ def bits_equal(a, b) -> bool:
     return bool(np.array_equal(a, b))
 
 
+def units_of(spods):
+    """The priority-sorted pods' device units (``device_consumption``), as
+    the solver's batch set-up writes them for ``DeviceTerms.batch_start``."""
+    from koordinator_tpu_torch.ops import device as device_ops
+
+    return device_ops.device_consumption(spods.gpu_whole, spods.gpu_share)[1]
+
+
 def max_abs(a, b) -> float:
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
@@ -1034,8 +1042,8 @@ def plain_versions():
     def nominate_plain(*args, state=None, **kw):
         return nominate_ops.nominate_plain(*args, **kw)
 
-    def enforce_gangs_plain_(result, pods, slot_exists=None):
-        out = solver.enforce_gangs_plain(result, pods, slot_exists)
+    def enforce_gangs_plain_(result, pods, slot_cap=None):
+        out = solver.enforce_gangs_plain(result, pods, slot_cap)
         for name in solver._GANG_FIELDS:
             if getattr(result, name) is not None:
                 getattr(result, name).copy_(getattr(out, name))
@@ -1045,6 +1053,9 @@ def plain_versions():
         (nominate_ops, "nominate", nominate_plain),
         (commit_ops, "round_tail", commit_ops.round_tail_plain),
         (solver, "_enforce_gangs_", enforce_gangs_plain_),
+        (solver, "batch_setup", solver.batch_setup_plain),
+        (solver, "batch_teardown", solver.batch_teardown_plain),
+        (solver, "batch_outputs", solver.batch_outputs_plain),
         (shortlist_ops, "shortlist_build", shortlist_ops.shortlist_build_plain),
         (shortlist_ops, "shortlist_round", shortlist_ops.shortlist_round_plain),
         (quota_ops, "quota_gate", quota_ops.quota_gate_plain),
@@ -1167,23 +1178,106 @@ def gang_floor(torch, dev, pre, pods, exists=None) -> dict:
                              "ordered sum: one node's or one quota's rolled-back rows)")
 
 
+I32_MIN, I32_MAX = -(2 ** 31), 2 ** 31 - 1
+
+
+def batch_pods(seed: int, p: int, prio: str = "ties", d: int = 2, levels: int = 3) -> dict:
+    """Numpy pod fields of every kind for the set-up and teardown checks:
+    ``prio`` "ties" (six bands), "wide" (the whole int32 range) or "one"
+    (a single value), the first two with INT32_MIN and INT32_MAX mixed in;
+    cpuset-bound LSR/LSE pods, invalid pods, gangs, quota chains, NUMA and
+    device asks."""
+    rng = np.random.default_rng(seed)
+    if prio == "ties":
+        priority = rng.choice(np.array([-7, 0, 100, 5000, 9000, 9999], np.int32), p)
+    elif prio == "wide":
+        priority = rng.integers(I32_MIN, I32_MAX, p, dtype=np.int64, endpoint=True)
+    else:
+        priority = np.full(p, 42)
+    priority = priority.astype(np.int32)
+    if prio != "one" and p > 2:
+        at = rng.choice(p, size=min(p, 6), replace=False)
+        priority[at[::2]] = I32_MIN
+        priority[at[1::2]] = I32_MAX
+    cpu = rng.choice(np.array([500.0, 1000.0, 2000.0, 3500.0, 0.0], np.float32), p)
+    req = np.stack([cpu] + [cpu * rng.choice([2.0, 4.0], p)] * (d - 1), 1).astype(np.float32)
+    return dict(
+        requests=req,
+        estimate=(req * np.float32(0.75)).astype(np.float32),
+        priority=priority,
+        is_prod=rng.random(p) < 0.5,
+        valid=rng.random(p) > 0.05,
+        gang_id=np.where(rng.random(p) < 0.2, rng.integers(0, 5, p), -1).astype(np.int32),
+        gang_min=rng.integers(0, 4, p).astype(np.int32),
+        gang_nonstrict=rng.random(p) < 0.2,
+        quota_chain=np.where(rng.random((p, levels)) < 0.7,
+                             rng.integers(0, 9, (p, levels)), -1).astype(np.int32),
+        qos=rng.choice(np.array([0, 1, 2, 3, 4], np.int8), p),
+        gpu_whole=rng.integers(0, 3, p).astype(np.int32),
+        gpu_share=rng.choice(np.array([0.0, 30.0, 50.0], np.float32), p),
+        rdma=rng.integers(0, 2, p).astype(np.int32),
+        fpga=rng.integers(0, 2, p).astype(np.int32),
+        numa_required=rng.random(p) < 0.3,
+    )
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def setup_bytes(setup, cap_total=None) -> int:
+    """Bytes a set-up (``solver.BatchSetup``) must move: each pod field it
+    copies read once from the batch and written in each order asked for,
+    the priorities read (the key), the slot table's capacities read, and
+    its other outputs written."""
+    import dataclasses as dc
+
+    copies = {}
+    for batch in (setup.spods, setup.upods):
+        for f in dc.fields(batch) if batch is not None else ():
+            if getattr(batch, f.name) is not None:
+                copies.setdefault(f.name, []).append(getattr(batch, f.name))
+    read = sum(tensor_bytes(ts[0]) for ts in copies.values()) + 4 * setup.order.numel()
+    written = sum(tensor_bytes(*ts) for ts in copies.values()) + tensor_bytes(
+        setup.order, setup.bind, setup.mask_rows, setup.units, setup.assigned, setup.azone,
+        setup.state, setup.words, setup.fallbacks, setup.slot_cap)
+    return read + written + tensor_bytes(cap_total)
+
+
+def teardown_bytes(setup, dn=None) -> int:
+    """Bytes the un-sort (mode 0) must move: the order and the rounds'
+    assignment read, the assignment written; with zones (``dn``) also the
+    picks read and written, each zoned pod's request, bind flag and node
+    amplification read and its charge written."""
+    p = setup.order.numel()
+    nbytes = tensor_bytes(setup.order, setup.assigned) + 4 * p
+    if dn is not None:
+        nbytes += 2 * 4 * p + p * (dn * 4 + 1 + 4) + p * dn * 4
+    return nbytes
+
+
+def outputs_bytes(p: int, zones: bool = False, fallbacks: bool = False) -> int:
+    """Bytes the stream's output writes (mode 1) must move: the
+    assignment (and zone picks) read and written into row ``index``, the
+    rounds, placed count and (fallbacks) read and written, the index read
+    and written."""
+    return (2 + 2 * zones) * 4 * p + 4 + 4 + 4 + (16 if fallbacks else 0) + 16
+
+
 def setup_bytes_per_batch(pods_stacked) -> int:
-    """Bytes one batch of ``solve_stream`` moves outside the kernels, in
-    its PyTorch ops: the gather of the pods' fields the solve reads from
-    the stacked batch (read and written), the priority sort (priorities
-    read, the order written as int64), the gather of the rounds' fields
-    in that order (read and written) and the un-sort of the assignment
-    (order and assignment read, the result written)."""
+    """Bytes one batch of the headline ``solve_stream`` must move in its
+    set-up and teardown (``csrc/batch.cu``: :func:`setup_bytes` of the
+    set-up at an index (with the rollback's fields and the loop state),
+    :func:`teardown_bytes`, :func:`outputs_bytes`), worked out from batch
+    0's plain set-up on the CPU."""
+    import torch
+
     from koordinator_tpu_torch.ops import solver
 
-    p = pods_stacked.requests.shape[1]
-
-    def row(fields):
-        return sum(getattr(pods_stacked, f).element_size() * getattr(pods_stacked, f)[0, 0].numel()
-                   for f in fields)
-
-    return p * (2 * row(solver._SOLVE_FIELDS) + (4 + 8) + 2 * row(solver._ROUND_FIELDS)
-                + (8 + 4 + 4))
+    one = solver.tree_map(lambda a: a[:1].cpu(), pods_stacked)
+    setup = solver.batch_setup_plain(one, torch.zeros(1, dtype=torch.int64))
+    p = setup.order.numel()
+    return setup_bytes(setup) + teardown_bytes(setup) + outputs_bytes(p)
 
 
 def round_tail_bytes(torch, args, n: int, quota=None) -> int:
@@ -1793,6 +1887,155 @@ def phase_kernels(torch, dev, report):
     return nom_args, rt_args
 
 
+#: the set-up and teardown checks with every option on: P and the seed
+BATCH_CHECKS = ((512, 21), (4096, 22), (32_768, 23))
+
+
+def batch_check(torch, dev, pods_t, index, options: dict, dn=None, seed: int = 0) -> dict:
+    """``batch_setup``, ``batch_teardown`` (on a drawn assignment and zone
+    picks) and ``batch_outputs`` on the card against their plain versions
+    on CPU copies, bitwise; fails on any difference. Returns the card's
+    set-up, the drawn tensors and the check's largest difference."""
+    from koordinator_tpu_torch.ops import solver
+
+    n = N_NODES
+    runs = []
+    rng = np.random.default_rng(seed)
+    p = pods_t.priority.shape[-1]
+    assigned = np.where(rng.random(p) < 0.7, rng.integers(0, n, p), -1).astype(np.int32)
+    azone = np.where((assigned >= 0) & (rng.random(p) < 0.6), rng.integers(0, 4, p),
+                     -1).astype(np.int32)
+    amp = rng.choice(np.array([1.0, 1.5, 2.25], np.float32), n)
+    for device in (dev, torch.device("cpu")):
+        pods = solver.tree_map(lambda a: a.to(device), pods_t)
+        opts = {k: (v.to(device) if isinstance(v, torch.Tensor) else v)
+                for k, v in options.items()}
+        setup = solver.batch_setup(pods, index.to(device), **opts)
+        values = to_tensors(setup.spods) + (to_tensors(setup.upods) if setup.upods else [])
+        values += [setup.order, setup.bind, setup.mask_rows, setup.units, setup.assigned,
+                   setup.azone, setup.state, setup.words, setup.fallbacks, setup.slot_cap]
+        setup.assigned.copy_(torch.from_numpy(assigned))
+        if setup.azone is not None:
+            setup.azone.copy_(torch.from_numpy(azone))
+        amp_t = torch.from_numpy(amp).to(device)
+        asg, zone, charge = solver.batch_teardown(setup, amp_t, dn)
+        outs = (torch.full((4, p), 9, dtype=torch.int32, device=device),
+                torch.zeros(4, dtype=torch.int32, device=device),
+                torch.zeros(4, dtype=torch.int32, device=device),
+                torch.zeros((4, 2), dtype=torch.int32, device=device),
+                None if dn is None else torch.full((4, p), 9, dtype=torch.int32, device=device))
+        at = torch.tensor([2], device=device)
+        solver.batch_outputs(outs, at, asg, zone, setup.state[1],
+                             torch.tensor([5, 1], dtype=torch.int32, device=device))
+        values += [asg, zone, charge, *outs, at]
+        runs.append(([None if t is None else t.cpu().numpy() for t in values], setup,
+                     (asg, amp_t)))
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, (a, b) in enumerate(zip(runs[0][0], runs[1][0])):
+        if (a is None) != (b is None) or (a is not None and not bits_equal(a, b)):
+            fail(f"batch set-up/teardown (P={p}, {sorted(options)}): output {i} differs "
+                 "from the plain versions")
+        if a is not None:
+            err = max(err, max_abs(a, b))
+    return dict(setup=runs[0][1], drawn=runs[0][2], err=err)
+
+
+def phase_batch_kernels(torch, dev, report):
+    """Phase 3b: the batch set-up and teardown (``csrc/batch.cu``) against
+    their plain versions — the headline's options on the kernel checks'
+    batches, every option (quota chains, NUMA, devices, the node mask's
+    rows, the shortlist's words, the slot capacities) at 512, 4,096 and
+    32,768 pods (the sort in device memory) with priorities over the whole
+    int32 range — then their rows at the headline's shape."""
+    from koordinator_tpu_torch.ops import solver
+    from koordinator_tpu_torch.ops.convert import from_numpy
+
+    nodes, pods, params = rich_fixture(1, N_NODES, 16 * BATCH)
+    pods_s = from_numpy(solver.PodBatch, device=dev, **stacked(pods))
+    index = torch.tensor([3], device=dev)
+    head = {}
+    first = batch_check(torch, dev, pods_s, index, head, seed=1)
+    err = first["err"]
+    cap_total = torch.from_numpy(np.random.default_rng(2).choice(
+        np.array([0.0, 400.0, 800.0, 1600.0], np.float32), N_NODES))
+    checked = []
+    for p, seed in BATCH_CHECKS:
+        arrays = stacked(batch_pods(seed, 2 * p, "wide"), p)
+        every = dict(quota=True, numa=True, devices=True, mask=True, words=SOLVE["max_rounds"],
+                     cap_total=cap_total, slots=16)
+        got = batch_check(torch, dev, from_numpy(solver.PodBatch, device=dev, **arrays),
+                          torch.tensor([1], device=dev), every, dn=2, seed=seed)
+        err = max(err, got["err"])
+        checked.append(p)
+    print(f"batch checks: bitwise equal to the plain versions {err} (the headline's options "
+          f"at P={BATCH}; every option at P={', '.join(map(str, checked))})", flush=True)
+
+    setup = first["setup"]
+    asg, amp = first["drawn"]
+    p = setup.order.numel()
+    key = -pods_s.priority[3]
+    rows_b = 1024
+    outs = (torch.zeros((rows_b, p), dtype=torch.int32, device=dev),
+            torch.zeros(rows_b, dtype=torch.int32, device=dev),
+            torch.zeros(rows_b, dtype=torch.int32, device=dev), None, None)
+    at = torch.zeros(1, dtype=torch.int64, device=dev)
+    calls = [0]
+
+    def t_setup():
+        solver.batch_setup(pods_s, index, **head)
+
+    def t_setup_plain():
+        solver.batch_setup_plain(pods_s, index, **head)
+
+    def t_sort():
+        torch.sort(key, stable=True)
+
+    def t_teardown():
+        solver.batch_teardown(setup, amp, None)
+
+    def t_teardown_plain():
+        solver.batch_teardown_plain(setup, amp, None)
+
+    def t_scatter():
+        torch.empty_like(setup.assigned).scatter_(0, setup.order, setup.assigned)
+
+    def outputs(fn):
+        def call():
+            calls[0] += 1
+            if calls[0] % (rows_b - 8) == 0:  # the index stays inside the rows
+                at.zero_()
+            fn(outs, at, asg, None, setup.state[1], None)
+        return call
+
+    rows = []
+    for name, fn, plain, lib_fn, kname, nbytes, lib_of in (
+        ("batch_setup", t_setup, t_setup_plain, t_sort, "batch_setup_kernel",
+         setup_bytes(setup), "torch.sort(stable=True) of the batch's key (-priority): the order "
+         "only, not the gathers, flags and loop state"),
+        ("batch_teardown", t_teardown, t_teardown_plain, t_scatter, "unsort_kernel",
+         teardown_bytes(setup), "empty_like + scatter_ of the assignment by the order"),
+        ("batch_outputs", outputs(solver.batch_outputs), outputs(solver.batch_outputs_plain),
+         None, "outputs_kernel", outputs_bytes(p), None),
+    ):
+        b_ms, b_by = bound_of(nbytes, 0)
+        rows.append(dict(
+            name=name, route="cuda", source="koordinator_tpu_torch/csrc/batch.cu",
+            replaces=("koordinator_tpu/ops/solver.py:660" if name == "batch_setup" else
+                      "koordinator_tpu/ops/solver.py:1494" if name == "batch_teardown" else
+                      "koordinator_tpu/ops/solver.py:1726"),
+            launches=None, kernels_per_launch=1, max_abs_err=err,
+            ms=cuda_ms(torch, fn, 200), plain_ms=cuda_ms(torch, plain, 5),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=None if lib_fn is None else cuda_ms(torch, lib_fn, 200),
+            device_ms=device_ms(torch, fn, 50, kname),
+            library_device_ms=None if lib_fn is None else device_ms(torch, lib_fn, 50, None),
+            bytes=nbytes, operations=0,
+            **({} if lib_of is None else dict(library_of=lib_of)),
+        ))
+    report["kernels"].extend(rows)
+
+
 def empty_trip_ms(torch, nom_args, rt_args, trips: int = 100):
     """CUDA-event milliseconds of one round trip after the fixed point —
     nomination (tiled and merge kernels) and round tail, each returning at
@@ -1881,6 +2124,10 @@ def phase_stream(torch, dev, report, trip_inputs):
     if launches["enforce_gangs"] != n_batches or replays.get("solve_stream") != n_batches:
         fail(f"enforce_gangs launched {launches['enforce_gangs']} times and the graph "
              f"replayed {replays} times, not once a batch")
+    per_batch = {"batch_setup": 1, "batch_teardown": 1, "batch_outputs": 1}
+    if any(launches.get(k, 0) != v * n_batches for k, v in per_batch.items()):
+        fail(f"the headline stream's set-up and teardown launched "
+             f"{ {k: launches.get(k, 0) for k in per_batch} }, not {per_batch} a batch")
     plain_rounds = torch.zeros(n_batches, dtype=torch.int32, device=dev)
     with plain_versions():
         p_out, p_placed, p_seconds = run(0, cuda_graph=False, rounds_out=plain_rounds)
@@ -2202,7 +2449,8 @@ def phase_shortlist_stream(torch, dev, report, headline):
     launches = dict(kernels.launches)
     replays = dict(kernels.replays)
     times = [seconds] + [run_stream(torch, args, **kw)[2] for _ in range(PASSES - 1)]
-    for name in ("shortlist_build", "shortlist_round", "nominate", "round_tail", "enforce_gangs"):
+    for name in ("shortlist_build", "shortlist_round", "nominate", "round_tail", "enforce_gangs",
+                 "batch_setup", "batch_teardown"):
         if launches.get(name, 0) <= 0:
             fail(f"the shortlist stream launched no {name} kernel")
     if launches["shortlist_build"] != n_batches or replays.get("solve_stream") != n_batches:
@@ -2648,7 +2896,7 @@ def phase_quota_streams(torch, dev, report):
             replays = dict(kernels.replays)
             times = [seconds] + [run()[2] for _ in range(PASSES - 1)]
             need = ["quota_gate", f"quota_commit_{tree}", "round_tail", "enforce_gangs",
-                    "quota_refund", "nominate"]
+                    "quota_refund", "nominate", "batch_setup", "batch_teardown"]
             if k:
                 need += ["shortlist_build", "shortlist_round"]
             for name in need:
@@ -3423,7 +3671,8 @@ def phase_numa_streams(torch, dev, report):
             replays = dict(kernels.replays)
             final_zones = zone_free.cpu().numpy()
             times = [seconds] + [run()[2] for _ in range(PASSES - 1)]
-            need = ["zone_prep", "nominate", "round_tail", "zone_phase", "enforce_gangs"]
+            need = ["zone_prep", "nominate", "round_tail", "zone_phase", "enforce_gangs",
+                    "batch_setup", "batch_teardown"]
             need += ["shortlist_build", "shortlist_round"] if k else ["pod_order"]
             for name in need:
                 if launches.get(name, 0) <= 0:
@@ -3519,7 +3768,7 @@ def device_round_case(torch, pods_b, state, dev_tables, dev_t, params_t, scoring
     slots, rdma, fpga = (None if t is None else t.clone() for t in dev_tables)
     terms = DeviceTerms.batch_start(slots, rdma if dev_t.rdma_free is not None else None,
                                     fpga if dev_t.fpga_free is not None else None,
-                                    dev_t.cap_total, spods, scoring)
+                                    dev_t.cap_total, spods, scoring, units=units_of(spods))
     terms.order = nominate_ops.pod_order(bind, None, terms)
     return spods, nom_args, terms
 
@@ -3567,7 +3816,7 @@ def dev_numa_round_case(torch, pods_b, state, numa_t, dev_tables, dev_t, params_
     slots, rdma, fpga = (None if t is None else t.clone() for t in dev_tables)
     devs = DeviceTerms.batch_start(slots, rdma if dev_t.rdma_free is not None else None,
                                    fpga if dev_t.fpga_free is not None else None,
-                                   dev_t.cap_total, spods, scoring)
+                                   dev_t.cap_total, spods, scoring, units=units_of(spods))
     devs.order = nominate_ops.pod_order(bind, zones, devs)
     return spods, nom_args, zones, devs
 
@@ -3942,7 +4191,7 @@ def phase_device_kernels(torch, dev, report):
                 fail(f"enforce_gangs with devices ({label}): no device refund ran")
             want = solver.enforce_gangs_plain(solver.tree_map(lambda a: a.cpu(), pre),
                                               solver.tree_map(lambda a: a.cpu(), pods_g),
-                                              exists.cpu())
+                                              device_ops.slot_cap_of(exists).cpu())
             checks["device_refund"] = max(checks["device_refund"], check_equal(
                 f"enforce_gangs with devices ({label})",
                 [(f, getattr(got, f), getattr(want, f)) for f in (
@@ -4160,6 +4409,7 @@ def phase_device_kernels(torch, dev, report):
             "koordinator_tpu/ops/solver.py:1246", t_round, t_round_plain, "round_tail_kernel",
             rt_bytes, rt_ops, iters)
     pre, pods_g, exists = timing["gangs"]
+    slot_cap = device_ops.slot_cap_of(exists)
     gang_copies = iter([solver.tree_map(lambda a: a.clone(), pre) for _ in range(402)])
     after = solver.enforce_gangs(pre, pods_g, exists)
     rolled = (pre.assignment >= 0) & (after.assignment < 0)
@@ -4170,8 +4420,8 @@ def phase_device_kernels(torch, dev, report):
     dr_ops = p * 4 + n_rolled * (3 * d + 4) + refunded * (3 * d + g * (g + 8))
     add_row("device_refund", "koordinator_tpu_torch/csrc/gangs.cu",
             "koordinator_tpu/ops/device.py:209",
-            lambda: solver._enforce_gangs_(next(gang_copies), pods_g, exists),
-            lambda: solver.enforce_gangs_plain(pre, pods_g, exists), "enforce_gangs_kernel",
+            lambda: solver._enforce_gangs_(next(gang_copies), pods_g, slot_cap),
+            lambda: solver.enforce_gangs_plain(pre, pods_g, slot_cap), "enforce_gangs_kernel",
             dr_bytes, dr_ops, 200)
     report["kernels"][-1].update(gang_floor(torch, dev, pre, pods_g, exists))
     report["device_checks"] = seen
@@ -4235,8 +4485,8 @@ def phase_device_streams(torch, dev, report):
         times = [seconds] + [run()[2] for _ in range(PASSES - 1)]
         shortlist = solver._shortlist_on(k, SOLVE.get("topk", 4), N_NODES, scoring)
         need = ["device_prep", "nominate", "round_tail", "device_phase", "enforce_gangs",
-                "device_refund"] + (["shortlist_build", "shortlist_round"] if shortlist
-                                    else ["pod_order"])
+                "device_refund", "batch_setup", "batch_teardown"]
+        need += ["shortlist_build", "shortlist_round"] if shortlist else ["pod_order"]
         for name in need:
             if launches.get(name, 0) <= 0:
                 fail(f"device stream ({scoring}, K={k}): launched no {name} kernel")
@@ -4597,7 +4847,7 @@ def phase_cost_transform_kernels(torch, dev, report):
             if "devices" in mode:
                 slots, rdma, fpga = (t.clone() for t in tables)
                 kw["devices"] = DeviceTerms.batch_start(slots, rdma, fpga, dev_t.cap_total,
-                                                        spods, 1)
+                                                        spods, 1, units=units_of(spods))
             kernels.reset_launches()
             got = cf.cost_full(*nom_args, **kw)
             if kernels.launches.get("cost_full", 0) != 1:
@@ -5144,6 +5394,7 @@ def main() -> int:
     print(f"ptxas: {json.dumps(ptxas_summary(kernels))}", flush=True)
     report: dict = {}
     trip_inputs = phase_kernels(torch, dev, report)
+    phase_batch_kernels(torch, dev, report)
     phase_shortlist_kernels(torch, dev, report)
     headline = phase_stream(torch, dev, report, trip_inputs)
     phase_shortlist_stream(torch, dev, report, headline)

@@ -1,6 +1,9 @@
 // A stable LSD radix split of a block's rows on a small integer key: the
 // node sort of the round tail (round.cuh) and of the gang rollback
-// (gangs.cu), and each level's quota order of both.
+// (gangs.cu), each level's quota order of both, and the priority order of
+// a batch's set-up (batch.cu); and the comparison sort of one key a thread
+// (block_sort) both the round tail and the set-up take up to a row a
+// thread.
 //
 // Rows arrive in an order of their own (priority position, pod row) and
 // leave ordered by key, rows of one key in their order of arrival: the
@@ -215,6 +218,53 @@ __device__ uint64_t* sort(uint64_t* a, uint64_t* b, int n, int shift, long long 
     b = t;
   }
   return a;
+}
+
+// Sorts one key a thread (P <= blockDim.x; threads past P hold `inf`):
+// each warp sorts its 32 keys by a bitonic network of shuffles, every
+// comparator putting the smaller key at the lower lane; then runs of 32,
+// 64, ... are merged in pairs through shared memory (two buffers in turn,
+// one barrier a merge): a key's place in the merged run is its place in
+// its own run plus the count of the other run's keys below it, found by a
+// binary search (the keys are unique). Returns the key of rank tid.
+template <class KeyT>
+__device__ KeyT block_sort(KeyT key, int P, KeyT* buf0, KeyT* buf1, KeyT inf) {
+  const int tid = threadIdx.x, lane = tid & 31;
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const int mask = j == (k >> 1) ? k - 1 : j;
+      const KeyT other = __shfl_xor_sync(kAll, key, mask);
+      key = (lane < (lane ^ mask)) == (other < key) ? other : key;
+    }
+  }
+  KeyT* in = buf0;
+  KeyT* out = buf1;
+  if (tid < P) in[tid] = key;
+  for (int m = 32; m < P; m <<= 1) {
+    __syncthreads();
+    if (tid < P) {
+      const KeyT k = in[tid];
+      const int base = tid & ~(2 * m - 1);
+      const bool first = (tid & m) == 0;
+      // the other run: [lo, hi), cut at P
+      const int lo = base + (first ? m : 0);
+      const int hi = min(lo + m, P);
+      int a = lo, b = max(lo, hi);
+      while (a < b) {
+        const int mid = (a + b) >> 1;
+        if (in[mid] < k) a = mid + 1;
+        else b = mid;
+      }
+      out[tid + (a - lo) - (first ? 0 : m)] = k;
+    }
+    KeyT* t = in;
+    in = out;
+    out = t;
+  }
+  __syncthreads();
+  return tid < P ? in[tid] : inf;
 }
 
 }  // namespace koord_split

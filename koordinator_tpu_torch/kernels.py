@@ -115,6 +115,12 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "koord_sequential": [_P] * 15 + [_I] * 3 + [_P, _I] + [_P] * 2 + [_I] + [_P] * 2
         + [_I] + [_P] * 3,
     },
+    "batch": {
+        "koord_batch_setup": [_P, _I, _P, _I] + [_P] * 4 + [_I] + [_P] * 10 + [_I] + [_P] * 2
+        + [_I, _I, _P, _P],
+        "koord_batch_scratch": [_I, ctypes.POINTER(ctypes.c_longlong)],
+        "koord_batch_teardown": [_I, _I] + [_P] * 5 + [_I, _P, _I, _I] + [_P] * 12,
+    },
     "score_programs": {
         "koord_score_program": [_I] + [_P] * 6 + [_I] * 5 + [_P],
     },

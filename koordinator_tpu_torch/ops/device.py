@@ -204,6 +204,17 @@ def slot_exists_of(cap_total, g: int):
             < (cap_total / 100.0)[:, None])
 
 
+def slot_cap_of(slot_exists):
+    """[N] float32: each node's real slots (``slot_exists`` [N, G], a
+    node's first ones, as :func:`slot_exists_of` gives them) times 100,
+    the form the gang rollback's device refund reads
+    (``solver._enforce_gangs_``); :func:`slot_exists_of` of it gives
+    ``slot_exists`` back. None without ``slot_exists``."""
+    if slot_exists is None:
+        return None
+    return slot_exists.sum(dim=1, dtype=torch.int32).to(torch.float32) * 100.0
+
+
 #: float32 holds every integer up to this one exactly
 EXACT_INTS = 1 << 24
 
@@ -294,13 +305,14 @@ class DeviceTerms:
     order: "torch.Tensor | None" = None
 
     @classmethod
-    def batch_start(cls, slots, rdma, fpga, cap, spods, scoring: int = 0) -> "DeviceTerms":
+    def batch_start(cls, slots, rdma, fpga, cap, spods, scoring: int = 0, *,
+                    units) -> "DeviceTerms":
         """The terms of a batch that begins with ``slots`` (its stats table
         from :func:`device_prep`, one launch on the card), for the
-        priority-sorted pods ``spods``."""
+        priority-sorted pods ``spods`` and their :func:`device_consumption`
+        ``units`` (the solver's batch set-up writes them)."""
         if scoring and cap is None:
             raise ValueError("device_scoring needs DeviceState.cap_total")
-        _, units = device_consumption(spods.gpu_whole, spods.gpu_share)
         stats, wide = device_prep(slots, (spods.gpu_whole, spods.rdma, spods.fpga))
         return cls(slots=slots, stats=stats, rdma=rdma, fpga=fpga, cap=cap,
                    whole=spods.gpu_whole, share=spods.gpu_share, rdma_req=spods.rdma,

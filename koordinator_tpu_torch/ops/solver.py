@@ -42,6 +42,12 @@ every pod). Each round of :func:`assign`:
    (:func:`.commit.round_tail`, one launch of ``csrc/round.cu`` on the
    card).
 
+Around the rounds, a batch's set-up (the priority order, the fields
+gathered in it, the cpu-bind flags, the loop state) and its teardown (the
+un-sort, the zone charges and, in a stream, the batch's output row) are
+one launch each of ``csrc/batch.cu`` on the card (:func:`batch_setup`,
+:func:`batch_teardown`, :func:`batch_outputs`).
+
 Rounds stop at a fixed point (no acceptance, or no active pod) or after
 ``max_rounds``. The loop state (assignments, active flags and a state word
 ``(done, rounds)``) lives on the tensors' device. On the card the loop runs
@@ -72,7 +78,8 @@ from . import nominate as nominate_ops
 from . import quota as quota_ops
 from . import sequential as sequential_ops
 from . import shortlist as shortlist_ops
-from .device import MAX_SLOTS, DeviceState, DeviceTerms, slot_exists_of
+from .device import (MAX_SLOTS, DeviceState, DeviceTerms, device_consumption, slot_cap_of,
+                     slot_exists_of)
 from .device import SCORING as DEVICE_SCORING
 from .numa import SCORING, NumaState, ZoneTerms
 from .commit import _segment_prefix_sums  # noqa: F401  (reference name)
@@ -346,8 +353,6 @@ def _effective_thresholds(nodes: NodeState, params: SolverParams):
 
 #: the pod fields the LoadAware rounds read (and, with quotas, the chains)
 _ROUND_FIELDS = ("requests", "estimate", "is_prod", "valid", "qos")
-#: the pod fields a LoadAware solve reads: the rounds' and the gang rollback's
-_SOLVE_FIELDS = _ROUND_FIELDS + ("priority", "gang_id", "gang_min", "gang_nonstrict")
 
 
 #: the pod fields of the devices
@@ -376,12 +381,12 @@ def _round_setup(pods: PodBatch, nodes: NodeState, params: SolverParams, thresho
     sorted pods (only the fields the rounds read, with ``quota`` the
     chains too, with ``numa`` the required flags, with ``devices`` the
     device requests; the others are None),
-    their cpu-bind flags and the effective thresholds (``thresholds`` when
-    the caller has them: they do not change within a stream)."""
-    order = _priority_order(pods)
-    spods = _only(pods, _with_quota(_ROUND_FIELDS, quota, numa, devices), lambda a: a[order])
+    their cpu-bind flags (the three from :func:`batch_setup`: one launch
+    on the card) and the effective thresholds (``thresholds`` when the
+    caller has them: they do not change within a stream)."""
+    setup = batch_setup(pods, None, quota, numa, devices)
     thr, pthr = thresholds or _effective_thresholds(nodes, params)
-    return order, spods, _cpu_bind(spods), thr, pthr
+    return setup.order, setup.spods, setup.bind, thr, pthr
 
 
 def _priority_order(pods: PodBatch) -> torch.Tensor:
@@ -389,9 +394,310 @@ def _priority_order(pods: PodBatch) -> torch.Tensor:
     return torch.sort(-pods.priority, stable=True).indices
 
 
-def _zone_most(numa: NumaState) -> torch.Tensor:
+#: the pod fields the gang rollback reads, in pod order
+_ROLLBACK_FIELDS = ("requests", "estimate", "is_prod", "gang_id", "gang_min", "gang_nonstrict")
+
+
+def _rollback_fields(quota: bool, devices: bool):
+    """:data:`_ROLLBACK_FIELDS` and, with quotas, the chains (the quota
+    refund); with devices, the device requests (the device refunds)."""
+    return (_ROLLBACK_FIELDS + (("quota_chain",) if quota else ())
+            + (_DEVICE_FIELDS if devices else ()))
+
+
+@dataclass
+class BatchSetup:
+    """What a batch's rounds and gang rollback start from
+    (:func:`batch_setup`): ``order`` [P] int64, the stable (-priority,
+    arrival) order; ``spods``, the pods in that order (the fields of
+    :func:`_round_setup`; the others None); ``bind`` [P] bool, their
+    cpu-bind flags; the loop state ``assigned`` [P] int32 (-1) and
+    ``state`` [2] int32 ((done, rounds): done when no pod is valid); and,
+    each None unless asked for, ``upods`` the rollback's fields in pod
+    order (:func:`_rollback_fields`), ``mask_rows`` [P] int64 the node
+    mask's rows, ``units`` [P] float32 the device units, ``azone`` [P]
+    int32 (-1) the zone picks, the shortlist's ``words`` [R, WORD] and
+    ``fallbacks`` [2] int32 (zeros), and ``slot_cap`` [N] float32, each
+    node's real slots times 100 (the device refund's capacities)."""
+
+    order: torch.Tensor
+    spods: PodBatch
+    bind: torch.Tensor
+    assigned: torch.Tensor
+    state: torch.Tensor
+    upods: "PodBatch | None" = None
+    mask_rows: "torch.Tensor | None" = None
+    units: "torch.Tensor | None" = None
+    azone: "torch.Tensor | None" = None
+    words: "torch.Tensor | None" = None
+    fallbacks: "torch.Tensor | None" = None
+    slot_cap: "torch.Tensor | None" = None
+
+
+def batch_setup_plain(pods: PodBatch, index=None, quota: bool = False, numa: bool = False,
+                      devices: bool = False, *, mask: bool = False, words: int = 0,
+                      cap_total=None, slots: int = 0) -> BatchSetup:
+    """The plain version of :func:`batch_setup`: PyTorch ops, as
+    ``solver.py:612-622, 660-663, 720-724, 756, 1454-1470`` do them (the
+    fields gathered in the priority order, the cpu-bind flags, the loop's
+    initial state), with the stream step's gather of batch ``index``
+    (:1704, :1805)."""
+    sorted_f = _with_quota(_ROUND_FIELDS, quota, numa, devices)
+    unsorted_f = () if index is None else _rollback_fields(quota, devices)
+    if index is not None:
+        need = set(sorted_f) | set(unsorted_f) | {"priority", "valid"}
+        pods = _only(pods, need, lambda a: a.index_select(0, index)[0])
+    p = pods.priority.shape[0]
+    dev = pods.priority.device
+    order = _priority_order(pods)
+    spods = _only(pods, sorted_f, lambda a: a[order])
+    state = torch.zeros((2,), dtype=torch.int32, device=dev)
+    state[0].copy_(~spods.valid.any())
+    out = BatchSetup(order=order, spods=spods, bind=_cpu_bind(spods),
+                     assigned=torch.full((p,), -1, dtype=torch.int32, device=dev), state=state)
+    if index is not None:
+        out.upods = _only(pods, unsorted_f, lambda a: a)
+    if mask:
+        out.mask_rows = order + index * p
+    if devices:
+        out.units = device_consumption(spods.gpu_whole, spods.gpu_share)[1]
+    if numa:
+        out.azone = torch.full((p,), -1, dtype=torch.int32, device=dev)
+    if words:
+        out.words = torch.zeros((words, shortlist_ops.WORD), dtype=torch.int32, device=dev)
+        out.fallbacks = torch.zeros((2,), dtype=torch.int32, device=dev)
+    if cap_total is not None:
+        out.slot_cap = slot_cap_of(slot_exists_of(cap_total, slots))
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _setup_scratch_bytes(index: int, p: int) -> int:
+    """Bytes of device memory a set-up of ``p`` pods needs on device
+    ``index``: 0 while its sort fits in shared memory."""
+    lib = kernels.library("batch")
+    nbytes = ctypes.c_longlong(0)
+    with torch.cuda.device(index):
+        kernels.check(lib, lib.koord_batch_scratch(p, ctypes.byref(nbytes)), "batch_setup scratch")
+    return nbytes.value
+
+
+#: dtypes of the pod fields the set-up kernel reads besides the copies
+_SETUP_SOURCES = (("priority", torch.int32), ("valid", torch.bool), ("qos", torch.int8),
+                  ("requests", torch.float32))
+
+
+def batch_setup(pods: PodBatch, index=None, quota: bool = False, numa: bool = False,
+                devices: bool = False, *, mask: bool = False, words: int = 0, cap_total=None,
+                slots: int = 0) -> BatchSetup:
+    """A batch's set-up before its first round (:class:`BatchSetup`), on
+    the tensors' device: one launch of ``koord_batch_setup``
+    (``csrc/batch.cu``) for CUDA tensors, :func:`batch_setup_plain` for CPU
+    tensors. ``pods`` is a [P] batch, or with ``index`` (a [1] int64
+    tensor on its device) a stacked [B, P] batch read at batch ``index``,
+    copied from in place, whose rollback's fields the set-up copies in pod
+    order. ``quota``, ``numa`` and ``devices`` choose the sorted fields
+    (:func:`_with_quota`), with ``numa`` the zone picks and with
+    ``devices`` the units; ``mask`` (with ``index``) the node mask's rows
+    ``order + index * P``; ``words`` (R > 0) the shortlist's R words and
+    fallback counts; ``cap_total`` [N] with ``slots`` (G) the device
+    refund's capacities.
+    Raises :class:`..kernels.KernelError` when the kernel cannot be built
+    or launched."""
+    if pods.priority.is_cpu:
+        return batch_setup_plain(pods, index, quota, numa, devices, mask=mask, words=words,
+                                 cap_total=cap_total, slots=slots)
+    if mask and index is None:
+        raise ValueError("batch_setup: the mask's rows are a stacked batch's, at an index")
+    lead = 1 if index is None else 2
+    shape = tuple(pods.priority.shape)
+    p, b = shape[-1], (1 if index is None else shape[0])
+    if len(shape) != lead:
+        raise kernels.KernelArgumentError(f"batch_setup: priority must be {lead}-D, got {shape}")
+    if p > commit_ops.MAX_ROUND_PODS:
+        raise kernels.KernelArgumentError(
+            f"batch_setup: P={p} must be at most {commit_ops.MAX_ROUND_PODS}")
+    dev = pods.priority.device
+    d = pods.requests.shape[-1]
+    sorted_f = _with_quota(_ROUND_FIELDS, quota, numa, devices)
+    unsorted_f = () if index is None else _rollback_fields(quota, devices)
+    names = sorted_f + tuple(f for f in unsorted_f if f not in sorted_f)
+    srcs = [getattr(pods, name) for name in names]
+    kernels.checked_ptrs("batch_setup", [pods.priority] + srcs, [pods.priority.dtype]
+                         + [t.dtype for t in srcs], [b * p] + [t.numel() for t in srcs])
+    spods, upods, table = {}, {}, []
+
+    def empty(t):
+        return torch.empty((p,) + tuple(t.shape[lead:]), dtype=t.dtype, device=dev)
+
+    for name, src in zip(names, srcs):
+        if tuple(src.shape[:lead]) != shape:
+            raise kernels.KernelArgumentError(
+                f"batch_setup: {name} must lead with {shape}, got {tuple(src.shape)}")
+        if name in sorted_f:
+            spods[name] = empty(src)
+        if name in unsorted_f:
+            upods[name] = empty(src)
+        table += [src.data_ptr(), spods[name].data_ptr() if name in spods else 0,
+                  upods[name].data_ptr() if name in upods else 0,
+                  src.element_size() * (src.numel() // (b * p))]
+    spods = PodBatch(**{f.name: spods.get(f.name) for f in dataclasses.fields(PodBatch)})
+    i32, f32 = torch.int32, torch.float32
+    out = BatchSetup(order=torch.empty((p,), dtype=torch.int64, device=dev), spods=spods,
+                     bind=torch.empty((p,), dtype=torch.bool, device=dev),
+                     assigned=torch.empty((p,), dtype=i32, device=dev),
+                     state=torch.empty((2,), dtype=i32, device=dev))
+    if index is not None:
+        out.upods = PodBatch(**{f.name: upods.get(f.name) for f in dataclasses.fields(PodBatch)})
+    if mask:
+        out.mask_rows = torch.empty((p,), dtype=torch.int64, device=dev)
+    if devices:
+        out.units = torch.empty((p,), dtype=f32, device=dev)
+    if numa:
+        out.azone = torch.empty((p,), dtype=i32, device=dev)
+    zeros = None
+    if words:
+        # one buffer the kernel zeroes: the words, then the counts
+        zeros = torch.empty((words * shortlist_ops.WORD + 2,), dtype=i32, device=dev)
+        out.words = zeros[:-2].view(words, shortlist_ops.WORD)
+        out.fallbacks = zeros[-2:]
+    n = 0
+    if cap_total is not None:
+        n = cap_total.shape[0]
+        out.slot_cap = torch.empty((n,), dtype=f32, device=dev)
+    sources = [getattr(pods, name) for name, _ in _SETUP_SOURCES]
+    dev_src = [pods.gpu_whole, pods.gpu_share] if devices else [None, None]
+    ptrs = kernels.checked_ptrs(
+        "batch_setup",
+        sources + dev_src + [index, out.mask_rows, out.units, out.assigned, out.azone, out.state,
+                             cap_total],
+        [t for _, t in _SETUP_SOURCES] + [i32, f32, torch.int64, torch.int64, f32, i32, i32, i32,
+                                          f32],
+        [b * p, b * p, b * p, b * p * d, b * p, b * p, 1, p, p, p, p, 2, n],
+    )
+    nbytes = _setup_scratch_bytes(dev.index or 0, p)
+    # the sort's working set above 4,096 pods, as the round tail's (ops/commit.py)
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
+    fields = (ctypes.c_longlong * len(table))(*table)
+    lib = kernels.library("batch")
+    code = lib.koord_batch_setup(
+        ctypes.addressof(fields), len(names), ptrs[6], p, *ptrs[:4], d, *ptrs[4:6],
+        out.order.data_ptr(), ptrs[7], out.bind.data_ptr(), *ptrs[8:12],
+        None if zeros is None else zeros.data_ptr(), 0 if zeros is None else zeros.numel(),
+        ptrs[12], None if out.slot_cap is None else out.slot_cap.data_ptr(), n, slots,
+        None if buf is None else buf.data_ptr(), kernels.stream_of(pods.priority))
+    kernels.check(lib, code, "batch_setup")
+    kernels.count("batch_setup")
+    return out
+
+
+def _zone_charges(requests, bind, cpu_amp, assigned, azone, dn: int) -> torch.Tensor:
+    """[P, DN] the zone charge each zoned pod applied (``solver.py:1497-1509``),
+    in the pods' order of ``requests`` [P, D], ``bind`` [P], ``assigned``
+    and ``azone`` [P]: its zone-scoped request, CPU times ``max(cpu_amp,
+    1)`` of its node for cpuset-bound pods, zero where it holds no zone."""
+    n = cpu_amp.shape[0]
+    amp = torch.clamp(cpu_amp, min=1.0)[torch.clamp(assigned, 0, n - 1).long()]
+    charge = requests[:, :dn].clone()
+    charge[:, 0] = charge[:, 0] * torch.where(bind, amp, 1.0)
+    return torch.where((azone >= 0)[:, None], charge, 0.0)
+
+
+def batch_teardown_plain(setup: BatchSetup, cpu_amp, dn=None):
+    """The plain version of :func:`batch_teardown`: the rounds' assignment
+    (and with ``dn`` the zone picks) back in pod order
+    (``solver.py:1494-1496``), and with ``dn`` the zone charges
+    (:1497-1509), worked out in priority order and moved with the rows."""
+    order = setup.order
+    assignment = torch.empty_like(setup.assigned).scatter_(0, order, setup.assigned)
+    if dn is None:
+        return assignment, None, None
+    pod_zone = torch.empty_like(setup.azone).scatter_(0, order, setup.azone)
+    charge = _zone_charges(setup.spods.requests, setup.bind, cpu_amp, setup.assigned,
+                           setup.azone, dn)
+    return assignment, pod_zone, torch.empty_like(charge).index_copy_(0, order, charge)
+
+
+def batch_teardown(setup: BatchSetup, cpu_amp, dn=None):
+    """A batch's teardown after its last round tail, on the tensors'
+    device: (assignment [P] int32 in pod order, and with ``dn`` (the zone
+    table's DN) the zone picks [P] int32 and charges [P, DN] float32 in pod
+    order, else None and None). One launch of ``koord_batch_teardown``
+    (``csrc/batch.cu``, mode 0) for CUDA tensors, counted as
+    ``batch_teardown``; :func:`batch_teardown_plain` for CPU tensors."""
+    if setup.assigned.is_cpu:
+        return batch_teardown_plain(setup, cpu_amp, dn)
+    p, d = setup.spods.requests.shape
+    n = cpu_amp.shape[0]
+    dev = setup.assigned.device
+    assignment = torch.empty((p,), dtype=torch.int32, device=dev)
+    pod_zone = zone_charge = None
+    if dn is not None:
+        pod_zone = torch.empty((p,), dtype=torch.int32, device=dev)
+        zone_charge = torch.empty((p, dn), dtype=torch.float32, device=dev)
+    i32, f32 = torch.int32, torch.float32
+    ptrs = kernels.checked_ptrs(
+        "batch_teardown",
+        (setup.order, setup.assigned, setup.azone, setup.spods.requests, setup.bind, cpu_amp,
+         assignment, pod_zone, zone_charge),
+        (torch.int64, i32, i32, f32, torch.bool, f32, i32, i32, f32),
+        (p, p, p, p * d, p, n, p, p, p * (dn or 0)),
+    )
+    lib = kernels.library("batch")
+    code = lib.koord_batch_teardown(0, p, *ptrs[:5], d, ptrs[5], n, dn or 0, *ptrs[6:],
+                                    *[None] * 8, kernels.stream_of(assignment))
+    kernels.check(lib, code, "batch_teardown")
+    kernels.count("batch_teardown")
+    return assignment, pod_zone, zone_charge
+
+
+def batch_outputs_plain(outs, index, assignment, pod_zone, rounds, fallbacks) -> None:
+    """The plain version of :func:`batch_outputs`: ``index_copy_`` into
+    row ``index`` of each output, then ``index + 1``."""
+    asg, placed, rounds_out, fb, zsel = outs
+    asg.index_copy_(0, index, assignment[None])
+    placed.index_copy_(0, index, (assignment >= 0).sum(dtype=torch.int32)[None])
+    rounds_out.index_copy_(0, index, rounds.reshape(1))
+    if fb is not None:
+        fb.index_copy_(0, index, fallbacks[None])
+    if zsel is not None:
+        zsel.index_copy_(0, index, pod_zone[None])
+    index.add_(1)
+
+
+def batch_outputs(outs, index, assignment, pod_zone, rounds, fallbacks) -> None:
+    """Row ``index`` ([1] int64) of a stream's outputs ``outs`` =
+    (assignments [B, P], placed [B], rounds [B], fallbacks [B, 2] or None,
+    zone picks [B, P] or None) from a batch's rolled-back ``assignment`` and
+    ``pod_zone`` [P] int32, its ``rounds`` [] and ``fallbacks`` [2] int32
+    (``solver.py:1704-1733, 1805-1855``), then the index's advance to the
+    next batch. One launch of ``koord_batch_teardown`` (mode 1: the placed
+    count an integer block sum) for CUDA tensors, counted as
+    ``batch_outputs``; :func:`batch_outputs_plain` for CPU tensors."""
+    if assignment.is_cpu:
+        return batch_outputs_plain(outs, index, assignment, pod_zone, rounds, fallbacks)
+    asg, placed, rounds_out, fb, zsel = outs
+    b, p = asg.shape
+    i32 = torch.int32
+    ptrs = kernels.checked_ptrs(
+        "batch_outputs",
+        (assignment, pod_zone, index, rounds, fallbacks, asg, placed, rounds_out, fb, zsel),
+        (i32, i32, torch.int64, i32, i32, i32, i32, i32, i32, i32),
+        (p, p, 1, 1, 2, b * p, b, b, 2 * b, b * p),
+    )
+    lib = kernels.library("batch")
+    code = lib.koord_batch_teardown(1, p, *[None] * 5, 0, None, 0, 0, ptrs[0], ptrs[1], None,
+                                    *ptrs[2:], kernels.stream_of(assignment))
+    kernels.check(lib, code, "batch_outputs")
+    kernels.count("batch_outputs")
+
+
+def _zone_most(numa: "NumaState | None") -> "torch.Tensor | None":
     """The nodes' MostAllocated zone-pick flags: ``zone_most``, or False
-    everywhere when it is None (``solver.py:785-789``)."""
+    everywhere when it is None (``solver.py:785-789``); None without
+    NUMA."""
+    if numa is None:
+        return None
     if numa.zone_most is not None:
         return numa.zone_most
     return torch.zeros(numa.policy.shape, dtype=torch.bool, device=numa.policy.device)
@@ -426,12 +732,13 @@ def _devices_of(devices, tables, device_scoring):
             _device_scoring(device_scoring))
 
 
-def _zones_of(numa, zone_free, numa_scoring):
+def _zones_of(numa, zone_free, numa_scoring, zone_most):
     """``_assign_``'s ``zones`` for a NumaState whose carried table is
-    ``zone_free`` (updated in place), or None without NUMA."""
+    ``zone_free`` (updated in place), or None without NUMA; ``zone_most``
+    the state's :func:`_zone_most`."""
     if numa is None:
         return None
-    return (zone_free, numa.zone_cap, numa.policy, _zone_most(numa), _scoring(numa_scoring))
+    return (zone_free, numa.zone_cap, numa.policy, zone_most, _scoring(numa_scoring))
 
 
 def _shortlist_on(shortlist_k, topk: int, n: int, device_scoring=None,
@@ -524,7 +831,7 @@ def assign(
         pods, tables, params, max_rounds=max_rounds, round_quantum=round_quantum,
         topk=topk, nomination_jitter=nomination_jitter, approx_topk=approx_topk,
         shortlist_k=shortlist_k, quota=quota, node_mask=node_mask,
-        zones=_zones_of(numa, zone_free, numa_scoring),
+        zones=_zones_of(numa, zone_free, numa_scoring, _zone_most(numa)),
         devs=_devices_of(devices, dev_tables, device_scoring), device_scoring=device_scoring,
         cost_transform=cost_transform,
     )
@@ -570,7 +877,7 @@ def _assign_(
     thresholds=None,
     quota=None,
     node_mask=None,
-    mask_base=None,
+    index=None,
     zones=None,
     devs=None,
     device_scoring=None,
@@ -582,7 +889,10 @@ def _assign_(
     fallback counts [2] int32 or None with the shortlist off, and with
     ``zones`` the pods' zone picks [P] int32 and zone charges [P, DN], else
     None and None). Reads nothing back to the host on the card, so a CUDA
-    graph can capture it.
+    graph can capture it. ``pods`` is the batch, or with ``index`` (a [1]
+    int64 tensor on the device: a stream's batch index) a stacked [B, P]
+    batch, read at batch ``index`` by the set-up (:func:`batch_setup`, one
+    launch on the card, as is the teardown, :func:`batch_teardown`).
 
     With the shortlist on, the build runs once, from the tables as they
     are before the first round; each trip then runs the shortlist round,
@@ -596,9 +906,8 @@ def _assign_(
     their chains — written for round 0 by :func:`.quota.quota_gate` and
     for each next round by the round tail. ``node_mask`` [M, N] bool (or
     any [..., N]) holds the pods' node constraints: sorted pod j reads row
-    ``order[j]``, plus ``mask_base * P`` when ``mask_base`` (a [1] int64
-    tensor on the device: a stream's batch index into its stacked
-    [C, P, N] mask) is given. The mask is read in place, never copied.
+    ``order[j]``, plus ``index * P`` with ``index`` (a stream's stacked
+    [C, P, N] mask). The mask is read in place, never copied.
 
     ``zones`` = (zone_free [N, Z, DN], zone_cap, policy, zone_most,
     scoring) turns on the NUMA zones: the pricing reads a copy of
@@ -623,24 +932,28 @@ def _assign_(
     (:func:`.cost_full.nominate_cost`); both kernels return at once after
     the fixed point, the transform then runs on the stale buffer and its
     result is not read. The shortlist is off."""
-    p = pods.requests.shape[0]
+    p = pods.requests.shape[-2]
     n = nodes.allocatable.shape[0]
     dev = nodes.allocatable.device
-    order, spods, bind_mask, thr, pthr = _round_setup(
-        pods, nodes, params, thresholds, quota is not None, zones is not None,
-        devs is not None,
-    )
     k = min(topk, n)
+    shortlist = cost_transform is None and _shortlist_on(shortlist_k, topk, n, device_scoring)
+    stacked = index is not None
+    setup = batch_setup(
+        pods, index, quota is not None, zones is not None, devs is not None,
+        mask=stacked and node_mask is not None, words=max_rounds if shortlist else 0,
+        cap_total=None if devs is None else devs[3], slots=0 if devs is None else devs[0].shape[1],
+    )
+    spods, bind_mask = setup.spods, setup.bind
+    thr, pthr = thresholds or _effective_thresholds(nodes, params)
     mask = None
     if node_mask is not None:
-        mask = (node_mask, order if mask_base is None else order + mask_base * p)
+        mask = (node_mask, setup.order if setup.mask_rows is None else setup.mask_rows)
 
     requested, est_used, prod_used = nodes.requested, nodes.estimated_used, nodes.prod_used
-    assigned = torch.full((p,), -1, dtype=torch.int32, device=dev)
+    assigned = setup.assigned
     active = spods.valid  # a fresh gather, the rounds' own
     # (done, rounds): done before the first round when no pod is active
-    state = torch.zeros((2,), dtype=torch.int32, device=dev)
-    state[0].copy_(~active.any())
+    state = setup.state
     node_args = (nodes.allocatable, requested, est_used, prod_used,
                  nodes.metric_fresh, nodes.schedulable, nodes.cpu_amp, thr, pthr,
                  params.score_weights)
@@ -654,12 +967,11 @@ def _assign_(
     if zones is not None:
         zone_free, zone_cap, policy, zone_most, scoring = zones
         terms = ZoneTerms.batch_start(zone_free, zone_cap, policy, spods.numa_required, scoring)
-        azone = torch.full((p,), -1, dtype=torch.int32, device=dev)
-        round_zone = (zone_free, zone_cap, policy, zone_most, spods.numa_required, azone,
+        round_zone = (zone_free, zone_cap, policy, zone_most, spods.numa_required, setup.azone,
                       terms.side)
     dterms = None
     if devs is not None:
-        dterms = DeviceTerms.batch_start(*devs[:4], spods, devs[4])
+        dterms = DeviceTerms.batch_start(*devs[:4], spods, devs[4], units=setup.units)
     fallbacks = None
     if cost_transform is not None:
         # the batch's buffers, never a round's: 5 bytes a pair
@@ -667,14 +979,13 @@ def _assign_(
                     torch.empty((p, n), dtype=torch.uint8, device=dev))
         top_buf = (torch.empty((p, k), dtype=torch.float32, device=dev),
                    torch.empty((p, k), dtype=torch.int32, device=dev))
-    elif _shortlist_on(shortlist_k, topk, n, device_scoring):
+    elif shortlist:
         plan = shortlist_ops.shortlist_build(
             spods.requests, spods.estimate, spods.is_prod, bind_mask, *node_args,
             shortlist_k, nomination_jitter, mask, zones=terms, devices=dterms,
         )
         # one word a trip: trip t is round t while the loop runs
-        words = torch.zeros((max_rounds, shortlist_ops.WORD), dtype=torch.int32, device=dev)
-        fallbacks = torch.zeros((2,), dtype=torch.int32, device=dev)
+        words, fallbacks = setup.words, setup.fallbacks
     elif terms is not None or dterms is not None:
         # the full axis every round: the term kernels take the pods in
         # the batch's order (the shortlist's rare fallback takes them in
@@ -715,14 +1026,10 @@ def _assign_(
         )
 
     # back to original pod order: assignment[order[j]] = assigned[j]
-    assignment = torch.empty_like(assigned).scatter_(0, order, assigned)
-    pod_zone = zone_charge = None
-    if zones is not None:
-        pod_zone = torch.empty_like(azone).scatter_(0, order, azone)
-        zone_charge = _zone_charges(pods, nodes.cpu_amp, assignment, pod_zone,
-                                    zones[0].shape[-1])
+    assignment, pod_zone, zone_charge = batch_teardown(
+        setup, nodes.cpu_amp, None if zones is None else zones[0].shape[-1])
     # the assignment is fresh and the tables are the caller's to update:
-    # roll back in place
+    # roll back in place, reading the pods in pod order
     _enforce_gangs_(
         SolveResult(
             assignment=assignment, node_requested=requested,
@@ -734,10 +1041,10 @@ def _assign_(
             node_rdma_free=None if devs is None else devs[1],
             node_fpga_free=None if devs is None else devs[2],
         ),
-        pods,
-        None if devs is None else slot_exists_of(devs[3], devs[0].shape[1]),
+        setup.upods if stacked else pods,
+        setup.slot_cap,
     )
-    return assignment, state[1].clone(), fallbacks, pod_zone, zone_charge
+    return assignment, state[1], fallbacks, pod_zone, zone_charge
 
 
 def _transformed(cost_transform, cost: torch.Tensor) -> torch.Tensor:
@@ -751,17 +1058,6 @@ def _transformed(cost_transform, cost: torch.Tensor) -> torch.Tensor:
             f"on {cost.device}"
         )
     return out.contiguous()
-
-
-def _zone_charges(pods: PodBatch, cpu_amp, assignment, pod_zone, dn: int) -> torch.Tensor:
-    """[P, DN] the zone charge each zoned pod applied (``solver.py:1500-1516``):
-    its zone-scoped request, CPU times ``max(cpu_amp, 1)`` of its node for
-    cpuset-bound pods, zero where it holds no zone."""
-    n = cpu_amp.shape[0]
-    amp = torch.clamp(cpu_amp, min=1.0)[torch.clamp(assignment, 0, n - 1).long()]
-    charge = pods.requests[:, :dn].clone()
-    charge[:, 0] = charge[:, 0] * torch.where(_cpu_bind(pods), amp, 1.0)
-    return torch.where((pod_zone >= 0)[:, None], charge, 0.0)
 
 
 def solve_stream(
@@ -914,11 +1210,11 @@ def _run_stream(pods_stacked, nodes, params, quotas, node_mask, numa, kw, cuda_g
         return _StreamGraph.run(pods_stacked, nodes, params, quotas, node_mask, numa, kw,
                                 devices)
     bufs = _StreamBuffers(nodes, quotas, numa, b, p, kw, devices)
-    index = torch.arange(b, device=dev)
+    index = torch.zeros((1,), dtype=torch.int64, device=dev)  # each step advances it
     thresholds = _effective_thresholds(nodes, params)
-    for i in range(b):
+    for _ in range(b):
         _stream_step(pods_stacked, nodes, params, quotas, node_mask, numa, thresholds, bufs,
-                     index[i : i + 1], kw, devices)
+                     index, kw, devices)
     return bufs.tables, bufs.outs, bufs.qused, bufs.zone_free, bufs.dev
 
 
@@ -941,6 +1237,8 @@ class _StreamBuffers:
                        nodes.prod_used.clone()]
         self.qused = None if quotas is None else quotas.used.clone()
         self.zone_free = None if numa is None else numa.zone_free.clone()
+        # made once a call, not in every batch
+        self.zone_most = _zone_most(numa)
         self.dev = None
         if devices is not None:
             self.dev = tuple(t.clone() for t in _dev_carry0(devices, n))
@@ -980,36 +1278,26 @@ def _dev_carry0(devices: DeviceState, n: int):
 def _stream_step(pods_stacked, nodes, params, quotas, node_mask, numa, thresholds, bufs,
                  index, kw, devices=None) -> None:
     """Batch ``index`` ([1] int64 on the device) of a stream: its pods
-    gathered from the stacked batch, solved with the stream's tables
-    (requested, estimated, prod; with quotas the used table; with NUMA the
-    zone table) updated in place and its effective ``thresholds``, its
-    assignment, placed count, rounds, fallback counts and zone picks
-    written into row ``index`` of the outputs. With devices the dev carry
-    is updated in place too."""
-    fields = _with_quota(_SOLVE_FIELDS, quotas is not None, numa is not None,
-                         devices is not None)
-    pods = _only(pods_stacked, fields, lambda a: a.index_select(0, index)[0])
+    read from the stacked batch by the set-up, solved with the stream's
+    tables (requested, estimated, prod; with quotas the used table; with
+    NUMA the zone table) updated in place and its effective
+    ``thresholds``, its assignment, placed count, rounds, fallback counts
+    and zone picks written into row ``index`` of the outputs, and
+    ``index`` advanced to the next batch (:func:`batch_outputs`). With
+    devices the dev carry is updated in place too."""
     tables = bufs.tables
     cur = dataclasses.replace(
         nodes, requested=tables[0], estimated_used=tables[1], prod_used=tables[2]
     )
     kw = dict(kw)
-    zones = _zones_of(numa, bufs.zone_free, kw.pop("numa_scoring", None))
+    zones = _zones_of(numa, bufs.zone_free, kw.pop("numa_scoring", None), bufs.zone_most)
     devs = _devices_of(devices, bufs.dev, kw.get("device_scoring"))
     assignment, rounds_used, fallbacks, pod_zone, _ = _assign_(
-        pods, cur, params, thresholds=thresholds,
+        pods_stacked, cur, params, thresholds=thresholds,
         quota=None if quotas is None else (quotas.runtime, bufs.qused),
-        node_mask=node_mask, mask_base=None if node_mask is None else index, zones=zones,
-        devs=devs, **kw,
+        node_mask=node_mask, index=index, zones=zones, devs=devs, **kw,
     )
-    asg, placed, rounds, fb, zsel = bufs.outs
-    asg.index_copy_(0, index, assignment[None])
-    placed.index_copy_(0, index, (assignment >= 0).sum(dtype=torch.int32)[None])
-    rounds.index_copy_(0, index, rounds_used[None])
-    if fb is not None:
-        fb.index_copy_(0, index, fallbacks[None])
-    if zsel is not None:
-        zsel.index_copy_(0, index, pod_zone[None])
+    batch_outputs(bufs.outs, index, assignment, pod_zone, rounds_used, fallbacks)
 
 
 class _StreamGraph:
@@ -1057,10 +1345,9 @@ class _StreamGraph:
         self.params = params
         self.thresholds = _effective_thresholds(nodes, params)
 
-        def step():
+        def step():  # advances the index
             _stream_step(pods_stacked, nodes, params, quotas, node_mask, numa,
                          self.thresholds, self.bufs, self.index, kw, devices)
-            self.index.add_(1)
 
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -1115,7 +1402,7 @@ class _StreamGraph:
                 None if bufs.dev is None else tuple(t.clone() for t in bufs.dev))
 
 
-def enforce_gangs_plain(result: SolveResult, pods: PodBatch, slot_exists=None) -> SolveResult:
+def enforce_gangs_plain(result: SolveResult, pods: PodBatch, slot_cap=None) -> SolveResult:
     """All-or-nothing gang rollback (Coscheduling Permit semantics,
     ``solver.py:1858-1987``), node tables, gang counts and quotas: gangs
     whose placed-member count is below ``minMember`` lose all their
@@ -1132,9 +1419,10 @@ def enforce_gangs_plain(result: SolveResult, pods: PodBatch, slot_exists=None) -
     ``pod_zone``. With a slot table (``node_dev_slots``), each node's
     rolled-back whole GPUs and shares, ``whole * 100 + share`` summed in pod
     order, are water-filled back onto it (:func:`.device.slot_refund`,
-    ``slot_exists`` [N, G] its real slots, :1913-1929), and their RDMA and
-    FPGA added back to the free counts that are given (:1930-1940). The
-    plain version of ``csrc/gangs.cu``; returns a new result."""
+    the real slots a node's first ``slot_cap`` [N] / 100, :1913-1929), and
+    their RDMA and FPGA added back to the free counts that are given
+    (:1930-1940). The plain version of ``csrc/gangs.cu``; returns a new
+    result."""
     p, d = pods.requests.shape
     n = result.node_requested.shape[0]
     assignment = result.assignment
@@ -1180,7 +1468,8 @@ def enforce_gangs_plain(result: SolveResult, pods: PodBatch, slot_exists=None) -
         whole = pods.gpu_whole.to(torch.float32)
         refund = commit_ops.segment_sum_plain(
             torch.where(rollback, whole * 100.0 + pods.gpu_share, 0.0)[:, None], seg, n)[:, 0]
-        dev_tables["node_dev_slots"] = slot_refund(result.node_dev_slots, refund, slot_exists)
+        exists = slot_exists_of(slot_cap, result.node_dev_slots.shape[1])
+        dev_tables["node_dev_slots"] = slot_refund(result.node_dev_slots, refund, exists)
         for name, req in (("node_rdma_free", pods.rdma), ("node_fpga_free", pods.fpga)):
             free = getattr(result, name)
             if free is not None:
@@ -1236,11 +1525,12 @@ def _gangs_scratch_bytes(index: int, p: int, d: int, levels: int, dev: bool, dn:
     return nbytes.value
 
 
-def _enforce_gangs_(result: SolveResult, pods: PodBatch, slot_exists=None) -> None:
+def _enforce_gangs_(result: SolveResult, pods: PodBatch, slot_cap=None) -> None:
     """Gang rollback in place on ``result``'s assignment, node tables,
     ``pod_zone``, ``quota_used``, ``node_zone_free`` and the device tables
     (``node_dev_slots``, ``node_rdma_free``, ``node_fpga_free``, with
-    ``slot_exists`` the real slots): one
+    ``slot_cap`` [N] each node's real slots times 100,
+    :attr:`BatchSetup.slot_cap`, :func:`.device.slot_cap_of`): one
     ``koord_enforce_gangs`` launch (``csrc/gangs.cu``) for CUDA tensors,
     :func:`enforce_gangs_plain` written into ``result``'s tensors for CPU
     tensors. The quota refund runs when ``quota_used`` has Q > 1 rows
@@ -1250,7 +1540,7 @@ def _enforce_gangs_(result: SolveResult, pods: PodBatch, slot_exists=None) -> No
     runs with it in a device buffer of the launch's own."""
     asg = result.assignment
     if asg.is_cpu:
-        out = enforce_gangs_plain(result, pods, slot_exists)
+        out = enforce_gangs_plain(result, pods, slot_cap)
         for name in _GANG_FIELDS:
             if getattr(result, name) is not None:
                 getattr(result, name).copy_(getattr(out, name))
@@ -1288,13 +1578,9 @@ def _enforce_gangs_(result: SolveResult, pods: PodBatch, slot_exists=None) -> No
         g = slots.shape[1]
         if not 1 <= g <= MAX_SLOTS:
             raise kernels.KernelArgumentError(f"enforce_gangs: G={g} must be in 1..{MAX_SLOTS}")
-        cap = None
-        if slot_exists is not None:
-            # the real slots of a node are its first cap_total / 100
-            cap = slot_exists.sum(dim=1, dtype=torch.int32).to(torch.float32) * 100.0
         d_args = kernels.checked_ptrs(
             "enforce_gangs",
-            (asg, slots, cap, result.node_rdma_free, result.node_fpga_free, pods.gpu_whole,
+            (asg, slots, slot_cap, result.node_rdma_free, result.node_fpga_free, pods.gpu_whole,
              pods.gpu_share, pods.rdma, pods.fpga),
             (_I32, _F32, _F32, _F32, _F32, _I32, _F32, _I32, _I32),
             (p, n * g, n, n, n, p, p, p, p),
@@ -1324,13 +1610,14 @@ def enforce_gangs(result: SolveResult, pods: PodBatch, slot_exists=None) -> Solv
     tensors' device, functional as the reference is: the result's
     assignment, node tables, ``pod_zone``, ``quota_used`` and device tables
     are cloned, then rolled back in place (:func:`_enforce_gangs_`;
-    ``slot_exists`` [N, G] bool the slot table's real slots)."""
+    ``slot_exists`` [N, G] bool the slot table's real slots, a node's first
+    ones, as :func:`.device.slot_exists_of` gives them)."""
     out = dataclasses.replace(result, **{
         name: getattr(result, name).clone()
         for name in _GANG_FIELDS
         if getattr(result, name) is not None
     })
-    _enforce_gangs_(out, pods, slot_exists)
+    _enforce_gangs_(out, pods, slot_cap_of(slot_exists))
     return out
 
 
@@ -1459,8 +1746,9 @@ def shortlist_plan(
                                       spods.numa_required, _scoring(numa_scoring))
     scoring = _device_scoring(device_scoring)
     if devices is not None:
-        dterms = DeviceTerms.batch_start(devices.slot_free, devices.rdma_free,
-                                         devices.fpga_free, devices.cap_total, spods, scoring)
+        dterms = DeviceTerms.batch_start(
+            devices.slot_free, devices.rdma_free, devices.fpga_free, devices.cap_total, spods,
+            scoring, units=device_consumption(spods.gpu_whole, spods.gpu_share)[1])
     return shortlist_ops.shortlist_build(
         spods.requests, spods.estimate, spods.is_prod, bind, nodes.allocatable,
         nodes.requested, nodes.estimated_used, nodes.prod_used, nodes.metric_fresh,

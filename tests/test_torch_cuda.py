@@ -390,7 +390,9 @@ def test_stream_graph_matches_eager_plain_and_golden(cuda):
         torch.cuda.set_sync_debug_mode(0)
     trips = b * chip_smoke.SOLVE["max_rounds"]
     assert kernels.replays["solve_stream"] == b and not kernels.captured
-    assert dict(kernels.launches) == {"nominate": trips, "round_tail": trips, "enforce_gangs": b}
+    assert dict(kernels.launches) == {"nominate": trips, "round_tail": trips, "enforce_gangs": b,
+                                      "batch_setup": b, "batch_teardown": b,
+                                      "batch_outputs": b}
     plain_rounds = torch.zeros(b, dtype=torch.int32, device=cuda)
     with chip_smoke.plain_versions():
         p_asg, p_final, p_placed, _ = T.solve_stream(
@@ -1141,7 +1143,9 @@ def device_terms(devices, pods, device, scoring=1):
     for k, v in pods.items():
         setattr(sp, k, torch.from_numpy(v.copy()).to(device))
     return tdev.DeviceTerms.batch_start(t["slot_free"], t["rdma_free"], t["fpga_free"],
-                                        t["cap_total"], sp, scoring)
+                                        t["cap_total"], sp, scoring,
+                                        units=tdev.device_consumption(sp.gpu_whole,
+                                                                      sp.gpu_share)[1])
 
 
 @pytest.mark.parametrize("n", [1, 257, 10_000])
@@ -1291,7 +1295,8 @@ def test_nominate_term_instantiations_match_plain(cuda, p, kind, mask):
         if dev_t is not None:
             v = tdev.DeviceTerms.batch_start(
                 dev_t.slot_free.clone(), None if dev_t.rdma_free is None else dev_t.rdma_free.clone(),
-                dev_t.fpga_free.clone(), dev_t.cap_total, spods, scoring)
+                dev_t.fpga_free.clone(), dev_t.cap_total, spods, scoring,
+                units=tdev.device_consumption(spods.gpu_whole, spods.gpu_share)[1])
         for approx in (False, True):
             # exact: the pods in place (the shortlist's fallback); approx:
             # in the batch's pod order (the full-axis route)
@@ -1464,7 +1469,8 @@ def test_enforce_gangs_device_refund_matches_plain(cuda, p, n, g, cap):
         exists = (tdev.slot_exists_of(torch.from_numpy(devices["cap_total"]).to(device), g)
                   if cap else None)
         before = kernels.launches["device_refund"]
-        T._enforce_gangs_(got, from_numpy(T.PodBatch, device=device, **pods), exists)
+        T._enforce_gangs_(got, from_numpy(T.PodBatch, device=device, **pods),
+                          tdev.slot_cap_of(exists))
         if device == cuda:
             assert kernels.launches["device_refund"] == before + 1
         outs.append(got)
@@ -2189,7 +2195,8 @@ def test_enforce_gangs_long_runs_match_plain(cuda, p, refund):
         exists = None
         if refund == "devices":
             exists = tdev.slot_exists_of(torch.from_numpy(extra["cap_total"]).to(device), 8)
-        T._enforce_gangs_(got, from_numpy(T.PodBatch, device=device, **pods), exists)
+        T._enforce_gangs_(got, from_numpy(T.PodBatch, device=device, **pods),
+                          tdev.slot_cap_of(exists))
         outs.append(got)
     torch.cuda.synchronize()
     for f in ("assignment", "pod_zone", "node_requested", "node_estimated_used",
@@ -2200,3 +2207,181 @@ def test_enforce_gangs_long_runs_match_plain(cuda, p, refund):
                                           bits(getattr(outs[1], f).numpy()), err_msg=f)
     rolled = (result["assignment"] >= 0) & (outs[1].assignment.numpy() < 0)
     assert (rolled & (result["assignment"] == 3)).sum() >= 64
+
+
+#: the set-up and teardown's batch sizes: one pod, a round tail's tile
+#: edges, the stream's 512, the scheduler's bucket of 4,096 and past it
+#: (the sort in device memory), up to MAX_ROUND_PODS
+BATCH_SIZES = [1, 511, 512, 4096, 4097, 8192, 65_536, 131_072]
+
+
+def setup_outputs(setup):
+    """Every tensor of a ``BatchSetup``, by name, on the host."""
+    out = {}
+    for f in dataclasses.fields(setup):
+        value = getattr(setup, f.name)
+        if isinstance(value, T.PodBatch):
+            for g in dataclasses.fields(value):
+                if getattr(value, g.name) is not None:
+                    out[f"{f.name}.{g.name}"] = getattr(value, g.name).cpu().numpy()
+        elif value is not None:
+            out[f.name] = value.cpu().numpy()
+    return out
+
+
+@pytest.mark.parametrize("prio, on", [("ties", False), ("wide", True), ("one", True)])
+@pytest.mark.parametrize("p", BATCH_SIZES)
+def test_batch_setup_kernel_matches_plain(cuda, p, prio, on):
+    """``csrc/batch.cu``'s set-up bitwise equal to ``batch_setup_plain``:
+    the order (ties, the whole int32 range with INT32_MIN and INT32_MAX,
+    one priority), the sorted fields, the cpu-bind flags and the loop
+    state of a batch alone, and of batch 1 of a stacked pair with the
+    rollback's fields, with ``on`` the quota chains, NUMA flags, device
+    asks and units, the node mask's rows, the shortlist's words and the
+    slot capacities (NaN and huge ones among them)."""
+    pods = chip_smoke.batch_pods(p + len(prio), 2 * p, prio)
+    cap = np.random.default_rng(p).choice(
+        np.array([0.0, 250.0, 400.0, 800.0, 1e9, np.nan], np.float32), 3000)
+    for index in (None, 1):
+        arrays = (chip_smoke.stacked(pods, p) if index is not None
+                  else {k: v[:p] for k, v in pods.items()})
+        outs = []
+        for device in (cuda, "cpu"):
+            tp = from_numpy(T.PodBatch, device=device, **arrays)
+            idx = None if index is None else torch.tensor([index], device=device)
+            kw = dict(words=12 if on else 0, slots=8,
+                      cap_total=torch.from_numpy(cap).to(device) if on else None)
+            if index is not None:
+                kw.update(mask=on)
+            setup = T.batch_setup(tp, idx, on, on, on, **kw)
+            outs.append(setup_outputs(setup))
+        torch.cuda.synchronize()
+        assert outs[0].keys() == outs[1].keys()
+        for name in outs[1]:
+            np.testing.assert_array_equal(bits(outs[0][name]), bits(outs[1][name]),
+                                          err_msg=f"{name} (index {index})")
+        assert outs[0]["order"].dtype == np.int64 and "state" in outs[0]
+
+
+@pytest.mark.parametrize("n, g", [(1, 1), (1, 2), (1, 3), (3, 1)])
+@pytest.mark.parametrize("p", [1, 7, 4097])
+def test_batch_setup_kernel_writes_slot_cap_of_a_small_table(cuda, p, n, g):
+    """A batch alone with devices on, no shortlist words and fewer than
+    four slots in all, so that the real slots are the helper blocks' only
+    work: the set-up's slot capacities (over buffers that held NaN) and
+    every other output bitwise equal to ``batch_setup_plain``'s."""
+    pods = chip_smoke.batch_pods(p + 4 * n + g, p, "wide")
+    cap = np.array([250.0, 0.0, 1e9][:n], np.float32)
+    outs = []
+    for device in (cuda, "cpu"):
+        if device == cuda:  # leave NaN in the blocks the next buffers reuse
+            poison = [torch.full((n,), float("nan"), device=cuda) for _ in range(64)]
+            del poison
+        setup = T.batch_setup(from_numpy(T.PodBatch, device=device, **pods), None,
+                              devices=True, cap_total=torch.from_numpy(cap).to(device), slots=g)
+        outs.append(setup_outputs(setup))
+    torch.cuda.synchronize()
+    assert outs[0].keys() == outs[1].keys() and "slot_cap" in outs[0]
+    for name in outs[1]:
+        np.testing.assert_array_equal(bits(outs[0][name]), bits(outs[1][name]), err_msg=name)
+
+
+@pytest.mark.parametrize("dn", [None, 1, 2])
+@pytest.mark.parametrize("p", BATCH_SIZES)
+def test_batch_teardown_kernel_matches_plain(cuda, p, dn):
+    """The un-sort and the zone charges (mode 0) bitwise equal to
+    ``batch_teardown_plain``, cpuset-bound pods on amplified nodes among
+    them; then the stream's row writes and index advance (mode 1) equal to
+    ``batch_outputs_plain``."""
+    n = 777
+    rng = np.random.default_rng(p + (dn or 0))
+    pods = chip_smoke.batch_pods(p, p, "ties")
+    assigned = np.where(rng.random(p) < 0.7, rng.integers(0, n, p), -1).astype(np.int32)
+    azone = np.where((assigned >= 0) & (rng.random(p) < 0.6), rng.integers(0, 4, p),
+                     -1).astype(np.int32)
+    amp = rng.choice(np.array([0.5, 1.0, 1.5, 2.25], np.float32), n)
+    b = 3
+    outs = []
+    for device in (cuda, "cpu"):
+        setup = T.batch_setup(from_numpy(T.PodBatch, device=device, **pods), None,
+                              numa=dn is not None)
+        setup.assigned.copy_(torch.from_numpy(assigned))
+        if dn is not None:
+            setup.azone.copy_(torch.from_numpy(azone))
+        asg, zone, charge = T.batch_teardown(setup, torch.from_numpy(amp).to(device), dn)
+        rows = (torch.full((b, p), 5, dtype=torch.int32, device=device),
+                torch.zeros(b, dtype=torch.int32, device=device),
+                torch.zeros(b, dtype=torch.int32, device=device),
+                torch.zeros((b, 2), dtype=torch.int32, device=device),
+                None if dn is None else torch.full((b, p), 5, dtype=torch.int32, device=device))
+        index = torch.tensor([1], device=device)
+        state = torch.tensor([1, 7], dtype=torch.int32, device=device)
+        T.batch_outputs(rows, index, asg, zone, state[1],
+                        torch.tensor([4, 2], dtype=torch.int32, device=device))
+        outs.append([t.cpu().numpy() for t in (asg, zone, charge, *rows, index)
+                     if t is not None])
+    torch.cuda.synchronize()
+    for a, c in zip(*outs):
+        np.testing.assert_array_equal(bits(a), bits(c))
+    assert outs[0][-1].tolist() == [2] and (outs[0][0] >= 0).sum() > 0
+
+
+def test_batch_kernels_on_every_route(cuda):
+    """The set-up and teardown launch on every route of ``_assign_`` on the
+    card: ``assign`` (one set-up, one un-sort), the eager stream and the
+    graph (one set-up, one un-sort and one output write a batch), the
+    ``cost_transform`` route, and ``_round_setup``; each route's results
+    equal the plain route's."""
+    nodes, pods, params = chip_smoke.rich_fixture(4, 1000, 3 * chip_smoke.BATCH)
+    stacked = chip_smoke.stacked(pods)
+    b = 3
+    runs = {}
+    for name, device in (("cuda", cuda), ("cpu", "cpu")):
+        nodes_t, pods_t, params_t = chip_smoke.port_inputs(torch, nodes, stacked, params, device)
+        one = T.tree_map(lambda a: a[1], pods_t)
+        kernels.reset_launches()
+        res = T.assign(one, nodes_t, params_t, **chip_smoke.SOLVE)
+        got = {"assign": [res.assignment, res.node_requested, res.rounds_used]}
+        if device == cuda:
+            assert kernels.launches["batch_setup"] == 1 and kernels.launches["batch_teardown"] == 1
+        for graph in (False, True):
+            if graph:  # the capture's warm-up batch runs eagerly: replay a second call
+                T.solve_stream(pods_t, nodes_t, params_t, **chip_smoke.SOLVE, cuda_graph=graph)
+            kernels.reset_launches()
+            out = T.solve_stream(pods_t, nodes_t, params_t, **chip_smoke.SOLVE, cuda_graph=graph)
+            got[f"stream {graph}"] = [out[0], out[2], out[1].requested]
+            if device == cuda:
+                assert (kernels.launches["batch_setup"], kernels.launches["batch_teardown"],
+                        kernels.launches["batch_outputs"]) == (b, b, b), graph
+        kernels.reset_launches()
+        out = T.solve_stream(pods_t, nodes_t, params_t, **chip_smoke.SOLVE,
+                             cost_transform=lambda c: c * 1.0)
+        got["transform"] = [out[0], out[2]]
+        if device == cuda:
+            assert kernels.launches["batch_setup"] == b and kernels.launches["cost_full"] > 0
+        kernels.reset_launches()
+        order, spods, bind, _, _ = T._round_setup(one, nodes_t, params_t, quota=True)
+        got["round_setup"] = [order, spods.requests, spods.quota_chain, bind]
+        if device == cuda:
+            assert kernels.launches["batch_setup"] == 1
+        runs[name] = {k: [t.cpu().numpy() for t in v] for k, v in got.items()}
+    torch.cuda.synchronize()
+    for key, values in runs["cpu"].items():
+        for i, (a, c) in enumerate(zip(runs["cuda"][key], values)):
+            np.testing.assert_array_equal(bits(a), bits(c), err_msg=f"{key} {i}")
+    np.testing.assert_array_equal(runs["cuda"]["stream True"][0], runs["cuda"]["transform"][0])
+
+
+def test_batch_setup_refuses_what_it_cannot_take(cuda):
+    """A batch above ``MAX_ROUND_PODS`` or a field off the pods' shape is
+    refused before it reaches the card; a fault raises ``KernelError``
+    (nothing falls back to the torch ops)."""
+    pods = chip_smoke.batch_pods(1, 8)
+    tp = from_numpy(T.PodBatch, device=cuda, **pods)
+    with pytest.raises(kernels.KernelArgumentError):
+        T.batch_setup(dataclasses.replace(tp, requests=tp.requests[:4]))
+    big = T.tree_map(lambda a: a[:1].expand((131_073,) + a.shape[1:]).contiguous(), tp)
+    with pytest.raises(kernels.KernelArgumentError):
+        T.batch_setup(big)
+    with pytest.raises(ValueError):
+        T.batch_setup(tp, None, mask=True)

@@ -342,4 +342,5 @@ def test_device_state_create_keeps_untracked_counts_none():
     assert state.slot_free.dtype == torch.float32 and state.cap_total.shape == (3,)
     with pytest.raises(ValueError, match="cap_total"):
         TD.DeviceTerms.batch_start(state.slot_free, None, None, None, T.PodBatch.create(
-            requests=np.ones((2, 2), f32), priority=[1, 2], device="cpu"), scoring=1)
+            requests=np.ones((2, 2), f32), priority=[1, 2], device="cpu"), scoring=1,
+            units=torch.zeros(2))

@@ -4,10 +4,11 @@
     python3 tools/stream_launches.py [--tree DIR] [--shortlist-k K] [--passes N] [--gaps]
 
 Imports ``koordinator_tpu_torch`` from ``DIR`` (default: this checkout; an
-unpacked older commit of the repository compares two versions), builds its
-kernels, and runs ``chip_smoke.py``'s headline stream (``bench.py``'s
-fixture and parameters: 98,304 pods, 10,000 nodes, 192 batches of 512;
-with ``--shortlist-k`` the candidate shortlist of that size) on the card:
+unpacked older commit of the repository compares two versions), builds the
+kernels the stream runs (``HEADLINE_SOURCES``), and runs ``chip_smoke.py``'s
+headline stream (``bench.py``'s fixture and parameters: 98,304 pods,
+10,000 nodes, 192 batches of 512; with ``--shortlist-k`` the candidate
+shortlist of that size) on the card:
 one warm-up pass, then
 
 - one pass under ``torch.profiler``: kernels and copies that ran on the
@@ -24,7 +25,10 @@ one warm-up pass, then
   (the ten largest sums): where a pass's wall time exceeds its busy time;
   and its busy time by kernel: for each name the device ms, the launches,
   and those of them shorter than ``SHORT_US`` (a trip after the fixed
-  point returns at once) with their ms.
+  point returns at once) with their ms; and the same four numbers by part
+  of the pass (``PARTS``: the batch set-up and teardown of
+  ``csrc/batch.cu``, nomination, the round tail, the rollback, the other
+  hand kernels, and what is left: PyTorch's own kernels and copies).
 
 Prints one JSON line with the card's name and power limit. Needs a CUDA
 device.
@@ -46,6 +50,37 @@ ROOT = Path(__file__).resolve().parent.parent
 #: a launch shorter than this many microseconds counts as one that
 #: returned at once (an empty trip after a batch's fixed point)
 SHORT_US = 2.5
+
+#: the parts of a pass, by a substring of their kernels' names; a kernel
+#: that matches none is one of PyTorch's own
+PARTS = (
+    ("set-up and teardown", ("batch_setup_kernel", "unsort_kernel", "outputs_kernel")),
+    ("nomination", ("nominate_kernel", "nominate_merge_kernel")),
+    ("round tail", ("round_tail_kernel",)),
+    ("rollback", ("enforce_gangs_kernel",)),
+    ("other hand kernels", ("shortlist_", "quota_gate_kernel", "zone_prep_kernel",
+                            "device_prep_kernel", "pod_order_kernel")),
+)
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without its namespace prefix, template arguments
+    and parameters (the last 40 characters)."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0].split("<")[0].strip()[-40:]
+
+
+def part_of(name: str) -> str:
+    for part, keys in PARTS:
+        if any(k in name for k in keys):
+            return part
+    return "PyTorch ops"
+
+
+#: the sources the headline stream runs (a tree without one skips it);
+#: the others are not built
+HEADLINE_SOURCES = ("nominate", "round", "round_big", "gangs", "batch", "shortlist_build",
+                    "shortlist_round")
 
 HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
                  "cudaLaunchKernelExC", "cuLaunchKernelEx")
@@ -83,7 +118,7 @@ def main() -> int:
     if not str(Path(solver.__file__).resolve()).startswith(str(tree)):
         print(f"FAIL: imported {solver.__file__}, not the port of {tree}", file=sys.stderr)
         return 1
-    kernels.build()
+    kernels.build(list(HEADLINE_SOURCES))
     dev = torch.device("cuda")
     nodes, pods, params = smoke.headline_inputs(smoke.build_fixture(0))
     nodes_t, pods_t, params_t = smoke.port_inputs(torch, nodes, smoke.stacked(pods), params, dev)
@@ -104,7 +139,7 @@ def main() -> int:
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
             busy_us += evt.time_range.elapsed_us()
-            intervals.append((evt.time_range.start, evt.time_range.end, evt.name.split("(")[0][-40:]))
+            intervals.append((evt.time_range.start, evt.time_range.end, short_name(evt.name)))
             if evt.name.startswith(("Memcpy", "Memset")):
                 copies += 1
             else:
@@ -133,15 +168,16 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False,
     ).stdout.strip()
-    gaps, gap_ms, by_kernel = {}, 0.0, {}
+    gaps, gap_ms, by_kernel, by_part = {}, 0.0, {}, {}
     if args.gaps:
         for start, end, name in intervals:
-            row = by_kernel.setdefault(name, [0.0, 0, 0, 0.0])
-            row[0] += (end - start) / 1e3
-            row[1] += 1
-            if end - start < SHORT_US:
-                row[2] += 1
-                row[3] += (end - start) / 1e3
+            for row in (by_kernel.setdefault(name, [0.0, 0, 0, 0.0]),
+                        by_part.setdefault(part_of(name), [0.0, 0, 0, 0.0])):
+                row[0] += (end - start) / 1e3
+                row[1] += 1
+                if end - start < SHORT_US:
+                    row[2] += 1
+                    row[3] += (end - start) / 1e3
         by_kernel = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12])
         intervals.sort()
         for (_, end, before), (start, _, after) in zip(intervals, intervals[1:]):
@@ -157,7 +193,8 @@ def main() -> int:
         device_busy_ms=busy_us / 1e3, host_launch_calls=host_launches,
         host_syncs=syncs, sync_pass_seconds=seconds, pass_seconds=passes,
         **({"gap_ms_by_kernels": gaps, "gap_ms": gap_ms,
-            "busy_by_kernel_ms_launches_short_short_ms": by_kernel} if args.gaps else {}),
+            "busy_by_kernel_ms_launches_short_short_ms": by_kernel,
+            "busy_by_part_ms_launches_short_short_ms": by_part} if args.gaps else {}),
     )), flush=True)
     return 0
 
